@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port (`src/repro_torch/`): proves on one NVIDIA
 GPU that the port builds, that each hand-written kernel agrees with its plain
-PyTorch version, and that the serving path runs through those kernels.
+PyTorch version, and that the serving path and the training path run through
+those kernels.
 
     python3 chip_smoke.py
 
@@ -10,15 +11,30 @@ Phases (any failure exits non-zero, before the result line):
                power limit as nvidia-smi reports them.
   2. build   — compiles the CUDA sources (kernels/csrc/*.cu) with nvcc.
   3. kernels — every kernel against its plain version at the shapes the
-               llama-200m serving path gives it, with the port's bars; times
+               llama-200m serving path gives it, and the quantizer and the
+               GEMM at every shape of one full-width training step (T =
+               2048 bf16 activations; the forward, dX and dW GEMMs), with
+               the port's bars; times
                one decode step's worth of calls of each (CUDA events): the
                kernel, the plain version, a PyTorch yardstick call, and the
                least time the card could take (bytes or operations).
-               Then the whole paged step at reduced size, card against CPU.
+               The two MS-EDEN requant phases at every operand shape of one
+               full-width training step (T = 2048 tokens), an M that is no
+               multiple of 128 and an all-zero tensor, bitwise; the
+               quartet2 backward GEMM against its plain composition; the
+               280 requant calls of one training step timed. Then the whole
+               paged step and a quartet2 train step at reduced size, card
+               against CPU.
   4. serving — full-width llama-200m (seeded random weights), quartet2,
                quantize-once weights, paged bf16 pool, 4 slots: 8 requests
                with ragged prompts of 16-100 tokens, 32 new tokens each,
                through ServeEngine; every kernel must have launched.
+  5. training — full-width llama-200m, quartet2, AdamW, warmup-cosine at
+               base lr 2e-3, batch 8 x seq 256 on the synthetic corpus, 6
+               steps through `repro_torch.launch.train`: losses and weights
+               finite, the last loss below the first, and each of the four
+               kernels of the path launched the expected number of times;
+               then one step under the profiler.
 Then, on their own lines: the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
 
@@ -41,6 +57,11 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12   # tensor cores: bf16-exact block values, fp32 accumulate
 F32_FLOPS = 67e12     # CUDA cores: the quantizer's and attention's f32 math
 QUANT_FLOPS_PER_ELEMENT = 14  # 2 branches x (div, round, mul, sub, sq, add) + code
+# MS-EDEN phase 1 per element: sign and 1/sqrt(b) multiplies, log2(b) butterfly
+# adds, abs/max, the divide, q * denom, two products and two sums
+PHASE1_FLOPS_BASE = 10
+PHASE2_FLOPS_PER_GROUP = 10  # two divides, a multiply, clips, lattice step, p_up
+TRAIN_T = 2048  # tokens of one training step: batch 8 x seq 256
 
 ARCH_SHAPES = {  # (N, K) of the 7 quantized linears of one dense layer
     "wq": (1280, 1280), "wk": (1280, 1280), "wv": (1280, 1280),
@@ -51,11 +72,20 @@ REPLACES = {
     "nvfp4_fos_quant": "src/repro/kernels/nvfp4_quant.py:101",
     "fp4_matmul": "src/repro/kernels/fp4_matmul.py:82",
     "paged_gqa": "src/repro/kernels/paged_attention.py:307",
+    "ms_eden_phase1": "src/repro/kernels/ms_eden_requant.py:110",
+    "ms_eden_phase2": "src/repro/kernels/ms_eden_requant.py:141",
 }
+SERVING_KERNELS = ("nvfp4_fos_quant", "fp4_matmul", "paged_gqa")
+# launches of one full-width training step (10 layers x 7 quantized linears;
+# the dX GEMM reuses the forward's packed W)
+TRAIN_LAUNCHES_PER_STEP = {"nvfp4_fos_quant": 140, "fp4_matmul": 210,
+                           "ms_eden_phase1": 280, "ms_eden_phase2": 280}
 SOURCES = {
     "nvfp4_fos_quant": "src/repro_torch/kernels/csrc/nvfp4_quant.cu",
     "fp4_matmul": "src/repro_torch/kernels/csrc/fp4_matmul.cu",
     "paged_gqa": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "ms_eden_phase1": "src/repro_torch/kernels/csrc/ms_eden_requant.cu",
+    "ms_eden_phase2": "src/repro_torch/kernels/csrc/ms_eden_requant.cu",
 }
 
 
@@ -188,7 +218,7 @@ def phase_kernels(torch):
     from repro_torch.serve import kv_pool as KV
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    errs = {k: 0.0 for k in REPLACES}
+    errs = {k: 0.0 for k in ("nvfp4_fos_quant", "fp4_matmul", "paged_gqa")}
     log("phase 3: kernels against their plain versions")
     for m in (4, 64):
         for k in (1280, 3456):
@@ -206,7 +236,15 @@ def phase_kernels(torch):
         for k in (1280, 3456):
             acts[m, k] = ops.nvfp4_fos_quant(
                 torch.randn((m, k), generator=g, device="cuda").bfloat16())
-    for m in (4, 64):
+    # the bf16 activations of one training step (T tokens, K = 1280 and 3456)
+    for k in (1280, 3456):
+        x = torch.randn((TRAIN_T, k), generator=g, device="cuda").bfloat16()
+        errs["nvfp4_fos_quant"] = max(errs["nvfp4_fos_quant"],
+                                      check_quant(torch, F, NQ, ops, x))
+        acts[TRAIN_T, k] = ops.nvfp4_fos_quant(x)
+    # decode and prefill shapes, then every forward GEMM shape of a training
+    # step: (T, 1280, 1280), (T, 3456, 1280), (T, 1280, 3456)
+    for m in (4, 64, TRAIN_T):
         for name in ("wq", "wi", "w2"):
             w = weights[name]
             errs["fp4_matmul"] = max(errs["fp4_matmul"], check_matmul(
@@ -284,6 +322,183 @@ def phase_kernels(torch):
     return results
 
 
+def backward_gemms(t):
+    """The (Ma, Mb, D) of the backward GEMMs of one dense layer at T tokens:
+    per quantized linear (N, K), dX = E (T, N) . W^T (K, N) and
+    dW = E^T (N, T) . X^T (K, T)."""
+    shapes = []
+    for n, k in ARCH_SHAPES.values():
+        shapes += [(t, k, n), (n, k, t)]
+    return sorted(set(shapes))
+
+
+def requant_operands(t):
+    """The 28 requant operand shapes of one dense layer's backward at T
+    tokens: per quantized linear (N, K), E (T, N) and W^T (K, N) of the dX
+    GEMM, E^T (N, T) and X^T (K, T) of the dW GEMM."""
+    shapes = []
+    for n, k in ARCH_SHAPES.values():
+        shapes += [(t, n), (k, n), (n, t), (k, t)]
+    return shapes
+
+
+def check_phase1(torch, MR, ops, x, signs):
+    kern = ops.ms_eden_phase1(x, signs)
+    torch.cuda.synchronize()
+    plain = MR.phase1_plain(x, signs)
+    codes_equal = torch.equal(kern[0], plain[0])
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(kern[1:], plain[1:]))
+    log(f"  ms_eden_phase1 {str(tuple(x.shape)):14s} codes "
+        f"{'equal' if codes_equal else 'DIFFER'}, max|d| of pseudo/num/den/"
+        f"absmax {err:.3g}")
+    if not codes_equal or err != 0:
+        fail(f"ms_eden_phase1 {tuple(x.shape)}: not bitwise equal to its plain version")
+    return plain
+
+
+def check_phase2(torch, F, MR, ops, p1, u):
+    kern = ops.ms_eden_phase2(p1[4], p1[1], p1[2], p1[3], u)
+    torch.cuda.synchronize()
+    plain = MR.phase2_plain(p1[4], p1[1], p1[2], p1[3], u)
+    err = max((F.bits_to_e4m3(kern[0]) - F.bits_to_e4m3(plain[0])).abs().max().item(),
+              abs(float(kern[1]) - float(plain[1])))
+    log(f"  ms_eden_phase2 {str(tuple(u.shape)):14s} max|d scale| {err:.3g}, "
+        f"gscale {float(kern[1]):.6g}")
+    if not (torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])):
+        fail(f"ms_eden_phase2 {tuple(u.shape)}: not bitwise equal to its plain version")
+    return err
+
+
+def phase_requant(torch):
+    """Kernels #3/#4 against their plain versions at the training shapes, the
+    backward GEMM against its plain composition, and the time of the 280
+    requant calls of one full-width training step."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import rht as R
+    from repro_torch.core import rng
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import ms_eden_requant as MR
+    from repro_torch.kernels import ops
+
+    log("phase 3: MS-EDEN requant kernels against their plain versions "
+        f"(training shapes at T = {TRAIN_T}; bitwise)")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    draws = rng.HashDraws([7, 7])
+    errs = {"ms_eden_phase1": 0.0, "ms_eden_phase2": 0.0}
+    shapes = sorted(set(requant_operands(TRAIN_T)))
+    shapes += [(1000, 1280), (256, 1280), (96, 48)]  # odd M, zeros, b = 16
+    for i, (m, k) in enumerate(shapes):
+        x = torch.randn((m, k), generator=g, device="cuda")
+        if (m, k) == (256, 1280):
+            x.zero_()
+        signs = draws.signs(i, R.block_size(k), "cuda")
+        p1 = check_phase1(torch, MR, ops, x, signs)
+        errs["ms_eden_phase2"] = max(errs["ms_eden_phase2"], check_phase2(
+            torch, F, MR, ops, p1, draws.uniform(100 + i, (m, k // 16), "cuda")))
+    # every dX and dW GEMM shape of a training step: the backward GEMM
+    # against its plain composition, and fp4_matmul on its requant operands
+    mm_err = 0.0
+    for ma, mb, d in backward_gemms(TRAIN_T):
+        a = torch.randn((ma, d), generator=g, device="cuda")
+        b = torch.randn((mb, d), generator=g, device="cuda")
+        signs = draws.signs(1, R.block_size(d), "cuda")
+        ua = draws.uniform(2, (ma, d // 16), "cuda")
+        ub = draws.uniform(3, (mb, d // 16), "cuda")
+        mm_err = max(mm_err, check_matmul(torch, FM, ops, ops.ms_eden_requant(a, signs, ua),
+                                          ops.ms_eden_requant(b, signs, ub)))
+        c = ops.quartet2_backward_gemm(a, b, signs, ua, ub)
+        torch.cuda.synchronize()
+        qa, qb = MR.phase1_plain(a, signs), MR.phase1_plain(b, signs)
+        sa = MR.phase2_plain(qa[4], *qa[1:4], ua)
+        sb = MR.phase2_plain(qb[4], *qb[1:4], ub)
+        ref = FM.fp4_matmul_plain(qa[0], sa[0], qb[0], sb[0], sa[1], sb[1])
+        err = (c - ref).abs().max().item()
+        bar = 1e-3 * ref.abs().max().item()
+        exact = (a @ b.T)
+        rel = ((c - exact).norm() / exact.norm()).item()
+        log(f"  quartet2_backward_gemm (Ma,Mb,D)=({ma},{mb},{d}): max|dC| vs plain "
+            f"composition {err:.3g} (bar {bar:.3g}); relative error vs the "
+            f"exact f32 product {rel:.4f}")
+        if not err <= bar:
+            fail(f"quartet2_backward_gemm ({ma},{mb},{d}): {err} > {bar}")
+
+    # ---- the 280 requant calls of one full-width training step
+    log("phase 3: timing one training step's worth of requant calls "
+        f"(10 layers x 28 operands, T = {TRAIN_T})")
+    calls = [torch.randn(shape, generator=g, device="cuda")
+             for _ in range(10) for shape in requant_operands(TRAIN_T)]
+    signs = draws.signs(0, 128, "cuda")
+    p1s = [ops.ms_eden_phase1(x, signs) for x in calls]
+    us = [draws.uniform(200 + i, p[1].shape, "cuda") for i, p in enumerate(p1s)]
+    n_el = sum(x.numel() for x in calls)
+    n_groups = n_el // 16
+    results = {}
+    results["ms_eden_phase1"] = dict(
+        ms=time_ms(torch, lambda: [ops.ms_eden_phase1(x, signs) for x in calls], 5),
+        plain_ms=time_ms(torch, lambda: [MR.phase1_plain(x, signs) for x in calls], 1,
+                         warmup=1),
+        library_ms=None, bytes=n_el * (4 + 0.5 + 12 / 16) + len(calls) * (4 + 512),
+        ops=n_el * (PHASE1_FLOPS_BASE + 7), peak=F32_FLOPS, calls=len(calls))
+    results["ms_eden_phase2"] = dict(
+        ms=time_ms(torch, lambda: [ops.ms_eden_phase2(p[4], p[1], p[2], p[3], u)
+                                   for p, u in zip(p1s, us)], 5),
+        plain_ms=time_ms(torch, lambda: [MR.phase2_plain(p[4], p[1], p[2], p[3], u)
+                                         for p, u in zip(p1s, us)], 1, warmup=1),
+        library_ms=None, bytes=n_groups * 17 + len(calls) * 8,
+        ops=n_groups * PHASE2_FLOPS_PER_GROUP, peak=F32_FLOPS, calls=len(calls))
+    for name, r in results.items():
+        t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
+        t_ops = r["ops"] / r["peak"] * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["max_abs_err"] = errs[name]
+        log(f"  {name:16s} {r['calls']:3d} calls/step: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library n/a, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
+            f"{r['ops'] / 1e9:.3f} GFLOP)")
+    del calls, p1s, us
+    torch.cuda.empty_cache()
+    return results, mm_err
+
+
+def phase_train_reference(torch):
+    """A quartet2 train step at reduced size, the card against the CPU: same
+    weights, batches and hashed draws; only fp32 summation orders differ."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(4), "cpu")
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
+    losses = {}
+    for d in ("cpu", "cuda"):
+        init, step = make_train_step(cfg, "quartet2", base_lr=2e-3, total_steps=3)
+        state = init(to_device(params, d))
+        seq = []
+        for i in range(3):
+            state, m = step(state, {k: v.to(d) for k, v in corpus.batch_at(i).items()})
+            seq.append(float(m["loss"]))
+        losses[d] = seq
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"  reduced llama-200m quartet2 train step x3: card {losses['cuda']} vs "
+        f"CPU {losses['cpu']}: max relative difference {worst:.3g}")
+    # the same numbers up to fp32 summation order: 1e-3 of the loss
+    if not all(map(lambda v: v == v, losses["cuda"])) or worst > 1e-3:
+        fail("reduced quartet2 train step: card disagrees with the CPU")
+
+
+def to_device(tree, d):
+    """A copy of a tree of tensors on device d (training updates in place)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, d) for v in tree]
+    return tree.to(d, copy=True)
+
+
 def phase_small_reference(torch):
     """The paged step at reduced size: kernels on the card against the plain
     versions on the CPU, same weights and tokens."""
@@ -293,13 +508,6 @@ def phase_small_reference(torch):
     from repro_torch.serve.kv_pool import KVPool
     from repro_torch.serve.prequant import prequantize
 
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
-
     cfg = registry.get("llama_200m").reduced()
     params = lm.init(cfg, torch.Generator().manual_seed(1), "cpu")
     toks = torch.randint(0, cfg.vocab, (2, 20), generator=torch.Generator().manual_seed(2),
@@ -307,7 +515,7 @@ def phase_small_reference(torch):
     for scheme in ("bf16", "quartet2"):
         outs = {}
         for d in ("cpu", "cuda"):
-            p = prequantize(to(params, d), cfg, scheme)
+            p = prequantize(to_device(params, d), cfg, scheme)
             pool = KVPool(cfg, 2, 32, block_size=16, device=d)
             for s in range(2):
                 pool.commit(s, 20)
@@ -383,8 +591,8 @@ def phase_serving(torch, card):
         fail("token ids outside the vocabulary")
     if eng.pool.free_block_count != eng.pool.n_blocks:
         fail(f"{eng.pool.n_blocks - eng.pool.free_block_count} pool blocks leaked")
-    if any(v <= 0 for v in launches.values()):
-        fail(f"a kernel was not launched on the main path: {launches}")
+    if any(launches[k] <= 0 for k in SERVING_KERNELS):
+        fail(f"a kernel was not launched on the serving path: {launches}")
     st = eng.stats
     ttft = sorted(r.ttft_s for r in results)
     out = {
@@ -467,6 +675,88 @@ def profile_decode(torch, eng, Request, prompts, step_ms):
             "top": [(key, us / 1e3 / 8, n // 8) for us, key, n in rows[:12]]}
 
 
+def phase_training(torch, card):
+    """Full-width llama-200m trained for 6 steps through the entry point's
+    code path; then one more step under the profiler."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+
+    steps = 6
+    log(f"phase 5: training full-width llama-200m (quartet2, AdamW, cosine, "
+        f"lr 2e-3, batch 8 x seq 256, {steps} steps)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, trainer, state = launch_train.run(
+        ["--arch", "llama_200m", "--scheme", "quartet2", "--steps", str(steps),
+         "--seq", "256", "--batch", "8", "--lr", "2e-3", "--log-every", "1"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if not all(h["finite"] for h in trainer.history):
+        fail(f"non-finite training loss: {losses}")
+    if not all(bool(torch.isfinite(p).all()) for p in adamw.leaves(state.params)):
+        fail("non-finite parameters after training")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses}")
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"training launches {got}, expected {want}")
+    log(f"  [{card}] losses {[round(x, 4) for x in losses]}; "
+        f"{out['step_ms']:.1f} ms/step (host clock, steps 2-{steps}), "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
+    log(f"  launches on the training path: {launches}")
+    prof = profile_train_step(torch, trainer, state, out["step_ms"])
+    return {"losses": losses, "step_ms": out["step_ms"],
+            "step_ms_all": [h["dt"] * 1e3 for h in trainer.history],
+            "tokens_per_s": out["tokens_per_s"], "peak_mem_bytes": peak,
+            "launches": launches, "profile": prof}
+
+
+def profile_train_step(torch, trainer, state, step_ms):
+    """Device time by kernel of one training step (torch.profiler), and the
+    device's busy share against the unprofiled host-clock step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = {k: v.cuda() for k, v in trainer.corpus.batch_at(state.step).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    rows, total_us = [], 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+            total_us += dev_us
+    rows.sort(reverse=True)
+    if total_us == 0:
+        log("  profile: no device time in key_averages() (not measured)")
+        return None
+    dev_ms = total_us / 1e3
+    busy = dev_ms / step_ms
+    log(f"  profile of one training step: device time {dev_ms:.2f} ms against a "
+        f"{step_ms:.1f} ms step: busy {busy:.1%}, idle {1 - busy:.1%}; by kernel:")
+    for us, key, n in rows[:12]:
+        log(f"    {us / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
+    by_kernel = {}
+    for name, pat in (("fp4_matmul", "fp4_matmul_kernel"),
+                      ("nvfp4_fos_quant", "nvfp4_fos_quant_kernel"),
+                      ("ms_eden_phase1", "ms_eden_phase1_kernel"),
+                      ("ms_eden_phase2", "ms_eden_phase2_kernel")):
+        by_kernel[name] = sum(us for us, key, _ in rows if pat in key) / 1e3
+    log("  device ms per training step by ported kernel: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in by_kernel.items()))
+    return {"device_ms_per_step": dev_ms, "busy_share": busy,
+            "kernel_ms": by_kernel,
+            "top": [(key, us / 1e3, n) for us, key, n in rows[:16]]}
+
+
 def main() -> None:
     try:
         import torch
@@ -500,14 +790,24 @@ def main() -> None:
         log("  ptxas reports spills: " + "; ".join(spills))
 
     kern = phase_kernels(torch)
+    requant, mm_err = phase_requant(torch)
+    kern.update(requant)
+    kern["fp4_matmul"]["max_abs_err"] = max(kern["fp4_matmul"]["max_abs_err"], mm_err)
     phase_small_reference(torch)
+    phase_train_reference(torch)
     serving = phase_serving(torch, card)
+    training = phase_training(torch, card)
 
     kernels = []
     for k, r in kern.items():
+        # launches: the serving run's plus the training run's (each path is
+        # driven with the counts set to 0 just before it and read just after)
+        launches = serving["launches"][k] + training["launches"][k]
+        if launches <= 0:
+            fail(f"kernel {k} was not launched on a main path")
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k], "launches": serving["launches"][k],
+            "replaces": REPLACES[k], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -516,7 +816,8 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "device": name, "torch": torch.__version__,
          "build_s": build.BUILD_INFO.get("seconds"), "kernels": kernels,
-         "kernel_detail": kern, "serving": serving}, indent=1, default=str))
+         "kernel_detail": kern, "serving": serving, "training": training},
+        indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,14 @@ NVFP4 represents a tensor as
   - one FP8 E4M3 scale per group of 16 contiguous inner-dim elements,
   - one FP32 scale per tensor.
 
-Counterpart of `repro/core/formats.py`: E2M1 encode/decode (RTN), E4M3
-round-to-nearest, 4-bit code (un)packing, and E4M3 raw bits to and from
+Counterpart of `repro/core/formats.py`: E2M1 encode/decode (RTN and
+stochastic), E4M3 round-to-nearest and stochastic rounding, the E8M3
+pseudo-scale proxy, 4-bit code (un)packing, and E4M3 raw bits to and from
 float. Every function is dtype-exact, so the values produced here are
-bit-for-bit the values the JAX reference produces from the same inputs.
+bit-for-bit the values the JAX reference produces from the same inputs. The
+stochastic roundings take their uniforms as a tensor argument (the
+reference draws them from a key inside): the same uniforms give the same
+result.
 
 Division by a constant always goes through `div_const`: PyTorch divides a
 CUDA tensor by a Python scalar as a multiplication by the reciprocal, which
@@ -78,6 +82,30 @@ def fp4_decode(code: torch.Tensor) -> torch.Tensor:
     return sign * grid[idx]
 
 
+def fp4_sr(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding onto the E2M1 grid against uniforms `u` (shape of
+    x): P(round up) = (|x| - lo) / (hi - lo). Unbiased only for |x| <= 6;
+    beyond the grid edge the value saturates to +-6 (`fp4_overflow_fraction`
+    is the probe for that)."""
+    xf = x.float()
+    mag = xf.abs().clamp(0.0, FP4_MAX)
+    grid = torch.as_tensor(FP4_GRID, device=x.device)
+    idx_lo = (torch.searchsorted(grid, mag, right=True) - 1).clamp(0, 7)
+    idx_hi = (idx_lo + 1).clamp(0, 7)
+    lo = grid[idx_lo]
+    hi = grid[idx_hi]
+    span = (hi - lo).clamp_min(1e-30)
+    p_up = ((mag - lo) / span).clamp(0.0, 1.0)
+    q = torch.where(u < p_up, hi, lo)
+    return torch.sign(xf) * q
+
+
+def fp4_overflow_fraction(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of elements whose magnitude exceeds the E2M1 grid edge (0.0
+    for every caller that normalizes with the 16/17-margin scale chain)."""
+    return (x.float().abs() > FP4_MAX).float().mean()
+
+
 def fp8_rtn(x: torch.Tensor) -> torch.Tensor:
     """Round-to-nearest-even to float8_e4m3fn, returned as float32.
 
@@ -96,6 +124,37 @@ def e4m3_to_bits(x: torch.Tensor) -> torch.Tensor:
 def bits_to_e4m3(bits: torch.Tensor) -> torch.Tensor:
     """Raw float8_e4m3fn bits (uint8) -> float32 values."""
     return bits.view(torch.float8_e4m3fn).float()
+
+
+def fp8_sr_pos(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding of NON-NEGATIVE values to float8_e4m3fn (as f32)
+    against uniforms `u` (shape of x). Walks the e4m3 lattice in the bit
+    pattern (0x00 = 0 ... 0x7E = 448): the other neighbour of the RNE value
+    is one step toward x; an exactly representable x is kept."""
+    xf = x.float().clamp(0.0, FP8_MAX)
+    near = xf.to(torch.float8_e4m3fn)
+    near_f = near.float()
+    bits = near.view(torch.uint8).to(torch.int32)
+    up = (bits + 1).clamp(max=0x7E)
+    down = (bits - 1).clamp(min=0)
+    other = torch.where(near_f < xf, up, down).to(torch.uint8)
+    other_f = bits_to_e4m3(other)
+    lo = torch.minimum(near_f, other_f)
+    hi = torch.maximum(near_f, other_f)
+    span = hi - lo
+    p_up = torch.where(span > 0, (xf - lo) / span.clamp_min(1e-30), 0.0)
+    out = torch.where(u < p_up.clamp(0.0, 1.0), hi, lo)
+    return torch.where(near_f == xf, near_f, out)
+
+
+def e8m3_rtn(x: torch.Tensor) -> torch.Tensor:
+    """Round positive values to 3 mantissa bits with an unbounded exponent:
+    the ER-NVFP4 pseudo-scale format (bf16-exact). Half-to-even on the
+    mantissa (`torch.round`, as `jnp.round`); values <= 0 give 0."""
+    xf = x.float()
+    m, e = torch.frexp(xf.clamp_min(1e-38))
+    mq = torch.round(m * 16.0) / 16.0
+    return torch.where(xf <= 0, 0.0, torch.ldexp(mq, e))
 
 
 def pack_fp4(codes: torch.Tensor) -> torch.Tensor:

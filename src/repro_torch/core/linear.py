@@ -1,17 +1,33 @@
-"""The quantized linear layer, inference only (serving slice).
+"""QuartetLinear: the fully-NVFP4 linear layer (paper Fig. 3), forward and
+backward, parameterized by a Scheme.
 
 Counterpart of `repro/core/linear.py`. Simulated-NVFP4 GEMM semantics: the
 GEMM consumes "block values" (fp4_code * e4m3_scale, exactly representable
 in bf16 because 2 + 4 significant bits < 8), accumulates in fp32, and the two
 per-tensor FP32 scales multiply the GEMM output.
 
-On a CUDA device the 4/6 quantizer and the NVFP4 GEMM run as the port's
-hand-written kernels (`kernels/ops.py`); on the CPU as their plain versions.
+Backward orientation (inner dims):
+    Y  = X  @ W^T    inner K   (forward quantizers, groups along K)
+    dX = E  @ W      inner N   (E rows and W^T rows quantized along N)
+    dW = E^T @ X     inner M   (E^T and X^T quantized along M = batch*seq)
 
-Left out of this slice, and so absent here: the GSPMD sharding hints of the
-reference (`_hint` and friends, a no-op off-mesh) and the custom VJP with its
-MS-EDEN backward GEMMs — the backward comes with the training slice. The
-square-block weight quantizer comes with the schemes that use it.
+`qlinear` on a raw weight is a `torch.autograd.Function`, the counterpart of
+the reference's `_qlinear_cvjp`. Activations are saved for the backward as
+packed NVFP4 (4.5 bits/element) whenever the forward quantizes them.
+
+On a CUDA device the 4/6 quantizer, the NVFP4 GEMM and the two MS-EDEN
+requant phases run as the port's hand-written kernels (`kernels/ops.py`); on
+the CPU as their plain versions. One deliberate difference from the
+reference: under `bwd == "ms_eden"` each backward GEMM is
+`ops.quartet2_backward_gemm`, the post-hoc (two-phase) MS-EDEN of the
+reference's kernel path, where the reference's `qlinear` runs the direct
+Algorithm 1 in plain jnp. The two are statistically equivalent (both
+unbiased, MSE within 10%; `core/ms_eden.py`). Randomness comes from
+`core/rng.py` (the reference's threefry is not re-implemented), so the port
+is held bitwise against the reference only with injected draws.
+
+Left out, and so absent here: the GSPMD sharding hints of the reference
+(`_hint` and friends, a no-op off-mesh).
 
 fp32 matmuls here are IEEE fp32, as XLA's are on the CPU: the package turns
 TF32 off when it is imported (`repro_torch/__init__.py`).
@@ -25,6 +41,8 @@ import torch
 
 from repro_torch.core import formats as F
 from repro_torch.core import quant as Q
+from repro_torch.core import rht as R
+from repro_torch.core import rng
 from repro_torch.core import schemes as S
 from repro_torch.kernels import fp4_matmul as FM
 from repro_torch.kernels import ops
@@ -58,11 +76,14 @@ def _quant_packed(x: torch.Tensor, kind: str):
     if kind == "fos":
         return ops.nvfp4_fos_quant(x.contiguous())
     if kind == "rtn":
-        qt = Q.quant_rtn(x, s=Q.S_EDEN)
-        return F.pack_fp4(qt.codes), F.e4m3_to_bits(qt.scales), qt.gscale
-    raise NotImplementedError(
-        f"forward quantizer '{kind}' is not ported yet (the square-block "
-        "quantizer comes with the schemes that use it)")
+        return _pack_qt(Q.quant_rtn(x, s=Q.S_EDEN))
+    if kind == "square":
+        return _pack_qt(Q.quant_square_block(x))
+    raise ValueError(f"unknown forward quantizer {kind}")
+
+
+def _pack_qt(qt: Q.QTensor):
+    return F.pack_fp4(qt.codes), F.e4m3_to_bits(qt.scales), qt.gscale
 
 
 def _dequant_packed(p, s, g, dtype=torch.bfloat16) -> torch.Tensor:
@@ -101,31 +122,141 @@ def _qlinear_packed(x: torch.Tensor, w: PackedQWeight, scheme: str):
     return y.to(x.dtype).reshape(*lead, -1)
 
 
-def qlinear(x: torch.Tensor, w, seed=None, scheme: str = "quartet2"):
-    """y = x @ w^T under the given quantization scheme (forward only).
+def quant_sr_fos(x: torch.Tensor, u: torch.Tensor) -> Q.QTensor:
+    """FourOverSix backward quantizer: the forward's deterministic 4/6
+    branch choice, then SR against uniforms u (x's shape). Both the branch
+    choice and the SR through clipping are biased (paper Sec. 4.2, App. A)."""
+    gscale, scales, xs = Q.four_over_six_branch(x.float())
+    return Q.QTensor(F.fp4_sr(xs, u), scales, gscale)
 
-    x: (..., K) activations; w: (N, K) weight — raw tensor (per-step
-    quantization) or PackedQWeight (quantize-once serving). `seed` feeds
-    only the stochastic backward of the reference and is unused here.
+
+def _pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad the last axis to a multiple of `mult` (safe for GEMM sums)."""
+    pad = (-x.shape[-1]) % mult
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def _bwd_gemm(a, b, bwd: str, quant_a: bool, quant_b: bool, use_rht: bool,
+              draws, tag: int) -> torch.Tensor:
+    """One backward GEMM a @ b^T (a (Ma, D), b (Mb, D)) with per-scheme
+    quantization on the inner dim D; f32 (Ma, Mb)."""
+    if not (quant_a or quant_b):
+        return _mm(a, b)
+    mult = 128 if a.shape[-1] % 128 else 16  # pad target for groups/rotation
+    a = _pad_to(a, mult if use_rht else 16).float().contiguous()
+    b = _pad_to(b, mult if use_rht else 16).float().contiguous()
+    d = a.shape[-1]
+    groups = d // F.GROUP
+
+    if bwd == "ms_eden":
+        if not (quant_a and quant_b and use_rht):
+            raise ValueError("MS-EDEN requires re-quantizing both operands")
+        signs = draws.signs(tag, R.block_size(d), a.device)
+        return ops.quartet2_backward_gemm(
+            a, b, signs, draws.uniform(tag + 1, (a.shape[0], groups), a.device),
+            draws.uniform(tag + 2, (b.shape[0], groups), b.device))
+
+    quantizer = Q.quant_sr if bwd == "sr" else quant_sr_fos
+    if use_rht and quant_a and quant_b:
+        signs = draws.signs(tag, R.block_size(d), a.device)
+        a, b = R.rht(a, signs), R.rht(b, signs)
+    if quant_a and quant_b:
+        qa = quantizer(a, draws.uniform(tag + 1, a.shape, a.device))
+        qb = quantizer(b, draws.uniform(tag + 2, b.shape, b.device))
+        return _qmm(_pack_qt(qa), _pack_qt(qb))
+    if quant_a:
+        qa = quantizer(a, draws.uniform(tag + 1, a.shape, a.device))
+        return _mm(Q.dequant(qa, torch.bfloat16), b)
+    qb = quantizer(b, draws.uniform(tag + 2, b.shape, b.device))
+    return _mm(a, Q.dequant(qb, torch.bfloat16))
+
+
+def qlinear(x: torch.Tensor, w, seed=None, scheme: str = "quartet2"):
+    """y = x @ w^T under the given quantization scheme.
+
+    x: (..., K) activations; w: (N, K) weight — raw tensor (training, with
+    the scheme's backward) or PackedQWeight (quantize-once serving); seed: a
+    uint32[2] site seed for the stochastic backward, or an object with the
+    draw methods of `core.rng.HashDraws` (tests pass the reference's draws).
     """
     if isinstance(w, PackedQWeight):
         return _qlinear_packed(x, w, scheme)
-    sch = S.get(scheme)
-    lead = x.shape[:-1]
-    xf = x.reshape(-1, x.shape[-1])
-    if not sch.is_quantized:
-        return _mm(xf, w).to(x.dtype).reshape(*lead, -1)
-    qx = _quant_packed(xf, sch.fwd_x) if sch.fwd_x != "none" else None
-    qw = _quant_packed(w, sch.fwd_w) if sch.fwd_w != "none" else None
-    if qx is not None and qw is not None:
-        y = _qmm(qx, qw)
-    elif qx is not None:
-        y = _mm(_dequant_packed(*qx), w)
-    elif qw is not None:
-        y = _mm(xf, _dequant_packed(*qw))
-    else:
-        y = _mm(xf, w)
-    return y.to(x.dtype).reshape(*lead, -1)
+    return _QLinear.apply(x, w, seed, scheme)
+
+
+class _QLinear(torch.autograd.Function):
+    """The counterpart of the reference's `_qlinear_cvjp` / `_qlinear_fwd` /
+    `_qlinear_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, w, seed, scheme):
+        sch = S.get(scheme)
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, x.shape[-1])
+        ctx.scheme, ctx.seed, ctx.x_shape = scheme, seed, x.shape
+        if not sch.is_quantized:
+            ctx.save_for_backward(xf, w)
+            return _mm(xf, w).to(x.dtype).reshape(*lead, -1)
+        qx = _quant_packed(xf, sch.fwd_x) if sch.fwd_x != "none" else None
+        qw = _quant_packed(w, sch.fwd_w) if sch.fwd_w != "none" else None
+        if qx is not None and qw is not None:
+            y = _qmm(qx, qw)
+        elif qx is not None:
+            y = _mm(_dequant_packed(*qx), w)
+        elif qw is not None:
+            y = _mm(xf, _dequant_packed(*qw))
+        else:
+            y = _mm(xf, w)
+        # the backward re-quantizes the SAVED quantized activations (paper
+        # Sec. 5); W's packed image is saved too, bit-identical to the
+        # reference's re-run of the deterministic forward quantizer
+        ctx.quant_x, ctx.quant_w = qx is not None, qw is not None
+        ctx.save_for_backward(*(qx if qx is not None else (xf,)), w,
+                              *(qw if qw is not None else ()))
+        return y.to(x.dtype).reshape(*lead, -1)
+
+    @staticmethod
+    def backward(ctx, e):
+        sch = S.get(ctx.scheme)
+        saved = ctx.saved_tensors
+        n_x = 3 if getattr(ctx, "quant_x", False) else 1
+        x_res, w, qw = saved[:n_x], saved[n_x], saved[n_x + 1:]
+        n, k = w.shape
+        ef = e.reshape(-1, n)
+        xf = (_dequant_packed(*x_res, dtype=torch.float32) if n_x == 3
+              else x_res[0].float())
+
+        if not sch.is_quantized or sch.bwd == "none":
+            dx = _mm(ef, w.T)
+            dw = _mm(ef.T, xf.T)
+        else:
+            draws = rng.draws(ctx.seed)
+            # ---- dX = E @ W (inner dim N) ----
+            if sch.quant_dx_e:
+                if sch.dx_w_mode == "requant":
+                    w_saved = (_dequant_packed(*qw, dtype=torch.float32)
+                               if qw else w.float())
+                    dx = _bwd_gemm(ef, w_saved.T, sch.bwd, True, True,
+                                   use_rht=True, draws=draws, tag=1)
+                elif sch.dx_w_mode == "reuse":
+                    if sch.fwd_w != "square":
+                        raise ValueError("scale reuse needs square blocks")
+                    dx = _bwd_gemm(ef, _dequant_packed(*qw).T, sch.bwd, True,
+                                   False, use_rht=False, draws=draws, tag=1)
+                else:  # "bf16"
+                    dx = _bwd_gemm(ef, w.T.float(), sch.bwd, True, False,
+                                   use_rht=False, draws=draws, tag=1)
+            else:
+                dx = _mm(ef, w.T)
+            # ---- dW = E^T @ X (inner dim M) ----
+            if sch.quant_dw_e or sch.quant_dw_x:
+                dw = _bwd_gemm(ef.T, xf.T, sch.bwd, sch.quant_dw_e,
+                               sch.quant_dw_x, use_rht=sch.rht_dw,
+                               draws=draws, tag=4)
+            else:
+                dw = _mm(ef.T, xf.T)
+        dx = dx.reshape(ctx.x_shape).to(e.dtype)
+        return dx, dw.to(w.dtype), None, None
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nvfp4_quant.cu", "fp4_matmul.cu", "paged_attention.cu")
+SOURCES = ("nvfp4_quant.cu", "fp4_matmul.cu", "paged_attention.cu",
+           "ms_eden_requant.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +38,9 @@ SIGNATURES = {
     "fp4_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P),
     "paged_gqa_launch": (_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L,
                          _L, _L, _L, _L, _F, _P),
+    "ms_eden_phase1_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _F, _F,
+                              _P),
+    "ms_eden_phase2_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _F, _P),
 }
 
 _LIB = None

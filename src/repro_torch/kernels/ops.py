@@ -15,11 +15,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import formats as F
+from repro_torch.core import rht as R
 from repro_torch.kernels import fp4_matmul as FM
+from repro_torch.kernels import ms_eden_requant as MR
 from repro_torch.kernels import nvfp4_quant as NQ
 from repro_torch.kernels import paged_attention as PA
 
-LAUNCHES = {"nvfp4_fos_quant": 0, "fp4_matmul": 0, "paged_gqa": 0}
+LAUNCHES = {"nvfp4_fos_quant": 0, "fp4_matmul": 0, "paged_gqa": 0,
+            "ms_eden_phase1": 0, "ms_eden_phase2": 0}
 
 
 def reset_launches() -> None:
@@ -135,3 +138,75 @@ def paged_gqa(q, k_pool, v_pool, table, pos, *, window: int | None = None):
     PA.launch(q, k_pool, v_pool, table, pos, out, window)
     LAUNCHES[name] += 1
     return out
+
+
+def ms_eden_phase1(x: torch.Tensor, signs: torch.Tensor):
+    """MS-EDEN phase 1 of x (M, K) f32 with RHT signs (b,), b = block_size(K):
+    (packed codes u8 (M, K/2), E8M3 pseudo-scales, EDEN num and den f32
+    (M, K/16), absmax of the rotated x f32 (1,)), all in rotated space."""
+    name = "ms_eden_phase1"
+    _need(x.dim() == 2 and x.shape[0] > 0 and x.shape[1] % F.GROUP == 0,
+          name, f"x must be (M>0, K % 16 == 0), got {tuple(x.shape)}")
+    _need(x.dtype == torch.float32 and signs.dtype == torch.float32, name,
+          "x and signs must be float32")
+    m, k = x.shape
+    _need(tuple(signs.shape) == (R.block_size(k),), name,
+          f"signs must be ({R.block_size(k)},) for K={k}")
+    if _device(name, x, signs) == "cpu":
+        return MR.phase1_plain(x, signs)
+    _need(x.is_contiguous() and signs.is_contiguous(), name,
+          "operands must be contiguous")
+    _need(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
+    dev = x.device
+    packed = torch.empty((m, k // 2), dtype=torch.uint8, device=dev)
+    pseudo, num, den = (torch.empty((m, k // F.GROUP), dtype=torch.float32,
+                                    device=dev) for _ in range(3))
+    absmax = torch.zeros((1,), dtype=torch.float32, device=dev)
+    MR.launch_phase1(x, signs, packed, pseudo, num, den, absmax)
+    LAUNCHES[name] += 1
+    return packed, pseudo, num, den, absmax
+
+
+def ms_eden_phase2(absmax, pseudo, num, den, u):
+    """MS-EDEN phase 2: align the pseudo-scales to the global absmax,
+    EDEN-correct and round stochastically to e4m3 against uniforms u (all
+    (M, K/16) f32; absmax f32 (1,)). Returns (e4m3 scale bits u8 (M, K/16),
+    gscale f32 0-dim)."""
+    name = "ms_eden_phase2"
+    groups = (pseudo, num, den, u)
+    _need(all(t.dtype == torch.float32 for t in (absmax, *groups)), name,
+          "operands must be float32")
+    _need(all(t.shape == u.shape for t in groups) and u.numel() > 0, name,
+          "pseudo, num, den and u must share one non-empty shape")
+    _need(absmax.numel() == 1, name, "absmax must hold one element")
+    if _device(name, absmax, *groups) == "cpu":
+        return MR.phase2_plain(absmax, *groups)
+    _need(all(t.is_contiguous() for t in groups), name,
+          "operands must be contiguous")
+    scale_bits = torch.empty(u.shape, dtype=torch.uint8, device=u.device)
+    gscale = torch.empty((), dtype=torch.float32, device=u.device)
+    MR.launch_phase2(absmax, pseudo, num, den, u, scale_bits, gscale)
+    LAUNCHES[name] += 1
+    return scale_bits, gscale
+
+
+def ms_eden_requant(x: torch.Tensor, signs: torch.Tensor, uniforms: torch.Tensor):
+    """Two-phase MS-EDEN re-quantization of x (M, K) f32 with RHT signs (b,)
+    and SR uniforms (M, K/16): (packed codes u8 (M, K/2), e4m3 scale bits u8
+    (M, K/16), gscale f32 0-dim) in rotated space — the operand form of
+    `fp4_matmul`. The gscale stays on the device (no host sync)."""
+    packed, pseudo, num, den, absmax = ms_eden_phase1(x, signs)
+    _need(tuple(uniforms.shape) == tuple(pseudo.shape), "ms_eden_requant",
+          f"uniforms must be {tuple(pseudo.shape)}")
+    scale_bits, gscale = ms_eden_phase2(absmax, pseudo, num, den, uniforms)
+    return packed, scale_bits, gscale
+
+
+def quartet2_backward_gemm(a, b, signs, u_a, u_b):
+    """a @ b^T (a (Ma, D), b (Mb, D) f32) with MS-EDEN re-quantization of both
+    operands — shared RHT signs, so the rotations cancel in the product — and
+    the NVFP4 GEMM: the kernel-level composition of paper Fig. 3's backward
+    box (`repro/kernels/ops.py:quartet2_backward_gemm`). f32 (Ma, Mb)."""
+    qa = ms_eden_requant(a, signs, u_a)
+    qb = ms_eden_requant(b, signs, u_b)
+    return fp4_matmul(qa[0], qa[1], qb[0], qb[1], qa[2], qb[2])

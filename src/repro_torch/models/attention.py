@@ -1,7 +1,10 @@
-"""GQA attention for decode: RoPE, decode SDPA and the paged decode step.
+"""GQA attention: RoPE, full-sequence SDPA (training), decode SDPA and the
+paged decode step.
 
-Counterpart of `repro/models/attention.py` (its decode path). All four
-projections run through the quantized linear; the softmax stays f32.
+Counterpart of `repro/models/attention.py`. All four projections run through
+the quantized linear; scores and softmax stay f32, as fp32 einsums as in the
+reference. The chunked online-softmax path the reference takes above
+CHUNK_THRESHOLD tokens is not ported yet: `attend` raises there.
 Attention over the paged pool goes through `kernels.ops.paged_gqa`: the CUDA
 kernel for tensors on the card, the gather_view + decode_sdpa plain version
 on the CPU.
@@ -18,6 +21,9 @@ from repro_torch.kernels.paged_attention import sqrt_hd
 from repro_torch.models.blocks import linear_init, rmsnorm, site_seed
 
 NEG_INF = -1e30
+# the reference switches to chunked online-softmax attention above this
+# sequence length (repro/models/attention.py:CHUNK_THRESHOLD)
+CHUNK_THRESHOLD = 8192
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float):
@@ -42,6 +48,41 @@ def apply_rope(x: torch.Tensor, cos, sin, fraction: float = 1.0):
     o2 = x2 * c + x1 * s
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
     return torch.cat([out, xp.to(out.dtype)], dim=-1).to(x.dtype)
+
+
+def _mask_bias(sq: int, sk: int, q_off: int, causal: bool, window, device):
+    qi = q_off + torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kj <= qi
+    if window is not None:
+        ok &= kj > qi - window
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def sdpa(q, k, v, *, causal=True, window=None, q_off=0):
+    """Plain SDPA. q: (B, Sq, H, hd), k: (B, Sk, KV, hd), v: (B, Sk, KV, vd)
+    -> (B, Sq, H, vd) in q.dtype; scores and softmax in f32."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qf = q.reshape(b, sq, kv, h // kv, hd).float()
+    scores = torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float())
+    scores = scores / torch.tensor(sqrt_hd(hd), dtype=torch.float32,
+                                   device=q.device)
+    scores = scores + _mask_bias(sq, k.shape[1], q_off, causal, window,
+                                 q.device)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bgrqk,bkgv->bqgrv", p, v.float())
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def attend(q, k, v, *, causal=True, window=None):
+    if q.shape[1] > CHUNK_THRESHOLD or k.shape[1] > CHUNK_THRESHOLD:
+        raise NotImplementedError(
+            f"sequences above {CHUNK_THRESHOLD} tokens take the reference's "
+            "chunked_sdpa, which a later slice ports")
+    return sdpa(q, k, v, causal=causal, window=window)
 
 
 def decode_sdpa(q, k_cache, v_cache, pos, window=None):
@@ -96,6 +137,18 @@ def _project_qkv(p, x, cfg, scheme, seed, layer, positions):
         q = apply_rope(q, cos, sin, cfg.rope_fraction)
         k = apply_rope(k, cos, sin, cfg.rope_fraction)
     return q, k, v
+
+
+def gqa_apply(p, x, cfg, scheme, seed, layer, *, causal=True, window=None,
+              positions=None):
+    """Full-sequence GQA (training). Returns (out, (k, v))."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, scheme, seed, layer, positions)
+    o = attend(q, k, v, causal=causal, window=window)
+    out = qlinear(o.reshape(b, s, -1), p["wo"], site_seed(seed, layer, 3), scheme)
+    return out, (k, v)
 
 
 def gqa_decode(p, x, cfg, scheme, seed, layer, cache_kv, pos, *, window=None,

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, MLPs, embeddings, seed plumbing, init.
+"""Shared building blocks: norms, MLPs, embeddings, seed plumbing, init,
+and the losses.
 
 Counterpart of `repro/models/blocks.py`. bf16 rounding happens where the
 reference rounds: `embed_lookup` returns bf16, norms compute in f32 and
@@ -9,14 +10,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.linear import dense, qlinear
 
 
 def site_seed(seed, layer: int, site: int) -> np.ndarray:
     """Distinct uint32[2] sub-seed per (layer, call-site), the same LCG-style
-    mixing as the reference. Host-side: serving never consumes it (it feeds
-    the stochastic backward of the training slice)."""
+    mixing as the reference. Host-side numpy: it feeds the stochastic
+    backward's draws (`core/rng.py`); serving never consumes it."""
     s = np.asarray(seed, np.uint32)
     layer = np.uint32(layer)
     with np.errstate(over="ignore"):
@@ -86,3 +88,52 @@ def lm_head(x, w, quantize: bool, scheme: str, seed) -> torch.Tensor:
     if quantize:
         return qlinear(x, w, site_seed(seed, 0, 99), scheme)
     return dense(x, w)
+
+
+def _masked_nll(logits: torch.Tensor, labels: torch.Tensor,
+                z_loss: float = 0.0):
+    """(summed fp32 NLL over tokens with label >= 0, their count)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = (labels >= 0).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean CE in fp32; labels < 0 are masked out."""
+    nll, cnt = _masked_nll(logits, labels, z_loss)
+    return nll / cnt.clamp_min(1.0)
+
+
+def chunked_head_ce(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                    quantize: bool, scheme: str, seed,
+                    chunk_tokens: int = 1024) -> torch.Tensor:
+    """Fused LM-head + CE that never holds the full (tokens, vocab) logits:
+    the flattened token axis runs in chunks under activation checkpointing
+    (the reference's jax.checkpoint), so forward and backward peak at
+    (chunk_tokens x vocab). Returns the mean NLL over tokens with label >= 0.
+    """
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    lf = labels.reshape(t)
+    n_chunks = max(1, t // chunk_tokens)
+    while t % n_chunks:
+        n_chunks -= 1
+    size = t // n_chunks
+
+    def one(xi, li):
+        return _masked_nll(lm_head(xi[None], head_w, quantize, scheme, seed)[0], li)
+
+    nll = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * size, (c + 1) * size)
+        a, n = checkpoint(one, xf[sl], lf[sl], use_reentrant=False)
+        nll, cnt = nll + a, cnt + n
+    return nll / cnt.clamp_min(1.0)

@@ -1,14 +1,15 @@
-"""The language model, dense family, decode mode (serving slice).
+"""The language model, dense family: train and decode modes.
 
 Counterpart of `repro/models/lm.py`. A model is a list of STAGES; each stage
 is `count` structurally identical layers whose parameters are stacked on a
 leading axis, as in the reference, so converted parameters keep their
 layout. The reference's stacked-stage scan becomes a Python loop over layers
-that takes each layer's slice as a view. Decode caches are the paged pool's
-stage-aligned leaves, updated in place.
+that takes each layer's slice as a view (gradients flow into the stacked
+leaves). Decode caches are the paged pool's stage-aligned leaves, updated in
+place. The reference's REMAT is off, so training recomputes nothing.
 
 Only the dense family (gqa + swiglu) is ported; the other families and the
-train/prefill modes raise NotImplementedError and come with later slices.
+prefill/encode modes raise NotImplementedError and come with later slices.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linear import PackedQWeight
 from repro_torch.models import attention as A
-from repro_torch.models.blocks import (embed_init, embed_lookup, linear_init,
-                                       lm_head, mlp_apply, mlp_init, norm,
-                                       norm_init)
+from repro_torch.models.blocks import (chunked_head_ce, embed_init,
+                                       embed_lookup, linear_init, lm_head,
+                                       mlp_apply, mlp_init, norm, norm_init)
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -84,12 +85,16 @@ def head_weight(params, cfg):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
-def _apply_layer(p, x, cfg, scheme, seed, layer_id, *, cache, pos, active,
-                 block_table):
-    """One (gqa, mlp) layer in decode mode; the cache updates in place."""
+def _apply_layer(p, x, cfg, scheme, seed, layer_id, *, mode, cache, pos,
+                 positions, active, block_table):
+    """One (gqa, mlp) layer; in decode mode the cache updates in place."""
     h = norm(x, p["n1"], cfg.norm, cfg.norm_eps)
-    o, _ = A.gqa_decode(p["mix"], h, cfg, scheme, seed, layer_id, cache, pos,
-                        active=active, block_table=block_table)
+    if mode == "train":
+        o, _ = A.gqa_apply(p["mix"], h, cfg, scheme, seed, layer_id,
+                           causal=True, positions=positions)
+    else:
+        o, _ = A.gqa_decode(p["mix"], h, cfg, scheme, seed, layer_id, cache,
+                            pos, active=active, block_table=block_table)
     x = x + o
     h = norm(x, p["n2"], cfg.norm, cfg.norm_eps)
     return x + mlp_apply(p["ff"], h, cfg.mlp, scheme, seed, layer_id)
@@ -97,32 +102,56 @@ def _apply_layer(p, x, cfg, scheme, seed, layer_id, *, cache, pos, active,
 
 def forward(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
             caches=None, mode: str = "decode", pos=None, active=None,
-            block_table=None):
-    """Full model in decode mode. inputs: {"tokens": (B, S)}; `pos` (B,)
-    int32 per-row start positions (S > 1 is a chunked-prefill step);
-    `active` (B,) bool gates cache writes per row; `block_table` (B, MAXB)
-    int32 indexes the paged pool `caches` (`serve.kv_pool.init_cache`).
-    Returns (logits, caches); the caches come back updated in place (the
-    reference's third output, the MoE aux loss, has no dense counterpart)."""
-    if mode != "decode":
+            block_table=None, head: bool = True):
+    """Full model. inputs: {"tokens": (B, S)}.
+
+    mode="train": causal full-sequence forward from position 0 (no caches);
+    with head=False the final normed hidden states are returned (`lm_loss`
+    fuses the head with a chunked CE).
+    mode="decode": `pos` (B,) int32 per-row start positions (S > 1 is a
+    chunked-prefill step); `active` (B,) bool gates cache writes per row;
+    `block_table` (B, MAXB) int32 indexes the paged pool `caches`
+    (`serve.kv_pool.init_cache`), which come back updated in place.
+    Returns (logits_or_hidden, caches); the reference's third output, the MoE
+    aux loss, has no dense counterpart."""
+    if mode not in ("train", "decode"):
         raise NotImplementedError(
-            f"mode '{mode}' comes with the training slice; serving decodes")
+            f"mode '{mode}' comes with a later slice (train and decode are "
+            "ported)")
     x = embed_lookup(params["embed"], inputs["tokens"])
-    b = x.shape[0]
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
+    b, s = x.shape[:2]
+    positions = None
+    if mode == "decode":
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
+    else:
+        positions = torch.arange(s, device=x.device)[None, :]
     off = 0
     for si, (pattern, count) in enumerate(layer_specs(cfg)):
         sp = params["stages"][si]
         for idx in range(count):
             lp = layer_params(sp, idx)
             for li in range(len(pattern)):
-                kc, vc = caches[si][f"l{li}"]["kv"]
+                cache = None
+                if mode == "decode":
+                    kc, vc = caches[si][f"l{li}"]["kv"]
+                    cache = (kc[idx], vc[idx])
                 x = _apply_layer(lp[f"l{li}"], x, cfg, scheme, seed,
-                                 off + idx * len(pattern) + li,
-                                 cache=(kc[idx], vc[idx]), pos=pos,
+                                 off + idx * len(pattern) + li, mode=mode,
+                                 cache=cache, pos=pos, positions=positions,
                                  active=active, block_table=block_table)
         off += count * len(pattern)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    if not head:
+        return x, caches
     logits = lm_head(x, head_weight(params, cfg), cfg.quantize_lm_head, scheme,
                      seed)
     return logits, caches
+
+
+def lm_loss(params, cfg: ArchConfig, batch, scheme: str, seed) -> torch.Tensor:
+    """Fused chunked head + CE (never materializes (tokens, vocab) logits).
+    The reference adds aux_weight * the MoE aux loss, 0 for the dense family."""
+    hidden, _ = forward(params, cfg, batch, scheme, seed, mode="train",
+                        head=False)
+    return chunked_head_ce(hidden, head_weight(params, cfg), batch["labels"],
+                           cfg.quantize_lm_head, scheme, seed)

@@ -13,7 +13,16 @@ fixture, never at import. Tolerances are the kernel bars of the port:
   - fp4_matmul: |C_kernel - C_plain| <= 1e-5 * max|C_plain| (exact block
     values; only the fp32 summation order differs);
   - paged_gqa: |o_kernel - o_plain| <= 5e-6 + 1e-5 |o_plain|, the bar of
-    tests/test_paged_attention.py.
+    tests/test_paged_attention.py;
+  - ms_eden_phase1 and ms_eden_phase2: BITWISE equal to their plain versions
+    (the butterfly RHT, the group sums and every rounding run in one fixed
+    order in both);
+  - quartet2_backward_gemm: |C_kernel - C_plain| <= 1e-3 * max|C_plain| with
+    identical signs and uniforms (only fp4_matmul's fp32 order differs);
+  - qlinear forward and backward on the card against the CPU, same hashed
+    draws: y and dx (bf16) within one bf16 rounding of each other after fp32
+    sums taken in another order, |d| <= 2^-7 |ref| + 1e-5 max|ref|; dw (f32)
+    within 1e-5 max|dw|.
 """
 
 import numpy as np
@@ -22,7 +31,10 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.core import formats as F
+from repro_torch.core import linear as L
+from repro_torch.core import rng
 from repro_torch.kernels import fp4_matmul as FM
+from repro_torch.kernels import ms_eden_requant as MR
 from repro_torch.kernels import nvfp4_quant as NQ
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
@@ -173,3 +185,98 @@ def _to(tree, d):
     if isinstance(tree, list):
         return [_to(v, d) for v in tree]
     return tree.to(d)
+
+
+def _requant_inputs(dev, m, k, seed, zero_rows=()):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev) * torch.exp(
+        torch.randn((m, k), generator=g, device=dev))
+    for r in zero_rows:
+        x[r] = 0
+    draws = rng.HashDraws([seed, 1])
+    from repro_torch.core import rht as R
+    return x, draws.signs(0, R.block_size(k), dev), draws.uniform(
+        1, (m, k // 16), dev)
+
+
+# every operand shape of one llama-200m training step at T = 2048 tokens,
+# plus small b = 16/32/64 blocks, an M that is no multiple of 128, zero rows
+REQUANT_SHAPES = [(2048, 1280), (2048, 3456), (1280, 1280), (3456, 1280),
+                  (1280, 3456), (1280, 2048), (3456, 2048), (96, 48),
+                  (33, 80), (5, 96), (7, 64), (130, 128)]
+
+
+@pytest.mark.parametrize("m,k", REQUANT_SHAPES)
+def test_ms_eden_phase1_matches_plain(dev, m, k):
+    x, signs, _ = _requant_inputs(dev, m, k, m + k, zero_rows=(0, m - 1))
+    kern = ops.ms_eden_phase1(x, signs)
+    torch.cuda.synchronize()
+    plain = MR.phase1_plain(x, signs)
+    for a, b in zip(kern, plain):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,k", REQUANT_SHAPES)
+def test_ms_eden_phase2_matches_plain(dev, m, k):
+    x, signs, u = _requant_inputs(dev, m, k, 3 * m + k)
+    p1 = MR.phase1_plain(x, signs)
+    kern = ops.ms_eden_phase2(p1[4], p1[1], p1[2], p1[3], u)
+    torch.cuda.synchronize()
+    plain = MR.phase2_plain(p1[4], p1[1], p1[2], p1[3], u)
+    assert torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])
+
+
+def test_ms_eden_requant_zero_and_counts(dev):
+    ops.reset_launches()
+    packed, bits, gs = ops.ms_eden_requant(
+        torch.zeros((4, 64), device=dev), torch.ones(64, device=dev),
+        torch.rand((4, 4), device=dev))
+    assert int(packed.sum()) == 0 and int(bits.sum()) == 0 and float(gs) == 1.0
+    ops.ms_eden_requant(torch.zeros(4, 64), torch.ones(64), torch.rand(4, 4))
+    assert ops.LAUNCHES["ms_eden_phase1"] == ops.LAUNCHES["ms_eden_phase2"] == 1
+
+
+@pytest.mark.parametrize("ma,mb,d", [(2048, 1280, 1280), (1280, 3456, 2048),
+                                     (96, 33, 48)])
+def test_quartet2_backward_gemm_matches_plain(dev, ma, mb, d):
+    a, signs, ua = _requant_inputs(dev, ma, d, ma)
+    b, _, ub = _requant_inputs(dev, mb, d, mb + 1)
+    c = ops.quartet2_backward_gemm(a, b, signs, ua, ub)
+    torch.cuda.synchronize()
+    qa = MR.phase1_plain(a, signs)
+    qb = MR.phase1_plain(b, signs)
+    sa = MR.phase2_plain(qa[4], *qa[1:4], ua)
+    sb = MR.phase2_plain(qb[4], *qb[1:4], ub)
+    ref = FM.fp4_matmul_plain(qa[0], sa[0], qb[0], sb[0], sa[1], sb[1])
+    assert (c - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+def _bf16_close(a, ref):
+    """One bf16 rounding apart, after fp32 sums in another order."""
+    return bool(((a - ref).abs() <= 2.0**-7 * ref.abs()
+                 + 1e-5 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("scheme", ["quartet2", "tetrajet_v2", "bf16"])
+def test_qlinear_autograd_card_vs_cpu(dev, scheme):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 100, 128), generator=g).bfloat16()
+    w = torch.randn((96, 128), generator=g) * 128 ** -0.5
+    e = torch.randn((2, 100, 96), generator=g).bfloat16()
+    seed = np.array([3, 4], np.uint32)
+    out = {}
+    for d in ("cpu", "cuda"):
+        tx = x.to(d, copy=True).requires_grad_()
+        tw = w.to(d, copy=True).requires_grad_()
+        ops.reset_launches()
+        y = L.qlinear(tx, tw, seed, scheme)
+        y.backward(e.to(d))
+        out[d] = (y.detach().float().cpu(), tx.grad.float().cpu(),
+                  tw.grad.cpu(), dict(ops.LAUNCHES))
+    (yc, dxc, dwc, _), (yg, dxg, dwg, n) = out["cpu"], out["cuda"]
+    assert _bf16_close(yg, yc) and _bf16_close(dxg, dxc)
+    assert (dwg - dwc).abs().max().item() <= 1e-5 * dwc.abs().max().item()
+    if scheme == "quartet2":  # forward x, w; requant of E, W^T, E^T, X^T
+        assert n == {"nvfp4_fos_quant": 2, "fp4_matmul": 3, "paged_gqa": 0,
+                     "ms_eden_phase1": 4, "ms_eden_phase2": 4}

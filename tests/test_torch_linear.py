@@ -130,6 +130,13 @@ def test_prequant_equals_per_step_bitwise(scheme):
 
 
 def test_square_block_schemes_raise():
-    w = torch.from_numpy(_rand((32, 64), 9))
-    with pytest.raises(NotImplementedError):
-        L.pack_weight(w, "square")
+    """The square-block quantizer (ported with the training slice) packs
+    bitwise as the reference's and raises on a weight it does not take."""
+    w = _rand((32, 64), 9)
+    tw = L.pack_weight(torch.from_numpy(w), "square")
+    jw = JL.pack_weight(jnp.asarray(w), "square")
+    assert np.array_equal(tw.packed.numpy(), np.asarray(jw.packed))
+    assert np.array_equal(tw.scale_bits.numpy(),
+                          np.asarray(jw.scales8).view(np.uint8))
+    with pytest.raises(ValueError):
+        L.pack_weight(torch.from_numpy(_rand((24, 64), 9)), "square")

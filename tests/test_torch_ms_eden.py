@@ -1,0 +1,303 @@
+"""The port's stochastic formats, RHT and MS-EDEN against the JAX reference.
+
+The port takes its randomness as tensors (RHT signs, SR uniforms); here both
+packages get JAX's own draws, so the claims below are exact where the math
+is deterministic. Tolerances:
+
+- `fp4_sr`, `fp8_sr_pos`, `e8m3_rtn`, `quant_sr`, `quant_square_block`,
+  `fp4_overflow_fraction`: BITWISE, with JAX-drawn uniforms, on normal
+  floats. (XLA's CPU runtime treats denormal inputs as zero; the port keeps
+  them, as its CUDA kernels do, so `e8m3_rtn(1e-39)` is 1.03e-38 in the
+  port and 0 in the reference.)
+- `rht` / `rht_inv` with JAX's rademacher signs: |d| <= 1e-6 max|x|. The
+  port applies H_b as a butterfly, the reference as a GEMM: only the
+  rounding order differs.
+- The RHT bar (direct `ms_eden` and plain phase 1 against eager JAX): FP4
+  codes equal for all but <= 1e-4 of elements, each flip one grid step;
+  pseudo-scales equal for all but <= 1e-4 of groups; EDEN sums within 1e-5
+  relative, absmax within 1e-6 relative. (One rotated value that lands on
+  the other side of a rounding boundary flips a code.)
+- Plain phase 2 fed JAX's phase-1 outputs and uniforms: BITWISE equal to
+  eager `ME.ms_eden_phase2` (scales and gscale).
+- Plain `quartet2_backward_gemm` against JAX's `ops.quartet2_backward_gemm`
+  (Pallas, interpret mode) with JAX's draws: each requantized operand within
+  the RHT bar (scales equal; gscale within rtol 1e-6, the bar of
+  tests/test_kernels.py:77: the absmax moves by the RHT order, and the jitted
+  reference turns `absmax / C` into `absmax * (1/C)`), and |dC| <= 1e-5
+  max|C|, the fp4_matmul bar.
+- Statistics, the port's own versions of tests/test_quant.py's: the
+  post-hoc path is unbiased (mean of 1024 draws within 2% of x, relative
+  norm) and its mean MSE is within 10% of the direct path's over 128 draws.
+- Hash draws (`core/rng.py`): identical for equal (seed, tag); uniforms pass
+  a Kolmogorov-Smirnov bound (D < 1.63 / sqrt(n), p = 0.01); signs are
+  balanced within 4 sigma.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import formats as JF
+from repro.core import ms_eden as JME
+from repro.core import quant as JQ
+from repro.core import rht as JR
+from repro.kernels import ops as jops
+from repro.kernels.ms_eden_requant import ms_eden_requant as jrequant
+from repro_torch.core import formats as F
+from repro_torch.core import ms_eden as ME
+from repro_torch.core import quant as Q
+from repro_torch.core import rht as R
+from repro_torch.core import rng
+from repro_torch.kernels import ops
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def T(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(np.float32)
+
+
+def _uniform(key, shape):
+    return np.asarray(jax.random.uniform(key, shape, jnp.float32))
+
+
+def _signed_ordinal(codes: np.ndarray) -> np.ndarray:
+    c = codes.astype(np.int64)
+    return np.where(c & 8, -(c & 7), c & 7)
+
+
+def assert_codes_close(got: np.ndarray, want: np.ndarray) -> None:
+    """The RHT bar on FP4 codes."""
+    a, b = _signed_ordinal(got), _signed_ordinal(want)
+    diff = a != b
+    assert diff.mean() <= 1e-4, diff.mean()
+    assert (np.abs(a - b)[diff] <= 1).all()
+
+
+# --------------------------------------------------------------------------
+# formats and quantizers
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fp4_sr_bitwise(seed):
+    x = _rand((64, 96), seed, 3.0)
+    x[0, :8] = [0.0, -0.0, 6.0, -6.0, 7.5, 0.25, -2.5, 1e-30]
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(JF.fp4_sr(jnp.asarray(x), key))
+    got = F.fp4_sr(T(x), T(_uniform(key, x.shape))).numpy()
+    assert np.array_equal(got, want)
+    assert float(F.fp4_overflow_fraction(T(x))) == float(
+        JF.fp4_overflow_fraction(jnp.asarray(x)))
+
+
+def test_fp8_sr_pos_bitwise():
+    rs = np.random.RandomState(2)
+    x = np.abs(rs.randn(4096)).astype(np.float32) * np.exp2(
+        rs.randint(-12, 10, 4096)).astype(np.float32)
+    x[:6] = [0.0, 448.0, 500.0, 1e-9, 0.001953125, 2.0]
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(JF.fp8_sr_pos(jnp.asarray(x), key))
+    got = F.fp8_sr_pos(T(x), T(_uniform(key, x.shape))).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_e8m3_rtn_bitwise():
+    rs = np.random.RandomState(4)
+    x = (rs.randn(8192) * np.exp2(rs.randint(-60, 60, 8192))).astype(np.float32)
+    x[:5] = [0.0, -1.0, 1.03125, 1.09375, 1.1754944e-38]  # ties, least normal
+    assert np.array_equal(F.e8m3_rtn(T(x)).numpy(),
+                          np.asarray(JF.e8m3_rtn(jnp.asarray(x))))
+
+
+def test_quant_sr_bitwise():
+    x = _rand((32, 256), 5)
+    key = jax.random.PRNGKey(6)
+    want = JQ.quant_sr(jnp.asarray(x), key)
+    got = Q.quant_sr(T(x), T(_uniform(key, x.shape)))
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert float(Q.mse(T(x), got)) == pytest.approx(
+        float(JQ.mse(jnp.asarray(x), want)), rel=1e-6)
+
+
+def test_quant_square_block_bitwise():
+    x = _rand((48, 128), 7)
+    for a, b in zip(Q.quant_square_block(T(x)),
+                    JQ.quant_square_block(jnp.asarray(x))):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+# --------------------------------------------------------------------------
+# RHT
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
+def test_rht_matches_jax(b):
+    x = _rand((24, 4 * b), b)
+    key = jax.random.PRNGKey(b)
+    signs = T(JR.sign_vector(key, b))
+    want = np.asarray(JR.rht(jnp.asarray(x), key, b))
+    got = R.rht(T(x), signs, b).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(x).max()
+    back = R.rht_inv(T(want), signs, b).numpy()
+    want_back = np.asarray(JR.rht_inv(jnp.asarray(want), key, b))
+    assert np.abs(back - want_back).max() <= 1e-6 * np.abs(x).max()
+    assert R.block_size(4 * b) == JR.block_size(4 * b)
+
+
+# --------------------------------------------------------------------------
+# MS-EDEN: direct, and the post-hoc phases
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(64, 256), (128, 128), (96, 48)])
+def test_direct_ms_eden_matches_jax(shape):
+    x = _rand(shape, 8)
+    rk, sk = jax.random.PRNGKey(9), jax.random.PRNGKey(10)
+    b = JR.block_size(shape[1])
+    want = JME.ms_eden(jnp.asarray(x), rk, sk).qt
+    got = ME.ms_eden(T(x), T(JR.sign_vector(rk, b)),
+                     T(_uniform(sk, (shape[0], shape[1] // 16)))).qt
+    assert_codes_close(got.codes.numpy(), np.asarray(want.codes))
+    assert (got.scales.numpy() != np.asarray(want.scales)).mean() <= 1e-4
+    assert float(got.gscale) == pytest.approx(float(want.gscale), rel=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(128, 256), (96, 48), (64, 1024), (256, 128)])
+def test_phase1_matches_eager_jax(shape):
+    x = _rand(shape, 11)
+    rk = jax.random.PRNGKey(12)
+    b = JR.block_size(shape[1])
+    want = JME.ms_eden_phase1(jnp.asarray(x), rk)
+    packed, pseudo, num, den, absmax = ops.ms_eden_phase1(
+        T(x), T(JR.sign_vector(rk, b)))
+    assert packed.shape == (shape[0], shape[1] // 2)
+    assert_codes_close(F.unpack_fp4(packed).numpy(), np.asarray(want.codes))
+    assert (pseudo.numpy() != np.asarray(want.pseudo_scales)).mean() <= 1e-4
+    for a, b_ in ((num, want.eden_num), (den, want.eden_den)):
+        b_ = np.asarray(b_)
+        assert np.abs(a.numpy() - b_).max() <= 1e-5 * np.abs(b_).max()
+    assert float(absmax[0]) == pytest.approx(float(want.absmax), rel=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(128, 256), (96, 48), (64, 1024)])
+def test_phase2_bitwise_vs_eager_jax(shape):
+    x = _rand(shape, 13, 0.01)
+    rk, sk = jax.random.PRNGKey(14), jax.random.PRNGKey(15)
+    p1 = JME.ms_eden_phase1(jnp.asarray(x), rk)
+    want = JME.ms_eden_phase2(p1, sk)
+    u = _uniform(sk, (shape[0], shape[1] // 16))
+    bits, gscale = ops.ms_eden_phase2(
+        T(p1.absmax).reshape(1), T(p1.pseudo_scales), T(p1.eden_num),
+        T(p1.eden_den), T(u))
+    assert np.array_equal(F.bits_to_e4m3(bits).numpy(), np.asarray(want.scales))
+    assert float(gscale) == float(want.gscale)
+    qt = ME.ms_eden_phase2(ME.Phase1Out(*(T(a) for a in p1)), T(u))
+    assert np.array_equal(qt.scales.numpy(), np.asarray(want.scales))
+    assert np.array_equal(qt.vals.numpy(), np.asarray(want.vals))
+
+
+def test_zero_tensor_requant():
+    packed, bits, gscale = ops.ms_eden_requant(
+        torch.zeros(8, 64), torch.ones(64), torch.rand(8, 4))
+    assert int(packed.sum()) == 0 and int(bits.sum()) == 0
+    assert float(gscale) == 1.0
+
+
+@pytest.mark.parametrize("ma,mb,d", [(64, 32, 256), (128, 96, 128), (32, 48, 384)])
+def test_backward_gemm_matches_jax_kernel_path(ma, mb, d):
+    a, b = _rand((ma, d), 16), _rand((mb, d), 17)
+    rk = jnp.asarray([1, 2], jnp.uint32)
+    ka, kb = jnp.asarray([3, 4], jnp.uint32), jnp.asarray([5, 6], jnp.uint32)
+    signs = T(JR.sign_vector(rk, JR.block_size(d)))
+    ua = T(_uniform(jax.random.wrap_key_data(ka), (ma, d // 16)))
+    ub = T(_uniform(jax.random.wrap_key_data(kb), (mb, d // 16)))
+    ops.reset_launches()
+    for x, key, u in ((a, ka, ua), (b, kb, ub)):
+        jc, js, jg = jrequant(jnp.asarray(x), rk, key, interpret=True)
+        packed, bits, gscale = ops.ms_eden_requant(T(x), signs, u)
+        assert_codes_close(F.unpack_fp4(packed).numpy(), np.asarray(jc))
+        assert np.array_equal(F.bits_to_e4m3(bits).numpy(), np.asarray(js))
+        assert float(gscale) == pytest.approx(float(jg), rel=1e-6)
+    want = np.asarray(jops.quartet2_backward_gemm(
+        jnp.asarray(a), jnp.asarray(b), rk, ka, kb))
+    got = ops.quartet2_backward_gemm(T(a), T(b), signs, ua, ub).numpy()
+    assert got.shape == (ma, mb)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    # plain versions on the CPU: no kernel launch is counted
+    assert ops.LAUNCHES["ms_eden_phase1"] == ops.LAUNCHES["ms_eden_phase2"] == 0
+
+
+def _posthoc(x: torch.Tensor, draws) -> torch.Tensor:
+    b = R.block_size(x.shape[-1])
+    signs = draws.signs(0, b, "cpu")
+    qt = ME.ms_eden_phase2(ME.ms_eden_phase1(x, signs),
+                           draws.uniform(1, (x.shape[0], x.shape[1] // 16), "cpu"))
+    return R.rht_inv(Q.dequant(qt), signs)
+
+
+def _direct(x: torch.Tensor, draws) -> torch.Tensor:
+    b = R.block_size(x.shape[-1])
+    signs = draws.signs(0, b, "cpu")
+    out = ME.ms_eden(x, signs, draws.uniform(1, (x.shape[0], x.shape[1] // 16),
+                                             "cpu"))
+    return ME.ms_eden_dequant(out, rotated=False)
+
+
+def test_posthoc_unbiased():
+    """tests/test_quant.py::test_posthoc_matches_direct_statistically, on the
+    port with hashed draws."""
+    x = T(_rand((64, 256), 18))
+    acc = torch.zeros_like(x)
+    n = 1024
+    for i in range(n):
+        acc += _posthoc(x, rng.HashDraws([i, 7]))
+    rel = float((acc / n - x).norm() / x.norm())
+    assert rel < 0.02, rel
+
+
+def test_posthoc_vs_direct_mse_parity():
+    """tests/test_quant.py::test_posthoc_vs_direct_mse_parity, on the port:
+    same draws for both paths, mean MSE within 10%."""
+    x = T(_rand((64, 256), 19))
+    n = 128
+    de = sum(float(((_direct(x, rng.HashDraws([i, 9])) - x) ** 2).mean())
+             for i in range(n)) / n
+    pe = sum(float(((_posthoc(x, rng.HashDraws([i, 9])) - x) ** 2).mean())
+             for i in range(n)) / n
+    assert abs(pe - de) < 0.10 * de, (de, pe)
+
+
+# --------------------------------------------------------------------------
+# hashed draws
+# --------------------------------------------------------------------------
+
+def test_hash_draws_deterministic_and_distinct():
+    d = rng.HashDraws(np.array([7, 4000000000], np.uint32))
+    u = d.uniform(3, (50, 40), "cpu")
+    assert torch.equal(u, rng.HashDraws([7, 4000000000]).uniform(3, (50, 40), "cpu"))
+    assert not torch.equal(u, d.uniform(4, (50, 40), "cpu"))
+    assert not torch.equal(u, rng.HashDraws([8, 4000000000]).uniform(3, (50, 40), "cpu"))
+    assert torch.equal(d.signs(1, 128, "cpu"), d.signs(1, 128, "cpu"))
+    assert rng.draws(d) is d
+    assert isinstance(rng.draws(np.zeros(2, np.uint32)), rng.HashDraws)
+
+
+def test_hash_draws_uniform_and_balanced():
+    d = rng.HashDraws([123, 456])
+    u = np.sort(d.uniform(5, (100_000,), "cpu").numpy().astype(np.float64))
+    assert u.min() >= 0.0 and u.max() < 1.0
+    n = u.size
+    ks = max((np.arange(1, n + 1) / n - u).max(), (u - np.arange(n) / n).max())
+    assert ks < 1.63 / np.sqrt(n), ks
+    s = d.signs(6, 100_000, "cpu").numpy()
+    assert set(np.unique(s)) == {-1.0, 1.0}
+    assert abs(s.mean()) < 4 / np.sqrt(s.size)
