@@ -22,20 +22,36 @@ Phases (any failure exits non-zero, before the result line):
                full-width training step (T = 2048 tokens), an M that is no
                multiple of 128 and an all-zero tensor, bitwise; the
                quartet2 backward GEMM against its plain composition; the
-               280 requant calls of one training step timed. Then the whole
-               paged step and a quartet2 train step at reduced size, card
-               against CPU.
+               280 requant calls of one training step timed. The packed GQA
+               decode (#6) at llama-200m's decode and chunk shapes and the
+               MLA decode over bf16 (#7) and NVFP4 (#8) latent pools at
+               deepseek-v3's (H 128, lora 512, rope 64; Sq 1 and 16, ragged
+               lengths, an inactive row), each timed over one decode step's
+               calls. Every kernel's time is also read from the profiler
+               (its own device time). Then the whole paged step (llama-200m;
+               deepseek-v3 with both pools) and a quartet2 train step at
+               reduced size, card against CPU.
   4. serving — full-width llama-200m (seeded random weights), quartet2,
                quantize-once weights, paged bf16 pool, 4 slots: 8 requests
                with ragged prompts of 16-100 tokens, 32 new tokens each,
                through ServeEngine; every kernel must have launched.
+  4b. the same with kv_quant=True (the NVFP4 pool): paged_gqa_q launched,
+               paged_gqa not, the pool's token leaves uint8 at 0.28125x the
+               bf16 bytes.
+  6. deepseek-v3 at its published widths, depth cut to 2 layers (two whole
+               MLA + MoE periods; 61 layers of 6.54 GB packed do not fit
+               one card), quartet2, weights packed as drawn (init_packed),
+               4 slots, 4 requests of 16-64 prompt tokens and 16 new tokens
+               each, once with the bf16 latent pool (paged_mla) and once
+               with the NVFP4 pool (paged_mla_q).
   5. training — full-width llama-200m, quartet2, AdamW, warmup-cosine at
                base lr 2e-3, batch 8 x seq 256 on the synthetic corpus, 6
                steps through `repro_torch.launch.train`: losses and weights
                finite, the last loss below the first, and each of the four
                kernels of the path launched the expected number of times;
                then one step under the profiler.
-Then, on their own lines: the card (nvidia-smi), the kernels JSON, and last
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5. Then, on their own lines:
+the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
 
 Imports nothing of JAX or of the reference package.
@@ -43,6 +59,7 @@ Imports nothing of JAX or of the reference package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -74,6 +91,9 @@ REPLACES = {
     "paged_gqa": "src/repro/kernels/paged_attention.py:307",
     "ms_eden_phase1": "src/repro/kernels/ms_eden_requant.py:110",
     "ms_eden_phase2": "src/repro/kernels/ms_eden_requant.py:141",
+    "paged_gqa_q": "src/repro/kernels/paged_attention.py:345",
+    "paged_mla": "src/repro/kernels/paged_attention.py:382",
+    "paged_mla_q": "src/repro/kernels/paged_attention.py:421",
 }
 SERVING_KERNELS = ("nvfp4_fos_quant", "fp4_matmul", "paged_gqa")
 # launches of one full-width training step (10 layers x 7 quantized linears;
@@ -86,7 +106,18 @@ SOURCES = {
     "paged_gqa": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "ms_eden_phase1": "src/repro_torch/kernels/csrc/ms_eden_requant.cu",
     "ms_eden_phase2": "src/repro_torch/kernels/csrc/ms_eden_requant.cu",
+    "paged_gqa_q": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_mla": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_mla_q": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
+# the CUDA function each kernel's profiler time is summed over
+KERNEL_SYMBOLS = {
+    "nvfp4_fos_quant": "nvfp4_fos_quant_kernel", "fp4_matmul": "fp4_matmul_kernel",
+    "paged_gqa": "paged_gqa_kernel", "ms_eden_phase1": "ms_eden_phase1_kernel",
+    "ms_eden_phase2": "ms_eden_phase2_kernel", "paged_gqa_q": "paged_gqa_kernel",
+    "paged_mla": "paged_mla_kernel", "paged_mla_q": "paged_mla_kernel",
+}
+DEEPSEEK_LAYERS = 2  # the depth cut of phase 6 (see the module docstring)
 
 
 def fail(msg: str) -> None:
@@ -110,6 +141,41 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, symbol: str, reps: int = 3):
+    """The device time of the CUDA function `symbol` per call of fn, from
+    torch.profiler; None when the profiler shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and symbol in ev.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def finish_results(results, errs):
+    """Bound (bytes or operations, whichever is slower), profiler time and
+    max error of each timed kernel; logs one line each."""
+    import torch
+    for name, r in results.items():
+        t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
+        t_ops = r["ops"] / r["peak"] * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["max_abs_err"] = errs[name]
+        r["profiler_ms"] = device_ms(torch, r.pop("fn"), KERNEL_SYMBOLS[name])
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        prof = "n/a" if r["profiler_ms"] is None else f"{r['profiler_ms']:.4f}"
+        log(f"  {name:16s} {r['calls']:3d} calls/step: kernel {r['ms']:.4f} ms "
+            f"(profiler {prof}), plain {r['plain_ms']:.4f} ms, library {lib} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
+            f"{r['ops'] / 1e9:.3f} GFLOP)")
 
 
 # --------------------------------------------------------------------------
@@ -286,7 +352,11 @@ def phase_kernels(torch):
     q_bytes = sum(x.numel() * 2 + x.numel() // 2 + x.numel() // 16 + 4
                   for x in quant_in) * layers
     q_ops = sum(x.numel() for x in quant_in) * layers * QUANT_FLOPS_PER_ELEMENT
+    mm_fn = lambda: [ops.fp4_matmul(a[0], a[1], w[0], w[1], a[2], w[2])
+                     for a, w in mm_calls]
+    at_fn = lambda: [ops.paged_gqa(*c) for c in attn_layers]
     results["nvfp4_fos_quant"] = dict(
+        fn=step_quant(ops.nvfp4_fos_quant),
         ms=time_ms(torch, step_quant(ops.nvfp4_fos_quant), 20),
         plain_ms=time_ms(torch, step_quant(NQ.nvfp4_fos_quant_plain), 3),
         library_ms=None, bytes=q_bytes, ops=q_ops, peak=F32_FLOPS,
@@ -296,29 +366,18 @@ def phase_kernels(torch):
     mm_ops = sum(2 * a[0].shape[0] * w[0].shape[0] * a[0].shape[1] * 2
                  for a, w in mm_calls)
     results["fp4_matmul"] = dict(
-        ms=time_ms(torch, lambda: [ops.fp4_matmul(a[0], a[1], w[0], w[1], a[2], w[2])
-                                   for a, w in mm_calls], 20),
+        fn=mm_fn, ms=time_ms(torch, mm_fn, 20),
         plain_ms=time_ms(torch, lambda: [FM.fp4_matmul_plain(a[0], a[1], w[0], w[1], a[2], w[2])
                                          for a, w in mm_calls], 3),
         library_ms=time_ms(torch, lambda: [torch.matmul(a, w) for a, w in blockvals], 20),
         bytes=mm_bytes, ops=mm_ops, peak=BF16_FLOPS, calls=len(mm_calls))
     at_bytes, at_ops = map(sum, zip(*(attn_bytes_ops(*c) for c in attn_layers)))
     results["paged_gqa"] = dict(
-        ms=time_ms(torch, lambda: [ops.paged_gqa(*c) for c in attn_layers], 20),
+        fn=at_fn, ms=time_ms(torch, at_fn, 20),
         plain_ms=time_ms(torch, lambda: [PA.paged_gqa_plain(*c) for c in attn_layers], 3),
         library_ms=time_ms(torch, lambda: [f() for f in sdpa_calls], 20),
         bytes=at_bytes, ops=at_ops, peak=F32_FLOPS, calls=len(attn_layers))
-    for name, r in results.items():
-        t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
-        t_ops = r["ops"] / r["peak"] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        r["max_abs_err"] = errs[name]
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {name:16s} {r['calls']:3d} calls/step: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
-            f"{r['ops'] / 1e9:.3f} GFLOP)")
+    finish_results(results, errs)
     return results
 
 
@@ -434,32 +493,193 @@ def phase_requant(torch):
     n_el = sum(x.numel() for x in calls)
     n_groups = n_el // 16
     results = {}
+    p1_fn = lambda: [ops.ms_eden_phase1(x, signs) for x in calls]
+    p2_fn = lambda: [ops.ms_eden_phase2(p[4], p[1], p[2], p[3], u)
+                     for p, u in zip(p1s, us)]
     results["ms_eden_phase1"] = dict(
-        ms=time_ms(torch, lambda: [ops.ms_eden_phase1(x, signs) for x in calls], 5),
+        fn=p1_fn, ms=time_ms(torch, p1_fn, 5),
         plain_ms=time_ms(torch, lambda: [MR.phase1_plain(x, signs) for x in calls], 1,
                          warmup=1),
         library_ms=None, bytes=n_el * (4 + 0.5 + 12 / 16) + len(calls) * (4 + 512),
         ops=n_el * (PHASE1_FLOPS_BASE + 7), peak=F32_FLOPS, calls=len(calls))
     results["ms_eden_phase2"] = dict(
-        ms=time_ms(torch, lambda: [ops.ms_eden_phase2(p[4], p[1], p[2], p[3], u)
-                                   for p, u in zip(p1s, us)], 5),
+        fn=p2_fn, ms=time_ms(torch, p2_fn, 5),
         plain_ms=time_ms(torch, lambda: [MR.phase2_plain(p[4], p[1], p[2], p[3], u)
                                          for p, u in zip(p1s, us)], 1, warmup=1),
         library_ms=None, bytes=n_groups * 17 + len(calls) * 8,
         ops=n_groups * PHASE2_FLOPS_PER_GROUP, peak=F32_FLOPS, calls=len(calls))
-    for name, r in results.items():
-        t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
-        t_ops = r["ops"] / r["peak"] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        r["max_abs_err"] = errs[name]
-        log(f"  {name:16s} {r['calls']:3d} calls/step: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library n/a, bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
-            f"{r['ops'] / 1e9:.3f} GFLOP)")
+    finish_results(results, errs)
     del calls, p1s, us
     torch.cuda.empty_cache()
     return results, mm_err
+
+
+def paged_table(torch, g, b, maxb, bs, lens, dead=()):
+    """A (b, maxb) block table over b * maxb pool blocks, randomly placed;
+    dead rows hold only the sentinel."""
+    n_blocks = b * maxb
+    perm = torch.randperm(n_blocks, generator=g).tolist()
+    table = torch.full((b, maxb), n_blocks, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        if i not in dead:
+            for j in range(-(-n // bs)):
+                table[i, j] = perm.pop()
+    return table, n_blocks
+
+
+def gqa_q_case(torch, F, b, sq, h, kv, hd, bs, maxb, lens, dead=(), seed=0):
+    """(q, k codes, k scales, v codes, v scales, table, pos) on the card."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table, n_blocks = paged_table(torch, g, b, maxb, bs, lens, dead)
+    pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
+    q = torch.randn((b, sq, h, hd), generator=g).bfloat16()
+    k, v = ((torch.randn((n_blocks, bs, kv, hd), generator=g) * 3).bfloat16()
+            for _ in range(2))
+    return [t.cuda() for t in (q, *F.nvfp4_cache_encode(k),
+                               *F.nvfp4_cache_encode(v), table, pos)]
+
+
+def mla_case(torch, F, b, sq, bs, maxb, lens, packed, dead=(), seed=0,
+             h=128, lora=512, rope=64):
+    """(q_abs f32, q_rope bf16, latent pool leaves..., table, pos) on the
+    card at deepseek-v3's widths: (cc, kc) bf16, or their codes and scale
+    bits when packed."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table, n_blocks = paged_table(torch, g, b, maxb, bs, lens, dead)
+    pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
+    qa = torch.randn((b, sq, h, lora), generator=g) * 0.1
+    qr = torch.randn((b, sq, h, rope), generator=g).bfloat16()
+    cc = torch.randn((n_blocks, bs, lora), generator=g).bfloat16()
+    kc = (torch.randn((n_blocks, bs, rope), generator=g) * 2).bfloat16()
+    pools = ((*F.nvfp4_cache_encode(cc), *F.nvfp4_cache_encode(kc)) if packed
+             else (cc, kc))
+    return [t.cuda() for t in (qa, qr, *pools, table, pos)]
+
+
+def check_against_plain(torch, name, out, ref, dead, label):
+    """The attention bar: |out - ref| <= 5e-6 + 1e-5 |ref|; dead rows 0."""
+    err = (out - ref).abs().max().item()
+    bad = ((out - ref).abs() > 5e-6 + 1e-5 * ref.abs()).double().mean().item()
+    zeros = all(int((out[r] != 0).sum()) == 0 for r in dead)
+    log(f"  {name} {label:38s} max|do| {err:.3g}, outside 5e-6/1e-5: {bad:.2e}"
+        f"{', inactive rows exactly 0' if dead else ''}")
+    if bad > 0 or not zeros:
+        fail(f"{name} {label}: outside the bar ({bad}) or a nonzero inactive row")
+    return err
+
+
+def keys_and_pairs(pos, sq):
+    """Cache rows each batch row reads (positions 0 .. its newest query) and
+    (query, key) pairs attended, from this run's positions."""
+    keys = sum(int(p) + sq for p in pos)
+    pairs = sum(int(p) + s + 1 for p in pos for s in range(sq))
+    return keys, pairs
+
+
+def gather_sdpa(torch, q, k, v, pos, scale=None):
+    """F.scaled_dot_product_attention over already-gathered views (the
+    yardstick PyTorch call; never used by the port): q (B, Sq, H, d), k/v
+    (B, T, KV, d) with KV dividing H."""
+    import torch.nn.functional as Fn
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sq, t = q.shape[1], k.shape[1]
+    qpos = pos[:, None].long() + torch.arange(sq, device=q.device)[None]
+    mask = (torch.arange(t, device=q.device)[None, None] <= qpos[..., None])[:, None]
+    return lambda: Fn.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   scale=scale, enable_gqa=True)
+
+
+def phase_paged_q_mla(torch):
+    """Kernels #6 (packed GQA), #7 (MLA) and #8 (packed MLA) against their
+    plain versions, then one decode step's calls of each timed."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serve import kv_pool as KV
+
+    log("phase 3: packed GQA and MLA decode kernels against their plain versions")
+    errs = {"paged_gqa_q": 0.0, "paged_mla": 0.0, "paged_mla_q": 0.0}
+    gqa_cases = {
+        "llama-200m decode B4 Sq1 H10 KV10": dict(sq=1, lens=[47, 100, 131, 18], dead=(3,)),
+        "llama-200m chunk B4 Sq16 H10 KV10": dict(sq=16, lens=[16, 64, 100, 33]),
+    }
+    for i, (label, c) in enumerate(gqa_cases.items()):
+        q, kc, ks, vc, vs, table, pos = gqa_q_case(
+            torch, F, b=4, h=10, kv=10, hd=128, bs=16, maxb=16, seed=i, **c)
+        out = ops.paged_gqa_q(q, kc, ks, vc, vs, table, pos)
+        torch.cuda.synchronize()
+        ref = PA.paged_gqa_q_plain(q, kc, ks, vc, vs, table, pos)
+        errs["paged_gqa_q"] = max(errs["paged_gqa_q"], check_against_plain(
+            torch, "paged_gqa_q", out, ref, c.get("dead", ()), label))
+    mla_cases = {
+        "deepseek-v3 decode B4 Sq1 H128": dict(sq=1, lens=[47, 100, 1, 64], dead=(2,)),
+        "deepseek-v3 chunk B4 Sq16 H128": dict(sq=16, lens=[16, 64, 100, 33], dead=(3,)),
+    }
+    for packed, name in ((False, "paged_mla"), (True, "paged_mla_q")):
+        for i, (label, c) in enumerate(mla_cases.items()):
+            args = mla_case(torch, F, b=4, bs=16, maxb=16, packed=packed,
+                            seed=10 + i, **c)
+            kern = ops.paged_mla_q if packed else ops.paged_mla
+            plain = PA.paged_mla_q_plain if packed else PA.paged_mla_plain
+            out = kern(*args, qk_dim=192)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], check_against_plain(
+                torch, name, out, plain(*args, 192), c.get("dead", ()), label))
+
+    # ---- one decode step's calls: llama-200m (10 layers) for #6, phase 6's
+    # deepseek-v3 (2 layers) for #7 and #8; 4 slots
+    log("phase 3: timing one decode step's calls (llama-200m: 10 layers, "
+        f"4 slots; deepseek-v3: {DEEPSEEK_LAYERS} layers, 4 slots)")
+    results = {}
+    gl = [gqa_q_case(torch, F, b=4, sq=1, h=10, kv=10, hd=128, bs=16, maxb=16,
+                     lens=[47, 100, 131, 18], seed=100 + i) for i in range(10)]
+    sd = []
+    nbytes = ops_n = 0
+    for q, kc, ks, vc, vs, table, pos in gl:
+        kg = KV.gather_view(KV.PackedKV(kc, ks), table)
+        vg = KV.gather_view(KV.PackedKV(vc, vs), table)
+        sd.append(gather_sdpa(torch, q, kg, vg, pos))
+        keys, pairs = keys_and_pairs(pos.tolist(), 1)
+        nbytes += (q.numel() * 2 + keys * 10 * 256 * 0.5625 + table.numel() * 4
+                   + pos.numel() * 4 + q.numel() * 4)
+        ops_n += pairs * 10 * (2 * 128 + 2 * 128)
+    fn = lambda: [ops.paged_gqa_q(*c) for c in gl]
+    results["paged_gqa_q"] = dict(
+        fn=fn, ms=time_ms(torch, fn, 20),
+        plain_ms=time_ms(torch, lambda: [PA.paged_gqa_q_plain(*c) for c in gl], 3),
+        library_ms=time_ms(torch, lambda: [f() for f in sd], 20),
+        bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=len(gl))
+    lens = [40, 57, 72, 25]  # phase 6's prompts of 16-64 tokens, mid-decode
+    for packed, name in ((False, "paged_mla"), (True, "paged_mla_q")):
+        calls = [mla_case(torch, F, b=4, sq=1, bs=16, maxb=16, lens=lens,
+                          packed=packed, seed=200 + i)
+                 for i in range(DEEPSEEK_LAYERS)]
+        kern = ops.paged_mla_q if packed else ops.paged_mla
+        plain = PA.paged_mla_q_plain if packed else PA.paged_mla_plain
+        sd = []
+        nbytes = ops_n = 0
+        for c in calls:
+            qa, qr, table, pos = c[0], c[1], c[-2], c[-1]
+            pools = ((KV.PackedKV(c[2], c[3]), KV.PackedKV(c[4], c[5])) if packed
+                     else (c[2], c[3]))
+            cv, kv = (KV.gather_view(p, table).float() for p in pools)
+            qcat = torch.cat([qa, qr.float()], -1)
+            kcat = torch.cat([cv, kv], -1)[:, :, None]
+            sd.append(gather_sdpa(torch, qcat, kcat, cv[:, :, None], pos,
+                                  scale=PA.mla_scale(192)))
+            keys, pairs = keys_and_pairs(pos.tolist(), 1)
+            row = 576 * (0.5625 if packed else 2)
+            nbytes += (qa.numel() * 4 + qr.numel() * 2 + keys * row
+                       + table.numel() * 4 + pos.numel() * 4 + qa.numel() * 4)
+            ops_n += pairs * 128 * (2 * 576 + 2 * 512)
+        fn = lambda calls=calls, kern=kern: [kern(*c, qk_dim=192) for c in calls]
+        results[name] = dict(
+            fn=fn, ms=time_ms(torch, fn, 20),
+            plain_ms=time_ms(torch, lambda: [plain(*c, 192) for c in calls], 3),
+            library_ms=time_ms(torch, lambda sd=sd: [f() for f in sd], 20),
+            bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=len(calls))
+    finish_results(results, errs)
+    return results
 
 
 def phase_train_reference(torch):
@@ -501,44 +721,52 @@ def to_device(tree, d):
 
 def phase_small_reference(torch):
     """The paged step at reduced size: kernels on the card against the plain
-    versions on the CPU, same weights and tokens."""
+    versions on the CPU, same weights and tokens: llama-200m (bf16 pool) and
+    deepseek-v3 (MLA + MoE; the bf16 and the NVFP4 latent pool)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
     from repro_torch.serve import decode as serve_decode
     from repro_torch.serve.kv_pool import KVPool
     from repro_torch.serve.prequant import prequantize
 
-    cfg = registry.get("llama_200m").reduced()
-    params = lm.init(cfg, torch.Generator().manual_seed(1), "cpu")
-    toks = torch.randint(0, cfg.vocab, (2, 20), generator=torch.Generator().manual_seed(2),
-                         dtype=torch.int32)
-    for scheme in ("bf16", "quartet2"):
-        outs = {}
-        for d in ("cpu", "cuda"):
-            p = prequantize(to_device(params, d), cfg, scheme)
-            pool = KVPool(cfg, 2, 32, block_size=16, device=d)
-            for s in range(2):
-                pool.commit(s, 20)
-                pool.ensure(s, 20)
-            step = serve_decode.make_paged_serve_step(cfg, scheme)
-            seq = []
-            for start, size in ((0, 16), (16, 1), (17, 1), (18, 1)):
-                lg, _ = step(p, pool.caches, pool.tables_device(),
-                             toks[:, start:start + size].to(d),
-                             torch.full((2,), start, dtype=torch.int32, device=d),
-                             torch.ones(2, dtype=torch.bool, device=d))
-                seq.append(lg.float().cpu())
-            outs[d] = seq
-        worst_abs = max((a - b).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
-        worst_rel = max(((a - b).pow(2).mean() / b.pow(2).mean()).sqrt().item()
-                        for a, b in zip(outs["cuda"], outs["cpu"]))
-        finite = all(torch.isfinite(a).all() for a in outs["cuda"])
-        log(f"  reduced llama-200m paged step, {scheme}: card vs CPU max|dlogit| "
-            f"{worst_abs:.3g}, rel RMS {worst_rel:.3g}")
-        # bf16: the sums differ in order only; quartet2: below the ~0.3
-        # relative error that quantization itself adds at this size
-        if not finite or (scheme == "bf16" and worst_abs > 2e-2) or worst_rel > 0.3:
-            fail(f"reduced paged step ({scheme}): card disagrees with the CPU")
+    for arch, kv_quant in (("llama_200m", False), ("deepseek_v3_671b", False),
+                           ("deepseek_v3_671b", True)):
+        cfg = registry.get(arch).reduced()
+        params = lm.init(cfg, torch.Generator().manual_seed(1), "cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 20),
+                             generator=torch.Generator().manual_seed(2),
+                             dtype=torch.int32)
+        pool_name = "NVFP4 pool" if kv_quant else "bf16 pool"
+        for scheme in ("bf16", "quartet2"):
+            outs = {}
+            for d in ("cpu", "cuda"):
+                p = prequantize(to_device(params, d), cfg, scheme)
+                pool = KVPool(cfg, 2, 32, block_size=16, device=d,
+                              quantized=kv_quant)
+                for s in range(2):
+                    pool.commit(s, 20)
+                    pool.ensure(s, 20)
+                step = serve_decode.make_paged_serve_step(cfg, scheme)
+                seq = []
+                for start, size in ((0, 16), (16, 1), (17, 1), (18, 1)):
+                    lg, _ = step(p, pool.caches, pool.tables_device(),
+                                 toks[:, start:start + size].to(d),
+                                 torch.full((2,), start, dtype=torch.int32, device=d),
+                                 torch.ones(2, dtype=torch.bool, device=d))
+                    seq.append(lg.float().cpu())
+                outs[d] = seq
+            worst_abs = max((a - b).abs().max().item()
+                            for a, b in zip(outs["cuda"], outs["cpu"]))
+            worst_rel = max(((a - b).pow(2).mean() / b.pow(2).mean()).sqrt().item()
+                            for a, b in zip(outs["cuda"], outs["cpu"]))
+            finite = all(torch.isfinite(a).all() for a in outs["cuda"])
+            log(f"  reduced {cfg.name} paged step ({pool_name}), {scheme}: card vs "
+                f"CPU max|dlogit| {worst_abs:.3g}, rel RMS {worst_rel:.3g}")
+            # bf16: the sums differ in order only; quartet2: below the ~0.3
+            # relative error that quantization itself adds at this size
+            if not finite or (scheme == "bf16" and worst_abs > 2e-2) or worst_rel > 0.3:
+                fail(f"reduced paged step ({arch}, {pool_name}, {scheme}): card "
+                     "disagrees with the CPU")
 
 
 # --------------------------------------------------------------------------
@@ -546,9 +774,10 @@ def phase_small_reference(torch):
 # --------------------------------------------------------------------------
 
 def serve_once(torch, cfg, params, EngineConfig, Request, ServeEngine, prompts,
-               max_new):
-    econf = EngineConfig(n_slots=4, max_len=256, block_size=16, prefill_chunk=16,
-                         scheme="quartet2", prequant=True, device="cuda")
+               max_new, **econf_kw):
+    econf = EngineConfig(**{**dict(n_slots=4, max_len=256, block_size=16,
+                                   prefill_chunk=16, scheme="quartet2",
+                                   prequant=True, device="cuda"), **econf_kw})
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, econf)
     torch.cuda.synchronize()
@@ -561,13 +790,61 @@ def serve_once(torch, cfg, params, EngineConfig, Request, ServeEngine, prompts,
     return eng, results, setup_s, time.perf_counter() - t0
 
 
-def phase_serving(torch, card):
+def served(torch, cfg, eng, results, prompts, max_new, launches, kernels):
+    """Checks every serving run shares: all requests served with in-vocabulary
+    tokens, every pool block free, each path kernel launched."""
+    if sorted(r.req_id for r in results) != list(range(len(prompts))):
+        fail(f"served {len(results)} of {len(prompts)} requests")
+    if any(len(r.tokens) != max_new for r in results):
+        fail("a request returned the wrong number of tokens")
+    if not all(0 <= t < cfg.vocab for r in results for t in r.tokens):
+        fail("token ids outside the vocabulary")
+    if eng.pool.free_block_count != eng.pool.n_blocks:
+        fail(f"{eng.pool.n_blocks - eng.pool.free_block_count} pool blocks leaked")
+    if any(launches[k] <= 0 for k in kernels):
+        fail(f"a kernel was not launched on the serving path: {launches}")
+
+
+def serving_numbers(results, st, setup_s, wall, peak, launches):
+    ttft = sorted(r.ttft_s for r in results)
+    return {
+        "setup_s": setup_s, "wall_s": wall,
+        "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+        "decode_step_ms": st["decode_s"] / st["decode_steps"] * 1e3,
+        "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+        "ttft_s_median": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+        "decode_steps": st["decode_steps"], "prefill_steps": st["prefill_steps"],
+        "peak_mem_bytes": peak, "launches": launches,
+    }
+
+
+def pool_byte_ratio(pool):
+    """Bytes of the pool's token leaves over the bytes of bf16 leaves of the
+    same logical shape."""
+    from repro_torch.serve.kv_pool import PackedKV
+    held = bf16 = 0
+    for stage in pool.caches:
+        for kinds in stage.values():
+            for leaves in kinds.values():
+                for leaf in leaves:
+                    if isinstance(leaf, PackedKV):
+                        held += leaf.codes.numel() + leaf.scales.numel()
+                        bf16 += leaf.codes.numel() * 2 * 2
+                    else:
+                        held += leaf.numel() * leaf.element_size()
+                        bf16 += leaf.numel() * 2
+    return held / bf16
+
+
+def phase_serving(torch, card, kv_quant=False):
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 
-    log("phase 4: serving full-width llama-200m (quartet2, prequant, paged, 4 slots)")
+    pool_name = "NVFP4 pool" if kv_quant else "paged bf16 pool"
+    log(f"phase {'4b' if kv_quant else '4'}: serving full-width llama-200m "
+        f"(quartet2, prequant, {pool_name}, 4 slots)")
     cfg = registry.get("llama_200m")
     params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     g = torch.Generator().manual_seed(3)
@@ -575,36 +852,24 @@ def phase_serving(torch, card):
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in lens]
     # warm-up run (first launches, allocator, cuBLAS handles), not measured
     serve_once(torch, cfg, params, EngineConfig, Request, ServeEngine,
-               prompts[:2], 4)
+               prompts[:2], 4, kv_quant=kv_quant)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     eng, results, setup_s, wall = serve_once(
-        torch, cfg, params, EngineConfig, Request, ServeEngine, prompts, 32)
+        torch, cfg, params, EngineConfig, Request, ServeEngine, prompts, 32,
+        kv_quant=kv_quant)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    if sorted(r.req_id for r in results) != list(range(8)):
-        fail(f"served {len(results)} of 8 requests")
-    if any(len(r.tokens) != 32 for r in results):
-        fail("a request returned the wrong number of tokens")
-    vocab_ok = all(0 <= t < cfg.vocab for r in results for t in r.tokens)
-    if not vocab_ok:
-        fail("token ids outside the vocabulary")
-    if eng.pool.free_block_count != eng.pool.n_blocks:
-        fail(f"{eng.pool.n_blocks - eng.pool.free_block_count} pool blocks leaked")
-    if any(launches[k] <= 0 for k in SERVING_KERNELS):
-        fail(f"a kernel was not launched on the serving path: {launches}")
-    st = eng.stats
-    ttft = sorted(r.ttft_s for r in results)
-    out = {
-        "prompt_lens": lens, "setup_s": setup_s, "wall_s": wall,
-        "decode_tok_s": st["decode_tokens"] / st["decode_s"],
-        "decode_step_ms": st["decode_s"] / st["decode_steps"] * 1e3,
-        "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
-        "ttft_s_median": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
-        "decode_steps": st["decode_steps"], "prefill_steps": st["prefill_steps"],
-        "peak_mem_bytes": peak, "launches": launches,
-        "launches_per_decode_step": None,
-    }
+    attn = "paged_gqa_q" if kv_quant else "paged_gqa"
+    served(torch, cfg, eng, results, prompts, 32, launches,
+           ("nvfp4_fos_quant", "fp4_matmul", attn))
+    ratio = pool_byte_ratio(eng.pool)
+    if kv_quant and (launches["paged_gqa"] != 0 or ratio != 0.28125):
+        fail(f"kv_quant serving: paged_gqa launched {launches['paged_gqa']} "
+             f"times, pool bytes {ratio} of bf16 (want 0 and 0.28125)")
+    out = {"prompt_lens": lens, "pool_bytes_over_bf16": ratio,
+           **serving_numbers(results, eng.stats, setup_s, wall, peak, launches),
+           "launches_per_decode_step": None}
     # launches of one decode step at full batch, counted on one tick
     fill_decode(eng, Request, prompts, 12)
     ops.reset_launches()
@@ -620,11 +885,88 @@ def phase_serving(torch, card):
     log(f"  [{card}] 8 requests x 32 tokens: decode {out['decode_tok_s']:.1f} tok/s "
         f"({out['decode_step_ms']:.2f} ms/step), prefill {out['prefill_tok_s']:.1f} tok/s, "
         f"TTFT median {out['ttft_s_median'] * 1e3:.1f} ms max {out['ttft_s_max'] * 1e3:.1f} ms, "
-        f"peak memory {peak / 2**30:.2f} GiB, wall {wall:.2f} s")
+        f"peak memory {peak / 2**30:.2f} GiB, wall {wall:.2f} s, pool bytes "
+        f"{ratio:.5f} of bf16")
     log(f"  launches on the main path: {launches}; per decode step: "
         f"{out['launches_per_decode_step']}")
-    out["profile"] = profile_decode(torch, eng, Request, prompts,
-                                    out["decode_step_ms"])
+    out["profile"] = profile_decode(torch, eng, Request, prompts)
+    return out
+
+
+def phase_deepseek(torch, card):
+    """Phase 6: deepseek-v3 at its published widths, 2 layers, quartet2,
+    weights packed as drawn, served with the bf16 and the NVFP4 latent
+    pool."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.prequant import init_packed
+
+    t_phase = time.perf_counter()
+    # depth cut only: every layer of this config is MLA + MoE, so 2 layers
+    # are two whole periods; 61 layers of 6.54 GB packed (plus the 7.4 GB
+    # f32 embedding and head) do not fit one 80 GB card. Widths, heads,
+    # experts and vocabulary are the published ones.
+    cfg = dataclasses.replace(registry.get("deepseek_v3_671b"),
+                              n_layers=DEEPSEEK_LAYERS)
+    log(f"phase 6: serving deepseek-v3 at full width, {cfg.n_layers} layers "
+        "(quartet2, weights packed as drawn, 4 slots)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_packed(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "quartet2", "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = torch.cuda.memory_allocated()
+    log(f"  weights drawn and packed in {init_s:.1f} s: {weight_bytes / 2**30:.2f} GiB "
+        f"resident, init peak {init_peak / 2**30:.2f} GiB")
+    g = torch.Generator().manual_seed(6)
+    lens = torch.randint(16, 65, (4,), generator=g).tolist()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in lens]
+    out = {"prompt_lens": lens, "init_s": init_s, "init_peak_bytes": init_peak,
+           "weight_bytes": weight_bytes}
+    for kv_quant in (False, True):
+        pool_name = "nvfp4_pool" if kv_quant else "bf16_pool"
+        attn = "paged_mla_q" if kv_quant else "paged_mla"
+        kw = dict(kv_quant=kv_quant, prequant=False)  # packed already
+        serve_once(torch, cfg, params, EngineConfig, Request, ServeEngine,
+                   prompts[:1], 2, **kw)  # warm-up, not measured
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        eng, results, setup_s, wall = serve_once(
+            torch, cfg, params, EngineConfig, Request, ServeEngine, prompts, 16,
+            **kw)
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        served(torch, cfg, eng, results, prompts, 16, launches,
+               ("nvfp4_fos_quant", "fp4_matmul", attn))
+        other = "paged_mla" if kv_quant else "paged_mla_q"
+        if launches[other] or launches["paged_gqa"] or launches["paged_gqa_q"]:
+            fail(f"deepseek-v3 ({pool_name}) launched another attention kernel: "
+                 f"{launches}")
+        r = serving_numbers(results, eng.stats, setup_s, wall, peak, launches)
+        r["pool_bytes_over_bf16"] = pool_byte_ratio(eng.pool)
+        fill_decode(eng, Request, prompts, 12)
+        ops.reset_launches()
+        eng.step()
+        r["launches_per_decode_step"] = dict(ops.LAUNCHES)
+        eng.run()
+        log(f"  [{card}] {pool_name}: 4 requests x 16 tokens: decode "
+            f"{r['decode_tok_s']:.2f} tok/s ({r['decode_step_ms']:.1f} ms/step host), "
+            f"prefill {r['prefill_tok_s']:.1f} tok/s, TTFT median "
+            f"{r['ttft_s_median']:.2f} s max {r['ttft_s_max']:.2f} s, peak memory "
+            f"{peak / 2**30:.2f} GiB, wall {wall:.1f} s")
+        log(f"  launches on the main path: {launches}; per decode step: "
+            f"{r['launches_per_decode_step']}")
+        r["profile"] = profile_decode(torch, eng, Request, prompts)
+        out[pool_name] = r
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 6 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -637,16 +979,22 @@ def fill_decode(eng, Request, prompts, max_new):
         eng.step()
 
 
-def profile_decode(torch, eng, Request, prompts, step_ms):
-    """Device time by kernel over 8 decode steps at full batch
-    (torch.profiler), and the device's busy share: device time per step over
-    the decode step time measured without the profiler (`step_ms`; the
-    profiler's own host overhead inflates the wall time of a traced step)."""
+def profile_decode(torch, eng, Request, prompts, steps: int = 8):
+    """Device time by kernel over `steps` decode steps at full batch
+    (torch.profiler), and the device's busy share: device time per step
+    over the host-clock time of `steps` full-batch decode steps run just
+    before them without the profiler (whose own host overhead inflates the
+    wall time of a traced step)."""
     from torch.profiler import ProfilerActivity, profile
-    fill_decode(eng, Request, prompts, 16)
+    fill_decode(eng, Request, prompts, 2 * steps + 4)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
+        for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
     eng.run()
@@ -664,15 +1012,16 @@ def profile_decode(torch, eng, Request, prompts, step_ms):
     if total_us == 0:
         log("  profile: no device time in key_averages() (not measured)")
         return None
-    dev_step_ms = total_us / 1e3 / 8
+    dev_step_ms = total_us / 1e3 / steps
     busy = dev_step_ms / step_ms
-    log(f"  profile of 8 decode steps: device time {dev_step_ms:.3f} ms/step "
-        f"against a {step_ms:.2f} ms step: busy {busy:.1%}, idle {1 - busy:.1%}; "
-        f"device time per step by kernel:")
+    log(f"  profile of {steps} full-batch decode steps: device time {dev_step_ms:.3f} "
+        f"ms/step against a {step_ms:.2f} ms step (host clock, unprofiled): busy "
+        f"{busy:.1%}, idle {1 - busy:.1%}; device time per step by kernel:")
     for us, key, n in rows[:10]:
-        log(f"    {us / 1e3 / 8:8.4f} ms  {n // 8:4d}x  {key[:90]}")
-    return {"device_ms_per_step": dev_step_ms, "busy_share": busy,
-            "top": [(key, us / 1e3 / 8, n // 8) for us, key, n in rows[:12]]}
+        log(f"    {us / 1e3 / steps:8.4f} ms  {n // steps:4d}x  {key[:90]}")
+    return {"device_ms_per_step": dev_step_ms, "host_ms_per_step": step_ms,
+            "busy_share": busy,
+            "top": [(key, us / 1e3 / steps, n // steps) for us, key, n in rows[:12]]}
 
 
 def phase_training(torch, card):
@@ -793,30 +1142,37 @@ def main() -> None:
     requant, mm_err = phase_requant(torch)
     kern.update(requant)
     kern["fp4_matmul"]["max_abs_err"] = max(kern["fp4_matmul"]["max_abs_err"], mm_err)
+    kern.update(phase_paged_q_mla(torch))
     phase_small_reference(torch)
     phase_train_reference(torch)
     serving = phase_serving(torch, card)
+    serving_kvq = phase_serving(torch, card, kv_quant=True)
+    deepseek = phase_deepseek(torch, card)
     training = phase_training(torch, card)
+    path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
+                 deepseek["nvfp4_pool"], training)
 
     kernels = []
     for k, r in kern.items():
-        # launches: the serving run's plus the training run's (each path is
-        # driven with the counts set to 0 just before it and read just after)
-        launches = serving["launches"][k] + training["launches"][k]
+        # launches: the sum over the main-path runs (each path is driven with
+        # the counts set to 0 just before it and read just after)
+        launches = sum(run["launches"][k] for run in path_runs)
         if launches <= 0:
             fail(f"kernel {k} was not launched on a main path")
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "profiler_ms": r["profiler_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "device": name, "torch": torch.__version__,
          "build_s": build.BUILD_INFO.get("seconds"), "kernels": kernels,
-         "kernel_detail": kern, "serving": serving, "training": training},
+         "kernel_detail": kern, "serving": serving, "serving_kv_quant": serving_kvq,
+         "deepseek": deepseek, "training": training},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 """Architecture registry: `get("llama-200m")`, `names()`.
 
-The port carries the dense GQA configurations of its first slice; the other
-families of the JAX registry come with the slices that port their mixers.
+The port carries the dense GQA configurations and deepseek-v3 (MLA + MoE,
+served in decode mode); the other families of the JAX registry come with the
+slices that port their mixers.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from repro_torch.configs.base import ArchConfig
 
 ARCH_IDS = [
     "yi_9b",
+    "deepseek_v3_671b",
     "llama_200m",  # the paper's own ablation family (Table 3)
 ]
 

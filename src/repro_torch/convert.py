@@ -3,9 +3,12 @@
 `params_from_jax(numpy_tree, cfg)` takes a reference parameter pytree whose
 leaves were turned into numpy arrays (`jax.tree.map(np.asarray, params)`)
 and returns the port's dict-of-tensors tree: stacked stage leaves keep their
-(count, ...) layout, and a reference `PackedQWeight` (a NamedTuple with
-`packed`, `scales8`, `gscale`) becomes the port's `PackedQWeight`, its
-float8 scales carried through their raw bits. Tests use it so both packages
+(count, ...) layout, MLA leaves (`wq_a` ... `wkv_b`, the two norms) and MoE
+leaves (`router`, the (count, E, f, d) expert stacks, the shared expert)
+keep their names and shapes, and a reference `PackedQWeight` (a NamedTuple
+with `packed`, `scales8`, `gscale`; stacked expert weights pack to (count,
+E, f, d/2)) becomes the port's `PackedQWeight`, its float8 scales carried
+through their raw bits. Tests use it so both packages
 compute with the same weights; this module never imports the reference.
 """
 

@@ -171,3 +171,57 @@ def unpack_fp4(packed: torch.Tensor) -> torch.Tensor:
     hi = (packed >> 4) & 0xF
     out = torch.stack([lo, hi], dim=-1)
     return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+# --------------------------------------------------------------------------
+# NVFP4 cache codec: the storage format of the quantized paged KV pool
+# (`serve.kv_pool.KVPool(quantized=True)`).
+#
+# Per token, per 16-group along the LAST (feature) axis, deterministic RTN,
+# unit per-tensor scale: a token's packed image is a pure function of its
+# bf16 value, so tokens quantize independently at scatter time. Storage is
+# uint8 twice: e2m1 codes two per byte (d/2 bytes) and e4m3 scales as raw
+# bits (d/16 bytes), 0.5625 d bytes against 2 d for bf16 (0.28125x).
+#
+# Dequant is exact in bf16: an e2m1 magnitude times an e4m3 scale has at
+# most 6 significant bits and magnitude <= 2688, so the gather path's bf16
+# dequant and a kernel's f32 dequant see bit-identical operands.
+# --------------------------------------------------------------------------
+
+def _cache_scale_chain(x: torch.Tensor):
+    """(groups (..., d/16, 16) f32, e4m3 group scales (..., d/16) f32)."""
+    xf = x.float()
+    g = xf.reshape(*xf.shape[:-1], -1, GROUP)
+    gmax = g.abs().amax(dim=-1)
+    return g, fp8_rtn(div_const(gmax, FP4_MAX * FP8_RTN_MARGIN))
+
+
+def _normalize(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return g / torch.where(scale > 0, scale, 1.0)[..., None]
+
+
+def nvfp4_cache_encode(x: torch.Tensor):
+    """Quantize cache values to NVFP4 packed bytes (deterministic RTN).
+
+    Groups of 16 along the last axis. Returns `(codes, scale_bits)`: uint8
+    packed e2m1 pairs (..., d/2) and uint8 e4m3 scale bits (..., d/16). The
+    16/17 scale margin keeps normalized magnitudes within 6, so `fp4_rtn`
+    never saturates here (`nvfp4_cache_overflow` is 0)."""
+    g, scale = _cache_scale_chain(x)
+    codes = fp4_code(fp4_rtn(_normalize(g, scale))).reshape(x.shape)
+    return pack_fp4(codes), e4m3_to_bits(scale)
+
+
+def nvfp4_cache_decode(codes: torch.Tensor, scale_bits: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of nvfp4_cache_encode (exact in bf16 and wider)."""
+    vals = fp4_decode(unpack_fp4(codes))
+    scales = bits_to_e4m3(scale_bits)
+    return (vals * torch.repeat_interleave(scales, GROUP, dim=-1)).to(dtype)
+
+
+def nvfp4_cache_overflow(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of normalized magnitudes beyond the E2M1 edge on the encode
+    path: the quantity the 16/17 margin pins to zero (a debug probe)."""
+    g, scale = _cache_scale_chain(x)
+    return fp4_overflow_fraction(_normalize(g, scale))

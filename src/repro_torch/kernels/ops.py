@@ -22,7 +22,8 @@ from repro_torch.kernels import nvfp4_quant as NQ
 from repro_torch.kernels import paged_attention as PA
 
 LAUNCHES = {"nvfp4_fos_quant": 0, "fp4_matmul": 0, "paged_gqa": 0,
-            "ms_eden_phase1": 0, "ms_eden_phase2": 0}
+            "ms_eden_phase1": 0, "ms_eden_phase2": 0, "paged_gqa_q": 0,
+            "paged_mla": 0, "paged_mla_q": 0}
 
 
 def reset_launches() -> None:
@@ -99,6 +100,51 @@ def fp4_matmul(a_packed, a_scale_bits, b_packed, b_scale_bits, ga, gb):
     return out
 
 
+def _check_paged(name, q, table, pos):
+    """Checks common to the paged decode wrappers: table (B, MAXB) int32 and
+    pos (B,) int32 for q (B, Sq, ...)."""
+    b = q.shape[0]
+    _need(table.dtype == torch.int32 and table.dim() == 2
+          and table.shape[0] == b, name, "table must be (B, MAXB) int32")
+    _need(pos.dtype == torch.int32 and tuple(pos.shape) == (b,), name,
+          "pos must be (B,) int32")
+
+
+def _check_packed(name, codes, scales):
+    """A PackedKV leaf pair: uint8 codes (..., d/2) and scale bits (..., d/16)."""
+    d = codes.shape[-1] * 2
+    _need(codes.dtype == torch.uint8 and scales.dtype == torch.uint8, name,
+          "packed pool leaves must be uint8")
+    _need(tuple(scales.shape) == (*codes.shape[:-1], d // F.GROUP), name,
+          f"packed leaves must be (..., {d}/2) codes and (..., {d}/16) scales")
+
+
+def _check_gqa(name, q, k_lead, v_lead, hd, table, pos, window):
+    """q (B, Sq, H, hd) against pools whose (P, BS, KV) lead dims are k_lead,
+    v_lead, with key dim hd."""
+    _need(q.dim() == 4 and len(k_lead) == 3, name,
+          "q and the pools must be 4-D")
+    qhd, h, kv = q.shape[3], q.shape[2], k_lead[2]
+    _need(qhd == hd and tuple(v_lead) == tuple(k_lead), name,
+          "pool shapes disagree with q")
+    _need(kv > 0 and h % kv == 0, name, f"H={h} must be a multiple of KV={kv}")
+    _need(q.dtype in (torch.float32, torch.bfloat16), name,
+          f"q must be float32 or bfloat16, got {q.dtype}")
+    _check_paged(name, q, table, pos)
+    _need(window is None or window >= 1, name, "window must be None or >= 1")
+
+
+def _check_gqa_card(name, q, k_lead, hd, vd, operands):
+    sq = q.shape[1]
+    _need(1 <= sq <= PA.MAX_SQ, name, f"Sq={sq} outside [1, {PA.MAX_SQ}]")
+    _need(hd <= PA.MAX_HEAD_DIM and vd <= PA.MAX_HEAD_DIM, name,
+          f"head dims above {PA.MAX_HEAD_DIM}")
+    _need(k_lead[1] in PA.BLOCK_SIZES, name,
+          f"block size {k_lead[1]} not in {PA.BLOCK_SIZES}")
+    _need(all(t.is_contiguous() for t in operands), name,
+          "operands must be contiguous")
+
+
 def paged_gqa(q, k_pool, v_pool, table, pos, *, window: int | None = None):
     """Flash-decode GQA attention straight off the paged KV pool.
 
@@ -109,33 +155,130 @@ def paged_gqa(q, k_pool, v_pool, table, pos, *, window: int | None = None):
     gather_view(v_pool, table), pos, window)` in f32 without gathering.
     Returns f32 (B, Sq, H, vd)."""
     name = "paged_gqa"
-    _need(q.dim() == 4 and k_pool.dim() == 4 and v_pool.dim() == 4, name,
-          "q and the pools must be 4-D")
-    b, sq, h, hd = q.shape
-    _, bs, kv, khd = k_pool.shape
-    _need(khd == hd and tuple(v_pool.shape[:3]) == tuple(k_pool.shape[:3]),
-          name, "pool shapes disagree with q")
-    _need(kv > 0 and h % kv == 0, name, f"H={h} must be a multiple of KV={kv}")
-    _need(q.dtype in (torch.float32, torch.bfloat16), name,
-          f"q must be float32 or bfloat16, got {q.dtype}")
+    _need(k_pool.dim() == 4 and v_pool.dim() == 4, name, "pools must be 4-D")
+    hd, vd = k_pool.shape[3], v_pool.shape[3]
+    _check_gqa(name, q, k_pool.shape[:3], v_pool.shape[:3], hd, table, pos,
+               window)
     _need(k_pool.dtype == torch.bfloat16 and v_pool.dtype == torch.bfloat16,
           name, "pools must be bfloat16")
-    _need(table.dtype == torch.int32 and table.dim() == 2
-          and table.shape[0] == b, name, "table must be (B, MAXB) int32")
-    _need(pos.dtype == torch.int32 and tuple(pos.shape) == (b,), name,
-          "pos must be (B,) int32")
-    _need(window is None or window >= 1, name, "window must be None or >= 1")
-    if _device(name, q, k_pool, v_pool, table, pos) == "cpu":
+    operands = (q, k_pool, v_pool, table, pos)
+    if _device(name, *operands) == "cpu":
         return PA.paged_gqa_plain(q, k_pool, v_pool, table, pos, window=window)
-    _need(1 <= sq <= PA.MAX_SQ, name, f"Sq={sq} outside [1, {PA.MAX_SQ}]")
-    _need(hd <= PA.MAX_HEAD_DIM and v_pool.shape[3] <= PA.MAX_HEAD_DIM, name,
-          f"head dims above {PA.MAX_HEAD_DIM}")
-    _need(bs in PA.BLOCK_SIZES, name, f"block size {bs} not in {PA.BLOCK_SIZES}")
-    _need(all(t.is_contiguous() for t in (q, k_pool, v_pool, table, pos)),
-          name, "operands must be contiguous")
-    out = torch.empty((b, sq, h, v_pool.shape[3]), dtype=torch.float32,
-                      device=q.device)
+    _check_gqa_card(name, q, k_pool.shape, hd, vd, operands)
+    out = torch.empty((*q.shape[:3], vd), dtype=torch.float32, device=q.device)
     PA.launch(q, k_pool, v_pool, table, pos, out, window)
+    LAUNCHES[name] += 1
+    return out
+
+
+def paged_gqa_q(q, k_codes, k_scales, v_codes, v_scales, table, pos, *,
+                window: int | None = None):
+    """`paged_gqa` over the NVFP4-quantized pool: K/V arrive as the
+    PackedKV leaves, e2m1 code pairs (P, BS, KV, hd/2) uint8 and e4m3 scale
+    bits (P, BS, KV, hd/16) uint8 per operand, and dequantize (exactly)
+    inside the kernel. Equals `paged_gqa` over the dequantized pools.
+    Returns f32 (B, Sq, H, vd) with vd = v_codes.shape[3] * 2."""
+    name = "paged_gqa_q"
+    _need(k_codes.dim() == 4 and v_codes.dim() == 4, name,
+          "pool leaves must be 4-D")
+    hd, vd = k_codes.shape[3] * 2, v_codes.shape[3] * 2
+    _check_gqa(name, q, k_codes.shape[:3], v_codes.shape[:3], hd, table, pos,
+               window)
+    _check_packed(name, k_codes, k_scales)
+    _check_packed(name, v_codes, v_scales)
+    operands = (q, k_codes, k_scales, v_codes, v_scales, table, pos)
+    if _device(name, *operands) == "cpu":
+        return PA.paged_gqa_q_plain(q, k_codes, k_scales, v_codes, v_scales,
+                                    table, pos, window=window)
+    _check_gqa_card(name, q, k_codes.shape, hd, vd, operands)
+    _need(hd % F.GROUP == 0 and vd % F.GROUP == 0, name,
+          "head dims must be multiples of 16")
+    out = torch.empty((*q.shape[:3], vd), dtype=torch.float32, device=q.device)
+    PA.launch(q, k_codes, v_codes, table, pos, out, window, k_scales=k_scales,
+              v_scales=v_scales)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_mla(name, q_abs, q_rope, lora, rope, cc_lead, kc_lead, table, pos):
+    _need(q_abs.dim() == 4 and q_rope.dim() == 4, name,
+          "q_abs and q_rope must be 4-D")
+    _need(tuple(q_abs.shape[:3]) == tuple(q_rope.shape[:3])
+          and q_abs.shape[3] == lora and q_rope.shape[3] == rope, name,
+          "q_abs (B, Sq, H, lora) and q_rope (B, Sq, H, rope) disagree with "
+          "the latent pools")
+    _need(len(cc_lead) == 2 and tuple(cc_lead) == tuple(kc_lead), name,
+          "latent pools must be (P, BS, dim) with the same (P, BS)")
+    _need(q_abs.dtype == torch.float32, name, "q_abs must be float32")
+    _need(q_rope.dtype in (torch.float32, torch.bfloat16), name,
+          f"q_rope must be float32 or bfloat16, got {q_rope.dtype}")
+    _check_paged(name, q_abs, table, pos)
+
+
+def _check_mla_card(name, q_abs, lora, rope, bs, operands):
+    sq = q_abs.shape[1]
+    _need(1 <= sq <= PA.MAX_SQ, name, f"Sq={sq} outside [1, {PA.MAX_SQ}]")
+    _need(lora <= PA.MAX_LORA and rope <= PA.MAX_ROPE, name,
+          f"latent dims above ({PA.MAX_LORA}, {PA.MAX_ROPE})")
+    _need(bs in PA.BLOCK_SIZES, name, f"block size {bs} not in {PA.BLOCK_SIZES}")
+    _need(all(t.is_contiguous() for t in operands), name,
+          "operands must be contiguous")
+
+
+def paged_mla(q_abs, q_rope, cc_pool, kc_pool, table, pos, *, qk_dim: int):
+    """Absorbed-form MLA flash-decode over the shared latent pools.
+
+    q_abs: (B, Sq, H, lora) f32, q_nope already absorbed through W_uk;
+    q_rope: (B, Sq, H, rope) f32/bf16; cc_pool: (P, BS, lora) bf16; kc_pool:
+    (P, BS, rope) bf16; table, pos as for `paged_gqa`. Scores are
+    (q_abs.cc + q_rope.kc) MULTIPLIED by the f32 1/sqrt(qk_dim); the value
+    readout is over cc itself, so the f32 result is o_lat (B, Sq, H, lora)
+    for the caller's W_uv absorption. Inactive rows (all-sentinel tables)
+    give exact zeros."""
+    name = "paged_mla"
+    _need(cc_pool.dim() == 3 and kc_pool.dim() == 3, name,
+          "latent pools must be 3-D")
+    lora, rope = cc_pool.shape[2], kc_pool.shape[2]
+    _check_mla(name, q_abs, q_rope, lora, rope, cc_pool.shape[:2],
+               kc_pool.shape[:2], table, pos)
+    _need(cc_pool.dtype == torch.bfloat16 and kc_pool.dtype == torch.bfloat16,
+          name, "latent pools must be bfloat16")
+    operands = (q_abs, q_rope, cc_pool, kc_pool, table, pos)
+    if _device(name, *operands) == "cpu":
+        return PA.paged_mla_plain(q_abs, q_rope, cc_pool, kc_pool, table, pos,
+                                  qk_dim)
+    _check_mla_card(name, q_abs, lora, rope, cc_pool.shape[1], operands)
+    out = torch.empty(q_abs.shape, dtype=torch.float32, device=q_abs.device)
+    PA.launch_mla(q_abs, q_rope, cc_pool, kc_pool, table, pos, out, qk_dim)
+    LAUNCHES[name] += 1
+    return out
+
+
+def paged_mla_q(q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales,
+                table, pos, *, qk_dim: int):
+    """`paged_mla` over NVFP4-quantized latent pools: the PackedKV leaves of
+    cc ((P, BS, lora/2) codes, (P, BS, lora/16) scale bits) and of kc
+    ((P, BS, rope/2), (P, BS, rope/16)), uint8, dequantized (exactly) inside
+    the kernel. Returns o_lat f32 (B, Sq, H, lora)."""
+    name = "paged_mla_q"
+    _need(cc_codes.dim() == 3 and kc_codes.dim() == 3, name,
+          "latent pool leaves must be 3-D")
+    lora, rope = cc_codes.shape[2] * 2, kc_codes.shape[2] * 2
+    _check_mla(name, q_abs, q_rope, lora, rope, cc_codes.shape[:2],
+               kc_codes.shape[:2], table, pos)
+    _check_packed(name, cc_codes, cc_scales)
+    _check_packed(name, kc_codes, kc_scales)
+    operands = (q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales,
+                table, pos)
+    if _device(name, *operands) == "cpu":
+        return PA.paged_mla_q_plain(q_abs, q_rope, cc_codes, cc_scales,
+                                    kc_codes, kc_scales, table, pos, qk_dim)
+    _check_mla_card(name, q_abs, lora, rope, cc_codes.shape[1], operands)
+    _need(lora % F.GROUP == 0 and rope % F.GROUP == 0, name,
+          "latent dims must be multiples of 16")
+    out = torch.empty(q_abs.shape, dtype=torch.float32, device=q_abs.device)
+    PA.launch_mla(q_abs, q_rope, cc_codes, kc_codes, table, pos, out, qk_dim,
+                  cc_scales=cc_scales, kc_scales=kc_scales)
     LAUNCHES[name] += 1
     return out
 

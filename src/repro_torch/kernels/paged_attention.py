@@ -1,9 +1,15 @@
-"""Paged GQA flash-decode: plain version and kernel launch.
+"""Paged flash-decode attention: plain versions and kernel launches.
 
-Replaces the TPU kernel `repro/kernels/paged_attention.py:paged_gqa_call`.
-The plain version is the serving reference path the kernel stands in for:
-materialize `gather_view` of both pools and run `decode_sdpa` over the full
-table capacity, in f32.
+Replaces the TPU kernels of `repro/kernels/paged_attention.py`:
+  - `paged_gqa_call`    (#5): GQA decode over the bf16 pool;
+  - `paged_gqa_q_call`  (#6): the same over the NVFP4 `PackedKV` pool;
+  - `paged_mla_call`    (#7): absorbed-form MLA latent decode over the
+                              shared (cc, kc) pools;
+  - `paged_mla_q_call`  (#8): #7 over NVFP4 latent pools.
+Each plain version is the serving reference path its kernel stands in for
+(`repro/kernels/ref.py`): materialize `gather_view` of the pools (packed
+pools dequantize exactly to bf16) and compute over the full table capacity,
+in f32.
 """
 
 from __future__ import annotations
@@ -14,9 +20,11 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30  # matches models.attention.NEG_INF
-BLOCK_SIZES = (4, 8, 16, 32)  # pool block sizes the kernel is built for
+BLOCK_SIZES = (4, 8, 16, 32)  # pool block sizes the kernels are built for
 MAX_HEAD_DIM = 128
 MAX_SQ = 16
+MAX_LORA = 512   # MLA latent (value) width the kernel's lanes cover
+MAX_ROPE = 64
 
 
 def sqrt_hd(hd: int) -> float:
@@ -24,23 +32,95 @@ def sqrt_hd(hd: int) -> float:
     return float(np.sqrt(np.float32(hd)))
 
 
+def mla_scale(qk_dim: int) -> float:
+    """The f32 1/sqrt(qk_dim) the MLA scores are MULTIPLIED by (the f32
+    image of mla_decode's scale, so kernel and reference use one scalar)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(qk_dim)))
+
+
 def paged_gqa_plain(q, k_pool, v_pool, table, pos, window=None):
-    """q (B, Sq, H, hd) vs pools (P, BS, KV, hd/vd) -> f32 (B, Sq, H, vd)."""
+    """q (B, Sq, H, hd) vs pools (P, BS, KV, hd/vd) -> f32 (B, Sq, H, vd).
+    The pools are bf16 tensors or `serve.kv_pool.PackedKV`s."""
     from repro_torch.models.attention import decode_sdpa
     from repro_torch.serve.kv_pool import gather_view
     return decode_sdpa(q.float(), gather_view(k_pool, table),
                        gather_view(v_pool, table), pos, window=window)
 
 
-def launch(q, k_pool, v_pool, table, pos, out, window) -> None:
-    """Enqueue the CUDA kernel on the current stream (output preallocated)."""
+def paged_gqa_q_plain(q, k_codes, k_scales, v_codes, v_scales, table, pos,
+                      window=None):
+    """`paged_gqa_plain` over the NVFP4 pool's unbundled leaves."""
+    from repro_torch.serve.kv_pool import PackedKV
+    return paged_gqa_plain(q, PackedKV(k_codes, k_scales),
+                           PackedKV(v_codes, v_scales), table, pos, window)
+
+
+def paged_mla_plain(q_abs, q_rope, cc_pool, kc_pool, table, pos, qk_dim):
+    """Absorbed-form MLA decode over the gathered latent view:
+    s = (q_abs.cc + q_rope.kc) * scale, causal per absolute position,
+    softmax, readout over cc. q_abs (B, Sq, H, lora), q_rope (B, Sq, H,
+    rope); pools (P, BS, lora) / (P, BS, rope), bf16 or PackedKV.
+    Returns o_lat f32 (B, Sq, H, lora)."""
+    from repro_torch.serve.kv_pool import gather_view
+    cv = gather_view(cc_pool, table).float()
+    kv = gather_view(kc_pool, table).float()
+    sq = q_abs.shape[1]
+    positions = pos.long()[:, None] + torch.arange(sq, device=pos.device)[None]
+    s_lat = torch.einsum("bqhl,btl->bhqt", q_abs.float(), cv)
+    s_rope = torch.einsum("bqhr,btr->bhqt", q_rope.float(), kv)
+    s = (s_lat + s_rope) * mla_scale(qk_dim)  # an f32 value: exact scalar
+    tmask = (torch.arange(cv.shape[1], device=pos.device)[None, None, :]
+             <= positions[:, :, None])                         # (B, Sq, T)
+    s = torch.where(tmask[:, None], s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    prob = e / e.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqt,btl->bqhl", prob, cv)
+
+
+def paged_mla_q_plain(q_abs, q_rope, cc_codes, cc_scales, kc_codes,
+                      kc_scales, table, pos, qk_dim):
+    """`paged_mla_plain` over the NVFP4 latent pools' unbundled leaves."""
+    from repro_torch.serve.kv_pool import PackedKV
+    return paged_mla_plain(q_abs, q_rope, PackedKV(cc_codes, cc_scales),
+                           PackedKV(kc_codes, kc_scales), table, pos, qk_dim)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def launch(q, k, v, table, pos, out, window, *, k_scales=None,
+           v_scales=None) -> None:
+    """Enqueue the GQA kernel on the current stream (output preallocated).
+    k, v are the bf16 pools (#5), or with k_scales/v_scales the packed code
+    leaves of the NVFP4 pool (#6)."""
     b, sq, h, hd = q.shape
-    n_blocks, bs, kv = k_pool.shape[:3]
-    vd = v_pool.shape[3]
+    n_blocks, bs, kv = k.shape[:3]
+    vd = out.shape[3]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = build.library().paged_gqa_launch(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k_pool.data_ptr(),
-        v_pool.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        q.data_ptr(), int(q.dtype == torch.bfloat16), int(k_scales is not None),
+        k.data_ptr(), _ptr(k_scales), v.data_ptr(), _ptr(v_scales),
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         b, sq, h, kv, hd, vd, n_blocks, bs, table.shape[1],
         0 if window is None else int(window), sqrt_hd(hd), stream)
-    build.check(status, "paged_gqa")
+    build.check(status, "paged_gqa_q" if k_scales is not None else "paged_gqa")
+
+
+def launch_mla(q_abs, q_rope, cc, kc, table, pos, out, qk_dim, *,
+               cc_scales=None, kc_scales=None) -> None:
+    """Enqueue the MLA kernel on the current stream (output preallocated).
+    cc, kc are the bf16 latent pools (#7), or with cc_scales/kc_scales the
+    packed code leaves of the NVFP4 latent pools (#8)."""
+    b, sq, h, lora = q_abs.shape
+    rope = q_rope.shape[3]
+    n_blocks, bs = cc.shape[:2]
+    stream = torch.cuda.current_stream(q_abs.device).cuda_stream
+    status = build.library().paged_mla_launch(
+        q_abs.data_ptr(), q_rope.data_ptr(),
+        int(q_rope.dtype == torch.bfloat16), int(cc_scales is not None),
+        cc.data_ptr(), _ptr(cc_scales), kc.data_ptr(), _ptr(kc_scales),
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, sq, h, lora, rope, n_blocks, bs, table.shape[1],
+        mla_scale(qk_dim), stream)
+    build.check(status, "paged_mla_q" if cc_scales is not None else "paged_mla")

@@ -1,12 +1,13 @@
 """Serve a model through the port's continuous-batching engine.
 
-    python -m repro_torch.launch.serve --arch llama_200m [--tokens 32]
+    python -m repro_torch.launch.serve --arch llama_200m [--tokens 32] [--kv-quant]
 
 Builds seeded random weights, prequantizes them (quartet2: NVFP4 4/6 packed
 weights), serves `--batch` requests through `ServeEngine` on the paged bf16
-pool, and prints prefill and decode tokens per second labelled with the
-device they ran on. Runs on the card unless `--device cpu` is given
-(`--reduced` shrinks the model to its CPU smoke size).
+pool (`--kv-quant`: the NVFP4 pool), and prints prefill and decode tokens
+per second labelled with the device they ran on. Runs on the card unless
+`--device cpu` is given (`--reduced` shrinks the model to its CPU smoke
+size).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--tokens", type=int, default=32, help="new tokens each")
     ap.add_argument("--scheme", default="quartet2")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="NVFP4-quantized paged KV pool (PackedKV)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's CPU smoke size (ArchConfig.reduced)")
@@ -54,7 +57,7 @@ def main(argv=None) -> dict:
     max_len = -(-(args.prompt_len + args.tokens) // block) * block
     econf = EngineConfig(n_slots=args.batch, max_len=max_len, block_size=block,
                          scheme=args.scheme, base_seed=args.seed,
-                         device=str(device))
+                         kv_quant=args.kv_quant, device=str(device))
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, econf)
     setup_s = time.perf_counter() - t0

@@ -5,9 +5,10 @@ Counterpart of `repro/models/attention.py`. All four projections run through
 the quantized linear; scores and softmax stay f32, as fp32 einsums as in the
 reference. The chunked online-softmax path the reference takes above
 CHUNK_THRESHOLD tokens is not ported yet: `attend` raises there.
-Attention over the paged pool goes through `kernels.ops.paged_gqa`: the CUDA
-kernel for tensors on the card, the gather_view + decode_sdpa plain version
-on the CPU.
+Attention over the paged pool goes through `kernels.ops.paged_gqa` (bf16
+pool) or `kernels.ops.paged_gqa_q` (NVFP4 `PackedKV` pool): the CUDA kernel
+for tensors on the card, the gather_view + decode_sdpa plain version on the
+CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from repro_torch.core import formats as F
 from repro_torch.core.linear import qlinear
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import sqrt_hd
-from repro_torch.models.blocks import linear_init, rmsnorm, site_seed
+from repro_torch.models.blocks import rmsnorm, site_seed
 
 NEG_INF = -1e30
 # the reference switches to chunked online-softmax attention above this
@@ -108,14 +109,13 @@ def decode_sdpa(q, k_cache, v_cache, pos, window=None):
     return o.reshape(b, sq, h, v_cache.shape[-1]).to(q.dtype)
 
 
-def gqa_init(gen, count: int, cfg, device) -> dict:
+def gqa_init(draw, count: int, cfg, device) -> dict:
     hd = cfg.hd
     d = cfg.d_model
-    p = {"wq": linear_init(gen, (count, cfg.n_heads * hd, d), d, device=device),
-         "wk": linear_init(gen, (count, cfg.n_kv_heads * hd, d), d, device=device),
-         "wv": linear_init(gen, (count, cfg.n_kv_heads * hd, d), d, device=device),
-         "wo": linear_init(gen, (count, d, cfg.n_heads * hd), cfg.n_heads * hd,
-                           device=device)}
+    p = {"wq": draw("wq", (count, cfg.n_heads * hd, d), d),
+         "wk": draw("wk", (count, cfg.n_kv_heads * hd, d), d),
+         "wv": draw("wv", (count, cfg.n_kv_heads * hd, d), d),
+         "wo": draw("wo", (count, d, cfg.n_heads * hd), cfg.n_heads * hd)}
     if cfg.qk_norm:
         p["qn"] = torch.ones((count, hd), dtype=torch.float32, device=device)
         p["kn"] = torch.ones((count, hd), dtype=torch.float32, device=device)
@@ -180,8 +180,13 @@ def gqa_decode(p, x, cfg, scheme, seed, layer, cache_kv, pos, *, window=None,
     rt, wt = KV.split_tables(block_table)
     KV.scatter_tokens(kc, wt, positions, k, valid)
     KV.scatter_tokens(vc, wt, positions, v, valid)
-    n = kc.shape[0] - 1  # readers never see the scratch block
-    o = ops.paged_gqa(q, kc[:n], vc[:n], rt, posb, window=window).to(q.dtype)
+    kr, vr = KV.readable(kc), KV.readable(vc)  # without the scratch block
+    if isinstance(kr, KV.PackedKV):
+        o = ops.paged_gqa_q(q, kr.codes, kr.scales, vr.codes, vr.scales, rt,
+                            posb, window=window)
+    else:
+        o = ops.paged_gqa(q, kr, vr, rt, posb, window=window)
+    o = o.to(q.dtype)
     if active is not None:
         # Inactive rows must not read cache memory: any nonzero value would
         # leak into active rows through the per-tensor activation absmax.

@@ -55,6 +55,16 @@ def linear_init(gen: torch.Generator, shape: tuple, n_in: int,
                        device=device) * s
 
 
+def weight_drawer(gen: torch.Generator, device):
+    """The init functions' `draw(key, shape, n_in, scale=None)`: one weight
+    leaf named `key` (its parameter-tree name), `linear_init` from `gen` on
+    `device`. `serve.prequant.init_packed` passes a drawer that packs the
+    decode path's weights as it draws them."""
+    def draw(key: str, shape: tuple, n_in: int, scale: float | None = None):
+        return linear_init(gen, shape, n_in, scale, device)
+    return draw
+
+
 def mlp_apply(p, x, kind: str, scheme: str, seed, layer):
     """swiglu feed-forward, all matmuls quantized per scheme."""
     if kind != "swiglu":
@@ -66,16 +76,16 @@ def mlp_apply(p, x, kind: str, scheme: str, seed, layer):
     return qlinear(a, p["wo"], site_seed(seed, layer, 12), scheme)
 
 
-def mlp_init(gen, count: int, d_model: int, d_ff: int, kind: str, device):
+def mlp_init(draw, count: int, d_model: int, d_ff: int, kind: str):
     if kind != "swiglu":
         raise NotImplementedError(f"mlp '{kind}' comes with a later slice")
-    return {"wi": linear_init(gen, (count, d_ff, d_model), d_model, device=device),
-            "wo": linear_init(gen, (count, d_model, d_ff), d_ff, device=device),
-            "wg": linear_init(gen, (count, d_ff, d_model), d_model, device=device)}
+    return {"wi": draw("wi", (count, d_ff, d_model), d_model),
+            "wo": draw("wo", (count, d_model, d_ff), d_ff),
+            "wg": draw("wg", (count, d_ff, d_model), d_model)}
 
 
-def embed_init(gen, vocab: int, d_model: int, device) -> torch.Tensor:
-    return linear_init(gen, (vocab, d_model), d_model, scale=0.02, device=device)
+def embed_init(draw, vocab: int, d_model: int) -> torch.Tensor:
+    return draw("embed", (vocab, d_model), d_model, 0.02)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,

@@ -19,10 +19,11 @@ Slot states: FREE -> PREFILL -> DECODE -> FREE. Raggedness travels as data
 (per-slot position vector, active mask, block table). Counters live in the
 plain `stats` dict.
 
-Later slices bring speculative decoding, the prefix cache and its spill
-tier, mesh sharding, disaggregated roles, the NVFP4 KV cache, dense caches
-and other scheduler policies; asking for any of them raises
-NotImplementedError.
+With `kv_quant=True` the pool stores every token leaf as NVFP4 `PackedKV`
+bytes (0.28125x the bf16 bytes) and decode attention runs the packed-operand
+kernels. Later slices bring speculative decoding, the prefix cache and its
+spill tier, mesh sharding, disaggregated roles, dense caches and other
+scheduler policies; asking for any of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -84,10 +85,10 @@ class EngineConfig:
     max_queue: int = 256
     base_seed: int = 0            # seeds the sampling generator
     device: str = "cuda"
+    kv_quant: bool = False        # NVFP4 PackedKV pool instead of bf16
     # options of the reference engine that later slices port
     paged: bool = True
     spec_k: int = 0
-    kv_quant: bool = False
     mesh: Any = None
     prefix_cache: bool = False
     prefix_spill: bool = False
@@ -103,8 +104,7 @@ _LATER = (
      "engine features"),
     ("scheduler", lambda e: e.scheduler is not None,
      "the latency-aware scheduler policies", "engine features"),
-    ("kv_quant", lambda e: e.kv_quant, "the NVFP4 KV cache", "NVFP4 KV pool"),
-    ("paged", lambda e: not e.paged, "dense per-slot caches", "NVFP4 KV pool"),
+    ("paged", lambda e: not e.paged, "dense per-slot caches", "dense caches"),
     ("mesh", lambda e: e.mesh is not None, "mesh-sharded serving",
      "distribution"),
     ("role", lambda e: e.role != "both", "disaggregated prefill/decode roles",
@@ -143,7 +143,8 @@ class ServeEngine:
         params = _to_device(params, self.device)
         self.params = prequantize(params, cfg, e.scheme) if e.prequant else params
         self.pool = KVPool(cfg, e.n_slots, e.max_len, block_size=e.block_size,
-                           n_blocks=e.n_blocks, device=self.device)
+                           n_blocks=e.n_blocks, device=self.device,
+                           quantized=e.kv_quant)
         # largest per-ensure growth (a prefill chunk or one decode token)
         self._max_growth = e.prefill_chunk
         self.slots = [_Slot() for _ in range(e.n_slots)]

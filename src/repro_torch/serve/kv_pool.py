@@ -1,39 +1,76 @@
 """Block-based paged KV pool with per-sequence block tables.
 
-Counterpart of `repro/serve/kv_pool.py`, paged bf16 pool only. Each cache
-kind is carved into fixed-size blocks of `block_size` token positions handed
-to sequences on demand; a per-slot block table (n_slots, max_blocks) maps
+Counterpart of `repro/serve/kv_pool.py`, paged pools only. Each cache kind
+is carved into fixed-size blocks of `block_size` token positions handed to
+sequences on demand; a per-slot block table (n_slots, max_blocks) maps
 logical block -> physical block, and unallocated entries hold the OOB-HIGH
-sentinel `n_blocks` (docs/CONVENTIONS.md §2 — never -1).
+sentinel `n_blocks` (docs/CONVENTIONS.md §2 — never -1). Token kinds are
+"kv" (gqa: a (k, v) pair of (P, BS, KV, hd) leaves) and "mla" (the shared
+latent pools (cc, kc) of shapes (P, BS, kv_lora) and (P, BS, rope)).
+
+With `quantized=True` every token leaf is a `PackedKV`: NVFP4 e2m1 code
+pairs plus e4m3 scale bits (0.28125x the bf16 bytes), quantized per token at
+scatter time (`core.formats.nvfp4_cache_encode`, deterministic RTN) and
+dequantized by the packed-operand decode kernels, or exactly to bf16 by
+`gather_view`.
 
 JAX drops out-of-range scatter rows and fills out-of-range gathers with
 zeros; PyTorch indexing raises instead, so this port masks explicitly:
 
-  - every pool leaf holds n_blocks + 1 blocks. Block `n_blocks` is a
-    write-only SCRATCH block: `scatter_tokens` routes every dropped write
-    (inactive rows, negative positions, sentinel or out-of-table entries)
-    there, so a scatter never needs a host sync and never touches a real
-    block. Readers are handed `leaf[:n_blocks]`, for which the sentinel is
-    out of bounds exactly as in the reference;
+  - every pool leaf (both leaves of a `PackedKV`) holds n_blocks + 1 blocks.
+    Block `n_blocks` is a write-only SCRATCH block: `scatter_tokens` routes
+    every dropped write (inactive rows, negative positions, sentinel or
+    out-of-table entries) there, so a scatter never needs a host sync and
+    never touches a real block. Readers are handed `readable(leaf)` (the
+    first n_blocks blocks), for which the sentinel is out of bounds exactly
+    as in the reference;
   - `gather_view` reads zeros for sentinel (and negative) entries.
 
 Pool leaves are updated IN PLACE (the reference rebinds donated buffers).
 
-Left for later slices: dense per-slot caches, the NVFP4 `PackedKV` pool,
-shards, refcounted prefix sharing / COW, and the host spill tier.
+Left for later slices: dense per-slot caches, shards, refcounted prefix
+sharing / COW, and the host spill tier.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import formats as F
 from repro_torch.models import lm
 
 TOKEN_MIXERS = ("gqa", "lattn", "mla")
+
+
+class PackedKV(NamedTuple):
+    """One NVFP4-quantized token pool leaf (`KVPool(quantized=True)`).
+
+    Two uint8 tensors sharing the leading (layer, pool block, block offset)
+    axes of the bf16 leaf they replace: e2m1 codes packed two per byte over
+    the LAST feature axis (..., d/2) and e4m3 group scales as raw bits
+    (..., d/16): 0.5625 bytes per cached element against 2 for bf16."""
+
+    codes: torch.Tensor   # uint8 (..., d // 2): packed e2m1 pairs
+    scales: torch.Tensor  # uint8 (..., d // GROUP): e4m3 scale bits
+
+
+def index_leaf(leaf, idx):
+    """`leaf[idx]` of a bf16 leaf, or of both tensors of a PackedKV."""
+    if isinstance(leaf, PackedKV):
+        return PackedKV(leaf.codes[idx], leaf.scales[idx])
+    return leaf[idx]
+
+
+def readable(leaf):
+    """A layer's pool leaf without its write-only scratch block: what the
+    readers (gather_view, the decode kernels) are handed."""
+    rows = (leaf.codes if isinstance(leaf, PackedKV) else leaf).shape[0]
+    return index_leaf(leaf, slice(0, rows - 1))
 
 
 def reclaim_window(cfg: ArchConfig, specs=None) -> int | None:
@@ -51,12 +88,16 @@ def reclaim_window(cfg: ArchConfig, specs=None) -> int | None:
 # device-side primitives
 # --------------------------------------------------------------------------
 
-def gather_view(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def gather_view(pool, table: torch.Tensor) -> torch.Tensor:
     """Materialize per-sequence logical views from the pool.
 
     pool: (P, BS, ...) (no scratch block); table: (B, MAXB), entries outside
     [0, P) are the sentinel. Returns (B, MAXB*BS, ...): each row's blocks in
-    logical order, zeros for sentinel entries."""
+    logical order, zeros for sentinel entries. A PackedKV pool gathers both
+    leaves and dequantizes to bf16 (exact); sentinel blocks decode to 0."""
+    if isinstance(pool, PackedKV):
+        return F.nvfp4_cache_decode(gather_view(pool.codes, table),
+                                    gather_view(pool.scales, table))
     p = pool.shape[0]
     ok = (table >= 0) & (table < p)
     v = pool[torch.where(ok, table, 0).long()]            # (B, MAXB, BS, ...)
@@ -75,15 +116,21 @@ def split_tables(block_table: torch.Tensor):
     return block_table, block_table
 
 
-def scatter_tokens(pool: torch.Tensor, table: torch.Tensor,
-                   positions: torch.Tensor, vals: torch.Tensor,
-                   valid: torch.Tensor) -> None:
+def scatter_tokens(pool, table: torch.Tensor, positions: torch.Tensor,
+                   vals: torch.Tensor, valid: torch.Tensor) -> None:
     """Write per-token values through the block table, IN PLACE.
 
     pool: a full leaf (n_blocks + 1, BS, ...) whose last block is scratch;
     positions: (B, S) absolute positions; vals: (B, S, ...); valid: (B, S).
     Invalid rows, negative positions, positions past the table and sentinel
-    entries all land in the scratch block, which no reader sees."""
+    entries all land in the scratch block, which no reader sees. A PackedKV
+    pool quantizes each token (`nvfp4_cache_encode`) and scatters codes and
+    scale bits to the same block and offset."""
+    if isinstance(pool, PackedKV):
+        codes, scales = F.nvfp4_cache_encode(vals)
+        scatter_tokens(pool.codes, table, positions, codes, valid)
+        scatter_tokens(pool.scales, table, positions, scales, valid)
+        return
     n_blocks, bs = pool.shape[0] - 1, pool.shape[1]
     maxb = table.shape[1]
     valid = valid & (positions >= 0)
@@ -97,20 +144,43 @@ def scatter_tokens(pool: torch.Tensor, table: torch.Tensor,
 
 
 def init_cache(cfg: ArchConfig, *, n_blocks: int, block_size: int,
-               device="cuda", specs=None):
-    """Stage-aligned paged pool: per stage {"l<i>": {"kv": (k, v)}}, each leaf
-    (count, n_blocks + 1, block_size, KV, hd) bf16, zero-initialized."""
+               device="cuda", specs=None, quantized: bool = False):
+    """Stage-aligned paged pool, zero-initialized: per stage {"l<i>": {"kv":
+    (k, v)}} for gqa/lattn layers, each leaf (count, n_blocks + 1,
+    block_size, KV, hd), or {"l<i>": {"mla": (cc, kc)}} for MLA layers,
+    leaves (count, n_blocks + 1, block_size, kv_lora | rope). Leaves are
+    bf16, or PackedKV with `quantized` (zero codes and zero scale bits
+    decode to exactly 0, as the bf16 pool's zeros)."""
+    def tok(count, mixer, *feat):
+        lead = (count, n_blocks + 1, block_size, *feat[:-1])
+        d = feat[-1]
+        if not quantized:
+            return torch.zeros((*lead, d), dtype=torch.bfloat16, device=device)
+        if d % F.GROUP:
+            raise ValueError(
+                f"quantized KV pool needs feature dims divisible by "
+                f"{F.GROUP} (got {d} for mixer '{mixer}'): NVFP4 groups lie "
+                "along the last cache axis")
+        return PackedKV(
+            torch.zeros((*lead, d // 2), dtype=torch.uint8, device=device),
+            torch.zeros((*lead, d // F.GROUP), dtype=torch.uint8,
+                        device=device))
+
     stages = []
     for pattern, count in (specs if specs is not None else lm.layer_specs(cfg)):
         one = {}
         for i, (mixer, _ff) in enumerate(pattern):
-            if mixer not in ("gqa", "lattn"):
+            if mixer in ("gqa", "lattn"):
+                one[f"l{i}"] = {"kv": tuple(
+                    tok(count, mixer, cfg.n_kv_heads, cfg.hd)
+                    for _ in range(2))}
+            elif mixer == "mla":
+                m = cfg.mla
+                one[f"l{i}"] = {"mla": (tok(count, mixer, m.kv_lora_rank),
+                                        tok(count, mixer, m.qk_rope_head_dim))}
+            else:
                 raise NotImplementedError(
                     f"{mixer} caches come with a later slice")
-            shape = (count, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
-            one[f"l{i}"] = {"kv": tuple(
-                torch.zeros(shape, dtype=torch.bfloat16, device=device)
-                for _ in range(2))}
         stages.append(one)
     return stages
 
@@ -140,14 +210,27 @@ class KVPool:
     Pure sliding-window stacks (`reclaim_window`) free blocks mid-sequence
     once they fall out of every future query's window (`ensure` reclaims
     before growing), keeping live blocks O(window) per slot.
+
+    `quantized=True` stores every token leaf as an NVFP4 `PackedKV`; it
+    requires `paged=True`, as the reference does. `paged=False` (dense
+    per-slot caches) is not ported yet.
     """
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
-                 block_size: int = 16, n_blocks: int | None = None,
-                 device="cuda"):
+                 paged: bool = True, block_size: int = 16,
+                 n_blocks: int | None = None, device="cuda",
+                 quantized: bool = False):
         assert max_len % block_size == 0, \
             f"max_len {max_len} must be a multiple of block_size {block_size}"
+        if quantized and not paged:
+            raise ValueError(
+                "quantized=True requires paged=True: the NVFP4 cache format "
+                "is a property of pool blocks")
+        if not paged:
+            raise NotImplementedError(
+                "dense per-slot caches come with a later slice")
         self.cfg = cfg
+        self.quantized = quantized
         self.n_slots = n_slots
         self.max_len = max_len
         self.block_size = block_size
@@ -159,7 +242,7 @@ class KVPool:
         self.specs = lm.layer_specs(cfg)
         self.caches = init_cache(cfg, n_blocks=self.n_blocks,
                                  block_size=block_size, device=device,
-                                 specs=self.specs)
+                                 specs=self.specs, quantized=quantized)
         self._table = np.full((n_slots, self.max_blocks), self.sentinel,
                               np.int32)
         # pop() -> the lowest free block id first

@@ -12,8 +12,10 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     rounding ties, for < 1e-4 of elements and by at most one grid step;
   - fp4_matmul: |C_kernel - C_plain| <= 1e-5 * max|C_plain| (exact block
     values; only the fp32 summation order differs);
-  - paged_gqa: |o_kernel - o_plain| <= 5e-6 + 1e-5 |o_plain|, the bar of
-    tests/test_paged_attention.py;
+  - paged_gqa, paged_gqa_q, paged_mla, paged_mla_q: |o_kernel - o_plain|
+    <= 5e-6 + 1e-5 |o_plain|, the bar of tests/test_paged_attention.py and
+    tests/test_kv_quant.py (the packed kernels decode exactly, so only the
+    online softmax's fp32 order differs); inactive rows exactly 0;
   - ms_eden_phase1 and ms_eden_phase2: BITWISE equal to their plain versions
     (the butterfly RHT, the group sums and every rounding run in one fixed
     order in both);
@@ -22,7 +24,12 @@ fixture, never at import. Tolerances are the kernel bars of the port:
   - qlinear forward and backward on the card against the CPU, same hashed
     draws: y and dx (bf16) within one bf16 rounding of each other after fp32
     sums taken in another order, |d| <= 2^-7 |ref| + 1e-5 max|ref|; dw (f32)
-    within 1e-5 max|dw|.
+    within 1e-5 max|dw|;
+  - the reduced paged step on the card against the CPU: llama-200m under
+    quartet2 within atol = rtol = 5e-2; deepseek-v3 with the bf16 and the
+    NVFP4 pool, bf16 logits within 2e-2 (fp32 summation order through two
+    layers) and quartet2 logits within 0.3 relative RMS (an ulp of an
+    absmax can move a whole tensor's codes).
 """
 
 import numpy as np
@@ -41,6 +48,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import lm
 from repro_torch.serve import decode as serve_decode
 from repro_torch.serve.kv_pool import KVPool
+from repro_torch.serve.prequant import prequantize
 
 pytestmark = pytest.mark.cuda
 
@@ -148,6 +156,116 @@ def test_paged_gqa_matches_plain(dev, case):
         assert int((out[r] != 0).sum()) == 0  # fully masked row: exact zeros
 
 
+@pytest.mark.parametrize("case", [
+    # llama-200m decode and prefill chunk: H 10, KV 10, hd 128, BS 16
+    dict(b=4, sq=1, h=10, kv=10, hd=128, bs=16, maxb=16, lens=[37, 100, 1, 256]),
+    dict(b=4, sq=16, h=10, kv=10, hd=128, bs=16, maxb=16, lens=[16, 64, 100, 17]),
+    # grouped heads, window, dead row, f32 q, small blocks
+    dict(b=3, sq=4, h=4, kv=2, hd=32, bs=4, maxb=8, lens=[9, 30, 12],
+         window=6, dead_rows=(1,), q_dtype=torch.float32),
+    dict(b=3, sq=1, h=8, kv=2, hd=64, bs=32, maxb=4, lens=[3, 100, 40],
+         dead_rows=(0,)),
+])
+def test_paged_gqa_q_matches_plain(dev, case):
+    (q, kp, vp, table, pos), window = _pool_case(dev, **case)
+    (kc, ks), (vc, vs) = F.nvfp4_cache_encode(kp), F.nvfp4_cache_encode(vp)
+    ops.reset_launches()
+    out = ops.paged_gqa_q(q, kc, ks, vc, vs, table, pos, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_gqa_q"] == 1 and ops.LAUNCHES["paged_gqa"] == 0
+    ref = PA.paged_gqa_q_plain(q, kc, ks, vc, vs, table, pos, window=window)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    for r in case.get("dead_rows", ()):
+        assert int((out[r] != 0).sum()) == 0
+
+
+def _mla_case(dev, b, sq, h, lora, rope, bs, maxb, lens, dead_rows=(),
+              rope_dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_blocks = b * maxb + 3
+    perm = torch.randperm(n_blocks, generator=g).tolist()
+    table = torch.full((b, maxb), n_blocks, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        if i in dead_rows:
+            continue
+        for j in range(-(-n // bs)):
+            table[i, j] = perm.pop()
+    pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
+    qa = torch.randn((b, sq, h, lora), generator=g) * 0.1
+    qr = (torch.randn((b, sq, h, rope), generator=g)).to(rope_dtype)
+    cc = torch.randn((n_blocks, bs, lora), generator=g).bfloat16()
+    kc = (torch.randn((n_blocks, bs, rope), generator=g) * 2).bfloat16()
+    return [t.to(dev) for t in (qa, qr, cc, kc, table, pos)]
+
+
+MLA_CASES = [
+    # deepseek-v3: H 128, lora 512, rope 64 (qk_dim 192), BS 16; decode and
+    # a 16-token prefill chunk; ragged lengths and an inactive row
+    dict(b=4, sq=1, h=128, lora=512, rope=64, bs=16, maxb=16,
+         lens=[37, 100, 1, 200], dead_rows=(2,)),
+    dict(b=4, sq=16, h=128, lora=512, rope=64, bs=16, maxb=16,
+         lens=[16, 64, 100, 17], dead_rows=(3,)),
+    # reduced widths, f32 q_rope, BS 4 and BS 32 (dynamic shared memory
+    # above 48 KB at lora 512)
+    dict(b=3, sq=3, h=4, lora=32, rope=16, bs=4, maxb=8, lens=[6, 14, 0],
+         dead_rows=(2,), rope_dtype=torch.float32),
+    dict(b=2, sq=2, h=8, lora=512, rope=64, bs=32, maxb=4, lens=[70, 128]),
+]
+
+
+@pytest.mark.parametrize("case", MLA_CASES)
+@pytest.mark.parametrize("packed", [False, True], ids=["bf16", "nvfp4"])
+def test_paged_mla_matches_plain(dev, case, packed):
+    qa, qr, cc, kc, table, pos = _mla_case(dev, **case)
+    qk_dim = 128 + case["rope"]
+    ops.reset_launches()
+    if packed:
+        (ccc, ccs), (kcc, kcs) = F.nvfp4_cache_encode(cc), F.nvfp4_cache_encode(kc)
+        out = ops.paged_mla_q(qa, qr, ccc, ccs, kcc, kcs, table, pos,
+                              qk_dim=qk_dim)
+        torch.cuda.synchronize()
+        ref = PA.paged_mla_q_plain(qa, qr, ccc, ccs, kcc, kcs, table, pos,
+                                   qk_dim)
+    else:
+        out = ops.paged_mla(qa, qr, cc, kc, table, pos, qk_dim=qk_dim)
+        torch.cuda.synchronize()
+        ref = PA.paged_mla_plain(qa, qr, cc, kc, table, pos, qk_dim)
+    name = "paged_mla_q" if packed else "paged_mla"
+    assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1
+    assert out.dtype == torch.float32 and out.shape == qa.shape
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    for r in case.get("dead_rows", ()):
+        assert int((out[r] != 0).sum()) == 0  # inactive row: exact zeros
+
+
+def paged_step_card_vs_cpu(arch, scheme, kv_quant):
+    """Logits of four paged steps (a 16-token chunk, then three decode
+    tokens) at reduced size on the card and on the CPU, same weights and
+    tokens: [(card, cpu)] per step."""
+    cfg = registry.get(arch).reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = serve_decode.make_paged_serve_step(cfg, scheme)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab, (2, 24))
+    outs = {}
+    for d in ("cpu", "cuda"):
+        # prequantize packs into new tensors; the raw weights are read only
+        p = prequantize(_to(params, d), cfg, scheme)
+        pool = KVPool(cfg, 2, 64, block_size=16, device=d, quantized=kv_quant)
+        for s in range(2):
+            pool.commit(s, 40)
+            pool.ensure(s, 40)
+        logits = []
+        for start, size in ((0, 16), (16, 1), (17, 1), (18, 1)):
+            t = torch.as_tensor(toks[:, start:start + size], dtype=torch.int32)
+            lg, _ = step(p, pool.caches, pool.tables_device(), t.to(d),
+                         torch.full((2,), start, dtype=torch.int32).to(d),
+                         torch.ones(2, dtype=torch.bool).to(d))
+            logits.append(lg.float().cpu())
+        outs[d] = logits
+    return list(zip(outs["cuda"], outs["cpu"]))
+
+
 def test_paged_step_on_card_matches_cpu(dev):
     """The whole paged step at reduced size: kernels on the card against the
     plain versions on the CPU, same weights, teacher-forced tokens. bf16
@@ -177,6 +295,26 @@ def test_paged_step_on_card_matches_cpu(dev):
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_pool", "nvfp4_pool"])
+@pytest.mark.parametrize("scheme", ["bf16", "quartet2"])
+def test_mla_moe_paged_step_on_card_matches_cpu(dev, kv_quant, scheme):
+    """The reduced deepseek-v3 paged step (MLA + MoE, both pool modes):
+    kernels on the card against the plain versions on the CPU. bf16 logits
+    within 2e-2 (fp32 summation order through two layers); quartet2 logits
+    within 0.3 relative RMS (an ulp of an absmax can move a tensor's codes,
+    as for chip_smoke's reduced llama step)."""
+    ops.reset_launches()
+    for card, cpu in paged_step_card_vs_cpu("deepseek_v3_671b", scheme,
+                                            kv_quant):
+        assert torch.isfinite(card).all()
+        if scheme == "bf16":
+            assert (card - cpu).abs().max().item() <= 2e-2
+        else:
+            rel = ((card - cpu).pow(2).mean() / cpu.pow(2).mean()).sqrt()
+            assert rel.item() <= 0.3
+    assert ops.LAUNCHES["paged_mla_q" if kv_quant else "paged_mla"] > 0
 
 
 def _to(tree, d):
@@ -279,4 +417,5 @@ def test_qlinear_autograd_card_vs_cpu(dev, scheme):
     assert (dwg - dwc).abs().max().item() <= 1e-5 * dwc.abs().max().item()
     if scheme == "quartet2":  # forward x, w; requant of E, W^T, E^T, X^T
         assert n == {"nvfp4_fos_quant": 2, "fp4_matmul": 3, "paged_gqa": 0,
-                     "ms_eden_phase1": 4, "ms_eden_phase2": 4}
+                     "ms_eden_phase1": 4, "ms_eden_phase2": 4,
+                     "paged_gqa_q": 0, "paged_mla": 0, "paged_mla_q": 0}

@@ -2,18 +2,16 @@
 
 Both engines serve the same requests (more than there are slots, ragged
 prompts, one prompt crossing a prefill-chunk boundary) with the same weights
-(JAX init, converted) and the same FIFO / chunking schedule:
+(JAX init, converted) and the same FIFO / chunking schedule
+(`tests/_torch_streams.py`):
   - bf16: the greedy streams are equal;
   - quartet2: equal up to the first sampling step at which some sampled row
-    of the reference has a top-2 logit margin under Q2_LOGIT_TOL. Past that
-    point the two may pick different tokens, and because the per-tensor
-    activation absmax couples the rows of a batch, every later token of every
-    row is then free to differ (tests/test_torch_model.py shows why quartet2
-    logits differ by up to ~0.17 between the packages). This random-init
-    model's logits are nearly flat, so the narrow margin comes early: the
-    claim covers the first sampled token here.
-Also: every pool block is free at the end, and each option of the reference
-engine that this slice does not port raises NotImplementedError.
+    of the reference has a top-2 logit margin under Q2_LOGIT_TOL. This
+    random-init model's logits are nearly flat, so the narrow margin comes
+    early: the claim covers the first sampled token here.
+Also: every pool block is free at the end, each option of the reference
+engine that this slice does not port raises NotImplementedError, and
+`kv_quant=True` builds the NVFP4 pool.
 """
 
 import functools
@@ -23,15 +21,17 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_streams import (assert_equal_streams,
+                            assert_equal_up_to_narrow_margin, run_jax,
+                            run_port)
 from repro.configs import registry as jregistry
 from repro.models import lm as jlm
-from repro.serve import engine as jengine
 from repro_torch.configs import registry
-from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm
 from repro_torch.serve.engine import (EngineConfig, QueueFull, Request,
                                       ServeEngine, Unservable)
+from repro_torch.serve.kv_pool import PackedKV
 from repro_torch.serve.sampling import SamplingParams
 
 PROMPT_LENS = (19, 5, 11, 8, 3)
@@ -57,86 +57,60 @@ def _weights():
 
 
 def _run_jax(scheme):
-    """Reference streams plus, per (req_id, token index), the sampling call
-    that produced the token and the reference's top-2 margin there."""
     jcfg, jparams = _weights()
-    eng = jengine.ServeEngine(jcfg, jparams,
-                              jengine.EngineConfig(scheme=scheme, **KW))
-    phase, calls, margins = [None], [0], {}
-    for name in ("_prefill_tick", "_decode_tick"):
-        def tick(_orig=getattr(eng, name), _name=name):
-            phase[0] = _name
-            return _orig()
-        setattr(eng, name, tick)
-    sample = eng._sample
-
-    def recording_sample(last_logits):
-        lf = np.asarray(last_logits, np.float32)
-        if phase[0] == "_prefill_tick":  # the lowest-index prefilling slot
-            rows = [min(i for i, s in enumerate(eng.slots)
-                        if s.state == jengine.PREFILL)]
-        else:
-            rows = [i for i, s in enumerate(eng.slots)
-                    if s.state == jengine.DECODE]
-        for i in rows:
-            top2 = np.sort(lf[i])[-2:]
-            margins[(eng.slots[i].req.req_id, len(eng.slots[i].generated))] = (
-                calls[0], float(top2[1] - top2[0]))
-        calls[0] += 1
-        return sample(last_logits)
-
-    eng._sample = recording_sample
-    for p in _prompts(jcfg.vocab):
-        eng.submit(jengine.Request(p, MAX_NEW))
-    res = {r.req_id: r.tokens for r in eng.run()}
-    return res, margins
+    return run_jax(jcfg, jparams, _prompts(jcfg.vocab), MAX_NEW,
+                   scheme=scheme, **KW)
 
 
 def _run_port(scheme):
     jcfg, jparams = _weights()
     cfg = registry.get("llama_200m").reduced()
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
-    eng = ServeEngine(cfg, params, EngineConfig(scheme=scheme, device="cpu",
-                                                **KW))
-    for p in _prompts(cfg.vocab):
-        eng.submit(Request(p, MAX_NEW))
-    res = {r.req_id: r.tokens for r in eng.run()}
-    assert eng.pool.free_block_count == eng.pool.n_blocks
-    assert not eng.has_work() and eng.stats["finished"] == len(PROMPT_LENS)
-    return res
+    return run_port(cfg, jparams, _prompts(cfg.vocab), MAX_NEW,
+                    scheme=scheme, **KW)[0]
 
 
 def test_bf16_greedy_streams_equal_jax():
     want, _ = _run_jax("bf16")
     got = _run_port("bf16")
-    assert sorted(got) == sorted(want) == list(range(len(PROMPT_LENS)))
-    for rid in want:
-        assert len(got[rid]) == MAX_NEW
-        assert got[rid] == want[rid], rid
+    assert_equal_streams(got, want, len(PROMPT_LENS), MAX_NEW)
 
 
 def test_quartet2_streams_equal_jax_up_to_a_narrow_margin():
     want, margins = _run_jax("quartet2")
     got = _run_port("quartet2")
-    narrow = [c for c, m in margins.values() if m < Q2_LOGIT_TOL]
-    horizon = min(narrow, default=float("inf"))
-    checked = 0
-    for (rid, j), (call, _) in margins.items():
-        assert len(got[rid]) == MAX_NEW
-        if call < horizon:
-            assert got[rid][j] == want[rid][j], (rid, j)
-            checked += 1
-    assert checked >= 1  # the claim is not vacuous
+    assert_equal_up_to_narrow_margin(got, want, margins, Q2_LOGIT_TOL, MAX_NEW)
 
 
 @pytest.mark.parametrize("option", [
     dict(spec_k=2), dict(prefix_cache=True),
     dict(prefix_spill=True), dict(mesh=object()), dict(role="prefill"),
-    dict(kv_quant=True), dict(paged=False), dict(scheduler=object())])
+    dict(paged=False), dict(scheduler=object())])
 def test_unported_options_raise(option):
     cfg = registry.get("llama_200m").reduced()
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg, {}, EngineConfig(device="cpu", **option))
+
+
+def test_kv_quant_builds_a_quantized_pool():
+    """kv_quant=True (ported now) builds the NVFP4 pool: every token leaf
+    a PackedKV of uint8 codes and scale bits at 0.28125x the bf16 bytes;
+    the engine serves from it and frees every block."""
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServeEngine(cfg, params, EngineConfig(device="cpu", kv_quant=True,
+                                                **KW))
+    bf16 = ServeEngine(cfg, params, EngineConfig(device="cpu", **KW))
+    assert eng.pool.quantized and not bf16.pool.quantized
+    k, v = eng.pool.caches[0]["l0"]["kv"]
+    assert isinstance(k, PackedKV) and isinstance(v, PackedKV)
+    assert all(t.dtype == torch.uint8 for t in (*k, *v))
+    kb, vb = bf16.pool.caches[0]["l0"]["kv"]
+    packed = sum(t.numel() for t in (*k, *v))
+    assert packed / (kb.numel() * 2 + vb.numel() * 2) == 0.28125
+    eng.submit(Request([1, 2, 3, 4, 5], 3))
+    (res,) = eng.run()
+    assert len(res.tokens) == 3
+    assert eng.pool.free_block_count == eng.pool.n_blocks
 
 
 def test_admission_control_rejects():
