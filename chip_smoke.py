@@ -14,7 +14,11 @@ Phases (any failure exits non-zero, before the result line):
                llama-200m serving path gives it, and the quantizer and the
                GEMM at every shape of one full-width training step (T =
                2048 bf16 activations; the forward, dX and dW GEMMs), with
-               the port's bars; times
+               the port's bars; the GEMM also at M = 1, 8, 16, 17 (both
+               kernels and their boundary) and at deepseek-v3's decode
+               shapes (M = 8 and 4), its bf16 output bitwise the f32
+               output's cast, and timed over one deepseek-v3 decode step's
+               calls and one training step's 210 GEMMs as well; times
                one decode step's worth of calls of each (CUDA events): the
                kernel, the plain version, a PyTorch yardstick call, and the
                least time the card could take (bytes or operations).
@@ -110,14 +114,23 @@ SOURCES = {
     "paged_mla": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_mla_q": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
-# the CUDA function each kernel's profiler time is summed over
+# the CUDA functions each kernel's profiler time is summed over (fp4_matmul:
+# fp4_matmul_gemv_kernel, fp4_matmul_splitk_reduce_kernel, fp4_matmul_mma_kernel)
 KERNEL_SYMBOLS = {
-    "nvfp4_fos_quant": "nvfp4_fos_quant_kernel", "fp4_matmul": "fp4_matmul_kernel",
+    "nvfp4_fos_quant": "nvfp4_fos_quant_kernel", "fp4_matmul": "fp4_matmul_",
     "paged_gqa": "paged_gqa_kernel", "ms_eden_phase1": "ms_eden_phase1_kernel",
     "ms_eden_phase2": "ms_eden_phase2_kernel", "paged_gqa_q": "paged_gqa_kernel",
     "paged_mla": "paged_mla_kernel", "paged_mla_q": "paged_mla_kernel",
 }
 DEEPSEEK_LAYERS = 2  # the depth cut of phase 6 (see the module docstring)
+# (N, K) of deepseek-v3's quantized linears on its decode path: the 4 MLA
+# projections and the shared expert at M = 4 rows (4 slots), each routed
+# expert at M = 8 (its capacity)
+DEEPSEEK_SHAPES = {
+    "wq_a": (1536, 7168), "wq_b": (24576, 1536), "wkv_a": (576, 7168),
+    "wo": (7168, 16384), "ffn_in": (2048, 7168), "ffn_out": (7168, 2048),
+}
+DEEPSEEK_LIVE_EXPERTS = 32  # at most 4 tokens x top-8 distinct experts a layer
 
 
 def fail(msg: str) -> None:
@@ -171,6 +184,8 @@ def finish_results(results, errs):
         r["max_abs_err"] = errs[name]
         r["profiler_ms"] = device_ms(torch, r.pop("fn"), KERNEL_SYMBOLS[name])
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        if r.get("library_profiler_ms") is not None:
+            lib += f" (profiler {r['library_profiler_ms']:.4f})"
         prof = "n/a" if r["profiler_ms"] is None else f"{r['profiler_ms']:.4f}"
         log(f"  {name:16s} {r['calls']:3d} calls/step: kernel {r['ms']:.4f} ms "
             f"(profiler {prof}), plain {r['plain_ms']:.4f} ms, library {lib} ms, "
@@ -181,6 +196,20 @@ def finish_results(results, errs):
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
+
+def matmul_bytes_ops(calls, out_bytes):
+    """Least bytes (both packed operands and their scales read once, the
+    output of out_bytes an element written once, ga and gb) and operations
+    (2 M N K) of a list of fp4_matmul calls [(a, w)] or [(a, w, out_bytes)]."""
+    nbytes = ops = 0
+    for c in calls:
+        a, w = c[0], c[1]
+        ob = c[2] if len(c) > 2 else out_bytes
+        m, n, k = a[0].shape[0], w[0].shape[0], a[0].shape[1] * 2
+        nbytes += (m + n) * k * 9 // 16 + m * n * ob + 8
+        ops += 2 * m * n * k
+    return nbytes, ops
+
 
 def check_quant(torch, F, NQ, ops, x):
     kern = ops.nvfp4_fos_quant(x)
@@ -208,15 +237,22 @@ def check_quant(torch, F, NQ, ops, x):
 
 
 def check_matmul(torch, FM, ops, a, b):
+    """The kernel M picks against the plain version: f32 within 1e-5 of
+    max|C| (exact block values; only the f32 summation order differs), and
+    the bf16 output bitwise the f32 output rounded to bf16."""
     c = ops.fp4_matmul(a[0], a[1], b[0], b[1], a[2], b[2])
+    cb = ops.fp4_matmul(a[0], a[1], b[0], b[1], a[2], b[2], torch.bfloat16)
     torch.cuda.synchronize()
     ref = FM.fp4_matmul_plain(a[0], a[1], b[0], b[1], a[2], b[2])
     err = (c - ref).abs().max().item()
     bar = 1e-5 * ref.abs().max().item()
     shape = (a[0].shape[0], b[0].shape[0], a[0].shape[1] * 2)
-    log(f"  fp4_matmul (M,N,K)={str(shape):18s} max|dC| {err:.3g} (bar {bar:.3g})")
-    if not err <= bar:
-        fail(f"fp4_matmul {shape}: {err} > {bar}")
+    regime = FM.plan(*shape).regime
+    cast = torch.equal(cb, c.to(torch.bfloat16))
+    log(f"  fp4_matmul (M,N,K)={str(shape):18s} {regime:4s} max|dC| {err:.3g} "
+        f"(bar {bar:.3g}); bf16 {'= f32 cast' if cast else 'DIFFERS from the f32 cast'}")
+    if not err <= bar or not cast:
+        fail(f"fp4_matmul {shape}: {err} > {bar} or bf16 is not the f32 cast")
     return err
 
 
@@ -298,7 +334,7 @@ def phase_kernels(torch):
                                       check_quant(torch, F, NQ, ops, w))
         weights[name] = ops.nvfp4_fos_quant(w)
     acts = {}
-    for m in (4, 64):
+    for m in (1, 4, 8, 16, 17, 64):
         for k in (1280, 3456):
             acts[m, k] = ops.nvfp4_fos_quant(
                 torch.randn((m, k), generator=g, device="cuda").bfloat16())
@@ -310,11 +346,17 @@ def phase_kernels(torch):
         acts[TRAIN_T, k] = ops.nvfp4_fos_quant(x)
     # decode and prefill shapes, then every forward GEMM shape of a training
     # step: (T, 1280, 1280), (T, 3456, 1280), (T, 1280, 3456)
-    for m in (4, 64, TRAIN_T):
+    for m in (1, 4, 8, 16, 17, 64, TRAIN_T):
         for name in ("wq", "wi", "w2"):
             w = weights[name]
             errs["fp4_matmul"] = max(errs["fp4_matmul"], check_matmul(
                 torch, FM, ops, acts[m, w[0].shape[1] * 2], w))
+    # the deepseek-v3 decode shapes: experts at M = 8, the rest at M = 4
+    for n, k in DEEPSEEK_SHAPES.values():
+        w = ops.nvfp4_fos_quant(torch.randn((n, k), generator=g, device="cuda") * k ** -0.5)
+        for m in (8, 4):
+            x = ops.nvfp4_fos_quant(torch.randn((m, k), generator=g, device="cuda").bfloat16())
+            errs["fp4_matmul"] = max(errs["fp4_matmul"], check_matmul(torch, FM, ops, x, w))
     cases = {
         "llama-200m decode B4 Sq1 H10 KV10": dict(b=4, sq=1, h=10, kv=10, lens=[47, 100, 131, 18]),
         "llama-200m chunk B4 Sq16 H10 KV10": dict(b=4, sq=16, h=10, kv=10, lens=[16, 64, 100, 33]),
@@ -352,7 +394,7 @@ def phase_kernels(torch):
     q_bytes = sum(x.numel() * 2 + x.numel() // 2 + x.numel() // 16 + 4
                   for x in quant_in) * layers
     q_ops = sum(x.numel() for x in quant_in) * layers * QUANT_FLOPS_PER_ELEMENT
-    mm_fn = lambda: [ops.fp4_matmul(a[0], a[1], w[0], w[1], a[2], w[2])
+    mm_fn = lambda: [ops.fp4_matmul(a[0], a[1], w[0], w[1], a[2], w[2], torch.bfloat16)
                      for a, w in mm_calls]
     at_fn = lambda: [ops.paged_gqa(*c) for c in attn_layers]
     results["nvfp4_fos_quant"] = dict(
@@ -361,15 +403,14 @@ def phase_kernels(torch):
         plain_ms=time_ms(torch, step_quant(NQ.nvfp4_fos_quant_plain), 3),
         library_ms=None, bytes=q_bytes, ops=q_ops, peak=F32_FLOPS,
         calls=len(quant_in) * layers)
-    mm_bytes = sum(a[0].numel() + a[1].numel() + w[0].numel() + w[1].numel()
-                   + a[0].shape[0] * w[0].shape[0] * 4 + 8 for a, w in mm_calls)
-    mm_ops = sum(2 * a[0].shape[0] * w[0].shape[0] * a[0].shape[1] * 2
-                 for a, w in mm_calls)
+    mm_bytes, mm_ops = matmul_bytes_ops(mm_calls, 2)
+    lib_fn = lambda: [torch.matmul(a, w) for a, w in blockvals]
     results["fp4_matmul"] = dict(
         fn=mm_fn, ms=time_ms(torch, mm_fn, 20),
-        plain_ms=time_ms(torch, lambda: [FM.fp4_matmul_plain(a[0], a[1], w[0], w[1], a[2], w[2])
-                                         for a, w in mm_calls], 3),
-        library_ms=time_ms(torch, lambda: [torch.matmul(a, w) for a, w in blockvals], 20),
+        plain_ms=time_ms(torch, lambda: [FM.fp4_matmul_plain(
+            a[0], a[1], w[0], w[1], a[2], w[2], torch.bfloat16) for a, w in mm_calls], 3),
+        library_ms=time_ms(torch, lib_fn, 20),
+        library_profiler_ms=device_ms(torch, lib_fn, ""),
         bytes=mm_bytes, ops=mm_ops, peak=BF16_FLOPS, calls=len(mm_calls))
     at_bytes, at_ops = map(sum, zip(*(attn_bytes_ops(*c) for c in attn_layers)))
     results["paged_gqa"] = dict(
@@ -379,6 +420,91 @@ def phase_kernels(torch):
         bytes=at_bytes, ops=at_ops, peak=F32_FLOPS, calls=len(attn_layers))
     finish_results(results, errs)
     return results
+
+
+def matmul_group(torch, FM, ops, calls, reps, plain_reps=1):
+    """Events, profiler, plain and library (torch.matmul on the bf16 block
+    values) times and the bound of one list of fp4_matmul calls [(a, w,
+    out_dtype)]; the block values (GBs) exist only while the library runs."""
+    fn = lambda: [ops.fp4_matmul(a[0], a[1], w[0], w[1], a[2], w[2], dt)
+                  for a, w, dt in calls]
+    r = {"calls": len(calls), "ms": time_ms(torch, fn, reps)}
+    r["profiler_ms"] = device_ms(torch, fn, KERNEL_SYMBOLS["fp4_matmul"])
+    r["plain_ms"] = time_ms(torch, lambda: [FM.fp4_matmul_plain(
+        a[0], a[1], w[0], w[1], a[2], w[2], dt) for a, w, dt in calls],
+        plain_reps, warmup=1)
+    vals = [(FM.block_values(a[0], a[1]).bfloat16(),
+             FM.block_values(w[0], w[1]).bfloat16().T.contiguous()) for a, w, _ in calls]
+    lib_fn = lambda: [torch.matmul(a, w) for a, w in vals]
+    lib = r["library_ms"] = time_ms(torch, lib_fn, reps)
+    r["library_profiler_ms"] = device_ms(torch, lib_fn, "")
+    del vals, lib_fn
+    nbytes, n_ops = matmul_bytes_ops(
+        [(a, w, 2 if dt == torch.bfloat16 else 4) for a, w, dt in calls], 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, n_ops / BF16_FLOPS * 1e3
+    r.update(bytes=nbytes, ops=n_ops, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             regimes=sorted({FM.plan(a[0].shape[0], w[0].shape[0],
+                                     a[0].shape[1] * 2).regime for a, w, _ in calls}))
+    prof = "n/a" if r["profiler_ms"] is None else f"{r['profiler_ms']:.4f}"
+    log(f"  {len(calls)} calls ({'+'.join(r['regimes'])}): kernel {r['ms']:.4f} ms "
+        f"(profiler {prof}), plain {r['plain_ms']:.3f} ms, library {lib:.4f} ms "
+        f"(profiler {r['library_profiler_ms']}), "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes / 1e6:.1f} MB, "
+        f"{n_ops / 1e9:.1f} GFLOP)")
+    return r
+
+
+def phase_matmul_groups(torch):
+    """fp4_matmul over one deepseek-v3 decode step's calls and over one
+    full-width llama-200m training step's 210 GEMMs, distinct operands in
+    every call, as the main paths give them."""
+    from repro_torch.core import rht as R
+    from repro_torch.core import rng
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    quant = lambda shape, scale=1.0: ops.nvfp4_fos_quant(
+        torch.randn(shape, generator=g, device="cuda") * scale)
+    groups = {}
+    log(f"phase 3: fp4_matmul over one deepseek-v3 decode step ({DEEPSEEK_LAYERS} "
+        f"layers: 4 MLA projections and the shared expert at M = 4, "
+        f"{DEEPSEEK_LIVE_EXPERTS} live experts x 3 at M = 8; bf16 out)")
+    acts = {(m, k): ops.nvfp4_fos_quant(torch.randn(
+        (m, k), generator=g, device="cuda").bfloat16())
+        for m in (4, 8) for k in (1536, 2048, 7168, 16384)}
+    calls = []
+    for _ in range(DEEPSEEK_LAYERS):
+        per_layer = [(4, DEEPSEEK_SHAPES[nm]) for nm in ("wq_a", "wq_b", "wkv_a", "wo")]
+        per_layer += [(4, DEEPSEEK_SHAPES[nm]) for nm in ("ffn_in", "ffn_in", "ffn_out")]
+        per_layer += [(8, DEEPSEEK_SHAPES[nm]) for _ in range(DEEPSEEK_LIVE_EXPERTS)
+                      for nm in ("ffn_in", "ffn_in", "ffn_out")]
+        for m, (n, k) in per_layer:
+            calls.append((acts[m, k], quant((n, k), k ** -0.5), torch.bfloat16))
+    groups["deepseek_decode"] = matmul_group(torch, FM, ops, calls, 10)
+    del calls
+    torch.cuda.empty_cache()
+
+    log(f"phase 3: fp4_matmul over one training step's 210 GEMMs (T = {TRAIN_T}: "
+        "the forward on 4/6 operands, bf16 out; dX and dW on MS-EDEN operands, f32)")
+    draws = rng.HashDraws([11, 3])
+
+    def requant(shape, tag):
+        x = torch.randn(shape, generator=g, device="cuda")
+        d = shape[1]
+        return ops.ms_eden_requant(x, draws.signs(tag, R.block_size(d), "cuda"),
+                                   draws.uniform(tag + 1, (shape[0], d // 16), "cuda"))
+    calls = []
+    for _ in range(10):
+        for n, k in ARCH_SHAPES.values():
+            calls.append((quant((TRAIN_T, k)), quant((n, k), k ** -0.5), torch.bfloat16))
+            calls.append((requant((TRAIN_T, n), 1), requant((k, n), 3), torch.float32))
+            calls.append((requant((n, TRAIN_T), 5), requant((k, TRAIN_T), 7), torch.float32))
+    groups["train_step"] = matmul_group(torch, FM, ops, calls, 3)
+    del calls
+    torch.cuda.empty_cache()
+    return groups
 
 
 def backward_gemms(t):
@@ -1094,7 +1220,7 @@ def profile_train_step(torch, trainer, state, step_ms):
     for us, key, n in rows[:12]:
         log(f"    {us / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
     by_kernel = {}
-    for name, pat in (("fp4_matmul", "fp4_matmul_kernel"),
+    for name, pat in (("fp4_matmul", KERNEL_SYMBOLS["fp4_matmul"]),
                       ("nvfp4_fos_quant", "nvfp4_fos_quant_kernel"),
                       ("ms_eden_phase1", "ms_eden_phase1_kernel"),
                       ("ms_eden_phase2", "ms_eden_phase2_kernel")):
@@ -1104,6 +1230,23 @@ def profile_train_step(torch, trainer, state, step_ms):
     return {"device_ms_per_step": dev_ms, "busy_share": busy,
             "kernel_ms": by_kernel,
             "top": [(key, us / 1e3, n) for us, key, n in rows[:16]]}
+
+
+def ptxas_summary(build_log: str, prefix: str):
+    """One line per kernel whose mangled name holds `prefix`: its registers,
+    stack, spills and static shared memory, as `nvcc -Xptxas -v` reports."""
+    out, name, frame = [], None, ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = mangled if prefix in mangled else None
+        elif name and "stack frame" in line:
+            frame = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            short = name[name.rindex(prefix):]
+            out.append(f"{short[:40]}: {line.split(':', 1)[1].strip()}; {frame}")
+            name = None
+    return out
 
 
 def main() -> None:
@@ -1137,12 +1280,15 @@ def main() -> None:
               if "spill" in ln and " 0 bytes spill stores" not in ln]
     if spills:
         log("  ptxas reports spills: " + "; ".join(spills))
+    for line in ptxas_summary(build.BUILD_INFO.get("log", ""), "fp4_matmul_"):
+        log("  ptxas " + line)
 
     kern = phase_kernels(torch)
     requant, mm_err = phase_requant(torch)
     kern.update(requant)
     kern["fp4_matmul"]["max_abs_err"] = max(kern["fp4_matmul"]["max_abs_err"], mm_err)
     kern.update(phase_paged_q_mla(torch))
+    kern["fp4_matmul"]["groups"] = phase_matmul_groups(torch)
     phase_small_reference(torch)
     phase_train_reference(torch)
     serving = phase_serving(torch, card)
@@ -1165,7 +1311,14 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "profiler_ms": r["profiler_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **({"library_profiler_ms": r["library_profiler_ms"]}
+               if "library_profiler_ms" in r else {}),
+            **({"groups": {gname: {key: grp[key] for key in (
+                "calls", "ms", "profiler_ms", "plain_ms", "library_ms",
+                "library_profiler_ms", "bound_ms", "bound_by")}
+                for gname, grp in r["groups"].items()}}
+               if "groups" in r else {})})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -90,9 +90,10 @@ def _dequant_packed(p, s, g, dtype=torch.bfloat16) -> torch.Tensor:
     return (FM.block_values(p, s) * g).to(dtype)
 
 
-def _qmm(qa, qb) -> torch.Tensor:
-    """Simulated NVFP4 GEMM: (Ma, D) x (Mb, D) -> (Ma, Mb) in fp32."""
-    return ops.fp4_matmul(qa[0], qa[1], qb[0], qb[1], qa[2], qb[2])
+def _qmm(qa, qb, out_dtype=torch.float32) -> torch.Tensor:
+    """Simulated NVFP4 GEMM: (Ma, D) x (Mb, D) -> (Ma, Mb), fp32 accumulation;
+    out_dtype f32, or bf16 rounded from the f32 result by the GEMM itself."""
+    return ops.fp4_matmul(qa[0], qa[1], qb[0], qb[1], qa[2], qb[2], out_dtype)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -116,7 +117,7 @@ def _qlinear_packed(x: torch.Tensor, w: PackedQWeight, scheme: str):
     xf = x.reshape(-1, x.shape[-1])
     qw = (w.packed, w.scale_bits, w.gscale)
     if sch.fwd_x != "none":
-        y = _qmm(_quant_packed(xf, sch.fwd_x), qw)
+        y = _qmm(_quant_packed(xf, sch.fwd_x), qw, x.dtype)
     else:
         y = _mm(xf, _dequant_packed(*qw))
     return y.to(x.dtype).reshape(*lead, -1)
@@ -200,7 +201,7 @@ class _QLinear(torch.autograd.Function):
         qx = _quant_packed(xf, sch.fwd_x) if sch.fwd_x != "none" else None
         qw = _quant_packed(w, sch.fwd_w) if sch.fwd_w != "none" else None
         if qx is not None and qw is not None:
-            y = _qmm(qx, qw)
+            y = _qmm(qx, qw, x.dtype)
         elif qx is not None:
             y = _mm(_dequant_packed(*qx), w)
         elif qw is not None:

@@ -71,9 +71,13 @@ def nvfp4_fos_quant(x: torch.Tensor):
     return packed, scale_bits, gscale
 
 
-def fp4_matmul(a_packed, a_scale_bits, b_packed, b_scale_bits, ga, gb):
+def fp4_matmul(a_packed, a_scale_bits, b_packed, b_scale_bits, ga, gb,
+               out_dtype=torch.float32):
     """NVFP4 GEMM: a (M, K/2) packed + (M, K/16) scale bits against b (N-major,
-    likewise), per-tensor scales ga, gb (f32, one element each) -> f32 (M, N)."""
+    likewise), per-tensor scales ga, gb (f32, one element each) -> (M, N) in
+    out_dtype: f32, or bf16 rounded to nearest from the f32 result (bitwise
+    the f32 result's `.to(torch.bfloat16)`). On the card M picks the kernel
+    (`fp4_matmul.plan`); both count as one launch here."""
     name = "fp4_matmul"
     ops = (a_packed, a_scale_bits, b_packed, b_scale_bits)
     _need(all(t.dtype == torch.uint8 and t.dim() == 2 for t in ops), name,
@@ -90,11 +94,14 @@ def fp4_matmul(a_packed, a_scale_bits, b_packed, b_scale_bits, ga, gb):
     _need(ga.dtype == torch.float32 and gb.dtype == torch.float32
           and ga.numel() == 1 and gb.numel() == 1, name,
           "ga, gb must be one-element float32 tensors")
+    _need(out_dtype in (torch.float32, torch.bfloat16), name,
+          f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if _device(name, *ops, ga, gb) == "cpu":
-        return FM.fp4_matmul_plain(*ops, ga, gb)
+        return FM.fp4_matmul_plain(*ops, ga, gb, out_dtype)
     _need(all(t.is_contiguous() for t in ops), name,
           "operands must be contiguous")
-    out = torch.empty((m, n), dtype=torch.float32, device=a_packed.device)
+    _need(m > 0 and n > 0 and k > 0, name, f"empty GEMM ({m}, {n}, {k})")
+    out = torch.empty((m, n), dtype=out_dtype, device=a_packed.device)
     FM.launch(*ops, ga, gb, out)
     LAUNCHES[name] += 1
     return out

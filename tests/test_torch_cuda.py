@@ -10,8 +10,11 @@ Every test skips where no CUDA device is present; the decision is made in a
 fixture, never at import. Tolerances are the kernel bars of the port:
   - nvfp4_fos_quant: scales and gscale equal; codes may differ only on
     rounding ties, for < 1e-4 of elements and by at most one grid step;
-  - fp4_matmul: |C_kernel - C_plain| <= 1e-5 * max|C_plain| (exact block
-    values; only the fp32 summation order differs);
+  - fp4_matmul (both kernels: M <= 16 and M > 16): |C_kernel - C_plain|
+    <= 1e-5 * max|C_plain| (exact block values; only the fp32 summation
+    order differs); the bf16 output is bitwise the f32 output rounded to
+    bf16, so against the plain f32 result it is within that bar plus one
+    bf16 rounding (2^-8 |C|); two calls bitwise equal;
   - paged_gqa, paged_gqa_q, paged_mla, paged_mla_q: |o_kernel - o_plain|
     <= 5e-6 + 1e-5 |o_plain|, the bar of tests/test_paged_attention.py and
     tests/test_kv_quant.py (the packed kernels decode exactly, so only the
@@ -100,18 +103,84 @@ def test_nvfp4_fos_quant_zero_and_counts(dev):
     assert ops.LAUNCHES["nvfp4_fos_quant"] == 1
 
 
-@pytest.mark.parametrize("m", [4, 64, 5])
-@pytest.mark.parametrize("n,k", [(1280, 1280), (3456, 1280), (1280, 3456)])
-def test_fp4_matmul_matches_plain(dev, m, n, k):
-    g = torch.Generator(device=dev).manual_seed(m + n + k)
+FP4_MATMUL_NK = [(1280, 1280), (3456, 1280), (1280, 3456), (576, 16), (576, 48),
+                 (576, 2048), (576, 7168)]
+
+
+def _fp4_operands(dev, m, n, k, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
     a = ops.nvfp4_fos_quant(torch.randn((m, k), generator=g, device=dev))
     b = ops.nvfp4_fos_quant(torch.randn((n, k), generator=g, device=dev))
-    c = ops.fp4_matmul(a[0], a[1], b[0], b[1], a[2], b[2])
+    return a[0], a[1], b[0], b[1], a[2], b[2]
+
+
+# both regimes and their boundary (M <= 16: the weight-streaming kernel,
+# M > 16: the wgmma kernel); N = 576 off both kernels' tiles; K = 16 and 48
+# (not a multiple of 32 or 64: the byte-load paths)
+@pytest.mark.parametrize("m", [4, 64, 5, 1, 8, 15, 16, 17, 63, 65, 2048])
+@pytest.mark.parametrize("n,k", FP4_MATMUL_NK)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fp4_matmul_matches_plain(dev, m, n, k, out_dtype):
+    args = _fp4_operands(dev, m, n, k, m + n + k)
+    FM.REGIME_LAUNCHES.update(gemv=0, mma=0)
+    c = ops.fp4_matmul(*args, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    ref = FM.fp4_matmul_plain(a[0], a[1], b[0], b[1], a[2], b[2])
-    assert c.shape == (m, n) and c.dtype == torch.float32
-    err = (c - ref).abs().max().item()
-    assert err <= 1e-5 * ref.abs().max().item(), err
+    regime = "gemv" if m <= FM.GEMV_MAX_M else "mma"
+    assert FM.REGIME_LAUNCHES == {"gemv": int(regime == "gemv"),
+                                  "mma": int(regime == "mma")}
+    ref = FM.fp4_matmul_plain(*args)
+    assert c.shape == (m, n) and c.dtype == out_dtype
+    if out_dtype == torch.float32:
+        err = (c - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err
+    else:  # the bf16 rounding of a result within the f32 bar
+        err = (c.float() - ref).abs()
+        assert (err <= 2.0**-8 * ref.abs() + 1e-5 * ref.abs().max()).all()
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 2048, 7168), (4, 7168, 16384),
+                                   (2048, 1280, 3456), (65, 576, 48)])
+def test_fp4_matmul_deterministic_and_bf16_is_cast(dev, m, n, k):
+    """Two calls agree bit for bit (split-K partials summed in a fixed
+    order, no atomics), and the bf16 output is bitwise the f32 output's
+    round to nearest."""
+    args = _fp4_operands(dev, m, n, k, 3)
+    c1, c2 = ops.fp4_matmul(*args), ops.fp4_matmul(*args)
+    cb = ops.fp4_matmul(*args, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(c1, c2)
+    assert torch.equal(cb, c1.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_fp4_matmul_zero_and_extreme_operands(dev, m):
+    """All-zero operands give exact zeros; the largest block values (e2m1 6
+    x e4m3 448 in every element) give K * 2688^2 * ga * gb exactly (a sum
+    of equal powers-of-two multiples stays exact in f32), and its bf16
+    rounding in bf16."""
+    n, k = 96, 512
+    zp = torch.zeros((m, k // 2), dtype=torch.uint8, device=dev)
+    zs = torch.zeros((m, k // 16), dtype=torch.uint8, device=dev)
+    one = torch.ones((), device=dev)
+    wz = (torch.zeros((n, k // 2), dtype=torch.uint8, device=dev),
+          torch.zeros((n, k // 16), dtype=torch.uint8, device=dev))
+    c = ops.fp4_matmul(zp, zs, *wz, one, one)
+    assert int((c != 0).sum()) == 0
+    # code 7 (6.0) in both nibbles, scale bits 0x7E (448); A negated (code 15)
+    ap = torch.full((m, k // 2), 0xFF, dtype=torch.uint8, device=dev)
+    asb = torch.full((m, k // 16), 0x7E, dtype=torch.uint8, device=dev)
+    bp = torch.full((n, k // 2), 0x77, dtype=torch.uint8, device=dev)
+    bsb = torch.full((n, k // 16), 0x7E, dtype=torch.uint8, device=dev)
+    ga = torch.full((), 0.5, device=dev)
+    gb = torch.full((), 2.0**-10, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        c = ops.fp4_matmul(ap, asb, bp, bsb, ga, gb, out_dtype=dt)
+        ref = FM.fp4_matmul_plain(ap, asb, bp, bsb, ga, gb, dt)
+        torch.cuda.synchronize()
+        assert torch.equal(c, ref)
+        exact = torch.tensor(-k * 2688.0**2 * 0.5 * 2.0**-10).to(dt)
+        assert float(c[0, 0]) == float(exact)
 
 
 def _pool_case(dev, b, sq, h, kv, hd, bs, maxb, lens, window=None,

@@ -12,9 +12,10 @@ the reference's source and its eager run, divides (IEEE).
 - the plain `fp4_matmul` op against the reference's Pallas kernel (interpret
   mode): |dC| <= 1e-5 max|C| (exact block values; only the fp32 summation
   order differs);
-- `qlinear` on packed (quartet2) and raw (bf16) weights against the
-  reference: equal (bf16 outputs; the fp32 sums round to the same bf16 at
-  these sizes, allowed one bf16 ulp);
+- `qlinear` under every registered scheme, on packed weights where the
+  scheme quantizes them and raw ones otherwise, against the reference:
+  equal (bf16 outputs; the fp32 sums round to the same bf16 at these sizes,
+  allowed one bf16 ulp);
 - inside the port, prequant == per-step quantization, bitwise.
 """
 
@@ -33,6 +34,7 @@ from repro_torch.configs import registry
 from repro_torch.convert import params_from_jax
 from repro_torch.core import formats as F
 from repro_torch.core import linear as L
+from repro_torch.core import schemes
 from repro_torch.kernels import ops
 from repro_torch.serve import prequant
 
@@ -102,16 +104,20 @@ def _bf16_ulps(a, b):
     return (a - b).abs().max().item()
 
 
-@pytest.mark.parametrize("scheme", ["quartet2", "bf16"])
+@pytest.mark.parametrize("scheme", schemes.names())
 @pytest.mark.parametrize("m,n,k", [(4, 96, 128), (3, 128, 3456)])
 def test_qlinear_vs_jax(scheme, m, n, k):
+    """Every registered scheme's forward: a packed weight (its forward weight
+    quantizer) where the scheme quantizes weights, else the raw one. Where
+    both sides quantize, the GEMM itself writes bf16."""
     x = _rand((2, m, k), 5)
     w = _rand((n, k), 6, k ** -0.5)
     jx = jnp.asarray(x).astype(jnp.bfloat16)
     tx = torch.from_numpy(x).bfloat16()
-    if scheme == "quartet2":
-        jw, tw = JL.pack_weight(jnp.asarray(w), "fos"), L.pack_weight(
-            torch.from_numpy(w), "fos")
+    kind = schemes.get(scheme).fwd_w
+    if kind != "none":
+        jw, tw = JL.pack_weight(jnp.asarray(w), kind), L.pack_weight(
+            torch.from_numpy(w), kind)
     else:
         jw, tw = jnp.asarray(w), torch.from_numpy(w)
     want = np.asarray(JL.qlinear(jx, jw, SEED, scheme).astype(jnp.float32))
