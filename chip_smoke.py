@@ -31,8 +31,13 @@ Phases (any failure exits non-zero, before the result line):
                MLA decode over bf16 (#7) and NVFP4 (#8) latent pools at
                deepseek-v3's (H 128, lora 512, rope 64; Sq 1 and 16, ragged
                lengths, an inactive row), each timed over one decode step's
-               calls. Every kernel's time is also read from the profiler
-               (its own device time). Then the whole paged step (llama-200m;
+               calls. The split-KV GQA decode (#5, #6) also on cases that
+               stress its splits (yi-9b at Sq 1 and 16 over the NVFP4 pool;
+               over both pools a 1,024-token row, lengths ending on a split
+               edge and one past it, windows that leave whole splits dead),
+               two calls bitwise equal. Every kernel's time is also read
+               from the profiler (its own device time), and so is the
+               yardstick call's. Then the whole paged step (llama-200m;
                deepseek-v3 with both pools) and a quartet2 train step at
                reduced size, card against CPU.
   4. serving — full-width llama-200m (seeded random weights), quartet2,
@@ -115,11 +120,12 @@ SOURCES = {
     "paged_mla_q": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 # the CUDA functions each kernel's profiler time is summed over (fp4_matmul:
-# fp4_matmul_gemv_kernel, fp4_matmul_splitk_reduce_kernel, fp4_matmul_mma_kernel)
+# fp4_matmul_gemv_kernel, fp4_matmul_splitk_reduce_kernel, fp4_matmul_mma_kernel;
+# paged_gqa and paged_gqa_q: paged_gqa_split_kernel, paged_gqa_merge_kernel)
 KERNEL_SYMBOLS = {
     "nvfp4_fos_quant": "nvfp4_fos_quant_kernel", "fp4_matmul": "fp4_matmul_",
-    "paged_gqa": "paged_gqa_kernel", "ms_eden_phase1": "ms_eden_phase1_kernel",
-    "ms_eden_phase2": "ms_eden_phase2_kernel", "paged_gqa_q": "paged_gqa_kernel",
+    "paged_gqa": "paged_gqa_", "ms_eden_phase1": "ms_eden_phase1_kernel",
+    "ms_eden_phase2": "ms_eden_phase2_kernel", "paged_gqa_q": "paged_gqa_",
     "paged_mla": "paged_mla_kernel", "paged_mla_q": "paged_mla_kernel",
 }
 DEEPSEEK_LAYERS = 2  # the depth cut of phase 6 (see the module docstring)
@@ -413,11 +419,16 @@ def phase_kernels(torch):
         library_profiler_ms=device_ms(torch, lib_fn, ""),
         bytes=mm_bytes, ops=mm_ops, peak=BF16_FLOPS, calls=len(mm_calls))
     at_bytes, at_ops = map(sum, zip(*(attn_bytes_ops(*c) for c in attn_layers)))
+    sdpa_fn = lambda: [f() for f in sdpa_calls]
     results["paged_gqa"] = dict(
         fn=at_fn, ms=time_ms(torch, at_fn, 20),
         plain_ms=time_ms(torch, lambda: [PA.paged_gqa_plain(*c) for c in attn_layers], 3),
-        library_ms=time_ms(torch, lambda: [f() for f in sdpa_calls], 20),
+        library_ms=time_ms(torch, sdpa_fn, 20),
+        library_profiler_ms=device_ms(torch, sdpa_fn, ""),
         bytes=at_bytes, ops=at_ops, peak=F32_FLOPS, calls=len(attn_layers))
+    p = PA.plan(4, 1, 10, 10, 16, 16, 128)
+    log(f"  paged_gqa plan at the timed shape: {p.splits} splits of "
+        f"{p.blocks_per_split} blocks, {p.grid} CTAs, row groups {p.row_groups}")
     finish_results(results, errs)
     return results
 
@@ -653,16 +664,19 @@ def paged_table(torch, g, b, maxb, bs, lens, dead=()):
     return table, n_blocks
 
 
-def gqa_q_case(torch, F, b, sq, h, kv, hd, bs, maxb, lens, dead=(), seed=0):
-    """(q, k codes, k scales, v codes, v scales, table, pos) on the card."""
+def gqa_q_case(torch, F, b, sq, h, kv, hd, bs, maxb, lens, dead=(), seed=0,
+               packed=True):
+    """(q, k codes, k scales, v codes, v scales, table, pos) on the card, or
+    with packed=False (q, k, v, table, pos) over the same draws in bf16."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     table, n_blocks = paged_table(torch, g, b, maxb, bs, lens, dead)
     pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
     q = torch.randn((b, sq, h, hd), generator=g).bfloat16()
     k, v = ((torch.randn((n_blocks, bs, kv, hd), generator=g) * 3).bfloat16()
             for _ in range(2))
-    return [t.cuda() for t in (q, *F.nvfp4_cache_encode(k),
-                               *F.nvfp4_cache_encode(v), table, pos)]
+    pools = ((*F.nvfp4_cache_encode(k), *F.nvfp4_cache_encode(v)) if packed
+             else (k, v))
+    return [t.cuda() for t in (q, *pools, table, pos)]
 
 
 def mla_case(torch, F, b, sq, bs, maxb, lens, packed, dead=(), seed=0,
@@ -770,10 +784,12 @@ def phase_paged_q_mla(torch):
                    + pos.numel() * 4 + q.numel() * 4)
         ops_n += pairs * 10 * (2 * 128 + 2 * 128)
     fn = lambda: [ops.paged_gqa_q(*c) for c in gl]
+    sdpa_fn = lambda sd=sd: [f() for f in sd]
     results["paged_gqa_q"] = dict(
         fn=fn, ms=time_ms(torch, fn, 20),
         plain_ms=time_ms(torch, lambda: [PA.paged_gqa_q_plain(*c) for c in gl], 3),
-        library_ms=time_ms(torch, lambda: [f() for f in sd], 20),
+        library_ms=time_ms(torch, sdpa_fn, 20),
+        library_profiler_ms=device_ms(torch, sdpa_fn, ""),
         bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=len(gl))
     lens = [40, 57, 72, 25]  # phase 6's prompts of 16-64 tokens, mid-decode
     for packed, name in ((False, "paged_mla"), (True, "paged_mla_q")):
@@ -799,13 +815,68 @@ def phase_paged_q_mla(torch):
                        + table.numel() * 4 + pos.numel() * 4 + qa.numel() * 4)
             ops_n += pairs * 128 * (2 * 576 + 2 * 512)
         fn = lambda calls=calls, kern=kern: [kern(*c, qk_dim=192) for c in calls]
+        sdpa_fn = lambda sd=sd: [f() for f in sd]
         results[name] = dict(
             fn=fn, ms=time_ms(torch, fn, 20),
             plain_ms=time_ms(torch, lambda: [plain(*c, 192) for c in calls], 3),
-            library_ms=time_ms(torch, lambda sd=sd: [f() for f in sd], 20),
+            library_ms=time_ms(torch, sdpa_fn, 20),
+            library_profiler_ms=device_ms(torch, sdpa_fn, ""),
             bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=len(calls))
     finish_results(results, errs)
     return results
+
+
+def phase_gqa_splits(torch):
+    """#5 and #6, the split-KV kernels, on cases that stress the splits:
+    against their plain versions under the attention bar, and two calls
+    bitwise equal. yi-9b's grouped heads run over the NVFP4 pool (phase 3's
+    bf16 cases hold them over the bf16 pool at unit scale; at this data's 3x
+    scale the plain version's own f32 error reaches the bar there, which
+    tools/gqa_split_probe.py measures against float64), the rest over both
+    pools. Returns the max error of each kernel."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+
+    log(f"phase 3: split-KV GQA decode (splits of {PA.SPLIT_KEYS} keys) on both "
+        "pools, two calls bitwise equal")
+    cases = {
+        "yi-9b decode B4 Sq1 H32 KV4": dict(b=4, sq=1, h=32, kv=4, maxb=16,
+                                            lens=[47, 100, 131, 18], dead=(3,),
+                                            pools=(True,)),
+        "yi-9b chunk B4 Sq16 H32 KV4": dict(b=4, sq=16, h=32, kv=4, maxb=16,
+                                            lens=[16, 64, 100, 33], pools=(True,)),
+        "maxb 64, a 1,024-token row": dict(b=4, sq=1, h=10, kv=10, maxb=64,
+                                           lens=[1024, 517, 31, 300], dead=(2,)),
+        "ends on a split edge, +1, Sq 1": dict(b=4, sq=1, h=10, kv=10, maxb=16,
+                                               lens=[32, 33, 64, 65]),
+        "ends on a split edge, +1, Sq 16": dict(b=4, sq=16, h=10, kv=10, maxb=16,
+                                                lens=[32, 33, 64, 65]),
+        "window 40: whole splits dead": dict(b=4, sq=1, h=10, kv=10, maxb=64,
+                                             lens=[1024, 200, 41, 90], window=40),
+        "window 50, Sq 16, yi-9b heads": dict(b=2, sq=16, h=32, kv=4, maxb=16,
+                                              lens=[256, 70], window=50,
+                                              pools=(True,)),
+    }
+    errs = {"paged_gqa": 0.0, "paged_gqa_q": 0.0}
+    for i, (label, c) in enumerate(cases.items()):
+        c = dict(c)
+        window = c.pop("window", None)
+        for packed in c.pop("pools", (False, True)):
+            name = "paged_gqa_q" if packed else "paged_gqa"
+            args = gqa_q_case(torch, F, hd=128, bs=16, seed=300 + i,
+                              packed=packed, **c)
+            kern = ops.paged_gqa_q if packed else ops.paged_gqa
+            plain = PA.paged_gqa_q_plain if packed else PA.paged_gqa_plain
+            out = kern(*args, window=window)
+            again = kern(*args, window=window)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], check_against_plain(
+                torch, name, out, plain(*args, window=window), c.get("dead", ()),
+                label))
+            if not torch.equal(out, again):
+                fail(f"{name} {label}: two calls on the same inputs differ")
+    return errs
 
 
 def phase_train_reference(torch):
@@ -1145,8 +1216,14 @@ def profile_decode(torch, eng, Request, prompts, steps: int = 8):
         f"{busy:.1%}, idle {1 - busy:.1%}; device time per step by kernel:")
     for us, key, n in rows[:10]:
         log(f"    {us / 1e3 / steps:8.4f} ms  {n // steps:4d}x  {key[:90]}")
+    # each port kernel's device ms per step (paged_gqa and paged_gqa_q share
+    # their CUDA functions; a path runs one of them)
+    by_kernel = {name: sum(us for us, key, _ in rows if sym in key) / 1e3 / steps
+                 for name, sym in KERNEL_SYMBOLS.items()}
+    log("    port kernels, ms per step: " + ", ".join(
+        f"{name} {ms:.4f}" for name, ms in by_kernel.items() if ms > 0))
     return {"device_ms_per_step": dev_step_ms, "host_ms_per_step": step_ms,
-            "busy_share": busy,
+            "busy_share": busy, "kernel_ms": by_kernel,
             "top": [(key, us / 1e3 / steps, n // steps) for us, key, n in rows[:12]]}
 
 
@@ -1244,7 +1321,7 @@ def ptxas_summary(build_log: str, prefix: str):
             frame = line.strip()
         elif name and "Used" in line and "registers" in line:
             short = name[name.rindex(prefix):]
-            out.append(f"{short[:40]}: {line.split(':', 1)[1].strip()}; {frame}")
+            out.append(f"{short[:60]}: {line.split(':', 1)[1].strip()}; {frame}")
             name = None
     return out
 
@@ -1280,14 +1357,17 @@ def main() -> None:
               if "spill" in ln and " 0 bytes spill stores" not in ln]
     if spills:
         log("  ptxas reports spills: " + "; ".join(spills))
-    for line in ptxas_summary(build.BUILD_INFO.get("log", ""), "fp4_matmul_"):
-        log("  ptxas " + line)
+    for prefix in ("fp4_matmul_", "paged_gqa_"):
+        for line in ptxas_summary(build.BUILD_INFO.get("log", ""), prefix):
+            log("  ptxas " + line)
 
     kern = phase_kernels(torch)
     requant, mm_err = phase_requant(torch)
     kern.update(requant)
     kern["fp4_matmul"]["max_abs_err"] = max(kern["fp4_matmul"]["max_abs_err"], mm_err)
     kern.update(phase_paged_q_mla(torch))
+    for k, err in phase_gqa_splits(torch).items():
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
     kern["fp4_matmul"]["groups"] = phase_matmul_groups(torch)
     phase_small_reference(torch)
     phase_train_reference(torch)

@@ -37,8 +37,9 @@ SIGNATURES = {
     "nvfp4_fos_quant_launch": (_P, _I, _P, _P, _P, _P, _L, _L, _F, _F, _F, _P),
     "fp4_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
                           _I, _I, _P),
-    "paged_gqa_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                         _L, _L, _L, _L, _L, _L, _L, _F, _P),
+    "paged_gqa_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _L, _L, _L,
+                         _P),
     "paged_mla_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L,
                          _L, _L, _L, _L, _L, _L, _F, _P),
     "ms_eden_phase1_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _F, _F,

@@ -2,7 +2,7 @@
 // (sm_90a): GQA over the bf16 pool (#5) and the NVFP4 pool (#6), and the
 // absorbed-form MLA latent decode over bf16 (#7) and NVFP4 (#8) latent pools.
 //
-// ---- GQA: paged_gqa_kernel<TQ, BS, kPacked> ------------------------------
+// ---- GQA: paged_gqa_split_kernel + paged_gqa_merge_kernel -----------------
 // Replaces: src/repro/kernels/paged_attention.py:paged_gqa_call (Pallas body
 // _gqa_kernel via _gqa_sweep and _online_update) and, with kPacked,
 // paged_gqa_q_call (_gqa_q_kernel, whose _dequant_tile decodes the packed
@@ -18,22 +18,50 @@
 //     exactly 0, P.V accumulates in fp32, and a row with l == 0 returns
 //     exact zeros.
 //
-// Bound on the H100: memory bytes. Each live K/V block is read once per
-// query head (GQA groups re-read it from L2) and the flops per byte are ~Sq;
-// at decode (Sq = 1) the sweep is a pure stream of the row's cache. The
-// packed pool moves 0.28125x the bf16 bytes (d/2 code bytes + d/16 scale
-// bytes per token row).
+// Bound on the H100: at serving shapes, latency and occupancy, not bytes. A
+// llama-200m decode call reads ~0.15 MB (NVFP4) or ~0.5 MB (bf16) of K/V,
+// under 0.2 us at 3.35 TB/s; what costs is the chain table -> block ->
+// bytes -> scores -> softmax of each row, and how few of the 132 SMs a
+// (row, head) grid keeps busy (40 blocks at 4 slots x 10 heads).
 //
-// Design: one 128-thread block per (batch row, query head). The block reads
-// its own table[b, j] and pos[b] (no scalar prefetch) and loops over the
-// logical blocks; a live block's K and V are staged once in shared memory as
-// fp32 by the loader: a bf16 cast, or for the packed pool an arithmetic
-// e2m1 x e4m3 decode (exact in f32, so the kernel sees bit-identical
-// operands to the gather path's bf16 dequant). Each of the 4 warps owns
-// query rows s = warp, warp + 4, ... (Sq <= 16); a lane owns head dims
-// lane + 32 i, so a score is a warp reduction and the running (m, l, acc)
-// of the online softmax stay in registers. expf and division are the IEEE
-// versions (no fast math).
+// Design, point by point:
+//   - split-KV (flash decoding): one 128-thread CTA per (row b, KV head g,
+//     split), a split being a fixed run of logical blocks from
+//     kernels/paged_attention.py:plan (shape-only, so a call's bits never
+//     depend on timing). Each CTA writes a partial (m, l, acc) per query row;
+//     a split with no live block writes (NEG_INF, 0) and leaves. The second
+//     kernel merges the partials in split order (no atomics: two calls are
+//     bitwise equal); it takes about a third of a llama-200m decode call's
+//     device time (PERF.md), the price of a fixed order without counters.
+//     With one split the CTA writes the output itself.
+//   - every warp busy at Sq = 1: the CTA's R = Sq x (H/KV) query rows are
+//     spread over `row_groups` (1, 2 or 4) warp groups and the keys of each
+//     block over the remaining 4 / row_groups warps (key t goes to key group
+//     t mod key_groups). Each warp keeps its own (m, l, acc) for up to 4 rows
+//     and scores 4 keys x 4 rows at once: a transposed butterfly (16
+//     shuffles, not 80) leaves each lane pair with one whole score, so the
+//     division, mask and exp run once per score spread over the lanes, not
+//     on every lane; the probabilities reach the P.V lanes through shared
+//     memory. The key groups merge through shared memory in fixed warp
+//     order.
+//   - GQA: the CTA serves all H/KV query heads of its KV head, so each K/V
+//     block is loaded, and decoded, once per KV head.
+//   - vector loads: a (token, head) row comes in as 16-byte cp.async chunks
+//     (8 bf16, or 32 NVFP4 codes); the packed pool is decoded once per
+//     16-group (one 8-byte code load, one scale byte decoded once, 16
+//     nibbles by bit arithmetic) to bf16 in shared memory. e2m1 x e4m3 has
+//     <= 6 significant bits, so the decode is exact and both pools leave the
+//     same bf16 operands that the plain version's gather dequantizes to.
+//   - overlap: the table entries of the split are read once into shared
+//     memory, every live block of the split is put in flight at once (one
+//     cp.async group each), and block k is computed as soon as its group
+//     lands while the later blocks still arrive. Splits are short (16 keys
+//     at serving shapes, one block at BS 16 and 32: measured faster on the
+//     card than 32 or 64, PERF.md), so the bytes of one CTA overlap the
+//     math of the others on its SM: a CTA holds 8 KB of bf16 tiles (2.3 KB
+//     more of packed rows) and 8.5 KB of merge buffers, and four fit an SM
+//     by registers.
+// expf and division are the IEEE versions (no fast math).
 //
 // ---- MLA: paged_mla_kernel<TR, BS, kPacked> ------------------------------
 // Replaces: src/repro/kernels/paged_attention.py:paged_mla_call (_mla_kernel
@@ -51,12 +79,12 @@
 // far above the ~20 at which the CUDA cores' 67 TFLOP/s and 3.35 TB/s
 // balance.
 //
-// Design: #5's layout does not fit (a 512-wide accumulator per head, 128
+// Design: the GQA layout does not fit (a 512-wide accumulator per head, 128
 // heads sharing one latent block). The grid splits each row's (Sq x H)
 // query-head pairs into tiles of 4, one per warp of a 128-thread block; a
 // live (BS, lora + rope) latent block is staged ONCE per CUDA block in
-// dynamic shared memory as f32 (<= 36.9 KB at BS 16) by the same loader as
-// #5/#6 (rope 64 -> 4 scale groups when packed), and the block's 4 heads all
+// dynamic shared memory as f32 (<= 36.9 KB at BS 16) by the per-element
+// loader load_elem (rope 64 -> 4 scale groups when packed), and its 4 heads all
 // sweep it from there (the row's other head tiles read it again from L2;
 // 4 heads per block keep ~1 wave of blocks on the 132 SMs at 4 decode rows). A lane owns latent dims lane + 32 i (16 of 512) and rope dims
 // lane + 32 i (2 of 64), so (m, l) and the 16-float accumulator stay in
@@ -72,9 +100,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxD = 128;                 // head dim / value dim cap
-constexpr int kPerLane = kMaxD / 32;
 constexpr int kMaxSq = 16;
-constexpr int kRowsPerWarp = kMaxSq / kWarps;
 constexpr float kNegInf = -1e30f;
 
 template <typename T>
@@ -125,137 +151,533 @@ __device__ __forceinline__ float load_elem(const void* __restrict__ data,
   }
 }
 
+constexpr int kRowChunk = 4;        // query rows one warp carries at once
+constexpr int kKeyGroup = 4;        // keys one warp scores together
+constexpr int kPairs = kRowChunk * kKeyGroup;  // scores of one group: 16
+constexpr int kMaxSplitKeys = 64;   // keys of one split (blocks x BS)
+constexpr int kMaxSplitBlocks = 16; // blocks of one split (<= 32: one ballot)
+
+__device__ __forceinline__ float bf16_bits_to_f32(uint32_t hi16) {
+  return __uint_as_float(hi16 << 16);
+}
+
+// 4 consecutive bf16 from shared memory (8-byte aligned) as f32.
+__device__ __forceinline__ void load_bf16x4(const __nv_bfloat16* p, float o[4]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  o[0] = bf16_bits_to_f32(w.x & 0xffffu);
+  o[1] = __uint_as_float(w.x & 0xffff0000u);
+  o[2] = bf16_bits_to_f32(w.y & 0xffffu);
+  o[3] = __uint_as_float(w.y & 0xffff0000u);
+}
+
+// E2M1 code -> f32 by its bits: magnitudes 0, 0.5, then (k + 252) << 22
+// for k >= 2 (1, 1.5, 2, 3, 4, 6); bit 3 is the sign.
+__device__ __forceinline__ float e2m1_value(uint32_t c) {
+  const uint32_t k = c & 7u;
+  const uint32_t mag = k >= 2u ? (k + 252u) << 22 : (k ? 0x3F000000u : 0u);
+  return __uint_as_float(mag | ((c & 8u) << 28));
+}
+
+// Raw float8_e4m3fn bits -> f32: (1 + m/8) 2^(e-7), subnormal m 2^-9.
+__device__ __forceinline__ float e4m3_value(uint32_t b) {
+  const uint32_t e = (b >> 3) & 15u, m = b & 7u;
+  const float mag = e ? __uint_as_float(((e + 120u) << 23) | (m << 20))
+                      : (float)m * 0.001953125f;
+  return (b & 0x80u) ? -mag : mag;
+}
+
+// One 16-group of the NVFP4 pool (8 code bytes, one scale byte) -> 16 bf16,
+// exact: the scale is decoded once, each nibble's value times it has <= 6
+// significant bits.
+__device__ __forceinline__ void decode_group16(uint2 w, uint32_t sbyte,
+                                               __nv_bfloat16* dst) {
+  const float sc = e4m3_value(sbyte);
+  uint32_t o[8];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t x = half ? w.y : w.x;
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      const __nv_bfloat162 pr = __floats2bfloat162_rn(
+          e2m1_value(x >> (4 * e)) * sc, e2m1_value(x >> (4 * e + 4)) * sc);
+      o[half * 4 + e / 2] = *reinterpret_cast<const uint32_t*>(&pr);
+    }
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// One `chunk`-byte piece global -> shared: cp.async for 16/8/4 bytes (both
+// addresses aligned to it), a synchronous byte copy below that.
+__device__ __forceinline__ void copy_chunk(uint8_t* dst, const uint8_t* src,
+                                           int chunk) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if (chunk == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(d), "l"(src) : "memory");
+  } else if (chunk == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" :: "r"(d), "l"(src) : "memory");
+  } else if (chunk == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(d), "l"(src) : "memory");
+  } else {
+    for (int i = 0; i < chunk; ++i) dst[i] = src[i];
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most n of this thread's cp.async groups are in flight (a
+// smaller immediate than n only waits longer).
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;" ::: "memory"); break;
+  }
+}
+
+// One step of the transposed butterfly over 2 kHalf values a lane: lanes
+// whose bit `o` is set keep the upper half, the others the lower, each
+// adding its partner's copy of the half it keeps.
+template <int kHalf>
+__device__ __forceinline__ void fold(float (&v)[kPairs], int lane, int o) {
+  const bool up = lane & o;
+#pragma unroll
+  for (int t = 0; t < kHalf; ++t) {
+    const float send = up ? v[t] : v[t + kHalf];
+    const float keep = up ? v[t + kHalf] : v[t];
+    v[t] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// The (token t, KV head g) rows of pool block `blk` of one leaf (row_bytes
+// each, `kv` heads per token) -> dst[t * row_bytes], by the whole CTA.
+template <int BS>
+__device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* src,
+                                           int64_t blk, int kv, int g,
+                                           int row_bytes, int chunk) {
+  const int per_row = row_bytes / chunk;
+  for (int i = threadIdx.x; i < BS * per_row; i += kThreads) {
+    const int t = i / per_row, c = (i - t * per_row) * chunk;
+    copy_chunk(dst + t * row_bytes + c,
+               src + ((blk * BS + t) * kv + g) * (int64_t)row_bytes + c, chunk);
+  }
+}
+
+__host__ __device__ constexpr int64_t align16(int64_t n) { return (n + 15) & ~15; }
+
+// Shared-memory layout of one split of sk keys: the bf16 K and V tiles the
+// warps read, then (packed) the raw code and scale rows cp.async lands.
+struct GqaSmem {
+  int64_t ktile, vtile, kc, ks, vc, vs, bytes;
+  __host__ __device__ GqaSmem(int64_t sk, int64_t hd, int64_t vd, bool packed) {
+    ktile = 0;
+    vtile = align16(sk * hd * 2);
+    kc = vtile + align16(sk * vd * 2);
+    ks = kc + (packed ? align16(sk * hd / 2) : 0);
+    vc = ks + (packed ? align16(sk * hd / 16) : 0);
+    vs = vc + (packed ? align16(sk * vd / 2) : 0);
+    bytes = vs + (packed ? align16(sk * vd / 16) : 0);
+  }
+};
+
+// The copy chunk (bytes) of each leaf: K codes or bf16 rows, K scales, V
+// codes or bf16 rows, V scales (see chunk_for).
+struct Chunks {
+  int k, ks, v, vs;
+};
+
 template <typename TQ, int BS, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
-paged_gqa_kernel(const TQ* __restrict__ q, const void* __restrict__ kp,
-                 const uint8_t* __restrict__ k_scales,
-                 const void* __restrict__ vp,
-                 const uint8_t* __restrict__ v_scales,
-                 const int32_t* __restrict__ table,
-                 const int32_t* __restrict__ pos, float* __restrict__ out,
-                 int sq, int h_total, int kv, int hd, int vd,
-                 int64_t n_blocks, int maxb, int window, float sqrt_hd) {
-  __shared__ float ks[BS][kMaxD];
-  __shared__ float vs[BS][kMaxD];
-  const int b = blockIdx.x / h_total;
-  const int h = blockIdx.x % h_total;
-  const int g = h / (h_total / kv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
+                       const uint8_t* __restrict__ k_scales,
+                       const uint8_t* __restrict__ vp,
+                       const uint8_t* __restrict__ v_scales,
+                       const int32_t* __restrict__ table,
+                       const int32_t* __restrict__ pos, float* __restrict__ out,
+                       float* __restrict__ part_acc, float* __restrict__ part_ml,
+                       int sq, int h_total, int kv, int hd, int vd,
+                       int64_t n_blocks, int maxb, int window, float sqrt_hd,
+                       int bps, int n_splits, int row_groups, Chunks chunks) {
+  extern __shared__ __align__(16) uint8_t gqa_smem[];
+  __shared__ __align__(16) float red_acc[kWarps][kRowChunk][kMaxD];
+  __shared__ float red_ml[kWarps][kRowChunk][2];
+  __shared__ __align__(16) float pbuf[kWarps][kPairs];     // a group's p
+  __shared__ __align__(16) float cbuf[kWarps][kRowChunk];  // its rows' corr
+  __shared__ int64_t live_blk[kMaxSplitBlocks];
+  __shared__ int live_j[kMaxSplitBlocks];
+  __shared__ int n_live;
+
+  const int split = blockIdx.x % n_splits;
+  const int g = (blockIdx.x / n_splits) % kv;
+  const int b = blockIdx.x / n_splits / kv;
+  const int rep = h_total / kv;
+  const int rows = sq * rep;  // r = s * rep + i: query token s, head g*rep+i
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int p0 = pos[b];
   const int pmax = p0 + sq - 1;
+  const int j0 = split * bps;
+  const int nj = min(bps, maxb - j0);
+  auto out_row = [&](int r) -> int64_t {
+    const int s = r / rep;
+    return ((int64_t)b * sq + s) * h_total + (int64_t)g * rep + (r - s * rep);
+  };
 
-  float qr[kRowsPerWarp][kPerLane];
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kPerLane];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int s = warp + kWarps * i;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      const int d = lane + 32 * e;
-      acc[i][e] = 0.f;
-      qr[i][e] = (s < sq && d < hd)
-          ? to_f32<TQ>(q[(((int64_t)b * sq + s) * h_total + h) * hd + d]) : 0.f;
+  // the split's table entries, once: live blocks compacted in logical order
+  if (warp == 0) {
+    bool live = false;
+    int64_t blk = 0;
+    if (lane < nj) {
+      const int j = j0 + lane;
+      blk = table[(int64_t)b * maxb + j];
+      live = blk >= 0 && blk < n_blocks && (int64_t)j * BS <= pmax;
+      if (window > 0)
+        live = live && ((int64_t)(j + 1) * BS - 1 > (int64_t)p0 - window);
     }
+    const unsigned mask = __ballot_sync(0xffffffffu, live);
+    if (live) {
+      const int k = __popc(mask & ((1u << lane) - 1u));
+      live_blk[k] = blk;
+      live_j[k] = j0 + lane;
+    }
+    if (lane == 0) n_live = __popc(mask);
+  }
+  __syncthreads();
+  const int nl = n_live;
+
+  if (nl == 0) {  // no live key: (NEG_INF, 0), or exact zeros with one split
+    if (n_splits > 1) {
+      for (int r = threadIdx.x; r < rows; r += kThreads) {
+        float* ml = part_ml + (out_row(r) * n_splits + split) * 2;
+        ml[0] = kNegInf;
+        ml[1] = 0.f;
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows * vd; i += kThreads)
+        out[out_row(i / vd) * vd + i % vd] = 0.f;
+    }
+    return;
   }
 
-  for (int j = 0; j < maxb; ++j) {
-    const int64_t blk = table[(int64_t)b * maxb + j];
-    bool live = blk >= 0 && blk < n_blocks && (int64_t)j * BS <= pmax;
-    if (window > 0) live = live && ((int64_t)(j + 1) * BS - 1 > (int64_t)p0 - window);
-    if (!live) continue;  // uniform over the block: every thread read blk
-
-    __syncthreads();      // the previous live block's readers are done
-    for (int i = threadIdx.x; i < BS * hd; i += kThreads) {
-      const int t = i / hd, d = i % hd;
-      ks[t][d] = load_elem<kPacked>(kp, k_scales, (blk * BS + t) * kv + g, d, hd);
+  // every live block in flight at once, one cp.async group each
+  const int sk = bps * BS;
+  const GqaSmem lay(sk, hd, vd, kPacked);
+  __nv_bfloat16* ktile = reinterpret_cast<__nv_bfloat16*>(gqa_smem + lay.ktile);
+  __nv_bfloat16* vtile = reinterpret_cast<__nv_bfloat16*>(gqa_smem + lay.vtile);
+  for (int k = 0; k < nl; ++k) {
+    const int64_t blk = live_blk[k];
+    if constexpr (kPacked) {
+      stage_rows<BS>(gqa_smem + lay.kc + k * BS * (hd / 2), kp, blk, kv, g, hd / 2, chunks.k);
+      stage_rows<BS>(gqa_smem + lay.ks + k * BS * (hd / 16), k_scales, blk, kv, g, hd / 16, chunks.ks);
+      stage_rows<BS>(gqa_smem + lay.vc + k * BS * (vd / 2), vp, blk, kv, g, vd / 2, chunks.v);
+      stage_rows<BS>(gqa_smem + lay.vs + k * BS * (vd / 16), v_scales, blk, kv, g, vd / 16, chunks.vs);
+    } else {
+      stage_rows<BS>(reinterpret_cast<uint8_t*>(ktile + k * BS * hd), kp, blk, kv, g, hd * 2, chunks.k);
+      stage_rows<BS>(reinterpret_cast<uint8_t*>(vtile + k * BS * vd), vp, blk, kv, g, vd * 2, chunks.v);
     }
-    for (int i = threadIdx.x; i < BS * vd; i += kThreads) {
-      const int t = i / vd, d = i % vd;
-      vs[t][d] = load_elem<kPacked>(vp, v_scales, (blk * BS + t) * kv + g, d, vd);
+    cp_async_commit();
+  }
+
+  const int rg = warp % row_groups, kg = warp / row_groups;
+  const int key_groups = kWarps / row_groups;
+  const int keys_per_warp = BS / key_groups;  // BS >= 4 >= key_groups
+  const int per_group = (rows + row_groups - 1) / row_groups;
+  const int n_chunks = (per_group + kRowChunk - 1) / kRowChunk;
+  const int d0 = lane * 4;  // a lane owns dims d0 .. d0 + 3
+  const bool lane_k = d0 < hd, lane_v = d0 < vd;
+  // the (row, key) pair of a group whose score this lane computes
+  const int jl = (lane & 16 ? 8 : 0) | (lane & 8 ? 4 : 0) | (lane & 4 ? 2 : 0) |
+                 (lane & 2 ? 1 : 0);
+  const int il = jl / kKeyGroup, ul = jl % kKeyGroup;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    // this warp's rows of the chunk: rg + row_groups * (c * kRowChunk + i)
+    const int r_first = rg + row_groups * c * kRowChunk;
+    const bool any = r_first < rows;  // warp-uniform, as is nr
+    const int nr = any ? min(kRowChunk, (rows - r_first + row_groups - 1) / row_groups) : 0;
+    float qr[kRowChunk][4], acc[kRowChunk][4];
+    float m_l = kNegInf, l_l = 0.f;  // running max and sum of this lane's row il
+#pragma unroll
+    for (int i = 0; i < kRowChunk; ++i) {
+      const int r = r_first + row_groups * i;
+      const int64_t qrow = i < nr ? out_row(r) : 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][e] = 0.f;
+        qr[i][e] = (i < nr && d0 + e < hd) ? to_f32<TQ>(q[qrow * hd + d0 + e]) : 0.f;
+      }
+    }
+
+    for (int k = 0; k < nl; ++k) {
+      if (c == 0) {  // CTA-uniform: block k lands (then, packed, decodes)
+        cp_async_wait_pending(nl - 1 - k);
+        __syncthreads();
+        if constexpr (kPacked) {
+          const int kgr = hd / 16, vgr = vd / 16, nk = BS * kgr;
+          for (int i = threadIdx.x; i < nk + BS * vgr; i += kThreads) {
+            const bool isk = i < nk;
+            const int groups = isk ? kgr : vgr;
+            const int ii = isk ? i : i - nk;
+            const int row = k * BS + ii / groups, grp = ii % groups;
+            const uint8_t* codes = gqa_smem + (isk ? lay.kc : lay.vc) + row * groups * 8 + grp * 8;
+            const uint32_t sbyte = gqa_smem[(isk ? lay.ks : lay.vs) + row * groups + grp];
+            decode_group16(*reinterpret_cast<const uint2*>(codes), sbyte,
+                           (isk ? ktile : vtile) + row * groups * 16 + grp * 16);
+          }
+          __syncthreads();
+        }
+      }
+      if (!any) continue;
+      const int kj0 = live_j[k] * BS;
+      const __nv_bfloat16* kt = ktile + k * BS * hd;
+      const __nv_bfloat16* vt = vtile + k * BS * vd;
+      for (int u0 = 0; u0 < keys_per_warp; u0 += kKeyGroup) {
+        const int kn = min(kKeyGroup, keys_per_warp - u0);  // keys present
+        float x[kKeyGroup][4];
+#pragma unroll
+        for (int u = 0; u < kKeyGroup; ++u) {
+          const int t = kg + key_groups * (u0 + u);
+          if (u < kn && lane_k) {
+            load_bf16x4(kt + t * hd + d0, x[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[u][e] = 0.f;
+          }
+        }
+        // the 16 (row i, key u) partial dots, pair j = 4 i + u, summed over
+        // the warp by a transposed butterfly: the lane pair 2k, 2k + 1 ends
+        // with the full dot of pair jl (lane bits 16, 8, 4, 2 -> j bits 3..0)
+        float v[kPairs];
+#pragma unroll
+        for (int i = 0; i < kRowChunk; ++i)
+#pragma unroll
+          for (int u = 0; u < kKeyGroup; ++u)
+            v[i * kKeyGroup + u] = i < nr ? qr[i][0] * x[u][0] + qr[i][1] * x[u][1] +
+                                            qr[i][2] * x[u][2] + qr[i][3] * x[u][3]
+                                          : 0.f;
+        fold<8>(v, lane, 16);
+        fold<4>(v, lane, 8);
+        fold<2>(v, lane, 4);
+        fold<1>(v, lane, 2);
+        const float dot = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+        // this lane's score (row il, key ul), its row's running max m_l and
+        // sum l_l, then the probabilities: one division and two expf a lane
+        const int kjl = kj0 + kg + key_groups * (u0 + ul);
+        const int qpos_l = p0 + (r_first + row_groups * il) / rep;
+        bool ok = ul < kn && il < nr && kjl <= qpos_l;
+        if (window > 0) ok = ok && kjl > qpos_l - window;
+        const float sc = ok ? __fdiv_rn(dot, sqrt_hd) : kNegInf;
+        float smax = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 4));
+        smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, 2));
+        const float m_new = fmaxf(m_l, smax);
+        const float corr = expf(m_l - m_new);
+        const float p = ok ? expf(sc - m_new) : 0.f;
+        float psum = p + __shfl_xor_sync(0xffffffffu, p, 2);
+        psum += __shfl_xor_sync(0xffffffffu, psum, 4);
+        l_l = l_l * corr + psum;
+        m_l = m_new;
+        __syncwarp();  // the previous group's readers of pbuf are done
+        if ((lane & 1) == 0) {
+          pbuf[warp][jl] = p;
+          if (ul == 0) cbuf[warp][il] = corr;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < kKeyGroup; ++u) {
+          const int t = kg + key_groups * (u0 + u);
+          if (u < kn && lane_v) {
+            load_bf16x4(vt + t * vd + d0, x[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[u][e] = 0.f;
+          }
+        }
+        const float4 c4 = *reinterpret_cast<const float4*>(cbuf[warp]);
+        const float cr[kRowChunk] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int i = 0; i < kRowChunk; ++i) {
+          if (i >= nr) break;
+          const float4 p4 = *reinterpret_cast<const float4*>(&pbuf[warp][i * kKeyGroup]);
+          const float pr[kKeyGroup] = {p4.x, p4.y, p4.z, p4.w};
+          float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int u = 0; u < kKeyGroup; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pv[e] += pr[u] * x[u][e];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = acc[i][e] * cr[i] + pv[e];
+        }
+      }
+    }
+    // (m, l) of each row, from the lane 8 i that holds its key 0
+    float m[kRowChunk], l[kRowChunk];
+#pragma unroll
+    for (int i = 0; i < kRowChunk; ++i) {
+      m[i] = __shfl_sync(0xffffffffu, m_l, 8 * i);
+      l[i] = __shfl_sync(0xffffffffu, l_l, 8 * i);
+    }
+
+    // the chunk's rows: partial (m, l, acc) per split, or the output itself
+    auto emit = [&](int r, float mm, float ll, float4 acc4) {
+      const float a[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
+      const int64_t o = out_row(r);
+      if (n_splits == 1) {
+        const float denom = fmaxf(ll, 1e-30f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d0 + e < vd) out[o * vd + d0 + e] = __fdiv_rn(a[e], denom);
+      } else {
+        float* pa = part_acc + (o * n_splits + split) * vd;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d0 + e < vd) pa[d0 + e] = a[e];
+        if (lane == 0) {
+          part_ml[(o * n_splits + split) * 2] = mm;
+          part_ml[(o * n_splits + split) * 2 + 1] = ll;
+        }
+      }
+    };
+    if (key_groups == 1) {
+#pragma unroll
+      for (int i = 0; i < kRowChunk; ++i)
+        if (i < nr)
+          emit(r_first + row_groups * i, m[i], l[i],
+               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      continue;
+    }
+    // key groups of one row group merge in fixed warp order (kg = 0, 1, ..)
+    if (any) {
+#pragma unroll
+      for (int i = 0; i < kRowChunk; ++i) {
+        if (lane_v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red_acc[warp][i][d0 + e] = acc[i][e];
+        if (lane == 0) {
+          red_ml[warp][i][0] = m[i];
+          red_ml[warp][i][1] = l[i];
+        }
+      }
     }
     __syncthreads();
+    if (kg == 0 && any) {
+#pragma unroll
+      for (int i = 0; i < kRowChunk; ++i) {
+        if (i >= nr) continue;
+        float mm = kNegInf;
+        for (int x = 0; x < key_groups; ++x) {
+          const int w = rg + row_groups * x;
+          if (red_ml[w][i][1] > 0.f) mm = fmaxf(mm, red_ml[w][i][0]);
+        }
+        float ll = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int x = 0; x < key_groups; ++x) {
+          const int w = rg + row_groups * x;
+          const float lw = red_ml[w][i][1];
+          if (!(lw > 0.f)) continue;
+          const float f = expf(red_ml[w][i][0] - mm);
+          ll += lw * f;
+          if (lane_v)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] += red_acc[w][i][d0 + e] * f;
+        }
+        emit(r_first + row_groups * i, mm, ll, make_float4(a[0], a[1], a[2], a[3]));
+      }
+    }
+    __syncthreads();
+  }
+}
 
+// Merge of the splits' partials of one output row (b, s, h), in split
+// order: M = max m over splits with l > 0, w = e^(m - M) (0 where l == 0),
+// L = sum l w, o = (sum acc w) / max(L, 1e-30). A split with l == 0 has no
+// live key and adds nothing; a row with none at all gets exact zeros. The
+// (m, l) pairs come in at once into shared memory and the weights are
+// computed once; thread d then sums value dim d (vd <= 128).
+__global__ void __launch_bounds__(kThreads)
+paged_gqa_merge_kernel(const float* __restrict__ part_acc,
+                       const float* __restrict__ part_ml, float* __restrict__ out,
+                       int n_splits, int vd) {
+  extern __shared__ float merge_smem[];  // w[n_splits], l[n_splits]
+  __shared__ float denom_s;
+  float* w = merge_smem;
+  float* ls = merge_smem + n_splits;
+  const int64_t o = blockIdx.x;
+  const float* ml = part_ml + o * n_splits * 2;
+  for (int s = threadIdx.x; s < n_splits; s += kThreads) {
+    w[s] = ml[2 * s];
+    ls[s] = ml[2 * s + 1];
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float mm = kNegInf;
+    for (int s = threadIdx.x; s < n_splits; s += 32)
+      if (ls[s] > 0.f) mm = fmaxf(mm, w[s]);
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int s = warp + kWarps * i;
-      if (s >= sq) continue;  // warp-uniform
-      const int qpos = p0 + s;
-      float sc[BS];
-      float smax = kNegInf;
-#pragma unroll
-      for (int t = 0; t < BS; ++t) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < kPerLane; ++e) {
-          const int d = lane + 32 * e;
-          if (d < hd) part += qr[i][e] * ks[t][d];
-        }
-        const int kj = j * BS + t;
-        bool ok = kj <= qpos;
-        if (window > 0) ok = ok && kj > qpos - window;
-        const float v = __fdiv_rn(warp_sum(part), sqrt_hd);
-        sc[t] = ok ? v : kNegInf;
-        smax = fmaxf(smax, sc[t]);
-      }
-      const float m_new = fmaxf(m[i], smax);
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-      float pv[kPerLane];
-#pragma unroll
-      for (int e = 0; e < kPerLane; ++e) pv[e] = 0.f;
-#pragma unroll
-      for (int t = 0; t < BS; ++t) {
-        const int kj = j * BS + t;
-        bool ok = kj <= qpos;
-        if (window > 0) ok = ok && kj > qpos - window;
-        const float p = ok ? expf(sc[t] - m_new) : 0.f;
-        psum += p;
-#pragma unroll
-        for (int e = 0; e < kPerLane; ++e) {
-          const int d = lane + 32 * e;
-          if (d < vd) pv[e] += p * vs[t][d];
-        }
-      }
-      l[i] = l[i] * corr + psum;
-#pragma unroll
-      for (int e = 0; e < kPerLane; ++e) acc[i][e] = acc[i][e] * corr + pv[e];
-      m[i] = m_new;
+    for (int off = 16; off > 0; off >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
+    for (int s = threadIdx.x; s < n_splits; s += 32)
+      w[s] = ls[s] > 0.f ? expf(w[s] - mm) : 0.f;
+    __syncwarp();
+    if (threadIdx.x == 0) {
+      float ll = 0.f;
+      for (int s = 0; s < n_splits; ++s) ll += ls[s] * w[s];
+      denom_s = fmaxf(ll, 1e-30f);
     }
   }
+  __syncthreads();
+  const int d = threadIdx.x;
+  if (d >= vd) return;
+  const float* pa = part_acc + o * n_splits * vd + d;
+  float a = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n_splits; ++s)
+    if (w[s] > 0.f) a += pa[(int64_t)s * vd] * w[s];
+  out[o * vd + d] = __fdiv_rn(a, denom_s);
+}
 
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int s = warp + kWarps * i;
-    if (s >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      const int d = lane + 32 * e;
-      if (d < vd)
-        out[(((int64_t)b * sq + s) * h_total + h) * vd + d] =
-            __fdiv_rn(acc[i][e], denom);
-    }
-  }
+// The largest of 16, 8, 4, 2, 1 bytes dividing a leaf's row and base address.
+int chunk_for(const void* p, int64_t row_bytes) {
+  int c = 16;
+  while (c > 1 && (((uintptr_t)p % c) != 0 || row_bytes % c != 0)) c >>= 1;
+  return c;
 }
 
 template <typename TQ, bool kPacked>
 int launch_gqa(const void* q, const void* kp, const void* ks, const void* vp,
                const void* vs, const void* table, const void* pos, void* out,
-               int64_t b, int64_t sq, int64_t h, int64_t kv, int64_t hd,
-               int64_t vd, int64_t n_blocks, int64_t bs, int64_t maxb,
-               int64_t window, float sqrt_hd, cudaStream_t st) {
-  const unsigned grid = (unsigned)(b * h);
+               void* part_acc, void* part_ml, int64_t b, int64_t sq, int64_t h,
+               int64_t kv, int64_t hd, int64_t vd, int64_t n_blocks, int64_t bs,
+               int64_t maxb, int64_t window, float sqrt_hd, int64_t bps,
+               int64_t n_splits, int64_t row_groups, cudaStream_t st) {
+  const unsigned grid = (unsigned)(b * kv * n_splits);
+  const size_t smem = (size_t)GqaSmem(bps * bs, hd, vd, kPacked).bytes;
+  const Chunks chunks = kPacked
+      ? Chunks{chunk_for(kp, hd / 2), chunk_for(ks, hd / 16),
+               chunk_for(vp, vd / 2), chunk_for(vs, vd / 16)}
+      : Chunks{chunk_for(kp, hd * 2), 0, chunk_for(vp, vd * 2), 0};
 #define REPRO_GQA_CASE(BS_)                                                    \
-  case BS_:                                                                    \
-    paged_gqa_kernel<TQ, BS_, kPacked><<<grid, kThreads, 0, st>>>(             \
-        (const TQ*)q, kp, (const uint8_t*)ks, vp, (const uint8_t*)vs,          \
-        (const int32_t*)table, (const int32_t*)pos, (float*)out, (int)sq,      \
-        (int)h, (int)kv, (int)hd, (int)vd, n_blocks, (int)maxb, (int)window,   \
-        sqrt_hd);                                                              \
-    break;
+  case BS_: {                                                                  \
+    auto kern = paged_gqa_split_kernel<TQ, BS_, kPacked>;                      \
+    if (smem > 32 * 1024) {                                                    \
+      const cudaError_t err = cudaFuncSetAttribute(                            \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);       \
+      if (err != cudaSuccess) return (int)err;                                 \
+    }                                                                          \
+    kern<<<grid, kThreads, smem, st>>>(                                        \
+        (const TQ*)q, (const uint8_t*)kp, (const uint8_t*)ks,                  \
+        (const uint8_t*)vp, (const uint8_t*)vs, (const int32_t*)table,         \
+        (const int32_t*)pos, (float*)out, (float*)part_acc, (float*)part_ml,   \
+        (int)sq, (int)h, (int)kv, (int)hd, (int)vd, n_blocks, (int)maxb,       \
+        (int)window, sqrt_hd, (int)bps, (int)n_splits, (int)row_groups,        \
+        chunks);                                                               \
+    break;                                                                     \
+  }
   switch (bs) {
     REPRO_GQA_CASE(4)
     REPRO_GQA_CASE(8)
@@ -265,6 +687,18 @@ int launch_gqa(const void* q, const void* kp, const void* ks, const void* vp,
       return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_GQA_CASE
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return (int)err;
+  const size_t merge_smem = (size_t)n_splits * 2 * sizeof(float);
+  if (merge_smem > 40 * 1024) {
+    err = cudaFuncSetAttribute(paged_gqa_merge_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)merge_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  paged_gqa_merge_kernel<<<(unsigned)(b * sq * h), kThreads, merge_smem, st>>>(
+      (const float*)part_acc, (const float*)part_ml, (float*)out,
+      (int)n_splits, (int)vd);
   return (int)cudaGetLastError();
 }
 
@@ -419,22 +853,36 @@ int launch_mla(const void* q_abs, const void* q_rope, const void* cc,
 
 }  // namespace
 
+// The GQA decode: the split kernel over plan's grid (b * kv * n_splits
+// CTAs), then with n_splits > 1 the merge kernel over the b * sq * h output
+// rows. part_acc (rows x n_splits x vd) and part_ml (rows x n_splits x 2)
+// are the f32 scratch of the partials (unused with one split).
 extern "C" int paged_gqa_launch(const void* q, int q_is_bf16, int packed,
                                 const void* k_pool, const void* k_scales,
                                 const void* v_pool, const void* v_scales,
                                 const void* table, const void* pos, void* out,
+                                void* part_acc, void* part_ml,
                                 int64_t b, int64_t sq, int64_t h, int64_t kv,
                                 int64_t hd, int64_t vd, int64_t n_blocks,
                                 int64_t bs, int64_t maxb, int64_t window,
-                                float sqrt_hd, void* stream) {
-  if (hd > kMaxD || vd > kMaxD || sq > kMaxSq || sq < 1 || kv < 1 || h % kv)
+                                float sqrt_hd, int64_t bps, int64_t n_splits,
+                                int64_t row_groups, void* stream) {
+  if (hd > kMaxD || vd > kMaxD || hd < 8 || vd < 8 || hd % 8 || vd % 8 ||
+      sq > kMaxSq || sq < 1 || kv < 1 || h % kv || maxb < 1)
     return (int)cudaErrorInvalidValue;
   if (packed && (hd % 16 || vd % 16 || !k_scales || !v_scales))
     return (int)cudaErrorInvalidValue;
+  if (bps < 1 || bps > kMaxSplitBlocks || bps * bs > kMaxSplitKeys ||
+      n_splits != (maxb + bps - 1) / bps ||
+      (row_groups != 1 && row_groups != 2 && row_groups != 4) ||
+      (n_splits > 1 && (!part_acc || !part_ml)) ||
+      b * kv * n_splits > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_GQA_ARGS                                                         \
-  q, k_pool, k_scales, v_pool, v_scales, table, pos, out, b, sq, h, kv, hd,    \
-      vd, n_blocks, bs, maxb, window, sqrt_hd, st
+  q, k_pool, k_scales, v_pool, v_scales, table, pos, out, part_acc, part_ml,   \
+      b, sq, h, kv, hd, vd, n_blocks, bs, maxb, window, sqrt_hd, bps,          \
+      n_splits, row_groups, st
   if (q_is_bf16)
     return packed ? launch_gqa<__nv_bfloat16, true>(REPRO_GQA_ARGS)
                   : launch_gqa<__nv_bfloat16, false>(REPRO_GQA_ARGS);

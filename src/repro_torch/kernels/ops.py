@@ -146,6 +146,8 @@ def _check_gqa_card(name, q, k_lead, hd, vd, operands):
     _need(1 <= sq <= PA.MAX_SQ, name, f"Sq={sq} outside [1, {PA.MAX_SQ}]")
     _need(hd <= PA.MAX_HEAD_DIM and vd <= PA.MAX_HEAD_DIM, name,
           f"head dims above {PA.MAX_HEAD_DIM}")
+    _need(hd % 8 == 0 and vd % 8 == 0, name,
+          "head dims must be multiples of 8 (16-byte rows)")
     _need(k_lead[1] in PA.BLOCK_SIZES, name,
           f"block size {k_lead[1]} not in {PA.BLOCK_SIZES}")
     _need(all(t.is_contiguous() for t in operands), name,

@@ -10,9 +10,16 @@ Each plain version is the serving reference path its kernel stands in for
 (`repro/kernels/ref.py`): materialize `gather_view` of the pools (packed
 pools dequantize exactly to bf16) and compute over the full table capacity,
 in f32.
+
+On the card #5 and #6 are one split-KV design (`csrc/paged_attention.cu`):
+`plan` cuts each row's logical blocks into fixed splits from the shapes
+alone, one CTA per (row, KV head, split) writes a partial softmax, and a
+second kernel merges the partials in split order.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,6 +32,39 @@ MAX_HEAD_DIM = 128
 MAX_SQ = 16
 MAX_LORA = 512   # MLA latent (value) width the kernel's lanes cover
 MAX_ROPE = 64
+SPLIT_KEYS = 16  # keys of one GQA split (whole blocks, at least one)
+ROW_CHUNK = 4    # query rows one warp of the GQA kernel carries at once
+
+
+class Plan(NamedTuple):
+    """Geometry of one GQA call: `splits` runs of `blocks_per_split` logical
+    blocks over the table's `maxb` (the last may be shorter); `row_groups`
+    warp groups over the Sq x H/KV query rows of a KV head (the other
+    4 / row_groups warps split the keys); `grid` CTAs of the split kernel;
+    `scratch` f32 elements of the partials (0 with one split)."""
+    maxb: int
+    blocks_per_split: int
+    splits: int
+    row_groups: int
+    grid: int
+    scratch: int
+
+    def blocks(self, split: int) -> range:
+        """The logical blocks of split `split`, in order."""
+        j0 = split * self.blocks_per_split
+        return range(j0, min(j0 + self.blocks_per_split, self.maxb))
+
+
+def plan(b: int, sq: int, h: int, kv: int, maxb: int, bs: int, vd: int) -> Plan:
+    """The GQA kernels' geometry for q (b, sq, h, .), KV heads kv, a (b, maxb)
+    table over blocks of bs tokens and value dim vd: a function of shapes
+    only, so a call's bits never depend on timing."""
+    bps = max(1, SPLIT_KEYS // bs)
+    splits = -(-maxb // bps)
+    rows = sq * (h // kv)
+    row_groups = 1 if rows <= ROW_CHUNK else 2 if rows <= 2 * ROW_CHUNK else 4
+    scratch = 0 if splits == 1 else b * sq * h * splits * (vd + 2)
+    return Plan(maxb, bps, splits, row_groups, b * kv * splits, scratch)
 
 
 def sqrt_hd(hd: int) -> float:
@@ -91,19 +131,27 @@ def _ptr(t) -> int | None:
 
 def launch(q, k, v, table, pos, out, window, *, k_scales=None,
            v_scales=None) -> None:
-    """Enqueue the GQA kernel on the current stream (output preallocated).
-    k, v are the bf16 pools (#5), or with k_scales/v_scales the packed code
-    leaves of the NVFP4 pool (#6)."""
+    """Enqueue the GQA kernels on the current stream (output preallocated;
+    the partials' scratch allocated here, sized by `plan`). k, v are the
+    bf16 pools (#5), or with k_scales/v_scales the packed code leaves of the
+    NVFP4 pool (#6)."""
     b, sq, h, hd = q.shape
     n_blocks, bs, kv = k.shape[:3]
     vd = out.shape[3]
+    maxb = table.shape[1]
+    p = plan(b, sq, h, kv, maxb, bs, vd)
+    part = (torch.empty(p.scratch, dtype=torch.float32, device=q.device)
+            if p.scratch else None)
+    part_ml = (None if part is None
+               else part.data_ptr() + b * sq * h * p.splits * vd * 4)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = build.library().paged_gqa_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), int(k_scales is not None),
         k.data_ptr(), _ptr(k_scales), v.data_ptr(), _ptr(v_scales),
-        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, sq, h, kv, hd, vd, n_blocks, bs, table.shape[1],
-        0 if window is None else int(window), sqrt_hd(hd), stream)
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(), _ptr(part), part_ml,
+        b, sq, h, kv, hd, vd, n_blocks, bs, maxb,
+        0 if window is None else int(window), sqrt_hd(hd), p.blocks_per_split,
+        p.splits, p.row_groups, stream)
     build.check(status, "paged_gqa_q" if k_scales is not None else "paged_gqa")
 
 

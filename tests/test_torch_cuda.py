@@ -18,7 +18,9 @@ fixture, never at import. Tolerances are the kernel bars of the port:
   - paged_gqa, paged_gqa_q, paged_mla, paged_mla_q: |o_kernel - o_plain|
     <= 5e-6 + 1e-5 |o_plain|, the bar of tests/test_paged_attention.py and
     tests/test_kv_quant.py (the packed kernels decode exactly, so only the
-    online softmax's fp32 order differs); inactive rows exactly 0;
+    online softmax's fp32 order differs, and the split-KV merge of paged_gqa
+    and paged_gqa_q only re-orders those sums); inactive rows exactly 0;
+    paged_gqa and paged_gqa_q: two calls bitwise equal;
   - ms_eden_phase1 and ms_eden_phase2: BITWISE equal to their plain versions
     (the butterfly RHT, the group sums and every rounding run in one fixed
     order in both);
@@ -201,6 +203,24 @@ def _pool_case(dev, b, sq, h, kv, hd, bs, maxb, lens, window=None,
     return [t.to(dev) for t in (q, kp, vp, table, pos)], window
 
 
+# Cases of the split-KV kernels (kernels/paged_attention.py:plan cuts the
+# keys into splits of SPLIT_KEYS = 16, or one block of 32): every block size,
+# a 1,024-token row at maxb 64, lengths ending on a split boundary and one
+# past it (Sq 1 and 16), and windows that leave whole splits dead.
+SPLIT_CASES = [
+    *(dict(b=3, sq=1, h=8, kv=2, hd=128, bs=bs, maxb=256 // bs,
+           lens=[40, 256, 129], seed=bs) for bs in (4, 8, 16, 32)),
+    dict(b=3, sq=1, h=10, kv=10, hd=128, bs=16, maxb=64, lens=[1024, 517, 300],
+         dead_rows=(2,)),
+    dict(b=4, sq=1, h=4, kv=2, hd=128, bs=16, maxb=8, lens=[32, 33, 64, 65]),
+    dict(b=4, sq=16, h=4, kv=2, hd=128, bs=16, maxb=8, lens=[32, 33, 64, 65]),
+    dict(b=3, sq=1, h=8, kv=2, hd=128, bs=16, maxb=16, lens=[250, 100, 33],
+         window=40),
+    dict(b=2, sq=16, h=8, kv=2, hd=64, bs=8, maxb=32, lens=[256, 70],
+         window=50),
+]
+
+
 @pytest.mark.parametrize("case", [
     # llama-200m decode and prefill chunk: H 10, KV 10, hd 128, BS 16
     dict(b=4, sq=1, h=10, kv=10, hd=128, bs=16, maxb=16, lens=[37, 100, 1, 256]),
@@ -213,14 +233,17 @@ def _pool_case(dev, b, sq, h, kv, hd, bs, maxb, lens, window=None,
          window=6, dead_rows=(1,), q_dtype=torch.float32),
     dict(b=3, sq=1, h=4, kv=4, hd=64, bs=8, maxb=4, lens=[3, 32, 20],
          window=11, dead_rows=(0,)),
+    *SPLIT_CASES,
 ])
 def test_paged_gqa_matches_plain(dev, case):
     (q, kp, vp, table, pos), window = _pool_case(dev, **case)
     out = ops.paged_gqa(q, kp, vp, table, pos, window=window)
+    again = ops.paged_gqa(q, kp, vp, table, pos, window=window)
     torch.cuda.synchronize()
     ref = PA.paged_gqa_plain(q, kp, vp, table, pos, window=window)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    assert torch.equal(out, again)  # fixed-order split merge: same bits
     for r in case.get("dead_rows", ()):
         assert int((out[r] != 0).sum()) == 0  # fully masked row: exact zeros
 
@@ -234,6 +257,10 @@ def test_paged_gqa_matches_plain(dev, case):
          window=6, dead_rows=(1,), q_dtype=torch.float32),
     dict(b=3, sq=1, h=8, kv=2, hd=64, bs=32, maxb=4, lens=[3, 100, 40],
          dead_rows=(0,)),
+    # yi-9b grouped heads (H 32, KV 4) over the packed pool, decode and chunk
+    dict(b=4, sq=1, h=32, kv=4, hd=128, bs=16, maxb=16, lens=[5, 130, 77, 200]),
+    dict(b=2, sq=16, h=32, kv=4, hd=128, bs=16, maxb=16, lens=[40, 200]),
+    *SPLIT_CASES,
 ])
 def test_paged_gqa_q_matches_plain(dev, case):
     (q, kp, vp, table, pos), window = _pool_case(dev, **case)
@@ -242,9 +269,11 @@ def test_paged_gqa_q_matches_plain(dev, case):
     out = ops.paged_gqa_q(q, kc, ks, vc, vs, table, pos, window=window)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["paged_gqa_q"] == 1 and ops.LAUNCHES["paged_gqa"] == 0
+    again = ops.paged_gqa_q(q, kc, ks, vc, vs, table, pos, window=window)
     ref = PA.paged_gqa_q_plain(q, kc, ks, vc, vs, table, pos, window=window)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    assert torch.equal(out, again)  # fixed-order split merge: same bits
     for r in case.get("dead_rows", ()):
         assert int((out[r] != 0).sum()) == 0
 

@@ -8,6 +8,11 @@ tests/test_paged_attention.py. Cases: ragged rows, trailing sentinel entries,
 a fully unallocated row (exact zeros), a sliding window, Sq in {1, 4}, and
 grouped heads rep in {1, 2}. Pools hold garbage outside the written
 positions, so a masked lane that leaked would show.
+
+The card's split-KV kernels are held here by their geometry and arithmetic:
+`PA.plan` tiles every row's logical blocks exactly once, in order, and a
+PyTorch model of the per-split partials and their fixed-order merge equals
+`PA.paged_gqa_plain` within the same bar.
 """
 
 import jax.numpy as jnp
@@ -18,6 +23,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.serve import kv_pool as jkv
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.serve import kv_pool as kv
 
 ATOL, RTOL = 5e-6, 1e-5
@@ -88,3 +94,103 @@ def test_scatter_and_gather_match_jax():
                             jnp.asarray(table))
     assert np.array_equal(view.float().numpy(),
                           np.asarray(jview.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16, 32])
+def test_plan_covers_every_block_once_in_order(bs):
+    """PA.plan's splits tile each row's logical blocks exactly once, in
+    order, within the kernel's limits (<= 64 keys and <= 16 blocks a split),
+    and its grid, row groups and scratch follow from the shapes alone."""
+    for b, sq, h, kv, maxb, vd in [(1, 1, 1, 1, 1, 16), (4, 1, 10, 10, 16, 128),
+                                   (4, 16, 32, 4, 16, 128), (3, 4, 8, 2, 64, 64),
+                                   (2, 3, 6, 3, 7, 32), (5, 1, 32, 4, 257, 128)]:
+        p = PA.plan(b, sq, h, kv, maxb, bs, vd)
+        assert p == PA.plan(b, sq, h, kv, maxb, bs, vd)
+        covered = [j for s in range(p.splits) for j in p.blocks(s)]
+        assert covered == list(range(maxb))
+        assert all(len(p.blocks(s)) > 0 for s in range(p.splits))
+        assert p.blocks_per_split * bs <= 64 and p.blocks_per_split <= 16
+        assert p.grid == b * kv * p.splits
+        rows = sq * (h // kv)
+        assert p.row_groups in (1, 2, 4)
+        assert rows <= PA.ROW_CHUNK * p.row_groups or p.row_groups == 4
+        assert p.scratch == (0 if p.splits == 1
+                             else b * sq * h * p.splits * (vd + 2))
+
+
+def _split_merge(q, k_pool, v_pool, table, pos, window):
+    """The split-KV kernels' arithmetic over the gathered view: for each of
+    PA.plan's splits, the kernel's block-skip rules and per-key masks give a
+    partial (m, l, acc) (m = NEG_INF, l = 0 with no live key); the partials
+    merge in split order, skipping splits with l == 0."""
+    b, sq, h, hd = q.shape
+    n_blocks, bs, kvh = k_pool.shape[:3]
+    vd, maxb = v_pool.shape[3], table.shape[1]
+    p = PA.plan(b, sq, h, kvh, maxb, bs, vd)
+    kg = kv.gather_view(k_pool, table).float()      # (B, T, KV, hd)
+    vg = kv.gather_view(v_pool, table).float()
+    qf = q.float().reshape(b, sq, kvh, h // kvh, hd)
+    s = (torch.einsum("bqgrd,btgd->bqgrt", qf, kg)
+         / torch.tensor(PA.sqrt_hd(hd), dtype=torch.float32))
+    p0 = pos.long()
+    qpos = p0[:, None] + torch.arange(sq)[None]                     # (B, Sq)
+    j = torch.arange(maxb)
+    live = ((table >= 0) & (table < n_blocks)
+            & (j[None] * bs <= (p0 + sq - 1)[:, None]))              # (B, MAXB)
+    if window is not None:
+        live &= (j[None] + 1) * bs - 1 > (p0 - window)[:, None]
+    t = torch.arange(maxb * bs)
+    ok = live[:, t // bs][:, None] & (t[None, None] <= qpos[..., None])
+    if window is not None:
+        ok &= t[None, None] > qpos[..., None] - window                # (B, Sq, T)
+    ok = ok[:, :, None, None]
+    parts = []
+    for split in range(p.splits):
+        blk = p.blocks(split)
+        keys = slice(blk.start * bs, blk.stop * bs)
+        ks = torch.where(ok[..., keys], s[..., keys], PA.NEG_INF)
+        m = ks.amax(-1)
+        e = torch.where(ok[..., keys], torch.exp(ks - m[..., None]), 0.0)
+        parts.append((m, e.sum(-1),
+                      torch.einsum("bqgrt,btgv->bqgrv", e, vg[:, keys])))
+    mm = torch.full_like(parts[0][0], PA.NEG_INF)
+    for m, l, _ in parts:
+        mm = torch.where(l > 0, torch.maximum(mm, m), mm)
+    ll = torch.zeros_like(mm)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        f = torch.where(l > 0, torch.exp(m - mm), 0.0)
+        ll = ll + l * f
+        acc = acc + a * f[..., None]
+    return (acc / ll.clamp(min=1e-30)[..., None]).reshape(b, sq, h, vd)
+
+
+@pytest.mark.parametrize("sq,window,bs,rep", [(1, None, 16, 1), (1, None, 4, 4),
+                                              (16, None, 8, 2), (1, 20, 8, 4),
+                                              (3, 45, 16, 2), (4, 9, 32, 1)])
+def test_split_merge_model_matches_plain(sq, window, bs, rep):
+    """The fixed-order split merge the kernels do, modelled in PyTorch over
+    the gathered view with PA.plan's splits, equals PA.paged_gqa_plain
+    within the bar: ragged rows spanning several splits, splits past a
+    row's end and splits a window leaves dead (all-masked), and an
+    unallocated row (exact zeros)."""
+    rng = np.random.RandomState(sq * 100 + bs + rep)
+    maxb, kvh, hd = 256 // bs, 2, 16
+    lens = [256, 33, 100, 64]
+    n_blocks = len(lens) * maxb + 2
+    table = np.full((len(lens), maxb), n_blocks, np.int32)
+    free = list(rng.permutation(n_blocks))
+    for i, n in enumerate(lens):
+        if i != 2:  # row 2 holds only the sentinel
+            for j in range(-(-n // bs)):
+                table[i, j] = free.pop()
+    pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
+    q = torch.from_numpy(rng.randn(len(lens), sq, kvh * rep, hd).astype(np.float32))
+    pk, pv = (torch.from_numpy(rng.randn(n_blocks, bs, kvh, hd).astype(np.float32)
+                               * 3).bfloat16() for _ in range(2))
+    table = torch.from_numpy(table)
+    assert PA.plan(len(lens), sq, kvh * rep, kvh, maxb, bs, hd).splits >= 8
+    got = _split_merge(q, pk, pv, table, pos, window)
+    want = PA.paged_gqa_plain(q, pk, pv, table, pos, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+    assert not got[2].any() and not want[2].any()
