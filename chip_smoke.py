@@ -14,7 +14,13 @@ Phases (any failure exits non-zero, before the result line):
                llama-200m serving path gives it, and the quantizer and the
                GEMM at every shape of one full-width training step (T =
                2048 bf16 activations; the forward, dX and dW GEMMs), with
-               the port's bars; the GEMM also at M = 1, 8, 16, 17 (both
+               the port's bars; the quantizer also on both of its plan
+               regimes at their boundaries and one past, at deepseek-v3's
+               decode shapes and on edge inputs (zeros, one huge element
+               in the last chunk, denormals), and timed as whole calls
+               (every kernel a call launches) over one step of llama-200m
+               decode (70 calls), deepseek-v3 decode (197) and training
+               (140); the GEMM also at M = 1, 8, 16, 17 (both
                kernels and their boundary) and at deepseek-v3's decode
                shapes (M = 8 and 4), its bf16 output bitwise the f32
                output's cast, and timed over one deepseek-v3 decode step's
@@ -24,9 +30,12 @@ Phases (any failure exits non-zero, before the result line):
                least time the card could take (bytes or operations).
                The two MS-EDEN requant phases at every operand shape of one
                full-width training step (T = 2048 tokens), an M that is no
-               multiple of 128 and an all-zero tensor, bitwise; the
-               quartet2 backward GEMM against its plain composition; the
-               280 requant calls of one training step timed. The packed GQA
+               multiple of 128 and an all-zero tensor, bitwise; phase 1
+               also on every operand as the backward hands it (E^T, W^T,
+               X^T as transposed views read in place); the quartet2
+               backward GEMM against its plain composition; the 280
+               requant calls of one training step timed on those views
+               (and on contiguous copies, for comparison). The packed GQA
                decode (#6) at llama-200m's decode and chunk shapes and the
                MLA decode over bf16 (#7) and NVFP4 (#8) latent pools at
                deepseek-v3's (H 128, lora 512, rope 64; Sq 1 and 16, ragged
@@ -58,7 +67,9 @@ Phases (any failure exits non-zero, before the result line):
                steps through `repro_torch.launch.train`: losses and weights
                finite, the last loss below the first, and each of the four
                kernels of the path launched the expected number of times;
-               then one step under the profiler.
+               then one step under the profiler, with its PyTorch copy,
+               abs and reduction launches counted (so in the decode
+               profiles of phases 4, 4b and 6).
 Phases run in the order 1, 2, 3, 4, 4b, 6, 5. Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
@@ -119,11 +130,12 @@ SOURCES = {
     "paged_mla": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_mla_q": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
-# the CUDA functions each kernel's profiler time is summed over (fp4_matmul:
+# the CUDA functions each kernel's profiler time is summed over (nvfp4_fos_quant:
+# nvfp4_fos_quant_cluster_kernel, _absmax_kernel, _encode_kernel; fp4_matmul:
 # fp4_matmul_gemv_kernel, fp4_matmul_splitk_reduce_kernel, fp4_matmul_mma_kernel;
 # paged_gqa and paged_gqa_q: paged_gqa_split_kernel, paged_gqa_merge_kernel)
 KERNEL_SYMBOLS = {
-    "nvfp4_fos_quant": "nvfp4_fos_quant_kernel", "fp4_matmul": "fp4_matmul_",
+    "nvfp4_fos_quant": "nvfp4_fos_quant_", "fp4_matmul": "fp4_matmul_",
     "paged_gqa": "paged_gqa_", "ms_eden_phase1": "ms_eden_phase1_kernel",
     "ms_eden_phase2": "ms_eden_phase2_kernel", "paged_gqa_q": "paged_gqa_",
     "paged_mla": "paged_mla_kernel", "paged_mla_q": "paged_mla_kernel",
@@ -137,6 +149,27 @@ DEEPSEEK_SHAPES = {
     "wo": (7168, 16384), "ffn_in": (2048, 7168), "ffn_out": (7168, 2048),
 }
 DEEPSEEK_LIVE_EXPERTS = 32  # at most 4 tokens x top-8 distinct experts a layer
+# live experts in phase 6's two layers at one decode step: 197 quantizer
+# calls, the count its profiles show
+QUANT_DEEPSEEK_LIVE = (31, 30)
+
+
+def quant_step_sets(t=TRAIN_T):
+    """(M, K, dtype) of every nvfp4_fos_quant call of one step of each path:
+    llama-200m decode (4 slots, 10 layers: 6 inputs at K = 1280, 1 at 3456),
+    deepseek-v3 decode (2 layers: wq_a, wq_b, wkv_a, wo, the shared expert's
+    3 at M = 4, each live routed expert's 3 at M = 8), llama-200m training
+    (10 layers: 6 + 1 bf16 activations of T rows, the 7 f32 weights)."""
+    llama = ([(4, 1280, "bf16")] * 6 + [(4, 3456, "bf16")]) * 10
+    deepseek = []
+    for live in QUANT_DEEPSEEK_LIVE:
+        deepseek += [(4, 7168, "bf16"), (4, 1536, "bf16"), (4, 7168, "bf16"),
+                     (4, 16384, "bf16")]
+        deepseek += [(4, 7168, "bf16")] * 2 + [(4, 2048, "bf16")]
+        deepseek += [(8, 7168, "bf16"), (8, 7168, "bf16"), (8, 2048, "bf16")] * live
+    train = ([(t, 1280, "bf16")] * 6 + [(t, 3456, "bf16")]
+             + [(n, k, "f32") for n, k in ARCH_SHAPES.values()]) * 10
+    return {"llama_decode": llama, "deepseek_decode": deepseek, "train_step": train}
 
 
 def fail(msg: str) -> None:
@@ -176,6 +209,50 @@ def device_ms(torch, fn, symbol: str, reps: int = 3):
     us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
              if ev.device_type == DeviceType.CUDA and symbol in ev.key)
     return us / 1e3 / reps if us > 0 else None
+
+
+def call_device_ms(torch, fn, reps: int = 3):
+    """The device time of everything fn launches, per call of fn (the sum of
+    every CUDA kernel in the profiler's window), and the launches per call;
+    (None, 0) when the profiler shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+           and getattr(ev, "self_device_time_total", 0.0) > 0]
+    us = sum(ev.self_device_time_total for ev in evs)
+    return (us / 1e3 / reps if us > 0 else None,
+            sum(ev.count for ev in evs) / reps)
+
+
+def quant_group(torch, NQ, ops, calls, g, reps, plain_reps=1):
+    """One step set of nvfp4_fos_quant calls [(M, K, dtype)] on distinct
+    seeded inputs: events time, the whole call's device time (every kernel
+    a call launches), kernels launched, plain time and bound (each input
+    read once, codes and scale bytes written once)."""
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    xs = [torch.randn((m, k), generator=g, device="cuda").to(dts[dt])
+          for m, k, dt in calls]
+    fn = lambda: [ops.nvfp4_fos_quant(x) for x in xs]
+    dev_ms, kernels = call_device_ms(torch, fn)
+    r = {"calls": len(calls), "ms": time_ms(torch, fn, reps),
+         "profiler_ms": dev_ms, "kernels_per_call": kernels / len(calls),
+         "plain_ms": (time_ms(torch, lambda: [NQ.nvfp4_fos_quant_plain(x) for x in xs],
+                              plain_reps, warmup=1) if plain_reps else None),
+         "library_ms": None, "library_profiler_ms": None}
+    nbytes = sum(x.numel() * (x.element_size() + 0.5 + 1 / 16) + 4 for x in xs)
+    n_ops = sum(x.numel() for x in xs) * QUANT_FLOPS_PER_ELEMENT
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, n_ops / F32_FLOPS * 1e3
+    r.update(bytes=nbytes, ops=n_ops, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             regimes=sorted({NQ.plan(m, k).regime for m, k, _ in calls})
+             if hasattr(NQ, "plan") else [])
+    return r
 
 
 def finish_results(results, errs):
@@ -350,6 +427,21 @@ def phase_kernels(torch):
         errs["nvfp4_fos_quant"] = max(errs["nvfp4_fos_quant"],
                                       check_quant(torch, F, NQ, ops, x))
         acts[TRAIN_T, k] = ops.nvfp4_fos_quant(x)
+    # both plan regimes at their boundary (the last cluster shape) and one
+    # past it, deepseek-v3's decode shapes, and edge inputs in the last chunk
+    for m, k in ((4, 2 * NQ.SMALL_MAX_CHUNKS), (4, 2 * NQ.SMALL_MAX_CHUNKS + 16),
+                 (8, 7168), (4, 7168), (4, 1536), (8, 2048)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+            errs["nvfp4_fos_quant"] = max(errs["nvfp4_fos_quant"],
+                                          check_quant(torch, F, NQ, ops, x))
+    for m, k in ((4, 1280), (2048, 1280)):
+        huge = torch.randn((m, k), generator=g, device="cuda")
+        huge[-1, -1] = 3e4
+        tiny = torch.randn((m, k), generator=g, device="cuda") * 1e-39
+        for x in (huge.bfloat16(), huge, tiny, torch.zeros((m, k), device="cuda")):
+            errs["nvfp4_fos_quant"] = max(errs["nvfp4_fos_quant"],
+                                          check_quant(torch, F, NQ, ops, x))
     # decode and prefill shapes, then every forward GEMM shape of a training
     # step: (T, 1280, 1280), (T, 3456, 1280), (T, 1280, 3456)
     for m in (1, 4, 8, 16, 17, 64, TRAIN_T):
@@ -380,9 +472,6 @@ def phase_kernels(torch):
     layer_w = [{name: ops.nvfp4_fos_quant(torch.randn(
         (n, k), generator=g, device="cuda") * k ** -0.5)
         for name, (n, k) in ARCH_SHAPES.items()} for _ in range(layers)]
-    dec_x = {k: torch.randn((4, k), generator=g, device="cuda").bfloat16()
-             for k in (1280, 3456)}
-    quant_in = [dec_x[1280]] * 6 + [dec_x[3456]]   # per layer: 6 at K=1280, 1 at 3456
     mm_calls = [(acts[4, w[0].shape[1] * 2], w) for lw in layer_w
                 for w in lw.values()]
     blockvals = [(FM.block_values(a[0], a[1]).bfloat16(),
@@ -393,22 +482,10 @@ def phase_kernels(torch):
                    for i in range(layers)]
     sdpa_calls = [sdpa_yardstick(torch, *c, KV) for c in attn_layers]
 
-    def step_quant(fn):
-        return lambda: [fn(x) for _ in range(layers) for x in quant_in]
-
     results = {}
-    q_bytes = sum(x.numel() * 2 + x.numel() // 2 + x.numel() // 16 + 4
-                  for x in quant_in) * layers
-    q_ops = sum(x.numel() for x in quant_in) * layers * QUANT_FLOPS_PER_ELEMENT
     mm_fn = lambda: [ops.fp4_matmul(a[0], a[1], w[0], w[1], a[2], w[2], torch.bfloat16)
                      for a, w in mm_calls]
     at_fn = lambda: [ops.paged_gqa(*c) for c in attn_layers]
-    results["nvfp4_fos_quant"] = dict(
-        fn=step_quant(ops.nvfp4_fos_quant),
-        ms=time_ms(torch, step_quant(ops.nvfp4_fos_quant), 20),
-        plain_ms=time_ms(torch, step_quant(NQ.nvfp4_fos_quant_plain), 3),
-        library_ms=None, bytes=q_bytes, ops=q_ops, peak=F32_FLOPS,
-        calls=len(quant_in) * layers)
     mm_bytes, mm_ops = matmul_bytes_ops(mm_calls, 2)
     lib_fn = lambda: [torch.matmul(a, w) for a, w in blockvals]
     results["fp4_matmul"] = dict(
@@ -430,6 +507,24 @@ def phase_kernels(torch):
     log(f"  paged_gqa plan at the timed shape: {p.splits} splits of "
         f"{p.blocks_per_split} blocks, {p.grid} CTAs, row groups {p.row_groups}")
     finish_results(results, errs)
+
+    # ---- #1 over each path's step: the whole call's device time (every
+    # kernel a call launches), distinct inputs in every call
+    log("phase 3: nvfp4_fos_quant over one step of each path (llama-200m "
+        "decode, deepseek-v3 decode, training), whole calls")
+    groups = {}
+    for gname, calls in quant_step_sets().items():
+        train = gname == "train_step"
+        grp = groups[gname] = quant_group(torch, NQ, ops, calls, g, 5 if train else 20,
+                                          1 if train else 3)
+        log(f"  {gname:16s} {grp['calls']:3d} calls ({'+'.join(grp['regimes'])}, "
+            f"{grp['kernels_per_call']:.2f} kernels a call): events {grp['ms']:.4f} ms, "
+            f"device {grp['profiler_ms']} ms, plain {grp['plain_ms']:.3f} ms, bound "
+            f"{grp['bound_ms']:.5f} ms ({grp['bound_by']}: {grp['bytes'] / 1e6:.2f} MB)")
+    q = results["nvfp4_fos_quant"] = dict(groups.pop("llama_decode"))
+    q["groups"] = groups
+    q["max_abs_err"] = errs["nvfp4_fos_quant"]
+    torch.cuda.empty_cache()
     return results
 
 
@@ -539,18 +634,36 @@ def requant_operands(t):
 
 
 def check_phase1(torch, MR, ops, x, signs):
+    """Phase 1 bitwise against its plain version on the same x (a contiguous
+    tensor or a view, read in place)."""
     kern = ops.ms_eden_phase1(x, signs)
     torch.cuda.synchronize()
     plain = MR.phase1_plain(x, signs)
     codes_equal = torch.equal(kern[0], plain[0])
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(kern[1:], plain[1:]))
-    log(f"  ms_eden_phase1 {str(tuple(x.shape)):14s} codes "
+    kind, ld = MR.layout(x)
+    log(f"  ms_eden_phase1 {str(tuple(x.shape)):14s} {kind} (ld {ld}) codes "
         f"{'equal' if codes_equal else 'DIFFER'}, max|d| of pseudo/num/den/"
         f"absmax {err:.3g}")
     if not codes_equal or err != 0:
-        fail(f"ms_eden_phase1 {tuple(x.shape)}: not bitwise equal to its plain version")
+        fail(f"ms_eden_phase1 {tuple(x.shape)} {kind}: not bitwise equal to its "
+             "plain version")
     return plain
+
+
+def backward_operands(torch, g, t):
+    """The 28 requant operands of one dense layer's backward at T tokens, as
+    `core.linear._bwd_gemm` hands them: per quantized linear (N, K), E (T, N)
+    row-major, and the transposed views W^T (K, N), E^T (N, T), X^T (K, T)
+    of W (N, K), E and X (T, K) (the order of `requant_operands`)."""
+    ops_ = []
+    for n, k in ARCH_SHAPES.values():
+        e = torch.randn((t, n), generator=g, device="cuda")
+        w = torch.randn((n, k), generator=g, device="cuda") * k ** -0.5
+        x = torch.randn((t, k), generator=g, device="cuda")
+        ops_ += [e, w.T, e.T, x.T]
+    return ops_
 
 
 def check_phase2(torch, F, MR, ops, p1, u):
@@ -592,6 +705,17 @@ def phase_requant(torch):
         p1 = check_phase1(torch, MR, ops, x, signs)
         errs["ms_eden_phase2"] = max(errs["ms_eden_phase2"], check_phase2(
             torch, F, MR, ops, p1, draws.uniform(100 + i, (m, k // 16), "cuda")))
+    # every operand as the backward hands it (transposed views read in
+    # place), and transposes whose M is no multiple of 4 (4-byte chunks)
+    seen = set()
+    for x in backward_operands(torch, g, TRAIN_T) + [
+            torch.randn((80, 33), generator=g, device="cuda").T,
+            torch.randn((48, 1000), generator=g, device="cuda").T]:
+        key = (tuple(x.shape), x.stride())
+        if key not in seen:
+            seen.add(key)
+            check_phase1(torch, MR, ops, x, draws.signs(len(seen), R.block_size(
+                x.shape[1]), "cuda"))
     # every dX and dW GEMM shape of a training step: the backward GEMM
     # against its plain composition, and fp4_matmul on its requant operands
     mm_err = 0.0
@@ -619,11 +743,11 @@ def phase_requant(torch):
         if not err <= bar:
             fail(f"quartet2_backward_gemm ({ma},{mb},{d}): {err} > {bar}")
 
-    # ---- the 280 requant calls of one full-width training step
+    # ---- the 280 requant calls of one full-width training step, on the
+    # operands as the backward hands them (E row-major; W^T, E^T, X^T views)
     log("phase 3: timing one training step's worth of requant calls "
-        f"(10 layers x 28 operands, T = {TRAIN_T})")
-    calls = [torch.randn(shape, generator=g, device="cuda")
-             for _ in range(10) for shape in requant_operands(TRAIN_T)]
+        f"(10 layers x 28 operands as _bwd_gemm hands them, T = {TRAIN_T})")
+    calls = [x for _ in range(10) for x in backward_operands(torch, g, TRAIN_T)]
     signs = draws.signs(0, 128, "cuda")
     p1s = [ops.ms_eden_phase1(x, signs) for x in calls]
     us = [draws.uniform(200 + i, p[1].shape, "cuda") for i, p in enumerate(p1s)]
@@ -646,7 +770,16 @@ def phase_requant(torch):
         library_ms=None, bytes=n_groups * 17 + len(calls) * 8,
         ops=n_groups * PHASE2_FLOPS_PER_GROUP, peak=F32_FLOPS, calls=len(calls))
     finish_results(results, errs)
-    del calls, p1s, us
+    # the same 280 calls on contiguous copies of the operands (what phase 1
+    # read before it took views; the copies themselves are not timed)
+    flat = [x.contiguous() for x in calls]
+    flat_fn = lambda: [ops.ms_eden_phase1(x, signs) for x in flat]
+    r = results["ms_eden_phase1"]
+    r["contiguous_ms"] = time_ms(torch, flat_fn, 5)
+    r["contiguous_profiler_ms"] = device_ms(torch, flat_fn, KERNEL_SYMBOLS["ms_eden_phase1"])
+    log(f"  ms_eden_phase1 on contiguous copies of the same operands: "
+        f"{r['contiguous_ms']:.4f} ms (profiler {r['contiguous_profiler_ms']})")
+    del calls, p1s, us, flat
     torch.cuda.empty_cache()
     return results, mm_err
 
@@ -1222,9 +1355,25 @@ def profile_decode(torch, eng, Request, prompts, steps: int = 8):
                  for name, sym in KERNEL_SYMBOLS.items()}
     log("    port kernels, ms per step: " + ", ".join(
         f"{name} {ms:.4f}" for name, ms in by_kernel.items() if ms > 0))
+    torch_ops = launches_by_pattern(rows, steps)
+    log("    PyTorch launches per step: " + ", ".join(
+        f"{p} {n:g} ({ms:.4f} ms)" for p, (n, ms) in torch_ops.items()))
     return {"device_ms_per_step": dev_step_ms, "host_ms_per_step": step_ms,
-            "busy_share": busy, "kernel_ms": by_kernel,
+            "busy_share": busy, "kernel_ms": by_kernel, "torch_launches": torch_ops,
             "top": [(key, us / 1e3 / steps, n // steps) for us, key, n in rows[:12]]}
+
+
+# PyTorch kernels the quantizer's wrapper used to launch (AbsFunctor, the
+# amax's reduce_kernel) and the copies that fed MS-EDEN phase 1
+TORCH_PATTERNS = ("AbsFunctor", "reduce_kernel", "copy_kernel")
+
+
+def launches_by_pattern(rows, steps):
+    """{pattern: (launches, device ms)} per step over profile rows (us, key,
+    count) whose kernel name holds the pattern."""
+    return {p: (sum(n for _, key, n in rows if p in key) / steps,
+                sum(us for us, key, _ in rows if p in key) / 1e3 / steps)
+            for p in TORCH_PATTERNS}
 
 
 def phase_training(torch, card):
@@ -1298,14 +1447,17 @@ def profile_train_step(torch, trainer, state, step_ms):
         log(f"    {us / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
     by_kernel = {}
     for name, pat in (("fp4_matmul", KERNEL_SYMBOLS["fp4_matmul"]),
-                      ("nvfp4_fos_quant", "nvfp4_fos_quant_kernel"),
+                      ("nvfp4_fos_quant", KERNEL_SYMBOLS["nvfp4_fos_quant"]),
                       ("ms_eden_phase1", "ms_eden_phase1_kernel"),
                       ("ms_eden_phase2", "ms_eden_phase2_kernel")):
         by_kernel[name] = sum(us for us, key, _ in rows if pat in key) / 1e3
     log("  device ms per training step by ported kernel: " + ", ".join(
         f"{k} {v:.3f}" for k, v in by_kernel.items()))
+    torch_ops = launches_by_pattern(rows, 1)
+    log("  PyTorch launches per training step: " + ", ".join(
+        f"{p} {n:g} ({ms:.3f} ms)" for p, (n, ms) in torch_ops.items()))
     return {"device_ms_per_step": dev_ms, "busy_share": busy,
-            "kernel_ms": by_kernel,
+            "kernel_ms": by_kernel, "torch_launches": torch_ops,
             "top": [(key, us / 1e3, n) for us, key, n in rows[:16]]}
 
 
@@ -1357,7 +1509,7 @@ def main() -> None:
               if "spill" in ln and " 0 bytes spill stores" not in ln]
     if spills:
         log("  ptxas reports spills: " + "; ".join(spills))
-    for prefix in ("fp4_matmul_", "paged_gqa_"):
+    for prefix in ("nvfp4_fos_quant_", "ms_eden_phase1_", "fp4_matmul_", "paged_gqa_"):
         for line in ptxas_summary(build.BUILD_INFO.get("log", ""), prefix):
             log("  ptxas " + line)
 

@@ -45,6 +45,7 @@ from repro_torch.core import rht as R
 from repro_torch.core import rng
 from repro_torch.core import schemes as S
 from repro_torch.kernels import fp4_matmul as FM
+from repro_torch.kernels import ms_eden_requant as MR
 from repro_torch.kernels import ops
 
 
@@ -137,6 +138,15 @@ def _pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
+def _operand(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """A backward GEMM operand as the quantizers take it: f32, the inner dim
+    padded to `mult`. Without padding an f32 operand stays the view it is
+    when MS-EDEN phase 1 reads it in place (row-major, or the transpose of a
+    row-major tensor: E^T, W^T, X^T); otherwise a contiguous copy."""
+    x = _pad_to(x, mult).float()
+    return x if MR.layout(x) is not None else x.contiguous()
+
+
 def _bwd_gemm(a, b, bwd: str, quant_a: bool, quant_b: bool, use_rht: bool,
               draws, tag: int) -> torch.Tensor:
     """One backward GEMM a @ b^T (a (Ma, D), b (Mb, D)) with per-scheme
@@ -144,8 +154,8 @@ def _bwd_gemm(a, b, bwd: str, quant_a: bool, quant_b: bool, use_rht: bool,
     if not (quant_a or quant_b):
         return _mm(a, b)
     mult = 128 if a.shape[-1] % 128 else 16  # pad target for groups/rotation
-    a = _pad_to(a, mult if use_rht else 16).float().contiguous()
-    b = _pad_to(b, mult if use_rht else 16).float().contiguous()
+    a = _operand(a, mult if use_rht else 16)
+    b = _operand(b, mult if use_rht else 16)
     d = a.shape[-1]
     groups = d // F.GROUP
 
@@ -232,6 +242,9 @@ class _QLinear(torch.autograd.Function):
             dw = _mm(ef.T, xf.T)
         else:
             draws = rng.draws(ctx.seed)
+            # one f32 image of E serves both GEMMs (E and its transpose
+            # view); every use below reads E through f32 or bf16, exactly
+            ef = ef.float()
             # ---- dX = E @ W (inner dim N) ----
             if sch.quant_dx_e:
                 if sch.dx_w_mode == "requant":

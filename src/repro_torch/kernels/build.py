@@ -34,7 +34,8 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # every pointer and the stream are c_void_p, so no pointer is cut to 32 bits
 SIGNATURES = {
-    "nvfp4_fos_quant_launch": (_P, _I, _P, _P, _P, _P, _L, _L, _F, _F, _F, _P),
+    "nvfp4_fos_quant_launch": (_P, _I, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
+                               _F, _F, _F, _P),
     "fp4_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
                           _I, _I, _P),
     "paged_gqa_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
@@ -42,8 +43,8 @@ SIGNATURES = {
                          _P),
     "paged_mla_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L,
                          _L, _L, _L, _L, _L, _L, _F, _P),
-    "ms_eden_phase1_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _F, _F,
-                              _P),
+    "ms_eden_phase1_launch": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L,
+                              _I, _F, _F, _P),
     "ms_eden_phase2_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _F, _P),
 }
 

@@ -17,28 +17,46 @@
 //   operand, emitted as raw e4m3 bits.
 //
 // Bound on the H100: memory bytes, both phases. Phase 1 reads 4 B and writes
-// 0.5 + 12/16 B per element; the butterfly below does log2(b) = 7 adds per
-// element at b = 128 and the quantizer some 20 more f32 operations, ~1/10 of
-// what the card's CUDA cores (67 TFLOP/s) could do in the time the bytes take
-// at 3.35 TB/s. (The reference's dense RHT, 2 b = 256 flops per element,
-// would be bound by the CUDA cores instead.) Phase 2 moves 17 B per 16-group:
-// it reads 16 B (pseudo, num, den, u) and writes one e4m3 scale byte.
+// 0.5 + 12/16 B per element; the butterfly does log2(b) = 7 adds per element
+// at b = 128 and the quantizer some 25 more f32 operations, so at the byte
+// time the SMs have ~0.36 issue cycles an element and the instruction count
+// matters too (one launch a tensor, 280 a training step, also pays each
+// launch's ramp and tail). Phase 2 moves 17 B per 16-group: it reads 16 B
+// (pseudo, num, den, u) and writes one e4m3 scale byte.
 //
-// Design. Phase 1: one warp per 128 consecutive elements of the flattened
-// tensor, 4 per lane, loaded as one float4 (coalesced). Every rotation block
-// and every 16-group lies whole inside one warp, because K is a multiple of b
-// and b divides 128. The Hadamard is applied as a fast Walsh-Hadamard
-// butterfly in registers: strides 1 and 2 inside a lane, strides 4 .. b/2
-// across lanes by __shfl_xor_sync. Group maxima and the EDEN sums reduce over
-// the 4 lanes of a group by shuffles; the block's absmax reduces in shared
-// memory to one atomicMax. Bit-exactness: the butterfly runs in the fixed
-// order of core/rht.py, the EDEN sums in the order of core/ms_eden.group_sum,
-// and every rounding uses the _rn intrinsics (no FMA contraction; no fast
-// math; denormals kept, -ftz=false is nvcc's default), so both phases equal
-// their plain PyTorch versions bit for bit. The f32 constants (s, s * 256,
-// 1/sqrt(b)) come from Python, so kernel and plain version use identical
-// scalars. Phase 2: one thread per group. Any M is accepted (the reference's
-// kernel needed M % bm == 0). A later PR can fuse phase 2 into the GEMM's
+// Design of phase 1. x is taken where it lies: row-major (x[i, j] at
+// i * ld + j) or the transpose of a row-major tensor (x[i, j] at j * ld + i),
+// so the backward's E^T, W^T and X^T need no transposing copy. One CTA of 256
+// threads takes a tile of 4096 / b rows by one rotation block (b columns):
+//  - The tile comes through shared memory by cp.async (16-byte chunks where
+//    the pointer and ld allow, else 4-byte ones), each chunk a contiguous run
+//    of the source: rows of x, or rows of the transposed source. Rows past M
+//    are zero-filled. Row-major tiles keep rows at a pitch of b + 4 (b + 8
+//    at b = 64) floats with 16-byte quads XOR-swizzled, transposed tiles keep
+//    source rows at a pitch of 4096 / b floats rotated by 512 / b per
+//    16-group; either way a warp reads its groups without bank conflicts.
+//  - A thread holds one 16-group of one row in registers: butterfly strides
+//    1 .. 8 in registers, strides 16 .. b/2 across the b/16 lanes of the row
+//    by __shfl_xor_sync (3 shuffles an element at b = 128, 5 before). The
+//    group's max, pseudo-scale, codes and EDEN sums stay in that thread.
+//  - Codes leave as one 8-byte store a thread, pseudo / num / den as one
+//    float a thread: at b = 128 the 8 threads of a row fill whole 32-byte
+//    sectors. One atomicMax a CTA; the launch zeroes its target by a memset.
+//  - The FP4 grid value of rot / pseudo comes from the f32 rounding of (m +
+//    c) - c (see csrc/nvfp4_quant.cu:fp4_rtn_mag), not a threshold chain.
+//  - One tile a CTA, many CTAs an SM: measured on the H100 (PERF.md), this
+//    beat persistent CTAs that double-buffer tiles, and the IEEE divide beat
+//    the reciprocal route of csrc/nvfp4_quant.cu; the same loads and stores
+//    without the arithmetic take ~60% of the kernel's time.
+// Bit-exactness: the butterfly runs in the fixed order of core/rht.py, the
+// EDEN sums in the order of core/ms_eden.group_sum, and every rounding uses
+// the _rn intrinsics (no FMA contraction; no fast math; denormals kept,
+// -ftz=false is nvcc's default), so both phases equal their plain PyTorch
+// versions bit for bit. The f32 constants (s, s * 256, 1/sqrt(b)) come from
+// Python, so kernel and plain version use identical scalars. Any M is
+// accepted (the reference's kernel needed M % bm == 0).
+//
+// Phase 2: one thread per group. A later PR can fuse it into the GEMM's
 // operand load.
 
 #include <cuda_runtime.h>
@@ -48,17 +66,21 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = 4096;       // elements of a phase-1 tile: 16 a thread
+constexpr int kTileSmem = 5120;   // floats: 256 rows x (16 + 4) at b = 16
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int fp4_rtn_index(float m) {
-  // round-half-to-even thresholds of core/formats.py:fp4_rtn
-  return m <= 0.25f ? 0 : m < 0.75f ? 1 : m <= 1.25f ? 2 : m < 1.75f ? 3
-       : m <= 2.5f ? 4 : m < 3.5f ? 5 : m <= 5.0f ? 6 : 7;
+// see csrc/nvfp4_quant.cu: RNE of m >= 0 onto the E2M1 magnitudes, then its
+// 3-bit index
+__device__ __forceinline__ float fp4_rtn_mag(float m) {
+  m = fminf(m, 8.f);
+  const uint32_t e = max(__float_as_uint(m) & 0x7F800000u, 0x3F800000u);
+  const float c = __uint_as_float(e + (22u << 23));
+  return fminf(__fsub_rn(__fadd_rn(m, c), c), 6.f);
 }
 
-__device__ __forceinline__ float fp4_grid(int idx) {
-  const float g[8] = {0.f, 0.5f, 1.f, 1.5f, 2.f, 3.f, 4.f, 6.f};
-  return g[idx];
+__device__ __forceinline__ uint32_t fp4_index(float q) {
+  return q >= 1.f ? (__float_as_uint(q) >> 22) - 252u : (q > 0.f ? 1u : 0u);
 }
 
 __device__ __forceinline__ float e4m3_bits_to_float(uint32_t b) {
@@ -80,102 +102,180 @@ __device__ __forceinline__ float e8m3_rtn(float x) {
   return ldexpf(mq, e);
 }
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// row-major tile: the float offset of element (r, j) (row pitch b + 4, b + 8
+// at b = 64; quad Q of a row stored at Q ^ ((Q >> 3) & 3))
+__device__ __forceinline__ int rows_offset(int r, int j, int pitch) {
+  const int q = j >> 2;
+  return r * pitch + ((q ^ ((q >> 3) & 3)) << 2) + (j & 3);
+}
+
+// transposed tile: the float offset of source row jj (column j of x), column
+// ii (row i of x); each 16-group of source rows rotated by 512 / b
+__device__ __forceinline__ int cols_offset(int jj, int ii, int ti, int b) {
+  return jj * ti + ((ii + (512 / b) * (jj >> 4)) & (ti - 1));
+}
+
+// kTrans: x[i, j] at j * ld + i (else i * ld + j); kVec: 16- or 4-byte
+// cp.async chunks (16 needs x and ld aligned to 4 floats).
+template <bool kTrans, int kVec>
 __global__ void __launch_bounds__(kThreads)
-ms_eden_phase1_kernel(const float* __restrict__ x,
+ms_eden_phase1_kernel(const float* __restrict__ x, int64_t ld,
                       const float* __restrict__ signs,
                       uint8_t* __restrict__ packed,
                       float* __restrict__ pseudo,
                       float* __restrict__ num,
                       float* __restrict__ den,
                       unsigned int* __restrict__ absmax_bits,
-                      int64_t n, int b, float s, float inv_sqrt_b) {
+                      int64_t m, int64_t k, int b, float s, float inv_sqrt_b) {
+  __shared__ __align__(16) float tile[kTileSmem];
   __shared__ float warp_max[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int64_t base = warp * 128 + lane * 4;  // this lane's first element
-  const bool active = base < n;  // n % 16 == 0: groups are whole either way
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int G = b >> 4;     // threads of a row (16-groups of a block)
+  const int ti = kTile / b;  // rows of x in the tile
+  const int64_t kblocks = k / b;
+  const int64_t rtiles = (m + ti - 1) / ti;
+  // consecutive CTAs read neighbouring memory: along K for row-major x,
+  // along M for transposed x
+  const int64_t rt = kTrans ? blockIdx.x % rtiles : blockIdx.x / kblocks;
+  const int64_t kb = (kTrans ? blockIdx.x / rtiles : blockIdx.x % kblocks) * b;
+  const int64_t i0 = rt * ti;
+  const int pitch = b + (b == 64 ? 8 : 4);
 
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (active) {
-    const float4 t = *reinterpret_cast<const float4*>(x + base);
-    const int p0 = (lane * 4) & (b - 1);  // position inside the rotation block
-    v[0] = __fmul_rn(t.x, signs[p0]);
-    v[1] = __fmul_rn(t.y, signs[p0 + 1]);
-    v[2] = __fmul_rn(t.z, signs[p0 + 2]);
-    v[3] = __fmul_rn(t.w, signs[p0 + 3]);
-  }
-
-  // Walsh-Hadamard butterfly, strides 1, 2, ..., b/2: (lo, hi) -> (lo + hi,
-  // lo - hi), the order of core/rht.py:_butterfly.
-  {
-    const float a0 = v[0], a1 = v[1], a2 = v[2], a3 = v[3];
-    v[0] = __fadd_rn(a0, a1); v[1] = __fsub_rn(a0, a1);
-    v[2] = __fadd_rn(a2, a3); v[3] = __fsub_rn(a2, a3);
-  }
-  {
-    const float a0 = v[0], a1 = v[1], a2 = v[2], a3 = v[3];
-    v[0] = __fadd_rn(a0, a2); v[2] = __fsub_rn(a0, a2);
-    v[1] = __fadd_rn(a1, a3); v[3] = __fsub_rn(a1, a3);
-  }
-  for (int h = 4; h < b; h <<= 1) {
-    const int lm = h >> 2;  // partner lane holds the element h away
-    const bool upper = (lane & lm) != 0;
+  // ---- the tile into shared memory
+  constexpr int kPer = kVec / 4;  // floats of one chunk
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float o = __shfl_xor_sync(kFull, v[j], lm);
-      v[j] = upper ? __fsub_rn(o, v[j]) : __fadd_rn(v[j], o);
+  for (int u = 0; u < kTile / kPer / kThreads; ++u) {
+    const int e = (tid + u * kThreads) * kPer;  // first element of the chunk
+    if (kTrans) {
+      const int jj = e / ti, ii = e % ti;  // source row, column in the tile
+      const int64_t i = i0 + ii;
+      const int64_t left = m - i;  // rows of x this chunk may hold
+      const int valid = left <= 0 ? 0 : left < kPer ? (int)left : kPer;
+      const float* src = valid ? x + (kb + jj) * ld + i : x;
+      float* dst = tile + cols_offset(jj, ii, ti, b);
+      if (kVec == 16) cp_async16(dst, src, valid * 4);
+      else cp_async4(dst, src, valid * 4);
+    } else {
+      const int r = e / b, j = e % b;
+      const int64_t i = i0 + r;
+      const bool valid = i < m;
+      const float* src = valid ? x + i * ld + kb + j : x;
+      float* dst = tile + rows_offset(r, j, pitch);
+      if (kVec == 16) cp_async16(dst, src, valid ? 16 : 0);
+      else cp_async4(dst, src, valid ? 4 : 0);
     }
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(v[j], inv_sqrt_b);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  // 16-group = the 4 lanes of a quad
-  float gmax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
-                     fmaxf(fabsf(v[2]), fabsf(v[3])));
-  gmax = fmaxf(gmax, __shfl_xor_sync(kFull, gmax, 1));
-  gmax = fmaxf(gmax, __shfl_xor_sync(kFull, gmax, 2));
+  // ---- while it lands: this thread's 16 signs
+  const int g = lane % G;  // 16-group inside the block
+  const int r = tid / G;   // row of x inside the tile
+  float v[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 sg = __ldg(reinterpret_cast<const float4*>(signs) + 4 * g + q);
+    v[4 * q] = sg.x; v[4 * q + 1] = sg.y; v[4 * q + 2] = sg.z; v[4 * q + 3] = sg.w;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // ---- x * sign
+  if (kTrans) {
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+      v[t] = __fmul_rn(tile[cols_offset(16 * g + t, r, ti, b)], v[t]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 xv = *reinterpret_cast<const float4*>(
+          tile + rows_offset(r, 16 * g + 4 * q, pitch));
+      v[4 * q] = __fmul_rn(xv.x, v[4 * q]);
+      v[4 * q + 1] = __fmul_rn(xv.y, v[4 * q + 1]);
+      v[4 * q + 2] = __fmul_rn(xv.z, v[4 * q + 2]);
+      v[4 * q + 3] = __fmul_rn(xv.w, v[4 * q + 3]);
+    }
+  }
+
+  // ---- Walsh-Hadamard butterfly, strides 1, 2, ..., b/2: (lo, hi) -> (lo +
+  // hi, lo - hi), the order of core/rht.py:_butterfly. 1 .. 8 in registers,
+  // 16 .. b/2 across the lanes of the row.
+#pragma unroll
+  for (int h = 1; h < 16; h <<= 1) {
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      if (t & h) continue;
+      const float lo = v[t], hi = v[t + h];
+      v[t] = __fadd_rn(lo, hi);
+      v[t + h] = __fsub_rn(lo, hi);
+    }
+  }
+  for (int h = 1; h < G; h <<= 1) {  // h in groups: stride 16 h elements
+    const bool upper = (g & h) != 0;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const float o = __shfl_xor_sync(kFull, v[t], h);
+      v[t] = upper ? __fsub_rn(o, v[t]) : __fadd_rn(v[t], o);
+    }
+  }
+  float gmax = 0.f;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    v[t] = __fmul_rn(v[t], inv_sqrt_b);
+    gmax = fmaxf(gmax, fabsf(v[t]));
+  }
+
+  // ---- the group: pseudo-scale, codes, EDEN sums in group_sum's order
   const float ps = e8m3_rtn(__fdiv_rn(gmax, s));
   const float denom = ps == 0.f ? 1.f : ps;
-
-  uint32_t codes = 0;
-  float tn = 0.f, td = 0.f;
+  uint64_t codes = 0;
+  float tn[4], td[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float xs = __fdiv_rn(v[j], denom);
-    const int idx = fp4_rtn_index(fabsf(xs));
-    const float g = fp4_grid(idx);
-    const float q = xs > 0.f ? g : (xs < 0.f ? -g : 0.f);
+  for (int t = 0; t < 16; ++t) {
+    const float xs = __fdiv_rn(v[t], denom);
+    const float gq = fp4_rtn_mag(fabsf(xs));
+    const float q = xs > 0.f ? gq : (xs < 0.f ? -gq : 0.f);
+    const uint32_t idx = fp4_index(gq);
     // sign bit only for a strictly negative grid value (-0 codes as 0)
-    codes |= (uint32_t)(((xs < 0.f && idx > 0) ? 8 : 0) | idx) << (4 * j);
-    const float sq = __fmul_rn(v[j], v[j]);
-    const float pr = __fmul_rn(v[j], __fmul_rn(q, denom));
-    tn = j == 0 ? sq : __fadd_rn(tn, sq);
-    td = j == 0 ? pr : __fadd_rn(td, pr);
+    codes |= (uint64_t)(((xs < 0.f && idx) ? 8u : 0u) | idx) << (4 * t);
+    const float sq = __fmul_rn(v[t], v[t]);
+    const float pr = __fmul_rn(v[t], __fmul_rn(q, denom));
+    tn[t >> 2] = (t & 3) == 0 ? sq : __fadd_rn(tn[t >> 2], sq);
+    td[t >> 2] = (t & 3) == 0 ? pr : __fadd_rn(td[t >> 2], pr);
   }
-  tn = __fadd_rn(tn, __shfl_xor_sync(kFull, tn, 1));
-  td = __fadd_rn(td, __shfl_xor_sync(kFull, td, 1));
-  tn = __fadd_rn(tn, __shfl_xor_sync(kFull, tn, 2));
-  td = __fadd_rn(td, __shfl_xor_sync(kFull, td, 2));
+  const float sn = __fadd_rn(__fadd_rn(tn[0], tn[1]), __fadd_rn(tn[2], tn[3]));
+  const float sd = __fadd_rn(__fadd_rn(td[0], td[1]), __fadd_rn(td[2], td[3]));
 
-  if (active) {
-    // two bytes: (c0 | c1 << 4), (c2 | c3 << 4), low nibble = even index
-    *reinterpret_cast<uint16_t*>(packed + base / 2) = (uint16_t)codes;
-    if ((lane & 3) == 0) {
-      const int64_t gi = base / 16;
-      pseudo[gi] = ps;
-      num[gi] = tn;
-      den[gi] = td;
-    }
+  const int64_t i = i0 + r;
+  if (i < m) {
+    const int64_t e = i * k + kb + 16 * g;  // first element of the group
+    *reinterpret_cast<uint64_t*>(packed + e / 2) = codes;
+    pseudo[e / 16] = ps;
+    num[e / 16] = sn;
+    den[e / 16] = sd;
   }
 
-  // absmax of the block: warp shuffles, then shared memory, one atomic
+  // ---- absmax of the tile: warp shuffles, then shared memory, one atomic
   float am = gmax;
-  am = fmaxf(am, __shfl_xor_sync(kFull, am, 4));
-  am = fmaxf(am, __shfl_xor_sync(kFull, am, 8));
-  am = fmaxf(am, __shfl_xor_sync(kFull, am, 16));
-  if (lane == 0) warp_max[threadIdx.x >> 5] = am;
+#pragma unroll
+  for (int o = 16; o; o >>= 1) am = fmaxf(am, __shfl_xor_sync(kFull, am, o));
+  if (lane == 0) warp_max[tid >> 5] = am;
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     float bm = warp_max[0];
     for (int w = 1; w < kThreads / 32; ++w) bm = fmaxf(bm, warp_max[w]);
     // non-negative floats order as their bit patterns
@@ -225,18 +325,28 @@ ms_eden_phase2_kernel(const float* __restrict__ absmax,
 
 }  // namespace
 
-extern "C" int ms_eden_phase1_launch(const void* x, const void* signs,
-                                     void* packed, void* pseudo, void* num,
-                                     void* den, void* absmax_bits, int64_t m,
-                                     int64_t k, int b, float s,
-                                     float inv_sqrt_b, void* stream) {
-  const int64_t n = m * k;
-  const int64_t warps = (n + 127) / 128;
-  const int64_t blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
-  ms_eden_phase1_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)signs, (uint8_t*)packed, (float*)pseudo,
-      (float*)num, (float*)den, (unsigned int*)absmax_bits, n, b, s,
-      inv_sqrt_b);
+// trans: x[i, j] at j * ld + i, else at i * ld + j; vec: 16 or 4 (bytes of
+// one cp.async chunk). b in {16, 32, 64, 128} divides k.
+extern "C" int ms_eden_phase1_launch(const void* x, int64_t ld, int trans,
+                                     int vec, const void* signs, void* packed,
+                                     void* pseudo, void* num, void* den,
+                                     void* absmax_bits, int64_t m, int64_t k,
+                                     int b, float s, float inv_sqrt_b,
+                                     void* stream) {
+  if (b != 16 && b != 32 && b != 64 && b != 128) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (m + kTile / b - 1) / (kTile / b) * (k / b);
+  cudaStream_t st = (cudaStream_t)stream;
+  // the atomicMax target starts at +0 (a memset on the stream, no kernel)
+  const cudaError_t err = cudaMemsetAsync(absmax_bits, 0, sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = trans ? (vec == 16 ? ms_eden_phase1_kernel<true, 16>
+                                   : ms_eden_phase1_kernel<true, 4>)
+                      : (vec == 16 ? ms_eden_phase1_kernel<false, 16>
+                                   : ms_eden_phase1_kernel<false, 4>);
+  kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+      (const float*)x, ld, (const float*)signs, (uint8_t*)packed,
+      (float*)pseudo, (float*)num, (float*)den, (unsigned int*)absmax_bits, m,
+      k, b, s, inv_sqrt_b);
   return (int)cudaGetLastError();
 }
 

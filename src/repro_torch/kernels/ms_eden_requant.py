@@ -38,15 +38,33 @@ def phase2_plain(absmax, pseudo, num, den, u):
     return F.e4m3_to_bits(scales), gscale
 
 
+def layout(x: torch.Tensor):
+    """How phase 1's kernel reads a 2-D x: ("rows", ld) when x[i, j] lies at
+    i * ld + j, ("cols", ld) when at j * ld + i (the transpose of a row-major
+    tensor, as the backward's E^T, W^T and X^T are), None otherwise."""
+    m, k = x.shape
+    s0, s1 = x.stride()
+    if s1 == 1 and (m == 1 or s0 >= k):
+        return "rows", s0 if m > 1 else k
+    if s0 == 1 and s1 >= m:
+        return "cols", s1
+    return None
+
+
 def launch_phase1(x, signs, packed, pseudo, num, den, absmax) -> None:
-    """Enqueue phase 1 on the current stream; `absmax` (1,) f32 must hold 0."""
+    """Enqueue phase 1 on the current stream (outputs preallocated; the
+    launch zeroes `absmax` (1,) f32 by a memset before the kernel). x is read
+    where it lies (`layout`), in 16-byte chunks when its pointer and row
+    pitch allow, else in 4-byte ones."""
     m, k = x.shape
     b = signs.numel()
+    kind, ld = layout(x)
+    vec = 16 if x.data_ptr() % 16 == 0 and ld % 4 == 0 else 4
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = build.library().ms_eden_phase1_launch(
-        x.data_ptr(), signs.data_ptr(), packed.data_ptr(), pseudo.data_ptr(),
-        num.data_ptr(), den.data_ptr(), absmax.data_ptr(), m, k, b, S,
-        R.inv_sqrt(b), stream)
+        x.data_ptr(), ld, int(kind == "cols"), vec, signs.data_ptr(),
+        packed.data_ptr(), pseudo.data_ptr(), num.data_ptr(), den.data_ptr(),
+        absmax.data_ptr(), m, k, b, S, R.inv_sqrt(b), stream)
     build.check(status, "ms_eden_phase1")
 
 

@@ -51,7 +51,9 @@ def nvfp4_fos_quant(x: torch.Tensor):
     """Four-over-Six NVFP4 quantization of x (M, K) f32/bf16.
 
     Returns (packed codes u8 (M, K/2), e4m3 scale bits u8 (M, K/16), gscale
-    f32 0-dim), the operand form of `fp4_matmul`."""
+    f32 0-dim), the operand form of `fp4_matmul`. On the card the kernel
+    takes the tensor's absmax itself: a call launches nothing else, and at
+    decode sizes exactly one kernel (`nvfp4_quant.plan`)."""
     name = "nvfp4_fos_quant"
     _need(x.dim() == 2 and x.shape[1] % F.GROUP == 0 and x.shape[0] > 0,
           name, f"x must be (M>0, K % 16 == 0), got {tuple(x.shape)}")
@@ -60,13 +62,13 @@ def nvfp4_fos_quant(x: torch.Tensor):
     if _device(name, x) == "cpu":
         return NQ.nvfp4_fos_quant_plain(x)
     _need(x.is_contiguous(), name, "x must be contiguous")
+    _need(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
     m, k = x.shape
     packed = torch.empty((m, k // 2), dtype=torch.uint8, device=x.device)
     scale_bits = torch.empty((m, k // F.GROUP), dtype=torch.uint8,
                              device=x.device)
     gscale = torch.empty((), dtype=torch.float32, device=x.device)
-    absmax = x.abs().amax().float()
-    NQ.launch(x, absmax, packed, scale_bits, gscale)
+    NQ.launch(x, packed, scale_bits, gscale)
     LAUNCHES[name] += 1
     return packed, scale_bits, gscale
 
@@ -295,7 +297,10 @@ def paged_mla_q(q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales,
 def ms_eden_phase1(x: torch.Tensor, signs: torch.Tensor):
     """MS-EDEN phase 1 of x (M, K) f32 with RHT signs (b,), b = block_size(K):
     (packed codes u8 (M, K/2), E8M3 pseudo-scales, EDEN num and den f32
-    (M, K/16), absmax of the rotated x f32 (1,)), all in rotated space."""
+    (M, K/16), absmax of the rotated x f32 (1,)), all in rotated space.
+    x may be a view: on the card row-major rows at any pitch, or the
+    transpose of a row-major tensor (`ms_eden_requant.layout`), read where
+    it lies; on the CPU any strides."""
     name = "ms_eden_phase1"
     _need(x.dim() == 2 and x.shape[0] > 0 and x.shape[1] % F.GROUP == 0,
           name, f"x must be (M>0, K % 16 == 0), got {tuple(x.shape)}")
@@ -306,14 +311,16 @@ def ms_eden_phase1(x: torch.Tensor, signs: torch.Tensor):
           f"signs must be ({R.block_size(k)},) for K={k}")
     if _device(name, x, signs) == "cpu":
         return MR.phase1_plain(x, signs)
-    _need(x.is_contiguous() and signs.is_contiguous(), name,
-          "operands must be contiguous")
-    _need(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
+    _need(MR.layout(x) is not None, name,
+          "x must be row-major or the transpose of a row-major tensor, got "
+          f"strides {x.stride()}")
+    _need(signs.is_contiguous() and signs.data_ptr() % 16 == 0, name,
+          "signs must be contiguous and 16-byte aligned")
     dev = x.device
     packed = torch.empty((m, k // 2), dtype=torch.uint8, device=dev)
     pseudo, num, den = (torch.empty((m, k // F.GROUP), dtype=torch.float32,
                                     device=dev) for _ in range(3))
-    absmax = torch.zeros((1,), dtype=torch.float32, device=dev)
+    absmax = torch.empty((1,), dtype=torch.float32, device=dev)
     MR.launch_phase1(x, signs, packed, pseudo, num, den, absmax)
     LAUNCHES[name] += 1
     return packed, pseudo, num, den, absmax
@@ -346,7 +353,8 @@ def ms_eden_requant(x: torch.Tensor, signs: torch.Tensor, uniforms: torch.Tensor
     """Two-phase MS-EDEN re-quantization of x (M, K) f32 with RHT signs (b,)
     and SR uniforms (M, K/16): (packed codes u8 (M, K/2), e4m3 scale bits u8
     (M, K/16), gscale f32 0-dim) in rotated space — the operand form of
-    `fp4_matmul`. The gscale stays on the device (no host sync)."""
+    `fp4_matmul`. The gscale stays on the device (no host sync). x may be
+    a view, as for `ms_eden_phase1`."""
     packed, pseudo, num, den, absmax = ms_eden_phase1(x, signs)
     _need(tuple(uniforms.shape) == tuple(pseudo.shape), "ms_eden_requant",
           f"uniforms must be {tuple(pseudo.shape)}")
@@ -358,7 +366,9 @@ def quartet2_backward_gemm(a, b, signs, u_a, u_b):
     """a @ b^T (a (Ma, D), b (Mb, D) f32) with MS-EDEN re-quantization of both
     operands — shared RHT signs, so the rotations cancel in the product — and
     the NVFP4 GEMM: the kernel-level composition of paper Fig. 3's backward
-    box (`repro/kernels/ops.py:quartet2_backward_gemm`). f32 (Ma, Mb)."""
+    box (`repro/kernels/ops.py:quartet2_backward_gemm`). f32 (Ma, Mb). a and
+    b may be views, as for `ms_eden_phase1` (the backward passes E^T, W^T
+    and X^T as transposed views)."""
     qa = ms_eden_requant(a, signs, u_a)
     qb = ms_eden_requant(b, signs, u_b)
     return fp4_matmul(qa[0], qa[1], qb[0], qb[1], qa[2], qb[2])

@@ -105,6 +105,100 @@ def test_nvfp4_fos_quant_zero_and_counts(dev):
     assert ops.LAUNCHES["nvfp4_fos_quant"] == 1
 
 
+# both plan regimes at their boundary (the last cluster shape) and one past
+# it, in chunks of 8; deepseek-v3's decode shapes
+QUANT_REGIME_SHAPES = [(4, 2 * NQ.SMALL_MAX_CHUNKS), (4, 2 * NQ.SMALL_MAX_CHUNKS + 16),
+                       (8, 7168), (4, 7168), (4, 1536), (8, 2048)]
+
+
+@pytest.mark.parametrize("m,k", QUANT_REGIME_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nvfp4_fos_quant_regimes_match_plain(dev, m, k, dtype):
+    """Either regime against the plain version, and the other regime forced
+    on the same input: bitwise the same outputs (max and encode commute)."""
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = (torch.randn((m, k), generator=g, device=dev)
+         * torch.exp(torch.randn((m, k), generator=g, device=dev))).to(dtype)
+    kern = ops.nvfp4_fos_quant(x)
+    torch.cuda.synchronize()
+    assert_quant_close(kern, NQ.nvfp4_fos_quant_plain(x))
+    chunks = m * k // NQ.CHUNK
+    if chunks <= NQ.SMALL_MAX_CHUNKS:  # a cluster holds it
+        other = (NQ.two_pass_plan(chunks) if NQ.plan(m, k).regime == "cluster"
+                 else NQ.cluster_plan(chunks))
+        out = tuple(torch.empty_like(t) for t in kern)
+        NQ.launch(x, *out, p=other)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(kern, out))
+
+
+def _threshold_tensor(dev, m, k, dtype):
+    """x whose non-maximal elements of each 16-group sit at +-t * d for the
+    FP4 rounding thresholds t (0.25 ... 3.5) and d the group's kept denom
+    (scale * gscale, from the plain version), so x / d lands on a threshold
+    or one rounding away from it."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype).float()
+    _, sb, gs = NQ.nvfp4_fos_quant_plain(x.to(dtype))
+    d = torch.repeat_interleave(F.bits_to_e4m3(sb) * gs, 16, dim=-1)
+    t = torch.tensor([0.25, 0.75, 1.25, 1.75, 2.5, 3.5], device=dev)
+    t = t[torch.arange(k, device=dev) % 6] * torch.where(
+        torch.arange(k, device=dev) % 4 < 2, 1.0, -1.0)
+    grp = x.reshape(m, k // 16, 16).abs()
+    is_max = (grp == grp.amax(-1, keepdim=True)).reshape(m, k)
+    return torch.where(is_max, x, t * d).to(dtype)
+
+
+@pytest.mark.parametrize("m,k", [(4, 1280), (2048, 1280)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["zero", "huge_last", "denormal", "thresholds"])
+def test_nvfp4_fos_quant_edge_inputs(dev, m, k, dtype, case):
+    """All zeros; one huge element in the last chunk (the last CTA of either
+    regime); denormal values only; values on the FP4 rounding thresholds."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    if case == "zero":
+        x = torch.zeros((m, k), device=dev, dtype=dtype)
+    elif case == "huge_last":
+        x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        x[-1, -1] = 3e4
+    elif case == "denormal":
+        x = (torch.randn((m, k), generator=g, device=dev) * 1e-39).to(dtype)
+    else:
+        x = _threshold_tensor(dev, m, k, dtype)
+    kern = ops.nvfp4_fos_quant(x)
+    torch.cuda.synchronize()
+    assert_quant_close(kern, NQ.nvfp4_fos_quant_plain(x))
+    if case == "zero":
+        assert float(kern[2]) == 1.0 and int(kern[0].sum()) == 0
+
+
+@pytest.mark.parametrize("m,k", [(4, 1280), (4, 3456), (8, 7168), (4, 16384),
+                                 (2048, 1280)])
+def test_nvfp4_fos_quant_launches_only_its_kernels(dev, m, k):
+    """No PyTorch kernel (no abs, no amax) in a call: one cluster kernel at
+    decode sizes, the absmax and encode kernels above them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn((m, k), device=dev).bfloat16()
+    ops.nvfp4_fos_quant(x)  # build and warm up outside the window
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    NQ.REGIME_LAUNCHES.update(cluster=0, two_pass=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.nvfp4_fos_quant(x)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+    want = (["nvfp4_fos_quant_cluster_kernel"] if NQ.plan(m, k).regime == "cluster"
+            else ["nvfp4_fos_quant_absmax_kernel", "nvfp4_fos_quant_encode_kernel"])
+    assert sorted(w for n in names for w in want if w in n) == sorted(want), names
+    assert len(names) == len(want), names
+    assert ops.LAUNCHES["nvfp4_fos_quant"] == 1
+    regime = NQ.plan(m, k).regime
+    assert NQ.REGIME_LAUNCHES == {"cluster": int(regime == "cluster"),
+                                  "two_pass": int(regime == "two_pass")}
+
+
 FP4_MATMUL_NK = [(1280, 1280), (3456, 1280), (1280, 3456), (576, 16), (576, 48),
                  (576, 2048), (576, 7168)]
 
@@ -451,6 +545,30 @@ def test_ms_eden_phase1_matches_plain(dev, m, k):
     for a, b in zip(kern, plain):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,k", REQUANT_SHAPES)
+@pytest.mark.parametrize("view", ["transposed", "pitched"])
+def test_ms_eden_phase1_views_match_plain(dev, m, k, view):
+    """x as the backward hands it (the transpose of a row-major tensor, read
+    in place; M % 4 != 0 takes 4-byte chunks) or row-major rows at a pitch
+    wider than K: bitwise the plain version on the same view, and the kernel
+    on a contiguous copy."""
+    x, signs, _ = _requant_inputs(dev, m, k, 2 * m + k, zero_rows=(0, m - 1))
+    if view == "transposed":
+        xv = x.T.contiguous().T
+        assert MR.layout(xv)[0] == "cols"
+    else:
+        xv = torch.zeros((m, k + 16), device=dev)[:, 1:k + 1]  # 4-byte aligned
+        xv.copy_(x)
+        assert MR.layout(xv) == ("rows", k + 16)
+    kern = ops.ms_eden_phase1(xv, signs)
+    flat = ops.ms_eden_phase1(x, signs)
+    torch.cuda.synchronize()
+    plain = MR.phase1_plain(xv, signs)
+    for a, b, c in zip(kern, plain, flat):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.parametrize("m,k", REQUANT_SHAPES)

@@ -40,16 +40,19 @@ import pytest
 import torch
 
 from repro.core import formats as JF
+from repro.core import linear as JL
 from repro.core import ms_eden as JME
 from repro.core import quant as JQ
 from repro.core import rht as JR
 from repro.kernels import ops as jops
 from repro.kernels.ms_eden_requant import ms_eden_requant as jrequant
 from repro_torch.core import formats as F
+from repro_torch.core import linear as L
 from repro_torch.core import ms_eden as ME
 from repro_torch.core import quant as Q
 from repro_torch.core import rht as R
 from repro_torch.core import rng
+from repro_torch.kernels import ms_eden_requant as MR
 from repro_torch.kernels import ops
 
 
@@ -186,6 +189,114 @@ def test_phase1_matches_eager_jax(shape):
         b_ = np.asarray(b_)
         assert np.abs(a.numpy() - b_).max() <= 1e-5 * np.abs(b_).max()
     assert float(absmax[0]) == pytest.approx(float(want.absmax), rel=1e-6)
+
+
+def _views(x: np.ndarray):
+    """x (M, K) as the backward hands operands over: the transpose of a
+    row-major (K, M) tensor, and row-major rows at a pitch wider than K."""
+    m, k = x.shape
+    wide = torch.zeros((m, k + 16))
+    wide[:, 1:k + 1] = T(x)
+    return {"transposed": T(x.T.copy()).T, "pitched": wide[:, 1:k + 1]}
+
+
+@pytest.mark.parametrize("shape", [(128, 256), (96, 48), (64, 1024), (33, 80)])
+@pytest.mark.parametrize("view", ["transposed", "pitched"])
+def test_phase1_on_views_bitwise_and_vs_eager_jax(shape, view):
+    """ops.ms_eden_phase1 on a strided view: bitwise its result on the
+    contiguous tensor, and within the RHT bar of eager JAX."""
+    x = _rand(shape, 21)
+    xv = _views(x)[view]
+    assert not xv.is_contiguous()
+    assert MR.layout(xv)[0] == ("cols" if view == "transposed" else "rows")
+    rk = jax.random.PRNGKey(22)
+    signs = T(JR.sign_vector(rk, JR.block_size(shape[1])))
+    got = ops.ms_eden_phase1(xv, signs)
+    for a, b in zip(got, ops.ms_eden_phase1(T(x), signs)):
+        assert torch.equal(a, b)
+    want = JME.ms_eden_phase1(jnp.asarray(x), rk)
+    assert_codes_close(F.unpack_fp4(got[0]).numpy(), np.asarray(want.codes))
+    assert (got[1].numpy() != np.asarray(want.pseudo_scales)).mean() <= 1e-4
+    assert float(got[4][0]) == pytest.approx(float(want.absmax), rel=1e-6)
+
+
+@pytest.mark.parametrize("view", ["transposed", "pitched"])
+def test_requant_on_views_bitwise(view):
+    x = _rand((64, 384), 23)
+    signs = rng.HashDraws([1, 2]).signs(0, 128, "cpu")
+    u = rng.HashDraws([1, 2]).uniform(1, (64, 384 // 16), "cpu")
+    got = ops.ms_eden_requant(_views(x)[view], signs, u)
+    for a, b in zip(got, ops.ms_eden_requant(T(x), signs, u)):
+        assert torch.equal(a, b)
+
+
+def test_layout_of_views():
+    x = torch.zeros((8, 32))
+    assert MR.layout(x) == ("rows", 32)
+    assert MR.layout(torch.zeros((32, 8)).T) == ("cols", 8)
+    assert MR.layout(torch.zeros((8, 48))[:, :32]) == ("rows", 48)
+    assert MR.layout(torch.zeros((1, 32))) == ("rows", 32)
+    assert MR.layout(torch.zeros((8, 64))[:, ::2]) is None
+    assert MR.layout(torch.zeros((4, 8, 32))[:, 0, :]) == ("rows", 256)
+
+
+class _KeyDraws:
+    """The reference's draws of one site seed (`repro.core.linear._key`)."""
+
+    def __init__(self, seed):
+        self.seed = jnp.asarray(seed, jnp.uint32)
+
+    def key(self, tag):
+        return JL._key(self.seed, tag)
+
+    def signs(self, tag, n, device):
+        return T(jax.random.rademacher(self.key(tag), (n,), jnp.float32)).to(device)
+
+    def uniform(self, tag, shape, device):
+        return T(jax.random.uniform(self.key(tag), tuple(shape), jnp.float32)).to(device)
+
+
+def test_qlinear_backward_on_views_bitwise_and_vs_jax_kernel_path(monkeypatch):
+    """A quartet2 qlinear backward whose MS-EDEN operands need no padding
+    (N = 256 and M = 128 tokens): E^T, W^T and X^T reach the requant as
+    transposed views, and the gradients are BITWISE those of the earlier
+    contiguous copies; each backward GEMM is within the fp4_matmul bar
+    (1e-5 max|C|) of the reference's kernel path on the same operands and
+    draws (the RHT order differs: butterfly against GEMM)."""
+    m, k, n = 128, 128, 256
+    x = T(_rand((m, k), 24)).bfloat16()
+    w = T(_rand((n, k), 25, k ** -0.5))
+    e = T(_rand((m, n), 26)).bfloat16()
+    draws = _KeyDraws(np.array([9, 10], np.uint32))
+    seen, grads = [], {}
+    real = ops.quartet2_backward_gemm
+
+    def spy(a, b, *rest):
+        seen.append((a.clone(), b.clone(), a.is_contiguous(), b.is_contiguous()))
+        return real(a, b, *rest)
+
+    monkeypatch.setattr(ops, "quartet2_backward_gemm", spy)
+    for path in ("views", "copies"):
+        if path == "copies":  # the backward before it took views
+            monkeypatch.setattr(L, "_operand", lambda t, mult: L._pad_to(
+                t, mult).float().contiguous())
+        tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+        L.qlinear(tx, tw, draws, "quartet2").backward(e)
+        grads[path] = (tx.grad, tw.grad)
+    assert [c for _, _, *c in seen[:2]] == [[True, False], [False, False]]
+    assert all(a and b for _, _, a, b in seen[2:])
+    for g, h in zip(grads["views"], grads["copies"]):
+        assert torch.equal(g, h)
+    for (a, b, *_), tag in zip(seen[:2], (1, 4)):
+        want = np.asarray(jops.quartet2_backward_gemm(
+            jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), draws.key(tag),
+            jax.random.key_data(draws.key(tag + 1)),
+            jax.random.key_data(draws.key(tag + 2))))
+        g = a.shape[1] // 16
+        got = ops.quartet2_backward_gemm(a, b, draws.signs(tag, 128, "cpu"),
+                                         draws.uniform(tag + 1, (a.shape[0], g), "cpu"),
+                                         draws.uniform(tag + 2, (b.shape[0], g), "cpu"))
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("shape", [(128, 256), (96, 48), (64, 1024)])
