@@ -30,17 +30,23 @@ Phases (any failure exits non-zero, before the result line):
                least time the card could take (bytes or operations).
                The two MS-EDEN requant phases at every operand shape of one
                full-width training step (T = 2048 tokens), an M that is no
-               multiple of 128 and an all-zero tensor, bitwise; phase 1
-               also on every operand as the backward hands it (E^T, W^T,
-               X^T as transposed views read in place); the quartet2
-               backward GEMM against its plain composition; the 280
-               requant calls of one training step timed on those views
-               (and on contiguous copies, for comparison). The packed GQA
-               decode (#6) at llama-200m's decode and chunk shapes and the
-               MLA decode over bf16 (#7) and NVFP4 (#8) latent pools at
+               multiple of 128 and an all-zero tensor, bitwise; phase 2
+               both with uniforms hashed in the kernel from a key pair and
+               with a uniforms tensor, one operand and both operands of
+               each backward GEMM a launch; phase 1 also on every operand
+               as the backward hands it (E^T, W^T, X^T as transposed views
+               read in place); the quartet2 backward GEMM against its plain
+               composition; the 280 phase-1 calls and the 140 two-operand
+               phase-2 launches of one training step timed on those views
+               (phase 1 also on contiguous copies; phase 2 also as 280
+               one-operand launches on uniforms tensors, and the 280
+               uniform draws it no longer needs timed apart). The packed
+               GQA decode (#6) at llama-200m's decode and chunk shapes and
+               the MLA decode over bf16 (#7) and NVFP4 (#8) latent pools at
                deepseek-v3's (H 128, lora 512, rope 64; Sq 1 and 16, ragged
-               lengths, an inactive row), each timed over one decode step's
-               calls. The split-KV GQA decode (#5, #6) also on cases that
+               lengths, an inactive row, 4 rows x 4,096 tokens; #8's two
+               calls bitwise equal), each timed over one decode step's
+               calls at phase 6's lengths and at 4,096 tokens. The split-KV GQA decode (#5, #6) also on cases that
                stress its splits (yi-9b at Sq 1 and 16 over the NVFP4 pool;
                over both pools a 1,024-token row, lengths ending on a split
                edge and one past it, windows that leave whole splits dead),
@@ -65,10 +71,12 @@ Phases (any failure exits non-zero, before the result line):
   5. training — full-width llama-200m, quartet2, AdamW, warmup-cosine at
                base lr 2e-3, batch 8 x seq 256 on the synthetic corpus, 6
                steps through `repro_torch.launch.train`: losses and weights
-               finite, the last loss below the first, and each of the four
-               kernels of the path launched the expected number of times;
-               then one step under the profiler, with its PyTorch copy,
-               abs and reduction launches counted (so in the decode
+               finite, the last loss below the first, each of the four
+               kernels of the path launched the expected number of times
+               (phase 2 once per backward GEMM), and no SR uniform tensor
+               drawn (phase 2 hashes them); then one step under the
+               profiler, with all its launches and its PyTorch copy, abs,
+               reduction and int64 launches counted (so in the decode
                profiles of phases 4, 4b and 6).
 Phases run in the order 1, 2, 3, 4, 4b, 6, 5. Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
@@ -117,9 +125,12 @@ REPLACES = {
 }
 SERVING_KERNELS = ("nvfp4_fos_quant", "fp4_matmul", "paged_gqa")
 # launches of one full-width training step (10 layers x 7 quantized linears;
-# the dX GEMM reuses the forward's packed W)
+# the dX GEMM reuses the forward's packed W; phase 2 once per backward GEMM)
 TRAIN_LAUNCHES_PER_STEP = {"nvfp4_fos_quant": 140, "fp4_matmul": 210,
-                           "ms_eden_phase1": 280, "ms_eden_phase2": 280}
+                           "ms_eden_phase1": 280, "ms_eden_phase2": 140}
+# the full-width training run of phase 5 (and of tools/quant_probe.py --train)
+TRAIN_ARGS = ["--arch", "llama_200m", "--scheme", "quartet2", "--steps", "6",
+              "--seq", "256", "--batch", "8", "--lr", "2e-3", "--log-every", "1"]
 SOURCES = {
     "nvfp4_fos_quant": "src/repro_torch/kernels/csrc/nvfp4_quant.cu",
     "fp4_matmul": "src/repro_torch/kernels/csrc/fp4_matmul.cu",
@@ -130,16 +141,26 @@ SOURCES = {
     "paged_mla": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_mla_q": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
-# the CUDA functions each kernel's profiler time is summed over (nvfp4_fos_quant:
-# nvfp4_fos_quant_cluster_kernel, _absmax_kernel, _encode_kernel; fp4_matmul:
-# fp4_matmul_gemv_kernel, fp4_matmul_splitk_reduce_kernel, fp4_matmul_mma_kernel;
-# paged_gqa and paged_gqa_q: paged_gqa_split_kernel, paged_gqa_merge_kernel)
+# the CUDA functions each kernel's profiler time is summed over, by a part of
+# their names (nvfp4_fos_quant: nvfp4_fos_quant_cluster_kernel, _absmax_kernel,
+# _encode_kernel; fp4_matmul: fp4_matmul_gemv_kernel,
+# fp4_matmul_splitk_reduce_kernel, fp4_matmul_mma_kernel; paged_gqa and
+# paged_gqa_q: paged_gqa_split_kernel, paged_gqa_merge_kernel; paged_mla_q:
+# paged_mla_split_kernel, paged_mla_merge_kernel)
 KERNEL_SYMBOLS = {
-    "nvfp4_fos_quant": "nvfp4_fos_quant_", "fp4_matmul": "fp4_matmul_",
-    "paged_gqa": "paged_gqa_", "ms_eden_phase1": "ms_eden_phase1_kernel",
-    "ms_eden_phase2": "ms_eden_phase2_kernel", "paged_gqa_q": "paged_gqa_",
-    "paged_mla": "paged_mla_kernel", "paged_mla_q": "paged_mla_kernel",
+    "nvfp4_fos_quant": ("nvfp4_fos_quant_",), "fp4_matmul": ("fp4_matmul_",),
+    "paged_gqa": ("paged_gqa_",), "ms_eden_phase1": ("ms_eden_phase1_kernel",),
+    "ms_eden_phase2": ("ms_eden_phase2_kernel",), "paged_gqa_q": ("paged_gqa_",),
+    "paged_mla": ("paged_mla_kernel",),
+    "paged_mla_q": ("paged_mla_split_kernel", "paged_mla_merge_kernel"),
 }
+
+
+def of_kernel(key: str, symbols) -> bool:
+    """Whether a profiler row's kernel name holds one of `symbols` (a name
+    part, or a tuple of them; "" matches every kernel)."""
+    return any(sym in key for sym in ((symbols,) if isinstance(symbols, str)
+                                      else symbols))
 DEEPSEEK_LAYERS = 2  # the depth cut of phase 6 (see the module docstring)
 # (N, K) of deepseek-v3's quantized linears on its decode path: the 4 MLA
 # projections and the shared expert at M = 4 rows (4 slots), each routed
@@ -195,9 +216,10 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, symbol: str, reps: int = 3):
-    """The device time of the CUDA function `symbol` per call of fn, from
-    torch.profiler; None when the profiler shows no device time."""
+def device_ms(torch, fn, symbols, reps: int = 3):
+    """The device time of the CUDA functions `symbols` names (see of_kernel)
+    per call of fn, from torch.profiler; None when the profiler shows no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -207,7 +229,7 @@ def device_ms(torch, fn, symbol: str, reps: int = 3):
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and symbol in ev.key)
+             if ev.device_type == DeviceType.CUDA and of_kernel(ev.key, symbols))
     return us / 1e3 / reps if us > 0 else None
 
 
@@ -666,17 +688,43 @@ def backward_operands(torch, g, t):
     return ops_
 
 
-def check_phase2(torch, F, MR, ops, p1, u):
-    kern = ops.ms_eden_phase2(p1[4], p1[1], p1[2], p1[3], u)
-    torch.cuda.synchronize()
+def check_phase2(torch, F, MR, ops, p1, draws, tag):
+    """Phase 2 bitwise against its plain version on the tag's uniforms, both
+    hashed in the kernel from the tag's key pair and read from a uniforms
+    tensor (HashDraws.uniform, the same on the card as on the CPU)."""
+    u = draws.uniform(tag, p1[1].shape, "cuda")
     plain = MR.phase2_plain(p1[4], p1[1], p1[2], p1[3], u)
-    err = max((F.bits_to_e4m3(kern[0]) - F.bits_to_e4m3(plain[0])).abs().max().item(),
-              abs(float(kern[1]) - float(plain[1])))
-    log(f"  ms_eden_phase2 {str(tuple(u.shape)):14s} max|d scale| {err:.3g}, "
-        f"gscale {float(kern[1]):.6g}")
-    if not (torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])):
-        fail(f"ms_eden_phase2 {tuple(u.shape)}: not bitwise equal to its plain version")
+    err = 0.0
+    for mode, arg in (("hashed", draws.keys(tag)), ("uniforms", u)):
+        kern = ops.ms_eden_phase2(p1[4], p1[1], p1[2], p1[3], arg)
+        torch.cuda.synchronize()
+        err = max(err, (F.bits_to_e4m3(kern[0]) - F.bits_to_e4m3(plain[0])).abs().max().item(),
+                  abs(float(kern[1]) - float(plain[1])))
+        if not (torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])):
+            fail(f"ms_eden_phase2 {tuple(u.shape)} ({mode}): not bitwise equal to "
+                 "its plain version")
+    if not torch.equal(u.cpu(), draws.uniform(tag, p1[1].shape, "cpu")):
+        fail(f"HashDraws.uniform {tuple(u.shape)}: the card's draws differ from the CPU's")
+    log(f"  ms_eden_phase2 {str(tuple(u.shape)):14s} hashed and uniforms: max|d scale| "
+        f"{err:.3g}, gscale {float(plain[1]):.6g}")
     return err
+
+
+def check_phase2_pair(torch, MR, ops, pa, pb, draws, tag):
+    """One phase-2 launch over both operands of a backward GEMM (operand a
+    hashed, operand b on a uniforms tensor, then both hashed): bitwise the
+    plain version of each."""
+    ua = draws.uniform(tag, pa[1].shape, "cuda")
+    ub = draws.uniform(tag + 1, pb[1].shape, "cuda")
+    want = [MR.phase2_plain(pa[4], *pa[1:4], ua), MR.phase2_plain(pb[4], *pb[1:4], ub)]
+    for arg_b in (ub, draws.keys(tag + 1)):
+        got = ops.ms_eden_phase2_batch([(pa[4], *pa[1:4], draws.keys(tag)),
+                                        (pb[4], *pb[1:4], arg_b)])
+        torch.cuda.synchronize()
+        for (bits, gs), (wb, wg) in zip(got, want):
+            if not (torch.equal(bits, wb) and torch.equal(gs, wg)):
+                fail(f"ms_eden_phase2 over two operands {tuple(pa[1].shape)}, "
+                     f"{tuple(pb[1].shape)}: not bitwise equal to the plain version")
 
 
 def phase_requant(torch):
@@ -697,14 +745,21 @@ def phase_requant(torch):
     errs = {"ms_eden_phase1": 0.0, "ms_eden_phase2": 0.0}
     shapes = sorted(set(requant_operands(TRAIN_T)))
     shapes += [(1000, 1280), (256, 1280), (96, 48)]  # odd M, zeros, b = 16
+    p1s = {}
     for i, (m, k) in enumerate(shapes):
         x = torch.randn((m, k), generator=g, device="cuda")
         if (m, k) == (256, 1280):
             x.zero_()
         signs = draws.signs(i, R.block_size(k), "cuda")
-        p1 = check_phase1(torch, MR, ops, x, signs)
+        p1s[m, k] = check_phase1(torch, MR, ops, x, signs)
         errs["ms_eden_phase2"] = max(errs["ms_eden_phase2"], check_phase2(
-            torch, F, MR, ops, p1, draws.uniform(100 + i, (m, k // 16), "cuda")))
+            torch, F, MR, ops, p1s[m, k], draws, 100 + i))
+    # both operands of each backward GEMM shape in one launch
+    for i, (ma, mb, d) in enumerate(backward_gemms(TRAIN_T)):
+        check_phase2_pair(torch, MR, ops, p1s[ma, d], p1s[mb, d], draws, 150 + 2 * i)
+    log(f"  ms_eden_phase2 over both operands of each of the {len(backward_gemms(TRAIN_T))} "
+        "backward GEMM shapes in one launch (hashed / uniforms): bitwise")
+    del p1s
     # every operand as the backward hands it (transposed views read in
     # place), and transposes whose M is no multiple of 4 (4-byte chunks)
     seen = set()
@@ -728,7 +783,11 @@ def phase_requant(torch):
         mm_err = max(mm_err, check_matmul(torch, FM, ops, ops.ms_eden_requant(a, signs, ua),
                                           ops.ms_eden_requant(b, signs, ub)))
         c = ops.quartet2_backward_gemm(a, b, signs, ua, ub)
+        c_keys = ops.quartet2_backward_gemm(a, b, signs, draws.keys(2), draws.keys(3))
         torch.cuda.synchronize()
+        if not torch.equal(c, c_keys):
+            fail(f"quartet2_backward_gemm ({ma},{mb},{d}): hashed uniforms differ "
+                 "from the same uniforms as tensors")
         qa, qb = MR.phase1_plain(a, signs), MR.phase1_plain(b, signs)
         sa = MR.phase2_plain(qa[4], *qa[1:4], ua)
         sb = MR.phase2_plain(qb[4], *qb[1:4], ub)
@@ -743,33 +802,63 @@ def phase_requant(torch):
         if not err <= bar:
             fail(f"quartet2_backward_gemm ({ma},{mb},{d}): {err} > {bar}")
 
-    # ---- the 280 requant calls of one full-width training step, on the
-    # operands as the backward hands them (E row-major; W^T, E^T, X^T views)
+    # ---- one full-width training step's requant: 280 phase-1 calls on the
+    # operands as the backward hands them (E row-major; W^T, E^T, X^T views),
+    # and phase 2 once per backward GEMM (dX: E, W^T; dW: E^T, X^T) on
+    # hashed uniforms, 140 launches
     log("phase 3: timing one training step's worth of requant calls "
-        f"(10 layers x 28 operands as _bwd_gemm hands them, T = {TRAIN_T})")
+        f"(10 layers x 28 operands as _bwd_gemm hands them, T = {TRAIN_T}; "
+        "phase 2 over both operands of each of the 140 backward GEMMs)")
     calls = [x for _ in range(10) for x in backward_operands(torch, g, TRAIN_T)]
     signs = draws.signs(0, 128, "cuda")
     p1s = [ops.ms_eden_phase1(x, signs) for x in calls]
-    us = [draws.uniform(200 + i, p[1].shape, "cuda") for i, p in enumerate(p1s)]
+    keys = [draws.keys(200 + i) for i in range(len(p1s))]
+    pairs = [[(p1s[i + j][4], *p1s[i + j][1:4], keys[i + j]) for j in (0, 1)]
+             for i in range(0, len(p1s), 2)]
     n_el = sum(x.numel() for x in calls)
     n_groups = n_el // 16
     results = {}
     p1_fn = lambda: [ops.ms_eden_phase1(x, signs) for x in calls]
-    p2_fn = lambda: [ops.ms_eden_phase2(p[4], p[1], p[2], p[3], u)
-                     for p, u in zip(p1s, us)]
+    p2_fn = lambda: [ops.ms_eden_phase2_batch(pair) for pair in pairs]
     results["ms_eden_phase1"] = dict(
         fn=p1_fn, ms=time_ms(torch, p1_fn, 5),
         plain_ms=time_ms(torch, lambda: [MR.phase1_plain(x, signs) for x in calls], 1,
                          warmup=1),
         library_ms=None, bytes=n_el * (4 + 0.5 + 12 / 16) + len(calls) * (4 + 512),
         ops=n_el * (PHASE1_FLOPS_BASE + 7), peak=F32_FLOPS, calls=len(calls))
+    # 13 bytes a group (pseudo, num, den read; the scale byte written), the
+    # absmax read and the gscale written per operand
     results["ms_eden_phase2"] = dict(
         fn=p2_fn, ms=time_ms(torch, p2_fn, 5),
-        plain_ms=time_ms(torch, lambda: [MR.phase2_plain(p[4], p[1], p[2], p[3], u)
-                                         for p, u in zip(p1s, us)], 1, warmup=1),
-        library_ms=None, bytes=n_groups * 17 + len(calls) * 8,
-        ops=n_groups * PHASE2_FLOPS_PER_GROUP, peak=F32_FLOPS, calls=len(calls))
+        plain_ms=time_ms(torch, lambda: [MR.phase2_plain(*op) for pair in pairs
+                                         for op in pair], 1, warmup=1),
+        library_ms=None, bytes=n_groups * 13 + len(calls) * 8,
+        ops=n_groups * PHASE2_FLOPS_PER_GROUP, peak=F32_FLOPS, calls=len(pairs))
     finish_results(results, errs)
+    # what the step paid before: the 280 uniform tensors drawn by
+    # HashDraws.uniform (PyTorch int64 kernels), then one phase-2 launch
+    # per operand reading them (17 bytes a group)
+    r = results["ms_eden_phase2"]
+    shapes = [p[1].shape for p in p1s]
+    draw_fn = lambda: [draws.uniform(200 + i, sh, "cuda") for i, sh in enumerate(shapes)]
+    us = draw_fn()
+    one_fn = lambda: [ops.ms_eden_phase2(p[4], p[1], p[2], p[3], u)
+                      for p, u in zip(p1s, us)]
+    draws_dev, draws_launches = call_device_ms(torch, draw_fn)
+    t_bytes = (n_groups * 17 + len(calls) * 8) / HBM_BYTES_S * 1e3
+    r["groups"] = {"one_operand_uniforms": dict(
+        calls=len(calls), ms=time_ms(torch, one_fn, 5),
+        profiler_ms=device_ms(torch, one_fn, KERNEL_SYMBOLS["ms_eden_phase2"]),
+        plain_ms=r["plain_ms"], library_ms=None, library_profiler_ms=None,
+        bound_ms=max(t_bytes, r["ops"] / F32_FLOPS * 1e3), bound_by="bytes")}
+    r["draws"] = {"calls": len(shapes), "ms": time_ms(torch, draw_fn, 5),
+                  "profiler_ms": draws_dev, "launches": draws_launches}
+    one = r["groups"]["one_operand_uniforms"]
+    log(f"  ms_eden_phase2 as before, one operand a launch on uniforms tensors: "
+        f"{one['calls']} launches {one['ms']:.4f} ms (profiler {one['profiler_ms']}); "
+        f"the {len(shapes)} uniform draws it read: {r['draws']['ms']:.4f} ms "
+        f"(profiler {draws_dev}, {draws_launches:g} PyTorch launches)")
+    del us
     # the same 280 calls on contiguous copies of the operands (what phase 1
     # read before it took views; the copies themselves are not timed)
     flat = [x.contiguous() for x in calls]
@@ -779,7 +868,7 @@ def phase_requant(torch):
     r["contiguous_profiler_ms"] = device_ms(torch, flat_fn, KERNEL_SYMBOLS["ms_eden_phase1"])
     log(f"  ms_eden_phase1 on contiguous copies of the same operands: "
         f"{r['contiguous_ms']:.4f} ms (profiler {r['contiguous_profiler_ms']})")
-    del calls, p1s, us, flat
+    del calls, p1s, pairs, flat
     torch.cuda.empty_cache()
     return results, mm_err
 
@@ -887,17 +976,26 @@ def phase_paged_q_mla(torch):
     mla_cases = {
         "deepseek-v3 decode B4 Sq1 H128": dict(sq=1, lens=[47, 100, 1, 64], dead=(2,)),
         "deepseek-v3 chunk B4 Sq16 H128": dict(sq=16, lens=[16, 64, 100, 33], dead=(3,)),
+        "deepseek-v3 decode B4 Sq1 4,096 tokens": dict(sq=1, lens=[4096] * 4, maxb=256),
+        "Sq16, scratch cap binds (3 splits)": dict(b=2, sq=16, lens=[1000, 517],
+                                                   maxb=64, dead=()),
     }
     for packed, name in ((False, "paged_mla"), (True, "paged_mla_q")):
         for i, (label, c) in enumerate(mla_cases.items()):
-            args = mla_case(torch, F, b=4, bs=16, maxb=16, packed=packed,
-                            seed=10 + i, **c)
+            c = {"b": 4, "maxb": 16, **c}
+            args = mla_case(torch, F, bs=16, packed=packed, seed=10 + i,
+                            **{k: v for k, v in c.items() if k != "dead"},
+                            dead=c.get("dead", ()))
             kern = ops.paged_mla_q if packed else ops.paged_mla
             plain = PA.paged_mla_q_plain if packed else PA.paged_mla_plain
             out = kern(*args, qk_dim=192)
+            again = kern(*args, qk_dim=192)
             torch.cuda.synchronize()
             errs[name] = max(errs[name], check_against_plain(
                 torch, name, out, plain(*args, 192), c.get("dead", ()), label))
+            if packed and not torch.equal(out, again):
+                fail(f"{name} {label}: two calls on the same inputs differ")
+            del args, out, again
 
     # ---- one decode step's calls: llama-200m (10 layers) for #6, phase 6's
     # deepseek-v3 (2 layers) for #7 and #8; 4 slots
@@ -926,37 +1024,58 @@ def phase_paged_q_mla(torch):
         bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=len(gl))
     lens = [40, 57, 72, 25]  # phase 6's prompts of 16-64 tokens, mid-decode
     for packed, name in ((False, "paged_mla"), (True, "paged_mla_q")):
-        calls = [mla_case(torch, F, b=4, sq=1, bs=16, maxb=16, lens=lens,
-                          packed=packed, seed=200 + i)
-                 for i in range(DEEPSEEK_LAYERS)]
-        kern = ops.paged_mla_q if packed else ops.paged_mla
-        plain = PA.paged_mla_q_plain if packed else PA.paged_mla_plain
-        sd = []
-        nbytes = ops_n = 0
-        for c in calls:
-            qa, qr, table, pos = c[0], c[1], c[-2], c[-1]
-            pools = ((KV.PackedKV(c[2], c[3]), KV.PackedKV(c[4], c[5])) if packed
-                     else (c[2], c[3]))
-            cv, kv = (KV.gather_view(p, table).float() for p in pools)
-            qcat = torch.cat([qa, qr.float()], -1)
-            kcat = torch.cat([cv, kv], -1)[:, :, None]
-            sd.append(gather_sdpa(torch, qcat, kcat, cv[:, :, None], pos,
-                                  scale=PA.mla_scale(192)))
-            keys, pairs = keys_and_pairs(pos.tolist(), 1)
-            row = 576 * (0.5625 if packed else 2)
-            nbytes += (qa.numel() * 4 + qr.numel() * 2 + keys * row
-                       + table.numel() * 4 + pos.numel() * 4 + qa.numel() * 4)
-            ops_n += pairs * 128 * (2 * 576 + 2 * 512)
-        fn = lambda calls=calls, kern=kern: [kern(*c, qk_dim=192) for c in calls]
-        sdpa_fn = lambda sd=sd: [f() for f in sd]
-        results[name] = dict(
-            fn=fn, ms=time_ms(torch, fn, 20),
-            plain_ms=time_ms(torch, lambda: [plain(*c, 192) for c in calls], 3),
-            library_ms=time_ms(torch, sdpa_fn, 20),
-            library_profiler_ms=device_ms(torch, sdpa_fn, ""),
-            bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=len(calls))
+        results[name] = mla_step_group(torch, F, PA, ops, KV, packed, lens, 16, 20,
+                                       seed=200)
     finish_results(results, errs)
+    log(f"phase 3: #7 and #8 over one deepseek-v3 decode step ({DEEPSEEK_LAYERS} "
+        "layers) at 4 rows x 4,096 tokens")
+    for packed, name in ((False, "paged_mla"), (True, "paged_mla_q")):
+        grp = mla_step_group(torch, F, PA, ops, KV, packed, [4096] * 4, 256, 5,
+                             seed=400, plain_reps=1)
+        finish_results({name: grp}, errs)
+        results[name]["groups"] = {"4x4096": grp}
+        torch.cuda.empty_cache()
     return results
+
+
+def mla_step_group(torch, F, PA, ops, KV, packed, lens, maxb, reps, seed,
+                   plain_reps=3):
+    """One deepseek-v3 decode step's #7 (packed=False) or #8 calls (one a
+    layer, 4 rows of `lens` tokens over a (4, maxb) table): the timing
+    dict finish_results completes. The yardstick is SDPA over the gathered
+    latent view (q and k the latent and rope parts side by side, v the
+    latent part); the bound counts the cache rows each row reads and the
+    (query, key) pairs it scores."""
+    calls = [mla_case(torch, F, b=4, sq=1, bs=16, maxb=maxb, lens=lens,
+                      packed=packed, seed=seed + i)
+             for i in range(DEEPSEEK_LAYERS)]
+    kern = ops.paged_mla_q if packed else ops.paged_mla
+    plain = PA.paged_mla_q_plain if packed else PA.paged_mla_plain
+    sd = []
+    nbytes = ops_n = 0
+    for c in calls:
+        qa, qr, table, pos = c[0], c[1], c[-2], c[-1]
+        pools = ((KV.PackedKV(c[2], c[3]), KV.PackedKV(c[4], c[5])) if packed
+                 else (c[2], c[3]))
+        cv, kv = (KV.gather_view(p, table).float() for p in pools)
+        qcat = torch.cat([qa, qr.float()], -1)
+        kcat = torch.cat([cv, kv], -1)[:, :, None]
+        sd.append(gather_sdpa(torch, qcat, kcat, cv[:, :, None], pos,
+                              scale=PA.mla_scale(192)))
+        keys, pairs = keys_and_pairs(pos.tolist(), 1)
+        row = 576 * (0.5625 if packed else 2)
+        nbytes += (qa.numel() * 4 + qr.numel() * 2 + keys * row
+                   + table.numel() * 4 + pos.numel() * 4 + qa.numel() * 4)
+        ops_n += pairs * 128 * (2 * 576 + 2 * 512)
+    fn = lambda: [kern(*c, qk_dim=192) for c in calls]
+    sdpa_fn = lambda: [f() for f in sd]
+    return dict(
+        fn=fn, ms=time_ms(torch, fn, reps),
+        plain_ms=(time_ms(torch, lambda: [plain(*c, 192) for c in calls], plain_reps,
+                          warmup=1) if plain_reps else None),
+        library_ms=time_ms(torch, sdpa_fn, reps),
+        library_profiler_ms=device_ms(torch, sdpa_fn, ""),
+        bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=len(calls))
 
 
 def phase_gqa_splits(torch):
@@ -1351,8 +1470,8 @@ def profile_decode(torch, eng, Request, prompts, steps: int = 8):
         log(f"    {us / 1e3 / steps:8.4f} ms  {n // steps:4d}x  {key[:90]}")
     # each port kernel's device ms per step (paged_gqa and paged_gqa_q share
     # their CUDA functions; a path runs one of them)
-    by_kernel = {name: sum(us for us, key, _ in rows if sym in key) / 1e3 / steps
-                 for name, sym in KERNEL_SYMBOLS.items()}
+    by_kernel = {name: sum(us for us, key, _ in rows if of_kernel(key, sym)) / 1e3
+                 / steps for name, sym in KERNEL_SYMBOLS.items()}
     log("    port kernels, ms per step: " + ", ".join(
         f"{name} {ms:.4f}" for name, ms in by_kernel.items() if ms > 0))
     torch_ops = launches_by_pattern(rows, steps)
@@ -1364,8 +1483,10 @@ def profile_decode(torch, eng, Request, prompts, steps: int = 8):
 
 
 # PyTorch kernels the quantizer's wrapper used to launch (AbsFunctor, the
-# amax's reduce_kernel) and the copies that fed MS-EDEN phase 1
-TORCH_PATTERNS = ("AbsFunctor", "reduce_kernel", "copy_kernel")
+# amax's reduce_kernel), the copies that fed MS-EDEN phase 1, and kernels
+# with "long" in their names: the int64 functors of the hashed draws
+# (core/rng.py), and also every kernel that takes an int64 size
+TORCH_PATTERNS = ("AbsFunctor", "reduce_kernel", "copy_kernel", "long")
 
 
 def launches_by_pattern(rows, steps):
@@ -1379,20 +1500,31 @@ def launches_by_pattern(rows, steps):
 def phase_training(torch, card):
     """Full-width llama-200m trained for 6 steps through the entry point's
     code path; then one more step under the profiler."""
+    from repro_torch.core import rng
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.optim import adamw
 
-    steps = 6
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
     log(f"phase 5: training full-width llama-200m (quartet2, AdamW, cosine, "
         f"lr 2e-3, batch 8 x seq 256, {steps} steps)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # every SR uniform tensor HashDraws draws during the run (phase 2 takes
+    # key pairs and hashes the uniforms itself: there should be none)
+    drawn, real_uniform = [], rng.HashDraws.uniform
+
+    def counted_uniform(self, tag, shape, device):
+        drawn.append(tuple(shape))
+        return real_uniform(self, tag, shape, device)
+
+    rng.HashDraws.uniform = counted_uniform
     ops.reset_launches()
-    out, trainer, state = launch_train.run(
-        ["--arch", "llama_200m", "--scheme", "quartet2", "--steps", str(steps),
-         "--seq", "256", "--batch", "8", "--lr", "2e-3", "--log-every", "1"])
-    torch.cuda.synchronize()
+    try:
+        out, trainer, state = launch_train.run(TRAIN_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        rng.HashDraws.uniform = real_uniform
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     losses = out["losses"]
@@ -1406,10 +1538,13 @@ def phase_training(torch, card):
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"training launches {got}, expected {want}")
+    if drawn:
+        fail(f"{len(drawn)} SR uniform tensors drawn on the training path, e.g. "
+             f"{drawn[:3]}")
     log(f"  [{card}] losses {[round(x, 4) for x in losses]}; "
         f"{out['step_ms']:.1f} ms/step (host clock, steps 2-{steps}), "
         f"{out['tokens_per_s']:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
-    log(f"  launches on the training path: {launches}")
+    log(f"  launches on the training path: {launches}; SR uniform tensors drawn: 0")
     prof = profile_train_step(torch, trainer, state, out["step_ms"])
     return {"losses": losses, "step_ms": out["step_ms"],
             "step_ms_all": [h["dt"] * 1e3 for h in trainer.history],
@@ -1440,23 +1575,22 @@ def profile_train_step(torch, trainer, state, step_ms):
         log("  profile: no device time in key_averages() (not measured)")
         return None
     dev_ms = total_us / 1e3
+    n_launches = sum(n for _, _, n in rows)
     busy = dev_ms / step_ms
     log(f"  profile of one training step: device time {dev_ms:.2f} ms against a "
         f"{step_ms:.1f} ms step: busy {busy:.1%}, idle {1 - busy:.1%}; by kernel:")
     for us, key, n in rows[:12]:
         log(f"    {us / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
     by_kernel = {}
-    for name, pat in (("fp4_matmul", KERNEL_SYMBOLS["fp4_matmul"]),
-                      ("nvfp4_fos_quant", KERNEL_SYMBOLS["nvfp4_fos_quant"]),
-                      ("ms_eden_phase1", "ms_eden_phase1_kernel"),
-                      ("ms_eden_phase2", "ms_eden_phase2_kernel")):
-        by_kernel[name] = sum(us for us, key, _ in rows if pat in key) / 1e3
+    for name in ("fp4_matmul", "nvfp4_fos_quant", "ms_eden_phase1", "ms_eden_phase2"):
+        by_kernel[name] = sum(us for us, key, _ in rows
+                              if of_kernel(key, KERNEL_SYMBOLS[name])) / 1e3
     log("  device ms per training step by ported kernel: " + ", ".join(
         f"{k} {v:.3f}" for k, v in by_kernel.items()))
     torch_ops = launches_by_pattern(rows, 1)
-    log("  PyTorch launches per training step: " + ", ".join(
+    log(f"  kernel launches per training step: {n_launches} in all; PyTorch: " + ", ".join(
         f"{p} {n:g} ({ms:.3f} ms)" for p, (n, ms) in torch_ops.items()))
-    return {"device_ms_per_step": dev_ms, "busy_share": busy,
+    return {"device_ms_per_step": dev_ms, "busy_share": busy, "launches": n_launches,
             "kernel_ms": by_kernel, "torch_launches": torch_ops,
             "top": [(key, us / 1e3, n) for us, key, n in rows[:16]]}
 
@@ -1509,7 +1643,8 @@ def main() -> None:
               if "spill" in ln and " 0 bytes spill stores" not in ln]
     if spills:
         log("  ptxas reports spills: " + "; ".join(spills))
-    for prefix in ("nvfp4_fos_quant_", "ms_eden_phase1_", "fp4_matmul_", "paged_gqa_"):
+    for prefix in ("nvfp4_fos_quant_", "ms_eden_phase1_", "ms_eden_phase2_", "fp4_matmul_",
+                   "paged_gqa_", "paged_mla_"):
         for line in ptxas_summary(build.BUILD_INFO.get("log", ""), prefix):
             log("  ptxas " + line)
 

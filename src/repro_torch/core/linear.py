@@ -147,6 +147,16 @@ def _operand(x: torch.Tensor, mult: int) -> torch.Tensor:
     return x if MR.layout(x) is not None else x.contiguous()
 
 
+def _sr_uniforms(draws, tag: int, shape, x: torch.Tensor):
+    """MS-EDEN phase 2's SR uniforms of `tag` for operand x: the tag's key
+    pair when the draws are hashed (phase 2 hashes each group's index
+    itself, and no uniform tensor is made), else the draws object's own
+    tensor (the tests inject the reference's draws this way)."""
+    if isinstance(draws, rng.HashDraws):
+        return draws.keys(tag)
+    return draws.uniform(tag, shape, x.device)
+
+
 def _bwd_gemm(a, b, bwd: str, quant_a: bool, quant_b: bool, use_rht: bool,
               draws, tag: int) -> torch.Tensor:
     """One backward GEMM a @ b^T (a (Ma, D), b (Mb, D)) with per-scheme
@@ -164,8 +174,8 @@ def _bwd_gemm(a, b, bwd: str, quant_a: bool, quant_b: bool, use_rht: bool,
             raise ValueError("MS-EDEN requires re-quantizing both operands")
         signs = draws.signs(tag, R.block_size(d), a.device)
         return ops.quartet2_backward_gemm(
-            a, b, signs, draws.uniform(tag + 1, (a.shape[0], groups), a.device),
-            draws.uniform(tag + 2, (b.shape[0], groups), b.device))
+            a, b, signs, _sr_uniforms(draws, tag + 1, (a.shape[0], groups), a),
+            _sr_uniforms(draws, tag + 2, (b.shape[0], groups), b))
 
     quantizer = Q.quant_sr if bwd == "sr" else quant_sr_fos
     if use_rht and quant_a and quant_b:

@@ -10,6 +10,10 @@ draw identical numbers. Tags follow the reference: `tag` for the RHT signs
 (shared by both operands of a GEMM), `tag + 1` for operand a's uniforms,
 `tag + 2` for operand b's.
 
+The SR uniforms of MS-EDEN need not be drawn as a tensor at all: a tag's
+key pair (`HashDraws.keys`) goes to phase 2, whose kernel hashes each
+group's flat index itself, bitwise as `uniform` does (`core/linear.py`).
+
 Tests bypass the hash: any object with the `signs` and `uniform` methods of
 `HashDraws` may stand in for a seed (see `draws`), and the tests pass one
 that returns JAX's own draws.
@@ -36,6 +40,25 @@ def _mix(h):
     return h ^ (h >> 16)
 
 
+def hash_bits(keys, n: int, device) -> torch.Tensor:
+    """The 32-bit hashes of the flat indices 0 .. n-1 under a tag's key pair
+    (k, k2): mix((mix(i ^ k) + k2) mod 2^32), as int64 below 2^32. The
+    MS-EDEN phase-2 kernel computes the same hash of its group index in
+    uint32 arithmetic (`kernels/csrc/ms_eden_requant.cu:hash_uniform`)."""
+    if n >= 2**32:
+        raise ValueError(f"{n} draws exceed the 32-bit counter")
+    k, k2 = keys
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return _mix((_mix(i ^ k) + k2) & _MASK)
+
+
+def uniform_from_keys(keys, shape, device) -> torch.Tensor:
+    """float32 uniforms in [0, 1) of `shape` under a key pair, 24 random bits
+    each (the top 24 of the hash, times 2^-24: exact)."""
+    n = int(np.prod(shape))
+    return ((hash_bits(keys, n, device) >> 8).float() * 2.0**-24).reshape(shape)
+
+
 class HashDraws:
     """Signs and uniforms of one site seed (uint32[2])."""
 
@@ -43,14 +66,15 @@ class HashDraws:
         s = np.asarray(seed, np.uint32)
         self.seed = (int(s[0]), int(s[1]))
 
-    def _bits(self, tag: int, n: int, device) -> torch.Tensor:
-        if n >= 2**32:
-            raise ValueError(f"{n} draws exceed the 32-bit counter")
+    def keys(self, tag: int) -> tuple[int, int]:
+        """The key pair (k, k2), two ints below 2^32, that every draw of
+        `tag` hashes its flat index with."""
         k = _mix((self.seed[0] + _mix(tag & _MASK)) & _MASK)
         k = _mix(k ^ self.seed[1])
-        k2 = _mix((k + _GOLDEN) & _MASK)
-        i = torch.arange(n, dtype=torch.int64, device=device)
-        return _mix((_mix(i ^ k) + k2) & _MASK)
+        return k, _mix((k + _GOLDEN) & _MASK)
+
+    def _bits(self, tag: int, n: int, device) -> torch.Tensor:
+        return hash_bits(self.keys(tag), n, device)
 
     def signs(self, tag: int, n: int, device) -> torch.Tensor:
         """(n,) float32 of +-1, each sign from the top bit of its hash."""
@@ -58,9 +82,7 @@ class HashDraws:
 
     def uniform(self, tag: int, shape, device) -> torch.Tensor:
         """float32 uniforms in [0, 1) of `shape`, 24 random bits each."""
-        n = int(np.prod(shape))
-        u = (self._bits(tag, n, device) >> 8).float() * 2.0**-24
-        return u.reshape(shape)
+        return uniform_from_keys(self.keys(tag), shape, device)
 
 
 def draws(seed):

@@ -13,16 +13,21 @@
 //   of rot (atomicMax on the bits of a non-negative float: no host sync).
 // Phase 2, per 16-group: gscale = absmax / (s * 256) (0 -> 1), the EDEN factor
 //   num / den (den == 0 -> 1), target = clip(S * pseudo / gscale, 0, 448), and
-//   stochastic rounding of target onto the e4m3 lattice against a uniforms
-//   operand, emitted as raw e4m3 bits.
+//   stochastic rounding of target onto the e4m3 lattice against a uniform,
+//   emitted as raw e4m3 bits. The uniform is hashed in the kernel from the
+//   group's flat index and the tag's key pair (core/rng.py:hash_bits), or
+//   read from a uniforms operand (the tests inject the reference's draws).
 //
 // Bound on the H100: memory bytes, both phases. Phase 1 reads 4 B and writes
 // 0.5 + 12/16 B per element; the butterfly does log2(b) = 7 adds per element
 // at b = 128 and the quantizer some 25 more f32 operations, so at the byte
 // time the SMs have ~0.36 issue cycles an element and the instruction count
 // matters too (one launch a tensor, 280 a training step, also pays each
-// launch's ramp and tail). Phase 2 moves 17 B per 16-group: it reads 16 B
-// (pseudo, num, den, u) and writes one e4m3 scale byte.
+// launch's ramp and tail). Phase 2 moves 13 B per 16-group with hashed
+// uniforms: it reads 12 B (pseudo, num, den) and writes one e4m3 scale byte
+// (17 B with a uniforms operand); at llama-200m training shapes one
+// operand is only ~2 MB, so a launch's ramp and tail cost as much as its
+// bytes.
 //
 // Design of phase 1. x is taken where it lies: row-major (x[i, j] at
 // i * ld + j) or the transpose of a row-major tensor (x[i, j] at j * ld + i),
@@ -56,8 +61,22 @@
 // Python, so kernel and plain version use identical scalars. Any M is
 // accepted (the reference's kernel needed M % bm == 0).
 //
-// Phase 2: one thread per group. A later PR can fuse it into the GEMM's
-// operand load.
+// Design of phase 2. One launch takes both operands of a backward GEMM (or
+// one tensor): the grid is operand a's CTAs, then operand b's, and each
+// operand keeps its own absmax, gscale and keys (or uniforms), so a training
+// step launches it once per GEMM (140) where it launched once per operand.
+// A thread takes 4 consecutive groups: one 16-byte load each of pseudo, num
+// and den (and u), one 4-byte store of the 4 scale bytes (scalar accesses
+// at a ragged end, or where a pointer is not aligned for them). Measured on
+// the H100 (PERF.md): 8 or 16 groups a thread were slower, and 128-thread
+// CTAs beat 256 and 512; a launch keeps a fixed cost of ~2 us beside its
+// bytes, which is why both operands share one. The e4m3 neighbours are
+// decoded by their bits, not by ldexpf: the same values in fewer
+// instructions. With keys,
+// the uniforms never exist in memory: the hash is 2 x 5 uint32 operations
+// a group, bitwise core/rng.py's (mix((mix(i ^ k) + k2) mod 2^32) >> 8,
+// times 2^-24: exact in f32). The rounding is phase2_plain's, _rn
+// intrinsics throughout, so the kernel is bitwise its plain version.
 
 #include <cuda_runtime.h>
 #include <cuda_fp8.h>
@@ -83,11 +102,12 @@ __device__ __forceinline__ uint32_t fp4_index(float q) {
   return q >= 1.f ? (__float_as_uint(q) >> 22) - 252u : (q > 0.f ? 1u : 0u);
 }
 
+// Raw e4m3 bits -> f32, exactly: (1 + m/8) 2^(e-7) built as f32 bits,
+// subnormal m/8 * 2^-6.
 __device__ __forceinline__ float e4m3_bits_to_float(uint32_t b) {
-  const int e = (b >> 3) & 0xF;
-  const int m = b & 0x7;
-  const float mag = e == 0 ? (float)m * 0.001953125f        // m/8 * 2^-6
-                           : ldexpf((float)(8 + m), e - 10);  // (1+m/8) 2^(e-7)
+  const uint32_t e = (b >> 3) & 0xFu, m = b & 0x7u;
+  const float mag = e ? __uint_as_float(((e + 120u) << 23) | (m << 20))
+                      : (float)m * 0.001953125f;
   return (b & 0x80u) ? -mag : mag;
 }
 
@@ -283,24 +303,27 @@ ms_eden_phase1_kernel(const float* __restrict__ x, int64_t ld,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-ms_eden_phase2_kernel(const float* __restrict__ absmax,
-                      const float* __restrict__ pseudo,
-                      const float* __restrict__ num,
-                      const float* __restrict__ den,
-                      const float* __restrict__ u,
-                      uint8_t* __restrict__ scale_bits,
-                      float* __restrict__ gscale_out,
-                      int64_t n_groups, float gdiv) {
-  float gscale = __fdiv_rn(absmax[0], gdiv);
-  if (gscale == 0.f) gscale = 1.f;
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i == 0) gscale_out[0] = gscale;
-  if (i >= n_groups) return;
+// core/rng.py:_mix in uint32 arithmetic (its int64 products taken mod 2^32)
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  return h ^ (h >> 16);
+}
 
-  const float dn = den[i];
-  const float eden = dn != 0.f ? __fdiv_rn(num[i], dn) : 1.f;
-  float target = __fdiv_rn(__fmul_rn(eden, pseudo[i]), gscale);
+// core/rng.py:uniform_from_keys of flat index i: 24 hashed bits times 2^-24
+__device__ __forceinline__ float hash_uniform(uint32_t i, uint32_t k,
+                                              uint32_t k2) {
+  return (float)(mix32(mix32(i ^ k) + k2) >> 8) * 5.9604644775390625e-08f;
+}
+
+// One group: EDEN-correct the pseudo-scale against gscale and round it
+// stochastically onto the e4m3 lattice with uniform u; the raw e4m3 bits.
+__device__ __forceinline__ uint32_t phase2_group(float ps, float nm, float dn,
+                                                 float u, float gscale) {
+  const float eden = dn != 0.f ? __fdiv_rn(nm, dn) : 1.f;
+  float target = __fdiv_rn(__fmul_rn(eden, ps), gscale);
   target = fminf(fmaxf(target, 0.f), 448.f);
 
   // core/formats.py:fp8_sr_pos — the RNE neighbour and the lattice step
@@ -318,9 +341,102 @@ ms_eden_phase2_kernel(const float* __restrict__ absmax,
   float p_up = span > 0.f
       ? __fdiv_rn(__fsub_rn(target, lo), fmaxf(span, 1e-30f)) : 0.f;
   p_up = fminf(fmaxf(p_up, 0.f), 1.f);
-  uint32_t out = u[i] < p_up ? (near_lo ? ob : nb) : (near_lo ? nb : ob);
+  uint32_t out = u < p_up ? (near_lo ? ob : nb) : (near_lo ? nb : ob);
   if (near == target) out = nb;
-  scale_bits[i] = (uint8_t)out;
+  return out;
+}
+
+constexpr int kP2Threads = 128;              // measured best of 128-512
+constexpr int kP2Span = kP2Threads * 4;        // groups a CTA: 4 a thread
+
+// One operand of a phase-2 launch: its phase-1 statistics ((n,) groups),
+// its uniforms u or (u == nullptr) the key pair they hash from, its
+// outputs, and its CTAs.
+struct Phase2Op {
+  const float* absmax;
+  const float* pseudo;
+  const float* num;
+  const float* den;
+  const float* u;
+  uint8_t* scale_bits;
+  float* gscale_out;
+  int64_t n;
+  int64_t blocks;
+  uint32_t k, k2;
+  int vec;  // 16-byte loads and 4-byte stores allowed
+};
+
+__global__ void __launch_bounds__(kP2Threads)
+ms_eden_phase2_kernel(Phase2Op a, Phase2Op b, float gdiv) {
+  const bool second = blockIdx.x >= a.blocks;
+  const Phase2Op op = second ? b : a;
+  const int64_t cta = second ? blockIdx.x - a.blocks : blockIdx.x;
+  float gscale = __fdiv_rn(op.absmax[0], gdiv);
+  if (gscale == 0.f) gscale = 1.f;
+  if (cta == 0 && threadIdx.x == 0) op.gscale_out[0] = gscale;
+  const int64_t i0 = cta * kP2Span + (int64_t)threadIdx.x * 4;
+  if (i0 >= op.n) return;
+  const int cnt = op.n - i0 < 4 ? (int)(op.n - i0) : 4;
+  const bool vec = op.vec && cnt == 4;
+
+  float ps[4], nm[4], dn[4], uu[4];
+  if (vec) {
+    const float4 p4 = __ldg(reinterpret_cast<const float4*>(op.pseudo + i0));
+    const float4 n4 = __ldg(reinterpret_cast<const float4*>(op.num + i0));
+    const float4 d4 = __ldg(reinterpret_cast<const float4*>(op.den + i0));
+    ps[0] = p4.x; ps[1] = p4.y; ps[2] = p4.z; ps[3] = p4.w;
+    nm[0] = n4.x; nm[1] = n4.y; nm[2] = n4.z; nm[3] = n4.w;
+    dn[0] = d4.x; dn[1] = d4.y; dn[2] = d4.z; dn[3] = d4.w;
+    if (op.u) {
+      const float4 u4 = __ldg(reinterpret_cast<const float4*>(op.u + i0));
+      uu[0] = u4.x; uu[1] = u4.y; uu[2] = u4.z; uu[3] = u4.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= cnt) break;
+      ps[j] = op.pseudo[i0 + j];
+      nm[j] = op.num[i0 + j];
+      dn[j] = op.den[i0 + j];
+      if (op.u) uu[j] = op.u[i0 + j];
+    }
+  }
+  if (!op.u) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      uu[j] = hash_uniform((uint32_t)(i0 + j), op.k, op.k2);
+  }
+
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < cnt) word |= phase2_group(ps[j], nm[j], dn[j], uu[j], gscale) << (8 * j);
+  if (vec) {
+    *reinterpret_cast<uint32_t*>(op.scale_bits + i0) = word;
+  } else {
+    for (int j = 0; j < cnt; ++j) op.scale_bits[i0 + j] = (uint8_t)(word >> (8 * j));
+  }
+}
+
+bool aligned(const void* p, int bytes) {
+  return p == nullptr || (uintptr_t)p % bytes == 0;
+}
+
+// A launch's operand: nullptr u takes the uniforms hashed from (k, k2).
+int phase2_operand(Phase2Op* op, const void* absmax, const void* pseudo,
+                   const void* num, const void* den, const void* u,
+                   void* scale_bits, void* gscale_out, int64_t n, int64_t k,
+                   int64_t k2) {
+  if (n < 0 || (n > 0 && !u && n > 0xFFFFFFFFll) || k < 0 || k > 0xFFFFFFFFll ||
+      k2 < 0 || k2 > 0xFFFFFFFFll)
+    return (int)cudaErrorInvalidValue;
+  *op = Phase2Op{(const float*)absmax, (const float*)pseudo, (const float*)num,
+                 (const float*)den, (const float*)u, (uint8_t*)scale_bits,
+                 (float*)gscale_out, n, (n + kP2Span - 1) / kP2Span,
+                 (uint32_t)k, (uint32_t)k2,
+                 aligned(pseudo, 16) && aligned(num, 16) && aligned(den, 16) &&
+                     aligned(u, 16) && aligned(scale_bits, 4)};
+  return 0;
 }
 
 }  // namespace
@@ -350,15 +466,27 @@ extern "C" int ms_eden_phase1_launch(const void* x, int64_t ld, int trans,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ms_eden_phase2_launch(const void* absmax, const void* pseudo,
-                                     const void* num, const void* den,
-                                     const void* u, void* scale_bits,
-                                     void* gscale_out, int64_t n_groups,
-                                     float gdiv, void* stream) {
-  const int64_t blocks = n_groups > 0 ? (n_groups + kThreads - 1) / kThreads : 1;
-  ms_eden_phase2_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)absmax, (const float*)pseudo, (const float*)num,
-      (const float*)den, (const float*)u, (uint8_t*)scale_bits,
-      (float*)gscale_out, n_groups, gdiv);
+// Phase 2 over operand a and, with n_b > 0, operand b in one launch. Per
+// operand: absmax (1,), pseudo, num, den (n,) f32, u (n,) f32 or nullptr
+// (then the uniforms hash from the key pair k, k2 < 2^32, and n < 2^32),
+// the scale bits (n,) u8 and the gscale (f32) written.
+extern "C" int ms_eden_phase2_launch(
+    const void* absmax_a, const void* pseudo_a, const void* num_a,
+    const void* den_a, const void* u_a, void* scale_bits_a, void* gscale_a,
+    int64_t n_a, int64_t k_a, int64_t k2_a, const void* absmax_b,
+    const void* pseudo_b, const void* num_b, const void* den_b,
+    const void* u_b, void* scale_bits_b, void* gscale_b, int64_t n_b,
+    int64_t k_b, int64_t k2_b, float gdiv, void* stream) {
+  Phase2Op a, b;
+  int err = phase2_operand(&a, absmax_a, pseudo_a, num_a, den_a, u_a,
+                           scale_bits_a, gscale_a, n_a, k_a, k2_a);
+  if (!err) err = phase2_operand(&b, absmax_b, pseudo_b, num_b, den_b, u_b,
+                                 scale_bits_b, gscale_b, n_b, k_b, k2_b);
+  if (err) return err;
+  if (a.n < 1) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = a.blocks + b.blocks;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  ms_eden_phase2_kernel<<<(unsigned)blocks, kP2Threads, 0, (cudaStream_t)stream>>>(
+      a, b, gdiv);
   return (int)cudaGetLastError();
 }

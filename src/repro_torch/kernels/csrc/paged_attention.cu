@@ -63,14 +63,14 @@
 //     by registers.
 // expf and division are the IEEE versions (no fast math).
 //
-// ---- MLA: paged_mla_kernel<TR, BS, kPacked> ------------------------------
+// ---- MLA over the bf16 latent pool (#7): paged_mla_kernel<TR, BS> ---------
 // Replaces: src/repro/kernels/paged_attention.py:paged_mla_call (_mla_kernel
-// via _mla_sweep) and, with kPacked, paged_mla_q_call (_mla_q_kernel). For
-// each row b, query s and head h: scores s_t = (q_abs.cc_t + q_rope.kc_t) *
-// scale (a MULTIPLICATION by the f32 1/sqrt(qk_dim)), causal mask
-// t <= pos[b] + s, online softmax, and the readout over cc itself: o_lat
-// (B, Sq, H, lora) f32 for the caller's W_uv absorption. No window; a row
-// with l == 0 (inactive: all-sentinel table) returns exact zeros.
+// via _mla_sweep). For each row b, query s and head h: scores s_t =
+// (q_abs.cc_t + q_rope.kc_t) * scale (a MULTIPLICATION by the f32
+// 1/sqrt(qk_dim)), causal mask t <= pos[b] + s, online softmax, and the
+// readout over cc itself: o_lat (B, Sq, H, lora) f32 for the caller's W_uv
+// absorption. No window; a row with l == 0 (inactive: all-sentinel table)
+// returns exact zeros.
 //
 // Bound on the H100: f32 operations. All H heads share one latent row per
 // token (lora + rope = 576 values: 1,152 bf16 bytes, 324 packed bytes), read
@@ -79,17 +79,57 @@
 // far above the ~20 at which the CUDA cores' 67 TFLOP/s and 3.35 TB/s
 // balance.
 //
-// Design: the GQA layout does not fit (a 512-wide accumulator per head, 128
-// heads sharing one latent block). The grid splits each row's (Sq x H)
-// query-head pairs into tiles of 4, one per warp of a 128-thread block; a
-// live (BS, lora + rope) latent block is staged ONCE per CUDA block in
-// dynamic shared memory as f32 (<= 36.9 KB at BS 16) by the per-element
-// loader load_elem (rope 64 -> 4 scale groups when packed), and its 4 heads all
-// sweep it from there (the row's other head tiles read it again from L2;
-// 4 heads per block keep ~1 wave of blocks on the 132 SMs at 4 decode rows). A lane owns latent dims lane + 32 i (16 of 512) and rope dims
-// lane + 32 i (2 of 64), so (m, l) and the 16-float accumulator stay in
-// registers; each score is two warp reductions (latent, rope), added and
-// then multiplied by the scale, as the reference does.
+// Design (the first port's; #8 moved to the kernels below): the grid splits each row's
+// (Sq x H) query-head pairs into tiles of 4, one per warp of a 128-thread
+// block; a live (BS, lora + rope) latent block is staged ONCE per CUDA block
+// in dynamic shared memory as f32 (<= 36.9 KB at BS 16), and its 4 heads all
+// sweep it from there (the row's other head tiles read it again from L2; 4
+// heads per block keep ~1 wave of blocks on the 132 SMs at 4 decode rows). A
+// lane owns latent dims lane + 32 i (16 of 512) and rope dims lane + 32 i (2
+// of 64), so (m, l) and the 16-float accumulator stay in registers; each
+// score is two warp reductions (latent, rope), added and then multiplied by
+// the scale, as the reference does.
+//
+// ---- MLA over NVFP4 latent pools (#8): paged_mla_split_kernel<TR, BS> +
+// paged_mla_merge_kernel ----------------------------------------------------
+// Replaces: src/repro/kernels/paged_attention.py:paged_mla_q_call
+// (_mla_q_kernel). #7's function over the PackedKV leaves of cc and kc (e2m1
+// code pairs and e4m3 scale bytes), bound the same way: by its f32
+// operations at long contexts, by the latency of each row's chain (table ->
+// packed block -> decode -> scores -> softmax) at serving ones. The first
+// port's kernel read every element as two byte loads and a decode, and each of a
+// row's 32 head tiles repeated that (H = 128); that is what this design
+// removes:
+//   - split-KV: one 128-thread CTA per (row b, tile of 16 (query, head)
+//     pairs, split), a split being a run of logical blocks from
+//     kernels/paged_attention.py:plan_mla (shapes only). Each CTA writes a
+//     partial (m, l, acc) per pair, and paged_mla_merge_kernel sums them in
+//     split order (no atomics: two calls are bitwise equal); with one split
+//     the CTA writes o_lat itself. A split costs (lora + 2) x 4 = 2,056 B of
+//     f32 scratch per (query, head) at lora 512, and plan_mla caps a call's
+//     scratch at MLA_SCRATCH_BYTES = 32 MiB, 31 splits a row at 4 rows x 128
+//     heads x Sq 1: splits of one 16-token block over deepseek-v3's serving
+//     table (16 blocks), 29 splits of 9 blocks at 4,096 tokens, and one split
+//     (no scratch) at 4 rows x Sq 16, the engine's prefill chunks.
+//   - loads: a block's four packed runs (cc codes and scales, kc codes and
+//     scales; contiguous in the pool, 324 B a token) come in by 16-byte
+//     cp.async into a ring of kMlaStages = 4 stages, so up to 4 blocks of a
+//     split are in flight while the CTA computes (at serving shapes a split
+//     is one block, and every live block of a row is in flight at once in
+//     CTAs of its own).
+//   - decode once per 16-group (decode_group16: one 8-byte code load, the
+//     scale byte decoded once) to bf16 in shared memory; exact, so the
+//     operands equal what the plain version's gather dequantizes to. A
+//     block is decoded once per CTA, 8 times per row at H = 128, Sq = 1.
+//   - a warp carries 4 pairs and scores 4 keys at once: the 16 (pair, key)
+//     partial dots are reduced by the transposed butterfly of the GQA kernel
+//     (fold), once for the latent sum and once for the rope sum (32
+//     shuffles for 16 scores; the first port's kernel spent 160), then (lat + rope) * scale
+//     in the reference's order; the division, mask and expf run once per
+//     score, spread over the lanes. A lane owns latent dims 4 lane + 128 c +
+//     e (4 runs of 4: 8-byte bf16 loads) and rope dims 2 lane + e, and holds
+//     its 4 pairs' q (72 floats) and accumulators (64) in registers.
+// Softmax and readout in fp32, expf and division the IEEE versions.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -116,39 +156,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// E2M1 code -> value, arithmetically: (1 + m/2) 2^(e-1), subnormal m/2.
-__device__ __forceinline__ float e2m1_decode(uint32_t c) {
-  const int e = (c >> 1) & 3;
-  const float m = (float)(c & 1u);
-  const float mag = e == 0 ? 0.5f * m : ldexpf(1.f + 0.5f * m, e - 1);
-  return (c & 8u) ? -mag : mag;
-}
-
-// Raw float8_e4m3fn bits -> value: (8 + m) 2^(e-10), subnormal m 2^-9.
-__device__ __forceinline__ float e4m3_decode(uint32_t b) {
-  const int e = (b >> 3) & 0xF;
-  const int m = b & 0x7;
-  const float mag = e == 0 ? (float)m * 0.001953125f
-                           : ldexpf((float)(8 + m), e - 10);
-  return (b & 0x80u) ? -mag : mag;
-}
-
-// Element d of token row `row` of a pool leaf with feature width `dim`: a
-// bf16 value, or (kPacked) the e2m1 code of nibble d of the row's code
-// bytes times its 16-group's e4m3 scale. Both are exact in f32.
-template <bool kPacked>
-__device__ __forceinline__ float load_elem(const void* __restrict__ data,
-                                           const uint8_t* __restrict__ scales,
-                                           int64_t row, int d, int dim) {
-  if constexpr (kPacked) {
-    const uint8_t byte = ((const uint8_t*)data)[row * (dim / 2) + (d >> 1)];
-    const uint32_t code = (d & 1) ? (byte >> 4) : (byte & 0xFu);
-    return e2m1_decode(code) * e4m3_decode(scales[row * (dim / 16) + (d >> 4)]);
-  } else {
-    return __bfloat162float(((const __nv_bfloat16*)data)[row * dim + d]);
-  }
 }
 
 constexpr int kRowChunk = 4;        // query rows one warp carries at once
@@ -709,13 +716,11 @@ constexpr int kMaxRope = 64;
 constexpr int kLoraPerLane = kMaxLora / 32;
 constexpr int kRopePerLane = kMaxRope / 32;
 
-template <typename TR, int BS, bool kPacked>
+template <typename TR, int BS>
 __global__ void __launch_bounds__(kMlaThreads)
 paged_mla_kernel(const float* __restrict__ q_abs, const TR* __restrict__ q_rope,
-                 const void* __restrict__ cc,
-                 const uint8_t* __restrict__ cc_scales,
-                 const void* __restrict__ kc,
-                 const uint8_t* __restrict__ kc_scales,
+                 const __nv_bfloat16* __restrict__ cc,
+                 const __nv_bfloat16* __restrict__ kc,
                  const int32_t* __restrict__ table,
                  const int32_t* __restrict__ pos, float* __restrict__ out,
                  int sq, int h_total, int lora, int rope, int64_t n_blocks,
@@ -753,14 +758,10 @@ paged_mla_kernel(const float* __restrict__ q_abs, const TR* __restrict__ q_rope,
     if (!(blk >= 0 && blk < n_blocks && (int64_t)j * BS <= pmax)) continue;
 
     __syncthreads();  // the previous live block's readers are done
-    for (int i = threadIdx.x; i < BS * lora; i += kMlaThreads) {
-      const int t = i / lora, d = i % lora;
-      cs[i] = load_elem<kPacked>(cc, cc_scales, blk * BS + t, d, lora);
-    }
-    for (int i = threadIdx.x; i < BS * rope; i += kMlaThreads) {
-      const int t = i / rope, d = i % rope;
-      ks[i] = load_elem<kPacked>(kc, kc_scales, blk * BS + t, d, rope);
-    }
+    for (int i = threadIdx.x; i < BS * lora; i += kMlaThreads)
+      cs[i] = __bfloat162float(cc[blk * BS * lora + i]);
+    for (int i = threadIdx.x; i < BS * rope; i += kMlaThreads)
+      ks[i] = __bfloat162float(kc[blk * BS * rope + i]);
     __syncthreads();
     if (!has) continue;
 
@@ -814,10 +815,10 @@ paged_mla_kernel(const float* __restrict__ q_abs, const TR* __restrict__ q_rope,
   }
 }
 
-template <typename TR, bool kPacked>
+template <typename TR>
 int launch_mla(const void* q_abs, const void* q_rope, const void* cc,
-               const void* ccs, const void* kc, const void* kcs,
-               const void* table, const void* pos, void* out, int64_t b,
+               const void* kc, const void* table, const void* pos, void* out,
+               int64_t b,
                int64_t sq, int64_t h, int64_t lora, int64_t rope,
                int64_t n_blocks, int64_t bs, int64_t maxb, float scale,
                cudaStream_t st) {
@@ -826,15 +827,15 @@ int launch_mla(const void* q_abs, const void* q_rope, const void* cc,
   const size_t smem = (size_t)bs * (lora + rope) * sizeof(float);
 #define REPRO_MLA_CASE(BS_)                                                    \
   case BS_: {                                                                  \
-    auto kern = paged_mla_kernel<TR, BS_, kPacked>;                            \
+    auto kern = paged_mla_kernel<TR, BS_>;                                     \
     if (smem > 48 * 1024) {                                                    \
       const cudaError_t err = cudaFuncSetAttribute(                            \
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);       \
       if (err != cudaSuccess) return (int)err;                                 \
     }                                                                          \
     kern<<<grid, kMlaThreads, smem, st>>>(                                     \
-        (const float*)q_abs, (const TR*)q_rope, cc, (const uint8_t*)ccs, kc,   \
-        (const uint8_t*)kcs, (const int32_t*)table, (const int32_t*)pos,       \
+        (const float*)q_abs, (const TR*)q_rope, (const __nv_bfloat16*)cc,      \
+        (const __nv_bfloat16*)kc, (const int32_t*)table, (const int32_t*)pos,  \
         (float*)out, (int)sq, (int)h, (int)lora, (int)rope, n_blocks,          \
         (int)maxb, (int)tiles, scale);                                         \
     break;                                                                     \
@@ -848,6 +849,417 @@ int launch_mla(const void* q_abs, const void* q_rope, const void* cc,
       return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_MLA_CASE
+  return (int)cudaGetLastError();
+}
+
+
+// ---- #8: split-KV MLA decode over NVFP4 latent pools ------------------------
+constexpr int kMlaPairs = 16;   // (query, head) pairs of one CTA: 4 a warp
+constexpr int kMlaStages = 4;   // packed blocks in flight in one CTA
+
+// Byte sizes of one pool block's four packed runs, and the shared-memory
+// layout of a CTA: the bf16 latent and rope tiles of the block being
+// computed, the ring of packed stages, and the split's live-block list.
+struct MlaSmem {
+  int64_t cc_codes, cc_scales, kc_codes, kc_scales;   // run bytes a block
+  int64_t st_cs, st_kc, st_ks, stage;                 // offsets in a stage
+  int64_t tile_c, tile_k, ring, live, bytes;
+  __host__ __device__ MlaSmem(int64_t bs, int64_t lora, int64_t rope, int64_t bps) {
+    cc_codes = bs * lora / 2;
+    cc_scales = bs * lora / 16;
+    kc_codes = bs * rope / 2;
+    kc_scales = bs * rope / 16;
+    st_cs = align16(cc_codes);
+    st_kc = st_cs + align16(cc_scales);
+    st_ks = st_kc + align16(kc_codes);
+    stage = st_ks + align16(kc_scales);
+    tile_c = 0;
+    tile_k = align16(bs * lora * 2);
+    ring = tile_k + align16(bs * rope * 2);
+    live = ring + kMlaStages * stage;
+    bytes = live + 2 * bps * (int64_t)sizeof(int);
+  }
+};
+
+// The copy chunk (bytes) of each packed run (see chunk_for).
+struct MlaChunks {
+  int cc, cs, kc, ks;
+};
+
+// `bytes` contiguous bytes global -> shared by the whole CTA, `chunk` at a time.
+__device__ __forceinline__ void stage_run(uint8_t* dst, const uint8_t* src,
+                                          int64_t bytes, int chunk) {
+  for (int64_t i = (int64_t)threadIdx.x * chunk; i < bytes;
+       i += (int64_t)kMlaThreads * chunk)
+    copy_chunk(dst + i, src + i, chunk);
+}
+
+template <typename TR, int BS>
+__global__ void __launch_bounds__(kMlaThreads)
+paged_mla_split_kernel(const float* __restrict__ q_abs, const TR* __restrict__ q_rope,
+                       const uint8_t* __restrict__ cc_codes,
+                       const uint8_t* __restrict__ cc_scales,
+                       const uint8_t* __restrict__ kc_codes,
+                       const uint8_t* __restrict__ kc_scales,
+                       const int32_t* __restrict__ table,
+                       const int32_t* __restrict__ pos, float* __restrict__ out,
+                       float* __restrict__ part_acc, float* __restrict__ part_ml,
+                       int sq, int h_total, int lora, int rope, int64_t n_blocks,
+                       int maxb, int bps, int n_splits, int tiles, float scale,
+                       MlaChunks chunks) {
+  extern __shared__ __align__(16) uint8_t mla_smem[];
+  __shared__ __align__(16) float pbuf[kMlaWarps][kPairs];     // a group's p
+  __shared__ __align__(16) float cbuf[kMlaWarps][kRowChunk];  // its pairs' corr
+  __shared__ int n_live;
+
+  const int tile = blockIdx.x % tiles;
+  const int split = (blockIdx.x / tiles) % n_splits;
+  const int b = blockIdx.x / tiles / n_splits;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_pairs = sq * h_total;  // pair r = s * H + h: query s, head h
+  const int r0 = tile * kMlaPairs + warp * kRowChunk;  // this warp's first pair
+  const int np = max(0, min(kRowChunk, n_pairs - r0));  // warp-uniform
+  const int64_t row0 = (int64_t)b * n_pairs;            // o_lat row of pair 0
+  const int p0 = pos[b];
+  const int pmax = p0 + sq - 1;
+  const int j0 = split * bps;
+  const int nj = min(bps, maxb - j0);
+  const MlaSmem lay(BS, lora, rope, bps);
+  int* live_blk = reinterpret_cast<int*>(mla_smem + lay.live);
+  int* live_j = live_blk + bps;
+
+  // the split's table entries, once: live blocks compacted in logical order
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < nj; base += 32) {
+      const int j = j0 + base + lane;
+      int blk = 0;
+      bool live = false;
+      if (base + lane < nj) {
+        blk = table[(int64_t)b * maxb + j];
+        live = blk >= 0 && blk < n_blocks && (int64_t)j * BS <= pmax;
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        const int k = count + __popc(mask & ((1u << lane) - 1u));
+        live_blk[k] = blk;
+        live_j[k] = j;
+      }
+      count += __popc(mask);
+    }
+    if (lane == 0) n_live = count;
+  }
+  __syncthreads();
+  const int nl = n_live;
+
+  if (nl == 0) {  // no live key: (NEG_INF, 0), or exact zeros with one split
+    for (int i = threadIdx.x; i < kMlaPairs; i += kMlaThreads) {
+      const int r = tile * kMlaPairs + i;
+      if (r >= n_pairs) break;
+      if (n_splits > 1) {
+        float* ml = part_ml + ((row0 + r) * n_splits + split) * 2;
+        ml[0] = kNegInf;
+        ml[1] = 0.f;
+      }
+    }
+    if (n_splits == 1) {
+      const int rows = min(kMlaPairs, n_pairs - tile * kMlaPairs);
+      float* o = out + (row0 + tile * kMlaPairs) * lora;
+      for (int i = threadIdx.x; i < rows * lora; i += kMlaThreads) o[i] = 0.f;
+    }
+    return;
+  }
+
+  // blocks 0 .. kMlaStages-1 in flight, one cp.async group each (empty
+  // groups past the split's end keep the count of groups uniform)
+  uint8_t* ring = mla_smem + lay.ring;
+  auto stage_block = [&](int slot, int64_t blk) {
+    uint8_t* st = ring + slot * lay.stage;
+    stage_run(st, cc_codes + blk * lay.cc_codes, lay.cc_codes, chunks.cc);
+    stage_run(st + lay.st_cs, cc_scales + blk * lay.cc_scales, lay.cc_scales, chunks.cs);
+    stage_run(st + lay.st_kc, kc_codes + blk * lay.kc_codes, lay.kc_codes, chunks.kc);
+    stage_run(st + lay.st_ks, kc_scales + blk * lay.kc_scales, lay.kc_scales, chunks.ks);
+  };
+#pragma unroll
+  for (int k = 0; k < kMlaStages; ++k) {
+    if (k < nl) stage_block(k, live_blk[k]);
+    cp_async_commit();
+  }
+
+  // this warp's pairs: q in registers (latent dims 4 lane + 128 c + e, rope
+  // dims 2 lane + e), the causal limit of each, and the accumulators
+  float qa[kRowChunk][kLoraPerLane], qr[kRowChunk][2], acc[kRowChunk][kLoraPerLane];
+#pragma unroll
+  for (int i = 0; i < kRowChunk; ++i) {
+    const int64_t qrow = row0 + r0 + i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * lane + 128 * c + e;
+        acc[i][4 * c + e] = 0.f;
+        qa[i][4 * c + e] = (i < np && d < lora) ? q_abs[qrow * lora + d] : 0.f;
+      }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = 2 * lane + e;
+      qr[i][e] = (i < np && d < rope) ? to_f32<TR>(q_rope[qrow * rope + d]) : 0.f;
+    }
+  }
+  // the (pair, key) of a group whose score this lane computes
+  const int jl = (lane & 16 ? 8 : 0) | (lane & 8 ? 4 : 0) | (lane & 4 ? 2 : 0) |
+                 (lane & 2 ? 1 : 0);
+  const int il = jl / kKeyGroup, ul = jl % kKeyGroup;
+  const int qpos_l = p0 + (r0 + il) / h_total;  // newest key pair il sees
+  float m_l = kNegInf, l_l = 0.f;  // running max and sum of this lane's pair il
+
+  const __nv_bfloat16* tc = reinterpret_cast<const __nv_bfloat16*>(mla_smem + lay.tile_c);
+  const __nv_bfloat16* tk = reinterpret_cast<const __nv_bfloat16*>(mla_smem + lay.tile_k);
+  const int gc = BS * (lora / 16), gk = BS * (rope / 16);
+  for (int k = 0; k < nl; ++k) {
+    cp_async_wait_pending(kMlaStages - 1);  // block k has landed
+    __syncthreads();  // ... for every thread; the tiles' readers are done
+    const uint8_t* st = ring + (k % kMlaStages) * lay.stage;
+    for (int i = threadIdx.x; i < gc + gk; i += kMlaThreads) {
+      const bool isc = i < gc;
+      const int dim = isc ? lora : rope;
+      const int groups = dim / 16, ii = isc ? i : i - gc;
+      const int row = ii / groups, grp = ii - row * groups;
+      const uint8_t* codes = st + (isc ? 0 : lay.st_kc) + row * (dim / 2) + grp * 8;
+      const uint32_t sbyte = st[(isc ? lay.st_cs : lay.st_ks) + row * groups + grp];
+      __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(
+          mla_smem + (isc ? lay.tile_c : lay.tile_k)) + row * dim + grp * 16;
+      decode_group16(*reinterpret_cast<const uint2*>(codes), sbyte, dst);
+    }
+    __syncthreads();  // the tiles are decoded; stage k % kMlaStages is free
+    if (k + kMlaStages < nl) stage_block(k % kMlaStages, live_blk[k + kMlaStages]);
+    cp_async_commit();
+    if (np == 0) continue;
+
+    const int kj0 = live_j[k] * BS;
+    for (int t0 = 0; t0 < BS; t0 += kKeyGroup) {
+      // the 16 (pair i, key u) partial dots, pair j = 4 i + u, latent and
+      // rope apart, each summed over the warp by the transposed butterfly
+      float vl[kPairs], vr[kPairs];
+#pragma unroll
+      for (int u = 0; u < kKeyGroup; ++u) {
+        float x[kLoraPerLane], xr[2];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int d = 4 * lane + 128 * c;
+          if (d < lora) {
+            load_bf16x4(tc + (t0 + u) * lora + d, &x[4 * c]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[4 * c + e] = 0.f;
+          }
+        }
+        if (2 * lane < rope) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(tk + (t0 + u) * rope + 2 * lane);
+          xr[0] = bf16_bits_to_f32(w & 0xffffu);
+          xr[1] = __uint_as_float(w & 0xffff0000u);
+        } else {
+          xr[0] = xr[1] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kRowChunk; ++i) {
+          float sl = 0.f;
+#pragma unroll
+          for (int e = 0; e < kLoraPerLane; ++e) sl += qa[i][e] * x[e];
+          vl[i * kKeyGroup + u] = sl;
+          vr[i * kKeyGroup + u] = qr[i][0] * xr[0] + qr[i][1] * xr[1];
+        }
+      }
+      fold<8>(vl, lane, 16);
+      fold<4>(vl, lane, 8);
+      fold<2>(vl, lane, 4);
+      fold<1>(vl, lane, 2);
+      fold<8>(vr, lane, 16);
+      fold<4>(vr, lane, 8);
+      fold<2>(vr, lane, 4);
+      fold<1>(vr, lane, 2);
+      const float lat = vl[0] + __shfl_xor_sync(0xffffffffu, vl[0], 1);
+      const float rp = vr[0] + __shfl_xor_sync(0xffffffffu, vr[0], 1);
+      // this lane's score (pair il, key ul), its pair's running max and sum,
+      // then the probabilities: one division-free score and two expf a lane
+      const bool ok = il < np && kj0 + t0 + ul <= qpos_l;
+      const float sc = ok ? __fmul_rn(__fadd_rn(lat, rp), scale) : kNegInf;
+      float smax = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 4));
+      smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, 2));
+      const float m_new = fmaxf(m_l, smax);
+      const float corr = expf(m_l - m_new);
+      const float p = ok ? expf(sc - m_new) : 0.f;
+      float psum = p + __shfl_xor_sync(0xffffffffu, p, 2);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 4);
+      l_l = l_l * corr + psum;
+      m_l = m_new;
+      __syncwarp();  // the previous group's readers of pbuf are done
+      if ((lane & 1) == 0) {
+        pbuf[warp][jl] = p;
+        if (ul == 0) cbuf[warp][il] = corr;
+      }
+      __syncwarp();
+      const float4 c4 = *reinterpret_cast<const float4*>(cbuf[warp]);
+      const float cr[kRowChunk] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int i = 0; i < kRowChunk; ++i)
+#pragma unroll
+        for (int e = 0; e < kLoraPerLane; ++e) acc[i][e] *= cr[i];
+#pragma unroll
+      for (int u = 0; u < kKeyGroup; ++u) {
+        float x[kLoraPerLane];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int d = 4 * lane + 128 * c;
+          if (d < lora) {
+            load_bf16x4(tc + (t0 + u) * lora + d, &x[4 * c]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[4 * c + e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kRowChunk; ++i) {
+          const float pr = pbuf[warp][i * kKeyGroup + u];
+#pragma unroll
+          for (int e = 0; e < kLoraPerLane; ++e) acc[i][e] += pr * x[e];
+        }
+      }
+    }
+  }
+  if (np == 0) return;
+
+  // (m, l) of each pair, from the lane 8 i that holds its key 0; then the
+  // pairs' partials, or o_lat itself with one split
+#pragma unroll
+  for (int i = 0; i < kRowChunk; ++i) {
+    const float m = __shfl_sync(0xffffffffu, m_l, 8 * i);
+    const float l = __shfl_sync(0xffffffffu, l_l, 8 * i);
+    if (i >= np) continue;
+    const int64_t o = row0 + r0 + i;
+    const float denom = fmaxf(l, 1e-30f);
+    float* dst = n_splits == 1 ? out + o * lora
+                               : part_acc + (o * n_splits + split) * lora;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int d = 4 * lane + 128 * c;
+      if (d >= lora) continue;
+      const float* a = &acc[i][4 * c];
+      *reinterpret_cast<float4*>(dst + d) = n_splits == 1
+          ? make_float4(__fdiv_rn(a[0], denom), __fdiv_rn(a[1], denom),
+                        __fdiv_rn(a[2], denom), __fdiv_rn(a[3], denom))
+          : make_float4(a[0], a[1], a[2], a[3]);
+    }
+    if (n_splits > 1 && lane == 0) {
+      part_ml[(o * n_splits + split) * 2] = m;
+      part_ml[(o * n_splits + split) * 2 + 1] = l;
+    }
+  }
+}
+
+// Merge of the splits' partials of one o_lat row (b, s, h), in split order:
+// the arithmetic of paged_gqa_merge_kernel, a thread summing 4 latent dims
+// at a time (lora <= 512, a multiple of 4).
+__global__ void __launch_bounds__(kMlaThreads)
+paged_mla_merge_kernel(const float* __restrict__ part_acc,
+                       const float* __restrict__ part_ml, float* __restrict__ out,
+                       int n_splits, int lora) {
+  extern __shared__ float mla_merge_smem[];  // w[n_splits], l[n_splits]
+  __shared__ float denom_s;
+  float* w = mla_merge_smem;
+  float* ls = mla_merge_smem + n_splits;
+  const int64_t o = blockIdx.x;
+  const float* ml = part_ml + o * n_splits * 2;
+  for (int s = threadIdx.x; s < n_splits; s += kMlaThreads) {
+    w[s] = ml[2 * s];
+    ls[s] = ml[2 * s + 1];
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float mm = kNegInf;
+    for (int s = threadIdx.x; s < n_splits; s += 32)
+      if (ls[s] > 0.f) mm = fmaxf(mm, w[s]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
+    for (int s = threadIdx.x; s < n_splits; s += 32)
+      w[s] = ls[s] > 0.f ? expf(w[s] - mm) : 0.f;
+    __syncwarp();
+    if (threadIdx.x == 0) {
+      float ll = 0.f;
+      for (int s = 0; s < n_splits; ++s) ll += ls[s] * w[s];
+      denom_s = fmaxf(ll, 1e-30f);
+    }
+  }
+  __syncthreads();
+  for (int d = 4 * threadIdx.x; d < lora; d += 4 * kMlaThreads) {
+    const float* pa = part_acc + o * n_splits * lora + d;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s = 0; s < n_splits; ++s) {
+      if (!(w[s] > 0.f)) continue;
+      const float4 v = *reinterpret_cast<const float4*>(pa + (int64_t)s * lora);
+      a[0] += v.x * w[s];
+      a[1] += v.y * w[s];
+      a[2] += v.z * w[s];
+      a[3] += v.w * w[s];
+    }
+    *reinterpret_cast<float4*>(out + o * lora + d) = make_float4(
+        __fdiv_rn(a[0], denom_s), __fdiv_rn(a[1], denom_s),
+        __fdiv_rn(a[2], denom_s), __fdiv_rn(a[3], denom_s));
+  }
+}
+
+template <typename TR>
+int launch_mla_q(const void* q_abs, const void* q_rope, const void* ccc,
+                 const void* ccs, const void* kcc, const void* kcs,
+                 const void* table, const void* pos, void* out, void* part_acc,
+                 void* part_ml, int64_t b, int64_t sq, int64_t h, int64_t lora,
+                 int64_t rope, int64_t n_blocks, int64_t bs, int64_t maxb,
+                 int64_t bps, int64_t n_splits, int64_t tiles, float scale,
+                 cudaStream_t st) {
+  const unsigned grid = (unsigned)(b * tiles * n_splits);
+  const MlaSmem lay(bs, lora, rope, bps);
+  const size_t smem = (size_t)lay.bytes;
+  const MlaChunks chunks{chunk_for(ccc, lay.cc_codes), chunk_for(ccs, lay.cc_scales),
+                         chunk_for(kcc, lay.kc_codes), chunk_for(kcs, lay.kc_scales)};
+#define REPRO_MLA_Q_CASE(BS_)                                                  \
+  case BS_: {                                                                  \
+    auto kern = paged_mla_split_kernel<TR, BS_>;                               \
+    if (smem > 40 * 1024) {                                                    \
+      const cudaError_t err = cudaFuncSetAttribute(                            \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);       \
+      if (err != cudaSuccess) return (int)err;                                 \
+    }                                                                          \
+    kern<<<grid, kMlaThreads, smem, st>>>(                                     \
+        (const float*)q_abs, (const TR*)q_rope, (const uint8_t*)ccc,           \
+        (const uint8_t*)ccs, (const uint8_t*)kcc, (const uint8_t*)kcs,         \
+        (const int32_t*)table, (const int32_t*)pos, (float*)out,               \
+        (float*)part_acc, (float*)part_ml, (int)sq, (int)h, (int)lora,         \
+        (int)rope, n_blocks, (int)maxb, (int)bps, (int)n_splits, (int)tiles,   \
+        scale, chunks);                                                        \
+    break;                                                                     \
+  }
+  switch (bs) {
+    REPRO_MLA_Q_CASE(4)
+    REPRO_MLA_Q_CASE(8)
+    REPRO_MLA_Q_CASE(16)
+    REPRO_MLA_Q_CASE(32)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_MLA_Q_CASE
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return (int)err;
+  const size_t merge_smem = (size_t)n_splits * 2 * sizeof(float);
+  if (merge_smem > 40 * 1024) {
+    err = cudaFuncSetAttribute(paged_mla_merge_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)merge_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  paged_mla_merge_kernel<<<(unsigned)(b * sq * h), kMlaThreads, merge_smem, st>>>(
+      (const float*)part_acc, (const float*)part_ml, (float*)out, (int)n_splits,
+      (int)lora);
   return (int)cudaGetLastError();
 }
 
@@ -892,26 +1304,53 @@ extern "C" int paged_gqa_launch(const void* q, int q_is_bf16, int packed,
 }
 
 extern "C" int paged_mla_launch(const void* q_abs, const void* q_rope,
-                                int q_rope_is_bf16, int packed,
-                                const void* cc_pool, const void* cc_scales,
-                                const void* kc_pool, const void* kc_scales,
-                                const void* table, const void* pos, void* out,
-                                int64_t b, int64_t sq, int64_t h, int64_t lora,
+                                int q_rope_is_bf16, const void* cc_pool,
+                                const void* kc_pool, const void* table,
+                                const void* pos, void* out, int64_t b,
+                                int64_t sq, int64_t h, int64_t lora,
                                 int64_t rope, int64_t n_blocks, int64_t bs,
                                 int64_t maxb, float scale, void* stream) {
   if (lora > kMaxLora || rope > kMaxRope || lora < 1 || rope < 1 ||
       sq > kMaxSq || sq < 1 || h < 1)
     return (int)cudaErrorInvalidValue;
-  if (packed && (lora % 16 || rope % 16 || !cc_scales || !kc_scales))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_MLA_ARGS                                                         \
-  q_abs, q_rope, cc_pool, cc_scales, kc_pool, kc_scales, table, pos, out, b,   \
-      sq, h, lora, rope, n_blocks, bs, maxb, scale, st
-  if (q_rope_is_bf16)
-    return packed ? launch_mla<__nv_bfloat16, true>(REPRO_MLA_ARGS)
-                  : launch_mla<__nv_bfloat16, false>(REPRO_MLA_ARGS);
-  return packed ? launch_mla<float, true>(REPRO_MLA_ARGS)
-                : launch_mla<float, false>(REPRO_MLA_ARGS);
+  q_abs, q_rope, cc_pool, kc_pool, table, pos, out, b, sq, h, lora, rope,      \
+      n_blocks, bs, maxb, scale, st
+  if (q_rope_is_bf16) return launch_mla<__nv_bfloat16>(REPRO_MLA_ARGS);
+  return launch_mla<float>(REPRO_MLA_ARGS);
 #undef REPRO_MLA_ARGS
+}
+
+// #8: the split kernel over plan_mla's grid (b * tiles * n_splits CTAs),
+// then with n_splits > 1 the merge kernel over the b * sq * h o_lat rows.
+// part_acc (rows x n_splits x lora) and part_ml (rows x n_splits x 2) are
+// the f32 scratch of the partials (unused with one split).
+extern "C" int paged_mla_q_launch(const void* q_abs, const void* q_rope,
+                                  int q_rope_is_bf16, const void* cc_codes,
+                                  const void* cc_scales, const void* kc_codes,
+                                  const void* kc_scales, const void* table,
+                                  const void* pos, void* out, void* part_acc,
+                                  void* part_ml, int64_t b, int64_t sq,
+                                  int64_t h, int64_t lora, int64_t rope,
+                                  int64_t n_blocks, int64_t bs, int64_t maxb,
+                                  int64_t bps, int64_t n_splits, int64_t tiles,
+                                  float scale, void* stream) {
+  if (lora > kMaxLora || rope > kMaxRope || lora < 16 || rope < 16 ||
+      lora % 16 || rope % 16 || sq > kMaxSq || sq < 1 || h < 1 || maxb < 1 ||
+      !cc_scales || !kc_scales)
+    return (int)cudaErrorInvalidValue;
+  if (bps < 1 || n_splits != (maxb + bps - 1) / bps ||
+      tiles != (sq * h + kMlaPairs - 1) / kMlaPairs ||
+      (n_splits > 1 && (!part_acc || !part_ml)) ||
+      b * tiles * n_splits > 0x7fffffff || MlaSmem(bs, lora, rope, bps).bytes > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_MLA_Q_ARGS                                                       \
+  q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales, table, pos, out,    \
+      part_acc, part_ml, b, sq, h, lora, rope, n_blocks, bs, maxb, bps,        \
+      n_splits, tiles, scale, st
+  if (q_rope_is_bf16) return launch_mla_q<__nv_bfloat16>(REPRO_MLA_Q_ARGS);
+  return launch_mla_q<float>(REPRO_MLA_Q_ARGS);
+#undef REPRO_MLA_Q_ARGS
 }

@@ -5,6 +5,12 @@ Replaces the TPU kernels of `repro/kernels/ms_eden_requant.py:ms_eden_requant`
 `ms_eden_phase1` / `ms_eden_phase2` of `repro/core/ms_eden.py`. The outputs
 are the operand form of `fp4_matmul`: codes packed two per byte (M, K/2),
 e4m3 scales as raw bits (M, K/16), and the f32 per-tensor gscale.
+
+Phase 2 takes its SR uniforms as a (M, K/16) f32 tensor, or as the key pair
+(k, k2) of a `core.rng.HashDraws` tag: the kernel then hashes each group's
+flat index itself and no uniform tensor is made; the plain version draws
+the same uniforms with `rng.uniform_from_keys`. One phase-2 launch takes one
+or two operands (both of a backward GEMM).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from repro_torch.core import formats as F
 from repro_torch.core import ms_eden as ME
 from repro_torch.core import quant as Q
 from repro_torch.core import rht as R
+from repro_torch.core import rng
 from repro_torch.kernels import build
 
 # f32 images of the constants the phases divide by, so the kernels and the
@@ -32,8 +39,18 @@ def phase1_plain(x: torch.Tensor, signs: torch.Tensor):
             p1.absmax.reshape(1))
 
 
+def uniforms(u, shape, device) -> torch.Tensor:
+    """Phase 2's SR uniforms: u itself when it is a tensor, else the
+    uniforms its key pair hashes to."""
+    if isinstance(u, torch.Tensor):
+        return u
+    return rng.uniform_from_keys(u, shape, device)
+
+
 def phase2_plain(absmax, pseudo, num, den, u):
-    """-> (e4m3 scale bits u8 (M, K/16), gscale f32 0-dim)."""
+    """u: (M, K/16) f32 uniforms or a key pair (k, k2) -> (e4m3 scale bits
+    u8 (M, K/16), gscale f32 0-dim)."""
+    u = uniforms(u, pseudo.shape, pseudo.device)
     scales, gscale = ME.phase2_scales(absmax.reshape(()), pseudo, num, den, u)
     return F.e4m3_to_bits(scales), gscale
 
@@ -68,11 +85,19 @@ def launch_phase1(x, signs, packed, pseudo, num, den, absmax) -> None:
     build.check(status, "ms_eden_phase1")
 
 
-def launch_phase2(absmax, pseudo, num, den, u, scale_bits, gscale) -> None:
-    """Enqueue phase 2 on the current stream (outputs preallocated)."""
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    status = build.library().ms_eden_phase2_launch(
-        absmax.data_ptr(), pseudo.data_ptr(), num.data_ptr(), den.data_ptr(),
-        u.data_ptr(), scale_bits.data_ptr(), gscale.data_ptr(), u.numel(),
-        GDIV, stream)
+def launch_phase2(operands, outputs) -> None:
+    """Enqueue one phase-2 launch over one or two operands on the current
+    stream. operands: [(absmax, pseudo, num, den, u)], u a uniforms tensor
+    or a key pair; outputs: [(scale_bits, gscale)], preallocated."""
+    args = []
+    for (absmax, pseudo, num, den, u), (bits, gscale) in zip(operands, outputs):
+        keyed = not isinstance(u, torch.Tensor)
+        k, k2 = u if keyed else (0, 0)
+        args += [absmax.data_ptr(), pseudo.data_ptr(), num.data_ptr(),
+                 den.data_ptr(), None if keyed else u.data_ptr(),
+                 bits.data_ptr(), gscale.data_ptr(), pseudo.numel(), k, k2]
+    if len(operands) == 1:
+        args += [None] * 7 + [0, 0, 0]
+    stream = torch.cuda.current_stream(operands[0][1].device).cuda_stream
+    status = build.library().ms_eden_phase2_launch(*args, GDIV, stream)
     build.check(status, "ms_eden_phase2")

@@ -270,7 +270,9 @@ def paged_mla_q(q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales,
     """`paged_mla` over NVFP4-quantized latent pools: the PackedKV leaves of
     cc ((P, BS, lora/2) codes, (P, BS, lora/16) scale bits) and of kc
     ((P, BS, rope/2), (P, BS, rope/16)), uint8, dequantized (exactly) inside
-    the kernel. Returns o_lat f32 (B, Sq, H, lora)."""
+    the kernel, once per 16-group; on the card a split-KV kernel
+    (`paged_attention.plan_mla`) and, with several splits, a merge kernel,
+    both counted as one launch here. Returns o_lat f32 (B, Sq, H, lora)."""
     name = "paged_mla_q"
     _need(cc_codes.dim() == 3 and kc_codes.dim() == 3, name,
           "latent pool leaves must be 3-D")
@@ -288,8 +290,8 @@ def paged_mla_q(q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales,
     _need(lora % F.GROUP == 0 and rope % F.GROUP == 0, name,
           "latent dims must be multiples of 16")
     out = torch.empty(q_abs.shape, dtype=torch.float32, device=q_abs.device)
-    PA.launch_mla(q_abs, q_rope, cc_codes, kc_codes, table, pos, out, qk_dim,
-                  cc_scales=cc_scales, kc_scales=kc_scales)
+    PA.launch_mla_q(q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales,
+                    table, pos, out, qk_dim)
     LAUNCHES[name] += 1
     return out
 
@@ -326,38 +328,62 @@ def ms_eden_phase1(x: torch.Tensor, signs: torch.Tensor):
     return packed, pseudo, num, den, absmax
 
 
-def ms_eden_phase2(absmax, pseudo, num, den, u):
-    """MS-EDEN phase 2: align the pseudo-scales to the global absmax,
-    EDEN-correct and round stochastically to e4m3 against uniforms u (all
-    (M, K/16) f32; absmax f32 (1,)). Returns (e4m3 scale bits u8 (M, K/16),
-    gscale f32 0-dim)."""
-    name = "ms_eden_phase2"
-    groups = (pseudo, num, den, u)
+def _phase2_operand(name, absmax, pseudo, num, den, u):
+    """Checks of one phase-2 operand; its tensors (for the device check)."""
+    groups = (pseudo, num, den)
     _need(all(t.dtype == torch.float32 for t in (absmax, *groups)), name,
           "operands must be float32")
-    _need(all(t.shape == u.shape for t in groups) and u.numel() > 0, name,
-          "pseudo, num, den and u must share one non-empty shape")
+    _need(all(t.shape == pseudo.shape for t in groups) and pseudo.numel() > 0,
+          name, "pseudo, num and den must share one non-empty shape")
     _need(absmax.numel() == 1, name, "absmax must hold one element")
-    if _device(name, absmax, *groups) == "cpu":
-        return MR.phase2_plain(absmax, *groups)
-    _need(all(t.is_contiguous() for t in groups), name,
+    if isinstance(u, torch.Tensor):
+        _need(u.dtype == torch.float32 and u.shape == pseudo.shape, name,
+              f"uniforms must be float32 {tuple(pseudo.shape)}")
+        return (absmax, *groups, u)
+    _need(len(u) == 2 and all(isinstance(k, int) and 0 <= k < 2**32 for k in u),
+          name, "u must be a uniforms tensor or a key pair of two uint32 ints")
+    _need(pseudo.numel() < 2**32, name,
+          f"{pseudo.numel()} groups exceed the 32-bit counter of hashed draws")
+    return (absmax, *groups)
+
+
+def ms_eden_phase2_batch(operands):
+    """`ms_eden_phase2` of one or two operands [(absmax, pseudo, num, den,
+    u)], each with its own absmax, gscale and uniforms or key pair; on the
+    card one launch over all of them. Returns [(scale bits, gscale)]."""
+    _need(1 <= len(operands) <= 2, "ms_eden_phase2", "one or two operands")
+    name = "ms_eden_phase2"
+    tensors = [t for op in operands for t in _phase2_operand(name, *op)]
+    if _device(name, *tensors) == "cpu":
+        return [MR.phase2_plain(*op) for op in operands]
+    _need(all(t.is_contiguous() for t in tensors), name,
           "operands must be contiguous")
-    scale_bits = torch.empty(u.shape, dtype=torch.uint8, device=u.device)
-    gscale = torch.empty((), dtype=torch.float32, device=u.device)
-    MR.launch_phase2(absmax, pseudo, num, den, u, scale_bits, gscale)
+    outs = [(torch.empty(op[1].shape, dtype=torch.uint8, device=op[1].device),
+             torch.empty((), dtype=torch.float32, device=op[1].device))
+            for op in operands]
+    MR.launch_phase2(operands, outs)
     LAUNCHES[name] += 1
-    return scale_bits, gscale
+    return outs
 
 
-def ms_eden_requant(x: torch.Tensor, signs: torch.Tensor, uniforms: torch.Tensor):
+def ms_eden_phase2(absmax, pseudo, num, den, u):
+    """MS-EDEN phase 2: align the pseudo-scales to the global absmax,
+    EDEN-correct and round stochastically to e4m3 (pseudo, num, den (M,
+    K/16) f32; absmax f32 (1,)). u: the SR uniforms, a (M, K/16) f32 tensor,
+    or the key pair (k, k2) of a `core.rng.HashDraws` tag, whose uniforms
+    the kernel hashes per group (bitwise `HashDraws.uniform`). Returns (e4m3
+    scale bits u8 (M, K/16), gscale f32 0-dim)."""
+    return ms_eden_phase2_batch([(absmax, pseudo, num, den, u)])[0]
+
+
+def ms_eden_requant(x: torch.Tensor, signs: torch.Tensor, uniforms):
     """Two-phase MS-EDEN re-quantization of x (M, K) f32 with RHT signs (b,)
-    and SR uniforms (M, K/16): (packed codes u8 (M, K/2), e4m3 scale bits u8
-    (M, K/16), gscale f32 0-dim) in rotated space — the operand form of
-    `fp4_matmul`. The gscale stays on the device (no host sync). x may be
-    a view, as for `ms_eden_phase1`."""
+    and SR uniforms (M, K/16) or their key pair (as for `ms_eden_phase2`):
+    (packed codes u8 (M, K/2), e4m3 scale bits u8 (M, K/16), gscale f32
+    0-dim) in rotated space — the operand form of `fp4_matmul`. The gscale
+    stays on the device (no host sync). x may be a view, as for
+    `ms_eden_phase1`."""
     packed, pseudo, num, den, absmax = ms_eden_phase1(x, signs)
-    _need(tuple(uniforms.shape) == tuple(pseudo.shape), "ms_eden_requant",
-          f"uniforms must be {tuple(pseudo.shape)}")
     scale_bits, gscale = ms_eden_phase2(absmax, pseudo, num, den, uniforms)
     return packed, scale_bits, gscale
 
@@ -368,7 +394,11 @@ def quartet2_backward_gemm(a, b, signs, u_a, u_b):
     the NVFP4 GEMM: the kernel-level composition of paper Fig. 3's backward
     box (`repro/kernels/ops.py:quartet2_backward_gemm`). f32 (Ma, Mb). a and
     b may be views, as for `ms_eden_phase1` (the backward passes E^T, W^T
-    and X^T as transposed views)."""
-    qa = ms_eden_requant(a, signs, u_a)
-    qb = ms_eden_requant(b, signs, u_b)
-    return fp4_matmul(qa[0], qa[1], qb[0], qb[1], qa[2], qb[2])
+    and X^T as transposed views). u_a, u_b: each operand's SR uniforms, a
+    tensor or a key pair (as for `ms_eden_phase2`). On the card phase 1 runs
+    once per operand and phase 2 once for both."""
+    pa = ms_eden_phase1(a, signs)
+    pb = ms_eden_phase1(b, signs)
+    (sa, ga), (sb, gb) = ms_eden_phase2_batch([(pa[4], *pa[1:4], u_a),
+                                              (pb[4], *pb[1:4], u_b)])
+    return fp4_matmul(pa[0], sa, pb[0], sb, ga, gb)

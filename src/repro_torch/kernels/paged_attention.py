@@ -14,7 +14,11 @@ in f32.
 On the card #5 and #6 are one split-KV design (`csrc/paged_attention.cu`):
 `plan` cuts each row's logical blocks into fixed splits from the shapes
 alone, one CTA per (row, KV head, split) writes a partial softmax, and a
-second kernel merges the partials in split order.
+second kernel merges the partials in split order. #8 is a split-KV design of
+its own (`plan_mla`): one CTA per (row, tile of 16 (query, head) pairs,
+split), the packed latent blocks decoded once per 16-group to bf16 in
+shared memory; #7 still runs the first port's kernel (one CTA per 4 pairs, the
+whole context).
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ MAX_LORA = 512   # MLA latent (value) width the kernel's lanes cover
 MAX_ROPE = 64
 SPLIT_KEYS = 16  # keys of one GQA split (whole blocks, at least one)
 ROW_CHUNK = 4    # query rows one warp of the GQA kernel carries at once
+MLA_PAIRS = 16   # (query, head) pairs of one #8 CTA: 4 a warp
+MLA_SPLIT_KEYS = 16  # keys of one #8 split below the scratch cap (whole blocks)
+MLA_SCRATCH_BYTES = 32 << 20  # cap on one #8 call's f32 partials
 
 
 class Plan(NamedTuple):
@@ -65,6 +72,47 @@ def plan(b: int, sq: int, h: int, kv: int, maxb: int, bs: int, vd: int) -> Plan:
     row_groups = 1 if rows <= ROW_CHUNK else 2 if rows <= 2 * ROW_CHUNK else 4
     scratch = 0 if splits == 1 else b * sq * h * splits * (vd + 2)
     return Plan(maxb, bps, splits, row_groups, b * kv * splits, scratch)
+
+
+class MlaPlan(NamedTuple):
+    """Geometry of one #8 call: `splits` runs of `blocks_per_split` logical
+    blocks over the table's `maxb` (the last may be shorter); `tiles` CTAs
+    of MLA_PAIRS (query, head) pairs per row and split; `grid` CTAs of the
+    split kernel; `scratch` f32 elements of the partials (0 with one
+    split)."""
+    maxb: int
+    blocks_per_split: int
+    splits: int
+    tiles: int
+    grid: int
+    scratch: int
+
+    def blocks(self, split: int) -> range:
+        """The logical blocks of split `split`, in order."""
+        j0 = split * self.blocks_per_split
+        return range(j0, min(j0 + self.blocks_per_split, self.maxb))
+
+
+def mla_split_cap(b: int, sq: int, h: int, lora: int) -> int:
+    """Most splits a row may have: a split costs (lora + 2) f32 of partials
+    per (query, head), and a call's partials stay within
+    MLA_SCRATCH_BYTES."""
+    return max(1, MLA_SCRATCH_BYTES // (b * sq * h * (lora + 2) * 4))
+
+
+def plan_mla(b: int, sq: int, h: int, maxb: int, bs: int, lora: int) -> MlaPlan:
+    """#8's geometry for q_abs (b, sq, h, lora) over a (b, maxb) table of
+    blocks of bs tokens: splits of MLA_SPLIT_KEYS keys, lengthened until a
+    row has at most `mla_split_cap` of them. A function of shapes only, so
+    a call's bits never depend on timing."""
+    tiles = -(-(sq * h) // MLA_PAIRS)
+    bps = max(1, MLA_SPLIT_KEYS // bs)
+    cap = mla_split_cap(b, sq, h, lora)
+    if -(-maxb // bps) > cap:
+        bps = -(-maxb // cap)
+    splits = -(-maxb // bps)
+    scratch = 0 if splits == 1 else b * sq * h * splits * (lora + 2)
+    return MlaPlan(maxb, bps, splits, tiles, b * tiles * splits, scratch)
 
 
 def sqrt_hd(hd: int) -> float:
@@ -155,20 +203,40 @@ def launch(q, k, v, table, pos, out, window, *, k_scales=None,
     build.check(status, "paged_gqa_q" if k_scales is not None else "paged_gqa")
 
 
-def launch_mla(q_abs, q_rope, cc, kc, table, pos, out, qk_dim, *,
-               cc_scales=None, kc_scales=None) -> None:
-    """Enqueue the MLA kernel on the current stream (output preallocated).
-    cc, kc are the bf16 latent pools (#7), or with cc_scales/kc_scales the
-    packed code leaves of the NVFP4 latent pools (#8)."""
+def launch_mla(q_abs, q_rope, cc, kc, table, pos, out, qk_dim) -> None:
+    """Enqueue #7 (the first port's kernel over the bf16 latent pools cc, kc) on
+    the current stream (output preallocated)."""
     b, sq, h, lora = q_abs.shape
     rope = q_rope.shape[3]
     n_blocks, bs = cc.shape[:2]
     stream = torch.cuda.current_stream(q_abs.device).cuda_stream
     status = build.library().paged_mla_launch(
-        q_abs.data_ptr(), q_rope.data_ptr(),
-        int(q_rope.dtype == torch.bfloat16), int(cc_scales is not None),
-        cc.data_ptr(), _ptr(cc_scales), kc.data_ptr(), _ptr(kc_scales),
-        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, sq, h, lora, rope, n_blocks, bs, table.shape[1],
+        q_abs.data_ptr(), q_rope.data_ptr(), int(q_rope.dtype == torch.bfloat16),
+        cc.data_ptr(), kc.data_ptr(), table.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), b, sq, h, lora, rope, n_blocks, bs, table.shape[1],
         mla_scale(qk_dim), stream)
-    build.check(status, "paged_mla_q" if cc_scales is not None else "paged_mla")
+    build.check(status, "paged_mla")
+
+
+def launch_mla_q(q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales,
+                 table, pos, out, qk_dim) -> None:
+    """Enqueue #8's kernels over the NVFP4 latent pools' leaves on the
+    current stream (output preallocated; the partials' scratch allocated
+    here, sized by `plan_mla`)."""
+    b, sq, h, lora = q_abs.shape
+    rope = q_rope.shape[3]
+    n_blocks, bs = cc_codes.shape[:2]
+    maxb = table.shape[1]
+    p = plan_mla(b, sq, h, maxb, bs, lora)
+    part = (torch.empty(p.scratch, dtype=torch.float32, device=q_abs.device)
+            if p.scratch else None)
+    part_ml = (None if part is None
+               else part.data_ptr() + b * sq * h * p.splits * lora * 4)
+    stream = torch.cuda.current_stream(q_abs.device).cuda_stream
+    status = build.library().paged_mla_q_launch(
+        q_abs.data_ptr(), q_rope.data_ptr(), int(q_rope.dtype == torch.bfloat16),
+        cc_codes.data_ptr(), cc_scales.data_ptr(), kc_codes.data_ptr(),
+        kc_scales.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        _ptr(part), part_ml, b, sq, h, lora, rope, n_blocks, bs, maxb,
+        p.blocks_per_split, p.splits, p.tiles, mla_scale(qk_dim), stream)
+    build.check(status, "paged_mla_q")

@@ -19,11 +19,13 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     <= 5e-6 + 1e-5 |o_plain|, the bar of tests/test_paged_attention.py and
     tests/test_kv_quant.py (the packed kernels decode exactly, so only the
     online softmax's fp32 order differs, and the split-KV merge of paged_gqa
-    and paged_gqa_q only re-orders those sums); inactive rows exactly 0;
-    paged_gqa and paged_gqa_q: two calls bitwise equal;
+    and paged_gqa_q and of paged_mla_q only re-orders those sums); inactive
+    rows exactly 0; paged_gqa, paged_gqa_q and paged_mla_q: two calls
+    bitwise equal;
   - ms_eden_phase1 and ms_eden_phase2: BITWISE equal to their plain versions
     (the butterfly RHT, the group sums and every rounding run in one fixed
-    order in both);
+    order in both); phase 2 so with uniforms hashed in the kernel from a
+    key pair and with a uniforms tensor, one or two operands a launch;
   - quartet2_backward_gemm: |C_kernel - C_plain| <= 1e-3 * max|C_plain| with
     identical signs and uniforms (only fp4_matmul's fp32 order differs);
   - qlinear forward and backward on the card against the CPU, same hashed
@@ -403,6 +405,12 @@ MLA_CASES = [
     dict(b=3, sq=3, h=4, lora=32, rope=16, bs=4, maxb=8, lens=[6, 14, 0],
          dead_rows=(2,), rope_dtype=torch.float32),
     dict(b=2, sq=2, h=8, lora=512, rope=64, bs=32, maxb=4, lens=[70, 128]),
+    # deepseek-v3 at 4 rows x 4,096 tokens (#8: 29 splits of 9 blocks)
+    dict(b=4, sq=1, h=128, lora=512, rope=64, bs=16, maxb=256,
+         lens=[4096, 4096, 4096, 4096]),
+    # Sq 16 where the scratch cap binds (#8: 3 splits of 22, 22, 20 blocks)
+    dict(b=2, sq=16, h=128, lora=512, rope=64, bs=16, maxb=64,
+         lens=[1000, 517]),
 ]
 
 
@@ -429,6 +437,11 @@ def test_paged_mla_matches_plain(dev, case, packed):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
     for r in case.get("dead_rows", ()):
         assert int((out[r] != 0).sum()) == 0  # inactive row: exact zeros
+    if packed:  # fixed-order split merge: same bits
+        again = ops.paged_mla_q(qa, qr, ccc, ccs, kcc, kcs, table, pos,
+                                qk_dim=qk_dim)
+        assert torch.equal(out, again)
+
 
 
 def paged_step_card_vs_cpu(arch, scheme, kv_quant):
@@ -581,6 +594,90 @@ def test_ms_eden_phase2_matches_plain(dev, m, k):
     assert torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])
 
 
+@pytest.mark.parametrize("m,k", REQUANT_SHAPES)
+def test_ms_eden_phase2_hashed_matches_plain(dev, m, k):
+    """Uniforms hashed in the kernel from the tag's key pair: bitwise the
+    plain version on HashDraws.uniform's tensor, which is the same on the
+    card and on the CPU."""
+    x, signs, _ = _requant_inputs(dev, m, k, 5 * m + k)
+    draws = rng.HashDraws([m, k])
+    p1 = MR.phase1_plain(x, signs)
+    u = draws.uniform(1, p1[1].shape, dev)
+    assert torch.equal(u.cpu(), draws.uniform(1, p1[1].shape, "cpu"))
+    kern = ops.ms_eden_phase2(p1[4], p1[1], p1[2], p1[3], draws.keys(1))
+    torch.cuda.synchronize()
+    plain = MR.phase2_plain(p1[4], p1[1], p1[2], p1[3], u)
+    assert torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])
+
+
+# (a, b) operand shapes of the training step's backward GEMMs at T = 2048:
+# dX = E (T, N) . W^T (K, N), dW = E^T (N, T) . X^T (K, T), and ragged ones
+PHASE2_PAIRS = [((2048, 1280), (1280, 1280)), ((1280, 2048), (1280, 2048)),
+                ((2048, 1280), (3456, 1280)), ((1280, 2048), (3456, 2048)),
+                ((2048, 3456), (1280, 3456)), ((3456, 2048), (1280, 2048)),
+                ((33, 80), (7, 80)), ((5, 96), (130, 96))]
+
+
+@pytest.mark.parametrize("sa,sb", PHASE2_PAIRS)
+@pytest.mark.parametrize("mode", ["hashed", "uniforms", "mixed"])
+def test_ms_eden_phase2_two_operands_match_plain(dev, sa, sb, mode):
+    """One launch over both operands of a backward GEMM, each with its own
+    absmax, gscale and key pair (or uniforms tensor): bitwise the plain
+    version of each operand."""
+    draws = rng.HashDraws([sa[0], sb[0]])
+    ops_in, want = [], []
+    for i, (m, k) in enumerate((sa, sb)):
+        x, signs, _ = _requant_inputs(dev, m, k, 7 * m + k + i, zero_rows=(0,))
+        p1 = MR.phase1_plain(x, signs)
+        keys = draws.keys(1 + i)
+        hashed = mode == "hashed" or (mode == "mixed" and i == 0)
+        u = draws.uniform(1 + i, p1[1].shape, dev)
+        ops_in.append((p1[4], p1[1], p1[2], p1[3], keys if hashed else u))
+        want.append(MR.phase2_plain(p1[4], p1[1], p1[2], p1[3], u))
+    ops.reset_launches()
+    got = ops.ms_eden_phase2_batch(ops_in)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ms_eden_phase2"] == 1
+    for (bits, gs), (pb, pg) in zip(got, want):
+        assert torch.equal(bits, pb) and torch.equal(gs, pg)
+
+
+@pytest.mark.parametrize("mode", ["hashed", "uniforms"])
+def test_ms_eden_phase2_unaligned_matches_plain(dev, mode):
+    """Operands whose pointers do not allow 16-byte loads take the scalar
+    loads: still bitwise."""
+    m, k = 130, 128
+    x, signs, _ = _requant_inputs(dev, m, k, 11)
+    p1 = MR.phase1_plain(x, signs)
+    draws = rng.HashDraws([1, 2])
+    u = draws.uniform(1, p1[1].shape, dev)
+
+    def shifted(t):  # the same values one float past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    args = [shifted(t) for t in p1[1:4]]
+    kern = ops.ms_eden_phase2(p1[4], *args, draws.keys(1) if mode == "hashed"
+                              else shifted(u))
+    torch.cuda.synchronize()
+    plain = MR.phase2_plain(p1[4], p1[1], p1[2], p1[3], u)
+    assert torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])
+
+
+def test_quartet2_backward_gemm_launches_phase2_once(dev):
+    """One phase-2 launch per backward GEMM: keys or uniforms tensors."""
+    a, signs, ua = _requant_inputs(dev, 256, 1280, 3)
+    b, _, ub = _requant_inputs(dev, 96, 1280, 4)
+    draws = rng.HashDraws([3, 4])
+    for u_a, u_b in ((draws.keys(1), draws.keys(2)), (ua, ub)):
+        ops.reset_launches()
+        ops.quartet2_backward_gemm(a, b, signs, u_a, u_b)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+            "ms_eden_phase1": 2, "ms_eden_phase2": 1, "fp4_matmul": 1}
+
+
 def test_ms_eden_requant_zero_and_counts(dev):
     ops.reset_launches()
     packed, bits, gs = ops.ms_eden_requant(
@@ -631,7 +728,8 @@ def test_qlinear_autograd_card_vs_cpu(dev, scheme):
     (yc, dxc, dwc, _), (yg, dxg, dwg, n) = out["cpu"], out["cuda"]
     assert _bf16_close(yg, yc) and _bf16_close(dxg, dxc)
     assert (dwg - dwc).abs().max().item() <= 1e-5 * dwc.abs().max().item()
-    if scheme == "quartet2":  # forward x, w; requant of E, W^T, E^T, X^T
+    if scheme == "quartet2":  # forward x, w; requant of E, W^T, E^T, X^T,
+        # phase 2 once per backward GEMM (dX, dW)
         assert n == {"nvfp4_fos_quant": 2, "fp4_matmul": 3, "paged_gqa": 0,
-                     "ms_eden_phase1": 4, "ms_eden_phase2": 4,
+                     "ms_eden_phase1": 4, "ms_eden_phase2": 2,
                      "paged_gqa_q": 0, "paged_mla": 0, "paged_mla_q": 0}

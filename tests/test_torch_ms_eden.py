@@ -30,7 +30,11 @@ is deterministic. Tolerances:
   norm) and its mean MSE is within 10% of the direct path's over 128 draws.
 - Hash draws (`core/rng.py`): identical for equal (seed, tag); uniforms pass
   a Kolmogorov-Smirnov bound (D < 1.63 / sqrt(n), p = 0.01); signs are
-  balanced within 4 sigma.
+  balanced within 4 sigma. A tag's key pair (`HashDraws.keys`) hashed per
+  flat index in uint32 arithmetic, as the phase-2 kernel does (modelled in
+  numpy uint32), gives `HashDraws.uniform` BITWISE; phase 2 driven by the
+  key pair is BITWISE phase 2 on the materialized uniforms, and so is a
+  quartet2 backward whose hashed draws reach phase 2 as keys.
 """
 
 import jax
@@ -412,3 +416,97 @@ def test_hash_draws_uniform_and_balanced():
     s = d.signs(6, 100_000, "cpu").numpy()
     assert set(np.unique(s)) == {-1.0, 1.0}
     assert abs(s.mean()) < 4 / np.sqrt(s.size)
+
+
+def _kernel_hash_uniform(keys, n: int) -> np.ndarray:
+    """The phase-2 kernel's uniform of flat index i (csrc/ms_eden_requant.cu
+    hash_uniform), in numpy uint32 arithmetic: products wrap mod 2^32."""
+    def mix(h):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x7FEB352D)
+        h = h ^ (h >> np.uint32(15))
+        h = h * np.uint32(0x2C1B3C6D)
+        return h ^ (h >> np.uint32(16))
+    k, k2 = (np.uint32(v) for v in keys)
+    i = np.arange(n, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        h = mix(mix(i ^ k) + k2)
+    return (h >> np.uint32(8)).astype(np.float32) * np.float32(2.0**-24)
+
+
+@pytest.mark.parametrize("seed,tag,shape", [
+    ([7, 4000000000], 3, (128, 80)), ([0, 0], 0, (5, 7)),
+    ([123, 456], 2**32 - 1, (1027,)), ([9, 10], 12, (96, 3))])
+def test_hash_keys_give_hash_draws_uniforms_bitwise(seed, tag, shape):
+    """Group counts 10,240, 35, 1,027 and 288: whole and ragged 4-group
+    runs of the kernel's threads."""
+    d = rng.HashDraws(seed)
+    k = d.keys(tag)
+    assert all(isinstance(v, int) and 0 <= v < 2**32 for v in k)
+    want = d.uniform(tag, shape, "cpu")
+    got = _kernel_hash_uniform(k, int(np.prod(shape))).reshape(shape)
+    assert np.array_equal(got, want.numpy())
+    assert torch.equal(rng.uniform_from_keys(k, shape, "cpu"), want)
+    assert torch.equal(MR.uniforms(k, shape, "cpu"), want)
+
+
+@pytest.mark.parametrize("shape", [(128, 256), (96, 48), (33, 80)])
+def test_phase2_plain_from_keys_bitwise(shape):
+    """Phase 2's plain path driven by a key pair equals phase2_plain on the
+    materialized uniforms, bitwise, alone and as one of two operands."""
+    x = T(_rand(shape, 31))
+    d = rng.HashDraws([4, 8])
+    signs = d.signs(0, R.block_size(shape[1]), "cpu")
+    p1 = MR.phase1_plain(x, signs)
+    u = d.uniform(1, p1[1].shape, "cpu")
+    want = MR.phase2_plain(p1[4], *p1[1:4], u)
+    for got in (MR.phase2_plain(p1[4], *p1[1:4], d.keys(1)),
+                ops.ms_eden_phase2(p1[4], *p1[1:4], d.keys(1)),
+                ops.ms_eden_phase2_batch([(p1[4], *p1[1:4], u),
+                             (p1[4], *p1[1:4], d.keys(1))])[1]):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    b = T(_rand((40, shape[1]), 32))
+    pb = MR.phase1_plain(b, signs)
+    c_keys = ops.quartet2_backward_gemm(x, b, signs, d.keys(1), d.keys(2))
+    c_tensors = ops.quartet2_backward_gemm(
+        x, b, signs, u, d.uniform(2, pb[1].shape, "cpu"))
+    assert torch.equal(c_keys, c_tensors)
+
+
+class _TensorDraws:
+    """HashDraws' numbers, but not a HashDraws: the backward takes its
+    uniforms as tensors."""
+
+    def __init__(self, seed):
+        self.inner = rng.HashDraws(seed)
+
+    def signs(self, tag, n, device):
+        return self.inner.signs(tag, n, device)
+
+    def uniform(self, tag, shape, device):
+        return self.inner.uniform(tag, shape, device)
+
+
+def test_qlinear_backward_hashed_keys_equal_uniform_tensors(monkeypatch):
+    """quartet2's backward with a hashed seed hands phase 2 key pairs (no
+    uniform tensor is drawn); its gradients are BITWISE those of the same
+    draws handed over as tensors."""
+    x = T(_rand((2, 40, 128), 33)).bfloat16()
+    w = T(_rand((96, 128), 34, 128 ** -0.5))
+    e = T(_rand((2, 40, 96), 35)).bfloat16()
+    seed = np.array([21, 22], np.uint32)
+    seen, grads = [], {}
+    real = ops.quartet2_backward_gemm
+
+    def spy(a, b, signs, u_a, u_b):
+        seen.append((type(u_a), type(u_b)))
+        return real(a, b, signs, u_a, u_b)
+
+    monkeypatch.setattr(ops, "quartet2_backward_gemm", spy)
+    for name, s in (("keys", seed), ("tensors", _TensorDraws(seed))):
+        tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+        L.qlinear(tx, tw, s, "quartet2").backward(e)
+        grads[name] = (tx.grad, tw.grad)
+    assert seen == [(tuple, tuple)] * 2 + [(torch.Tensor, torch.Tensor)] * 2
+    for g, h in zip(grads["keys"], grads["tensors"]):
+        assert torch.equal(g, h)

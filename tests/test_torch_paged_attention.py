@@ -10,9 +10,10 @@ grouped heads rep in {1, 2}. Pools hold garbage outside the written
 positions, so a masked lane that leaked would show.
 
 The card's split-KV kernels are held here by their geometry and arithmetic:
-`PA.plan` tiles every row's logical blocks exactly once, in order, and a
-PyTorch model of the per-split partials and their fixed-order merge equals
-`PA.paged_gqa_plain` within the same bar.
+`PA.plan` (GQA, #5/#6) and `PA.plan_mla` (packed MLA, #8) tile every row's
+logical blocks exactly once, in order, and a PyTorch model of the per-split
+partials and their fixed-order merge equals `PA.paged_gqa_plain` and
+`PA.paged_mla_q_plain` within the same bar.
 """
 
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.serve import kv_pool as jkv
+from repro_torch.core import formats as F
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.serve import kv_pool as kv
@@ -192,5 +194,127 @@ def test_split_merge_model_matches_plain(sq, window, bs, rep):
     assert PA.plan(len(lens), sq, kvh * rep, kvh, maxb, bs, hd).splits >= 8
     got = _split_merge(q, pk, pv, table, pos, window)
     want = PA.paged_gqa_plain(q, pk, pv, table, pos, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+    assert not got[2].any() and not want[2].any()
+
+
+MLA_PLAN_SHAPES = [(1, 1, 1, 1, 16), (4, 1, 128, 16, 512), (4, 16, 128, 16, 512),
+                   (4, 1, 128, 256, 512), (4, 16, 128, 256, 512), (3, 3, 4, 9, 32),
+                   (64, 1, 128, 64, 512), (2, 2, 8, 1000, 512), (1, 1, 128, 4096, 512)]
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16, 32])
+def test_plan_mla_covers_every_block_once_in_order(bs):
+    """PA.plan_mla's splits tile each row's logical blocks exactly once, in
+    order, at most `mla_split_cap` of them (the partials within
+    MLA_SCRATCH_BYTES); splits are MLA_SPLIT_KEYS long unless the cap
+    lengthens them; tiles, grid and scratch follow from the shapes alone."""
+    for b, sq, h, maxb, lora in MLA_PLAN_SHAPES:
+        p = PA.plan_mla(b, sq, h, maxb, bs, lora)
+        assert p == PA.plan_mla(b, sq, h, maxb, bs, lora)
+        covered = [j for s in range(p.splits) for j in p.blocks(s)]
+        assert covered == list(range(maxb))
+        assert all(len(p.blocks(s)) > 0 for s in range(p.splits))
+        cap = PA.mla_split_cap(b, sq, h, lora)
+        base = max(1, PA.MLA_SPLIT_KEYS // bs)
+        assert p.splits <= cap
+        assert p.blocks_per_split == (base if -(-maxb // base) <= cap
+                                      else -(-maxb // cap))
+        assert p.tiles == -(-(sq * h) // PA.MLA_PAIRS)
+        assert p.grid == b * p.tiles * p.splits
+        assert p.scratch == (0 if p.splits == 1
+                             else b * sq * h * p.splits * (lora + 2))
+        assert p.scratch * 4 <= max(PA.MLA_SCRATCH_BYTES, b * sq * h * (lora + 2) * 4)
+
+
+def test_plan_mla_at_deepseek_v3_shapes():
+    """The geometry the kernel's head note states: H 128, lora 512, BS 16."""
+    decode = PA.plan_mla(4, 1, 128, 16, 16, 512)   # the engine's 256-token table
+    assert (decode.blocks_per_split, decode.splits, decode.tiles) == (1, 16, 8)
+    long = PA.plan_mla(4, 1, 128, 256, 16, 512)    # 4 rows x 4,096 tokens
+    assert (long.blocks_per_split, long.splits) == (9, 29)
+    chunk = PA.plan_mla(4, 16, 128, 16, 16, 512)   # 16-token prefill chunks
+    assert (chunk.splits, chunk.scratch, chunk.tiles) == (1, 0, 128)
+
+
+def _mla_split_merge(q_abs, q_rope, cc, kc, table, pos, qk_dim):
+    """#8's arithmetic over the gathered view: for each of PA.plan_mla's
+    splits, the kernel's block-skip rules (sentinel entries, blocks past the
+    newest query) and causal masks give a partial (m, l, acc) per (query,
+    head) (m = NEG_INF, l = 0 with no live key); the partials merge in split
+    order, skipping splits with l == 0."""
+    b, sq, h, lora = q_abs.shape
+    maxb = table.shape[1]
+    n_blocks, bs = cc.codes.shape[:2]
+    p = PA.plan_mla(b, sq, h, maxb, bs, lora)
+    cv = kv.gather_view(cc, table).float()                        # (B, T, lora)
+    kr = kv.gather_view(kc, table).float()
+    s = ((torch.einsum("bqhl,btl->bqht", q_abs, cv)
+          + torch.einsum("bqhr,btr->bqht", q_rope.float(), kr)) * PA.mla_scale(qk_dim))
+    p0 = pos.long()
+    qpos = p0[:, None] + torch.arange(sq)[None]                     # (B, Sq)
+    j = torch.arange(maxb)
+    live = ((table >= 0) & (table < n_blocks)
+            & (j[None] * bs <= (p0 + sq - 1)[:, None]))              # (B, MAXB)
+    t = torch.arange(maxb * bs)
+    ok = (live[:, t // bs][:, None] & (t[None, None] <= qpos[..., None]))[:, :, None]
+    parts = []
+    for split in range(p.splits):
+        blk = p.blocks(split)
+        keys = slice(blk.start * bs, blk.stop * bs)
+        ks = torch.where(ok[..., keys], s[..., keys], PA.NEG_INF)
+        m = ks.amax(-1)
+        e = torch.where(ok[..., keys], torch.exp(ks - m[..., None]), 0.0)
+        parts.append((m, e.sum(-1), torch.einsum("bqht,btl->bqhl", e, cv[:, keys])))
+    mm = torch.full_like(parts[0][0], PA.NEG_INF)
+    for m, l, _ in parts:
+        mm = torch.where(l > 0, torch.maximum(mm, m), mm)
+    ll = torch.zeros_like(mm)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        f = torch.where(l > 0, torch.exp(m - mm), 0.0)
+        ll = ll + l * f
+        acc = acc + a * f[..., None]
+    return acc / ll.clamp(min=1e-30)[..., None], p
+
+
+@pytest.mark.parametrize("sq,bs,scratch_bytes", [(1, 16, None), (1, 4, None),
+                                                 (16, 8, None), (3, 32, None),
+                                                 (1, 4, 4 * 8 * 34 * 4 * 5),
+                                                 (16, 16, 4 * 16 * 8 * 34 * 4 * 3)])
+def test_mla_split_merge_model_matches_plain(monkeypatch, sq, bs, scratch_bytes):
+    """#8's split-KV arithmetic (PA.plan_mla's splits, the fixed-order merge)
+    modelled in PyTorch over the gathered NVFP4 view equals
+    PA.paged_mla_q_plain within the bar: ragged rows over several splits,
+    splits past a row's end, Sq 16, an all-sentinel row (exact zeros), and
+    (with a smaller scratch cap) splits the cap lengthens to several blocks,
+    the last one shorter."""
+    if scratch_bytes is not None:
+        monkeypatch.setattr(PA, "MLA_SCRATCH_BYTES", scratch_bytes)
+    rng = np.random.RandomState(sq * 100 + bs)
+    h, lora, rope, maxb = 8, 32, 16, 256 // bs
+    lens = [256, 33, 100, 64]
+    n_blocks = len(lens) * maxb + 2
+    table = np.full((len(lens), maxb), n_blocks, np.int32)
+    free = list(rng.permutation(n_blocks))
+    for i, n in enumerate(lens):
+        if i != 2:  # row 2 holds only the sentinel
+            for j in range(-(-n // bs)):
+                table[i, j] = free.pop()
+    table = torch.from_numpy(table)
+    pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
+    qa = torch.from_numpy(rng.randn(len(lens), sq, h, lora).astype(np.float32) * 0.3)
+    qr = torch.from_numpy(rng.randn(len(lens), sq, h, rope).astype(np.float32)).bfloat16()
+    cc = kv.PackedKV(*F.nvfp4_cache_encode(torch.from_numpy(
+        rng.randn(n_blocks, bs, lora).astype(np.float32)).bfloat16()))
+    kc = kv.PackedKV(*F.nvfp4_cache_encode(torch.from_numpy(
+        rng.randn(n_blocks, bs, rope).astype(np.float32) * 2).bfloat16()))
+    got, p = _mla_split_merge(qa, qr, cc, kc, table, pos, 16 + rope)
+    assert p.splits >= 2
+    if scratch_bytes is not None:
+        assert p.blocks_per_split > max(1, PA.MLA_SPLIT_KEYS // bs)
+        assert len(p.blocks(p.splits - 1)) < p.blocks_per_split
+    want = PA.paged_mla_q_plain(qa, qr, cc.codes, cc.scales, kc.codes, kc.scales,
+                                table, pos, 16 + rope)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
     assert not got[2].any() and not want[2].any()

@@ -13,8 +13,9 @@ summed from torch.profiler, so a wrapper's own PyTorch kernels count too.
 Then MS-EDEN phase 1 over one training step's 280 operands, as that
 checkout's backward hands them (transposed views, or contiguous copies made
 beforehand where its phase 1 takes no views). With --train, also the
-PyTorch copy, abs and reduction launches of one profiled full-width
-training step of that checkout (`chip_smoke.phase_training`).
+kernel launches (all, and the PyTorch copy, abs, reduction and int64 ones)
+and device time of one profiled step of that checkout's full-width
+training run (`chip_smoke.TRAIN_ARGS`, `chip_smoke.profile_train_step`).
 
 --sass (this checkout): instruction counts of the quantizer kernels
 (#1 and MS-EDEN phase 1) in the built library, from cuobjdump.
@@ -76,10 +77,12 @@ if hasattr(MR, "layout"):  # the same calls on contiguous copies
     xs = [x.contiguous() for x in xs]
     out["phase1_train_step"]["contiguous_kernel_ms"] = cs.device_ms(
         torch, fn, "ms_eden_phase1_kernel")
-if "--train" in sys.argv:  # the PyTorch launches of one profiled training step
-    prof = cs.phase_training(torch, "")["profile"]
+if "--train" in sys.argv:  # the launches of one profiled training step
+    from repro_torch.launch import train as launch_train
+    res, trainer, state = launch_train.run(cs.TRAIN_ARGS)
+    prof = cs.profile_train_step(torch, trainer, state, res["step_ms"])
     out["training"] = {k: prof[k] for k in ("device_ms_per_step", "kernel_ms",
-                                            "torch_launches")}
+                                            "launches", "torch_launches")}
 print("PROBE_JSON " + json.dumps(out), flush=True)
 """
 
@@ -258,7 +261,8 @@ def main() -> None:
         train = r.pop("training", None)
         if train:
             print(f"{tree}: training step, device {train['device_ms_per_step']:.2f} ms; "
-                  f"PyTorch launches {train['torch_launches']}", flush=True)
+                  f"{train['launches']} launches; PyTorch {train['torch_launches']}; "
+                  f"ported kernels (ms) {train['kernel_ms']}", flush=True)
         print(f"{tree}: " + "; ".join(
             f"{n} {v['calls']} calls, {v['kernels_per_call']:.2f} kernels a call: "
             f"events {v['ms']:.4f} ms, device {v['profiler_ms']} ms"
