@@ -42,11 +42,12 @@ Phases (any failure exits non-zero, before the result line):
                one-operand launches on uniforms tensors, and the 280
                uniform draws it no longer needs timed apart). The packed
                GQA decode (#6) at llama-200m's decode and chunk shapes and
-               the MLA decode over bf16 (#7) and NVFP4 (#8) latent pools at
-               deepseek-v3's (H 128, lora 512, rope 64; Sq 1 and 16, ragged
-               lengths, an inactive row, 4 rows x 4,096 tokens; #8's two
-               calls bitwise equal), each timed over one decode step's
-               calls at phase 6's lengths and at 4,096 tokens. The split-KV GQA decode (#5, #6) also on cases that
+               the MLA decode over bf16 (#7, on the tensor cores) and NVFP4
+               (#8) latent pools at deepseek-v3's (H 128, lora 512, rope 64;
+               Sq 1 and 16, ragged lengths, an inactive row, 4 rows x 4,096
+               tokens; each kernel's two calls bitwise equal), each timed
+               over one decode step's calls at phase 6's lengths and at
+               4,096 tokens (#7's bound at the bf16 tensor-core peak). The split-KV GQA decode (#5, #6) also on cases that
                stress its splits (yi-9b at Sq 1 and 16 over the NVFP4 pool;
                over both pools a 1,024-token row, lengths ending on a split
                edge and one past it, windows that leave whole splits dead),
@@ -99,8 +100,8 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # rates for the arithmetic each kernel does.
 HBM_BYTES_S = 3.35e12
-BF16_FLOPS = 989e12   # tensor cores: bf16-exact block values, fp32 accumulate
-F32_FLOPS = 67e12     # CUDA cores: the quantizer's and attention's f32 math
+BF16_FLOPS = 989e12   # tensor cores: bf16-exact operands, fp32 accumulate (#2, #7)
+F32_FLOPS = 67e12     # CUDA cores: the quantizers' and the other attention kernels' f32 math
 QUANT_FLOPS_PER_ELEMENT = 14  # 2 branches x (div, round, mul, sub, sq, add) + code
 # MS-EDEN phase 1 per element: sign and 1/sqrt(b) multiplies, log2(b) butterfly
 # adds, abs/max, the divide, q * denom, two products and two sums
@@ -145,13 +146,14 @@ SOURCES = {
 # their names (nvfp4_fos_quant: nvfp4_fos_quant_cluster_kernel, _absmax_kernel,
 # _encode_kernel; fp4_matmul: fp4_matmul_gemv_kernel,
 # fp4_matmul_splitk_reduce_kernel, fp4_matmul_mma_kernel; paged_gqa and
-# paged_gqa_q: paged_gqa_split_kernel, paged_gqa_merge_kernel; paged_mla_q:
+# paged_gqa_q: paged_gqa_split_kernel, paged_gqa_merge_kernel; paged_mla:
+# paged_mla_tc_kernel, paged_mla_merge_kernel; paged_mla_q:
 # paged_mla_split_kernel, paged_mla_merge_kernel)
 KERNEL_SYMBOLS = {
     "nvfp4_fos_quant": ("nvfp4_fos_quant_",), "fp4_matmul": ("fp4_matmul_",),
     "paged_gqa": ("paged_gqa_",), "ms_eden_phase1": ("ms_eden_phase1_kernel",),
     "ms_eden_phase2": ("ms_eden_phase2_kernel",), "paged_gqa_q": ("paged_gqa_",),
-    "paged_mla": ("paged_mla_kernel",),
+    "paged_mla": ("paged_mla_tc_kernel", "paged_mla_merge_kernel"),
     "paged_mla_q": ("paged_mla_split_kernel", "paged_mla_merge_kernel"),
 }
 
@@ -993,7 +995,7 @@ def phase_paged_q_mla(torch):
             torch.cuda.synchronize()
             errs[name] = max(errs[name], check_against_plain(
                 torch, name, out, plain(*args, 192), c.get("dead", ()), label))
-            if packed and not torch.equal(out, again):
+            if not torch.equal(out, again):
                 fail(f"{name} {label}: two calls on the same inputs differ")
             del args, out, again
 
@@ -1039,14 +1041,16 @@ def phase_paged_q_mla(torch):
 
 
 def mla_step_group(torch, F, PA, ops, KV, packed, lens, maxb, reps, seed,
-                   plain_reps=3):
+                   plain_reps=3, sq=1):
     """One deepseek-v3 decode step's #7 (packed=False) or #8 calls (one a
-    layer, 4 rows of `lens` tokens over a (4, maxb) table): the timing
+    layer, 4 rows of `lens` tokens over a (4, maxb) table, Sq queries a
+    row: 1 to decode, 16 for a prefill chunk): the timing
     dict finish_results completes. The yardstick is SDPA over the gathered
     latent view (q and k the latent and rope parts side by side, v the
     latent part); the bound counts the cache rows each row reads and the
-    (query, key) pairs it scores."""
-    calls = [mla_case(torch, F, b=4, sq=1, bs=16, maxb=maxb, lens=lens,
+    (query, key) pairs it scores, the operations at the bf16 tensor-core
+    peak for #7 (its products run there) and the f32 one for #8."""
+    calls = [mla_case(torch, F, b=4, sq=sq, bs=16, maxb=maxb, lens=lens,
                       packed=packed, seed=seed + i)
              for i in range(DEEPSEEK_LAYERS)]
     kern = ops.paged_mla_q if packed else ops.paged_mla
@@ -1062,7 +1066,7 @@ def mla_step_group(torch, F, PA, ops, KV, packed, lens, maxb, reps, seed,
         kcat = torch.cat([cv, kv], -1)[:, :, None]
         sd.append(gather_sdpa(torch, qcat, kcat, cv[:, :, None], pos,
                               scale=PA.mla_scale(192)))
-        keys, pairs = keys_and_pairs(pos.tolist(), 1)
+        keys, pairs = keys_and_pairs(pos.tolist(), sq)
         row = 576 * (0.5625 if packed else 2)
         nbytes += (qa.numel() * 4 + qr.numel() * 2 + keys * row
                    + table.numel() * 4 + pos.numel() * 4 + qa.numel() * 4)
@@ -1075,7 +1079,8 @@ def mla_step_group(torch, F, PA, ops, KV, packed, lens, maxb, reps, seed,
                           warmup=1) if plain_reps else None),
         library_ms=time_ms(torch, sdpa_fn, reps),
         library_profiler_ms=device_ms(torch, sdpa_fn, ""),
-        bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=len(calls))
+        bytes=nbytes, ops=ops_n, peak=F32_FLOPS if packed else BF16_FLOPS,
+        calls=len(calls))
 
 
 def phase_gqa_splits(torch):

@@ -41,8 +41,8 @@ SIGNATURES = {
     "paged_gqa_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                          _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _L, _L, _L,
                          _P),
-    "paged_mla_launch": (_P, _P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
-                         _L, _L, _L, _F, _P),
+    "paged_mla_launch": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P)
+                        + (_L,) * 11 + (_F, _P),
     "paged_mla_q_launch": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P)
                           + (_L,) * 11 + (_F, _P),
     "ms_eden_phase1_launch": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L,

@@ -63,33 +63,73 @@
 //     by registers.
 // expf and division are the IEEE versions (no fast math).
 //
-// ---- MLA over the bf16 latent pool (#7): paged_mla_kernel<TR, BS> ---------
+// ---- MLA over the bf16 latent pool (#7): paged_mla_tc_kernel<TR, BS> +
+// paged_mla_merge_kernel ----------------------------------------------------
 // Replaces: src/repro/kernels/paged_attention.py:paged_mla_call (_mla_kernel
 // via _mla_sweep). For each row b, query s and head h: scores s_t =
-// (q_abs.cc_t + q_rope.kc_t) * scale (a MULTIPLICATION by the f32
-// 1/sqrt(qk_dim)), causal mask t <= pos[b] + s, online softmax, and the
+// (q_abs.cc_t + q_rope.kc_t) * scale (the two dots summed first, then
+// MULTIPLIED by the f32 1/sqrt(qk_dim)), causal mask t <= pos[b] + s (masked
+// scores NEG_INF), online softmax in f32 (IEEE expf and division), and the
 // readout over cc itself: o_lat (B, Sq, H, lora) f32 for the caller's W_uv
 // absorption. No window; a row with l == 0 (inactive: all-sentinel table)
 // returns exact zeros.
 //
-// Bound on the H100: f32 operations. All H heads share one latent row per
-// token (lora + rope = 576 values: 1,152 bf16 bytes, 324 packed bytes), read
-// once from HBM, while each (query, head, token) takes 2 (lora + rope) +
-// 2 lora = 2,176 flops: at H = 128, Sq = 1 that is ~240 flops per bf16 byte,
-// far above the ~20 at which the CUDA cores' 67 TFLOP/s and 3.35 TB/s
-// balance.
+// Bound on the H100: all H heads share one latent row per token (lora + rope
+// = 576 bf16, 1,152 B), read once from HBM, while each (query, head, token)
+// takes 2 (lora + rope) + 2 lora = 2,176 flops: ~240 flops a byte at H = 128,
+// Sq = 1. That is a matrix product (M = Sq H pairs, K = 576, N = keys; then
+// M, K = keys, N = lora), which the card runs on its tensor cores at 989
+// TFLOP/s, against 67 for f32 on the CUDA cores. At 4 rows x 4,096 tokens a
+// call reads 18.9 MB (5.6 us at 3.35 TB/s) and does 4.56 GFLOP (4.6 us on the
+// tensor cores; 3 bf16 terms a product make it 13.7 GFLOP, 13.8 us).
 //
-// Design (the first port's; #8 moved to the kernels below): the grid splits each row's
-// (Sq x H) query-head pairs into tiles of 4, one per warp of a 128-thread
-// block; a live (BS, lora + rope) latent block is staged ONCE per CUDA block
-// in dynamic shared memory as f32 (<= 36.9 KB at BS 16), and its 4 heads all
-// sweep it from there (the row's other head tiles read it again from L2; 4
-// heads per block keep ~1 wave of blocks on the 132 SMs at 4 decode rows). A
-// lane owns latent dims lane + 32 i (16 of 512) and rope dims lane + 32 i (2
-// of 64), so (m, l) and the 16-float accumulator stay in registers; each
-// score is two warp reductions (latent, rope), added and then multiplied by
-// the scale, as the reference does.
+// Exactness: an f32 x splits into hi = bf16(x), mid = bf16(x - hi), lo =
+// bf16(x - hi - mid); each residual is exact in f32 and the three terms hold
+// 8 + 8 + 8 significant bits, so hi + mid + lo == x for every normal x whose
+// residuals stay normal (|x| >= 2^-110; below that the error is under 2^-126
+// absolute). A bf16 x bf16 product is exact in f32. So with q_abs, an f32
+// q_rope and the unnormalised probabilities P split that way (a bf16 q_rope
+// is its own hi), every product the tensor cores form equals the plain
+// version's, and only the order of the f32 sums differs: the attention bar
+// |o - o_plain| <= 5e-6 + 1e-5 |o_plain| is unchanged.
 //
+// Design, point by point:
+//   - split-KV: one 256-thread CTA per (row b, tile of 16 (query, head)
+//     pairs, split), the splits from kernels/paged_attention.py:plan_mla with
+//     wave = MLA_TC_WAVE (shapes only): the most splits that keep b x tiles x
+//     splits within one wave of 264 CTAs (2 a SM on 132 SMs), so that the
+//     f32 partials stay small: at 4 rows x 4,096 tokens 8 splits of 32 blocks
+//     (256 CTAs, 8.4 MB of partials against #8's 29 splits and 30.5 MB); at
+//     the engine's 256-token table 8 splits of 2 blocks; at 4 rows x Sq 16
+//     one split (512 CTAs), no partials. paged_mla_merge_kernel sums the
+//     partials in split order (no atomics: two calls are bitwise equal).
+//   - loads: a step is 16 keys (the readout's k16); their cc and kc rows come
+//     in as bf16 by 16-byte cp.async into a 4-stage ring (keys of a sentinel
+//     block or past the split's end are zero-filled and masked), rows padded
+//     by 16 B so the 8 rows of every ldmatrix fall on distinct banks. No f32
+//     staging, no per-element loader.
+//   - scores on the tensor cores (mma.sync m16n8k16 bf16 -> f32): the 8 warps
+//     split the score's K: warp w takes the latent k16 steps w + 8 i (q_abs
+//     split once per CTA: hi and mid held in registers, lo in shared
+//     memory) and, for w < rope / 16, rope k16 step w (q_rope's terms split
+//     once into shared memory). Each k16 step's three terms accumulate from zero and are added
+//     in f32 in step order; the warps' latent and rope tiles meet in shared
+//     memory, where every warp sums them in warp order (the same bits in
+//     every warp), then (lat + rope) * scale.
+//   - readout on the tensor cores: the score's two m16n8 C fragments are the
+//     A fragment of O += P.cc over the step's 16 keys, split into P's three
+//     bf16 terms in registers (no trip through shared memory); B comes by
+//     ldmatrix.trans from the same cc tile. The 8 warps split the readout's
+//     lora columns (warp w: units of 16 columns w + 8 i), so a lane holds 32
+//     f32 accumulators at lora 512; each step's product starts from zero and
+//     is added as o = o * corr + d.
+//   - registers: at most 128 a thread (__launch_bounds__(256, 2)): q_abs's
+//     hi and mid terms (32), the accumulators (32), P's terms (12); with
+//     q_abs's lo term in registers too ptxas spilled. Shared memory: 109.3 KB
+//     a CTA at deepseek-v3's widths (the ring 74.3 KB, q_rope's terms 6.8 KB,
+//     q_abs's lo term 16.3 KB, the partial score tiles 12 KB), so two CTAs
+//     fit an SM.
+
 // ---- MLA over NVFP4 latent pools (#8): paged_mla_split_kernel<TR, BS> +
 // paged_mla_merge_kernel ----------------------------------------------------
 // Replaces: src/repro/kernels/paged_attention.py:paged_mla_q_call
@@ -135,6 +175,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -150,12 +192,6 @@ __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 constexpr int kRowChunk = 4;        // query rows one warp carries at once
@@ -714,144 +750,6 @@ constexpr int kMlaThreads = kMlaWarps * 32;
 constexpr int kMaxLora = 512;
 constexpr int kMaxRope = 64;
 constexpr int kLoraPerLane = kMaxLora / 32;
-constexpr int kRopePerLane = kMaxRope / 32;
-
-template <typename TR, int BS>
-__global__ void __launch_bounds__(kMlaThreads)
-paged_mla_kernel(const float* __restrict__ q_abs, const TR* __restrict__ q_rope,
-                 const __nv_bfloat16* __restrict__ cc,
-                 const __nv_bfloat16* __restrict__ kc,
-                 const int32_t* __restrict__ table,
-                 const int32_t* __restrict__ pos, float* __restrict__ out,
-                 int sq, int h_total, int lora, int rope, int64_t n_blocks,
-                 int maxb, int tiles, float scale) {
-  extern __shared__ float smem[];
-  float* cs = smem;              // [BS][lora] latent block
-  float* ks = smem + BS * lora;  // [BS][rope] rope block
-  const int b = blockIdx.x / tiles;
-  const int pair = (blockIdx.x % tiles) * kMlaWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const bool has = pair < sq * h_total;  // warp-uniform
-  const int s = has ? pair / h_total : 0;
-  const int h = has ? pair % h_total : 0;
-  const int p0 = pos[b];
-  const int pmax = p0 + sq - 1;
-  const int qpos = p0 + s;
-  const int64_t qrow = ((int64_t)b * sq + s) * h_total + h;
-
-  float qa[kLoraPerLane], acc[kLoraPerLane], qr[kRopePerLane];
-  float m = kNegInf, l = 0.f;
-#pragma unroll
-  for (int e = 0; e < kLoraPerLane; ++e) {
-    const int d = lane + 32 * e;
-    acc[e] = 0.f;
-    qa[e] = (has && d < lora) ? q_abs[qrow * lora + d] : 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < kRopePerLane; ++e) {
-    const int d = lane + 32 * e;
-    qr[e] = (has && d < rope) ? to_f32<TR>(q_rope[qrow * rope + d]) : 0.f;
-  }
-
-  for (int j = 0; j < maxb; ++j) {
-    const int64_t blk = table[(int64_t)b * maxb + j];
-    if (!(blk >= 0 && blk < n_blocks && (int64_t)j * BS <= pmax)) continue;
-
-    __syncthreads();  // the previous live block's readers are done
-    for (int i = threadIdx.x; i < BS * lora; i += kMlaThreads)
-      cs[i] = __bfloat162float(cc[blk * BS * lora + i]);
-    for (int i = threadIdx.x; i < BS * rope; i += kMlaThreads)
-      ks[i] = __bfloat162float(kc[blk * BS * rope + i]);
-    __syncthreads();
-    if (!has) continue;
-
-    float sc[BS];
-    float smax = kNegInf;
-#pragma unroll
-    for (int t = 0; t < BS; ++t) {
-      float lat = 0.f, rp = 0.f;
-#pragma unroll
-      for (int e = 0; e < kLoraPerLane; ++e) {
-        const int d = lane + 32 * e;
-        if (d < lora) lat += qa[e] * cs[t * lora + d];
-      }
-#pragma unroll
-      for (int e = 0; e < kRopePerLane; ++e) {
-        const int d = lane + 32 * e;
-        if (d < rope) rp += qr[e] * ks[t * rope + d];
-      }
-      const float v = __fmul_rn(__fadd_rn(warp_sum(lat), warp_sum(rp)), scale);
-      sc[t] = (j * BS + t <= qpos) ? v : kNegInf;
-      smax = fmaxf(smax, sc[t]);
-    }
-    const float m_new = fmaxf(m, smax);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    float pv[kLoraPerLane];
-#pragma unroll
-    for (int e = 0; e < kLoraPerLane; ++e) pv[e] = 0.f;
-#pragma unroll
-    for (int t = 0; t < BS; ++t) {
-      const float p = (j * BS + t <= qpos) ? expf(sc[t] - m_new) : 0.f;
-      psum += p;
-#pragma unroll
-      for (int e = 0; e < kLoraPerLane; ++e) {
-        const int d = lane + 32 * e;
-        if (d < lora) pv[e] += p * cs[t * lora + d];
-      }
-    }
-    l = l * corr + psum;
-#pragma unroll
-    for (int e = 0; e < kLoraPerLane; ++e) acc[e] = acc[e] * corr + pv[e];
-    m = m_new;
-  }
-
-  if (!has) return;
-  const float denom = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int e = 0; e < kLoraPerLane; ++e) {
-    const int d = lane + 32 * e;
-    if (d < lora) out[qrow * lora + d] = __fdiv_rn(acc[e], denom);
-  }
-}
-
-template <typename TR>
-int launch_mla(const void* q_abs, const void* q_rope, const void* cc,
-               const void* kc, const void* table, const void* pos, void* out,
-               int64_t b,
-               int64_t sq, int64_t h, int64_t lora, int64_t rope,
-               int64_t n_blocks, int64_t bs, int64_t maxb, float scale,
-               cudaStream_t st) {
-  const int64_t tiles = (sq * h + kMlaWarps - 1) / kMlaWarps;
-  const unsigned grid = (unsigned)(b * tiles);
-  const size_t smem = (size_t)bs * (lora + rope) * sizeof(float);
-#define REPRO_MLA_CASE(BS_)                                                    \
-  case BS_: {                                                                  \
-    auto kern = paged_mla_kernel<TR, BS_>;                                     \
-    if (smem > 48 * 1024) {                                                    \
-      const cudaError_t err = cudaFuncSetAttribute(                            \
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);       \
-      if (err != cudaSuccess) return (int)err;                                 \
-    }                                                                          \
-    kern<<<grid, kMlaThreads, smem, st>>>(                                     \
-        (const float*)q_abs, (const TR*)q_rope, (const __nv_bfloat16*)cc,      \
-        (const __nv_bfloat16*)kc, (const int32_t*)table, (const int32_t*)pos,  \
-        (float*)out, (int)sq, (int)h, (int)lora, (int)rope, n_blocks,          \
-        (int)maxb, (int)tiles, scale);                                         \
-    break;                                                                     \
-  }
-  switch (bs) {
-    REPRO_MLA_CASE(4)
-    REPRO_MLA_CASE(8)
-    REPRO_MLA_CASE(16)
-    REPRO_MLA_CASE(32)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef REPRO_MLA_CASE
-  return (int)cudaGetLastError();
-}
-
 
 // ---- #8: split-KV MLA decode over NVFP4 latent pools ------------------------
 constexpr int kMlaPairs = 16;   // (query, head) pairs of one CTA: 4 a warp
@@ -1209,6 +1107,25 @@ paged_mla_merge_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// After a split kernel of #7 or #8: with n_splits > 1 the merge kernel over
+// the `rows` o_lat rows; the launch error of the split kernel otherwise.
+int launch_mla_merge(void* part_acc, void* part_ml, void* out, int64_t rows,
+                     int64_t n_splits, int64_t lora, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return (int)err;
+  const size_t merge_smem = (size_t)n_splits * 2 * sizeof(float);
+  if (merge_smem > 40 * 1024) {
+    err = cudaFuncSetAttribute(paged_mla_merge_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)merge_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  paged_mla_merge_kernel<<<(unsigned)rows, kMlaThreads, merge_smem, st>>>(
+      (const float*)part_acc, (const float*)part_ml, (float*)out, (int)n_splits,
+      (int)lora);
+  return (int)cudaGetLastError();
+}
+
 template <typename TR>
 int launch_mla_q(const void* q_abs, const void* q_rope, const void* ccc,
                  const void* ccs, const void* kcc, const void* kcs,
@@ -1248,19 +1165,433 @@ int launch_mla_q(const void* q_abs, const void* q_rope, const void* ccc,
       return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_MLA_Q_CASE
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
-  const size_t merge_smem = (size_t)n_splits * 2 * sizeof(float);
-  if (merge_smem > 40 * 1024) {
-    err = cudaFuncSetAttribute(paged_mla_merge_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)merge_smem);
-    if (err != cudaSuccess) return (int)err;
+  return launch_mla_merge(part_acc, part_ml, out, b * sq * h, n_splits, lora, st);
+}
+
+// ---- #7: tensor-core split-KV MLA decode over the bf16 latent pool ---------
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcPairs = 16;   // (query, head) pairs of one CTA: every mma's m16
+constexpr int kTcKeys = 16;    // keys of one step: the readout's k16
+constexpr int kTcStages = 4;   // steps in the cp.async ring
+constexpr int kTcPad = 8;      // bf16 padding of a shared-memory row (16 B)
+constexpr int kTcLatSteps = kMaxLora / 16 / kTcWarps;  // latent k16 steps a warp
+constexpr int kTcUnits = kMaxLora / 16 / kTcWarps;     // readout 16-column units a warp
+
+// Shared-memory layout of one #7 CTA: the ring of steps (16 cc rows, then 16
+// kc rows, bf16 with rows padded by 16 B, then the 16 keys' positions),
+// q_rope's three bf16 terms ([term][pair][rope], padded rows), q_abs's lo
+// term ([pair][lora], padded rows), and the warps' partial score tiles
+// (float4 [tile][2][32]: tiles 0-7 latent, 8-11 rope). Pitches in bf16,
+// offsets in bytes.
+struct MlaTcSmem {
+  int cc_row, kc_row, kpos, stage, qr, qlo, red, bytes;
+  __host__ __device__ MlaTcSmem(int lora, int rope) {
+    cc_row = lora + kTcPad;
+    kc_row = rope + kTcPad;
+    kpos = kTcKeys * (cc_row + kc_row) * 2;
+    stage = kpos + kTcKeys * (int)sizeof(int);
+    qr = kTcStages * stage;
+    qlo = qr + 3 * kTcPairs * kc_row * 2;
+    red = qlo + kTcPairs * cc_row * 2;
+    bytes = red + (kTcWarps + kMaxRope / 16) * 2 * 32 * (int)sizeof(float4);
   }
-  paged_mla_merge_kernel<<<(unsigned)(b * sq * h), kMlaThreads, merge_smem, st>>>(
-      (const float*)part_acc, (const float*)part_ml, (float*)out, (int)n_splits,
-      (int)lora);
-  return (int)cudaGetLastError();
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared by cp.async; bytes = 0 fills the 16 with zeros.
+__device__ __forceinline__ void cp_async16_fill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// d += a b on the tensor cores: m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two f32 values -> their three bf16 terms, as bf16x2 (x0 in the low half):
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); each residual is
+// exact in f32, so hi + mid + lo == x (see the head note).
+__device__ __forceinline__ void split_bf16x3(float x0, float x1, uint32_t& hi,
+                                             uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  x0 = __fsub_rn(x0, __low2float(h));
+  x1 = __fsub_rn(x1, __high2float(h));
+  const __nv_bfloat162 m = __floats2bfloat162_rn(x0, x1);
+  x0 = __fsub_rn(x0, __low2float(m));
+  x1 = __fsub_rn(x1, __high2float(m));
+  hi = bf162_bits(h);
+  mid = bf162_bits(m);
+  lo = bf162_bits(__floats2bfloat162_rn(x0, x1));
+}
+
+template <typename TR, int BS>
+__global__ void __launch_bounds__(kTcThreads, 2)
+paged_mla_tc_kernel(const float* __restrict__ q_abs, const TR* __restrict__ q_rope,
+                    const __nv_bfloat16* __restrict__ cc,
+                    const __nv_bfloat16* __restrict__ kc,
+                    const int32_t* __restrict__ table,
+                    const int32_t* __restrict__ pos, float* __restrict__ out,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml,
+                    int sq, int h_total, int lora, int rope, int64_t n_blocks,
+                    int maxb, int bps, int n_splits, int tiles, float scale) {
+  constexpr int kRopeTerms = std::is_same<TR, float>::value ? 3 : 1;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  __shared__ int n_live;
+
+  const MlaTcSmem lay(lora, rope);
+  const int tile = blockIdx.x % tiles;
+  const int split = (blockIdx.x / tiles) % n_splits;
+  const int b = blockIdx.x / tiles / n_splits;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment rows g, g + 8; columns 2t, 2t + 1
+  const int n_pairs = sq * h_total;      // pair r = s * H + h: query s, head h
+  const int r0 = tile * kTcPairs;
+  const int64_t row0 = (int64_t)b * n_pairs;  // o_lat row of pair 0
+  const int p0 = pos[b];
+  const int pmax = p0 + sq - 1;
+  const int j0 = split * bps;
+  const int nj = min(bps, maxb - j0);
+
+  // the split's live blocks (neither sentinel nor past the newest query), counted
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < nj; base += 32) {
+      const int j = j0 + base + lane;
+      bool live = false;
+      if (base + lane < nj) {
+        const int blk = table[(int64_t)b * maxb + j];
+        live = blk >= 0 && blk < n_blocks && (int64_t)j * BS <= pmax;
+      }
+      count += __popc(__ballot_sync(0xffffffffu, live));
+    }
+    if (lane == 0) n_live = count;
+  }
+  __syncthreads();
+  if (n_live == 0) {  // no live key: (NEG_INF, 0), or exact zeros with one split
+    const int rows = min(kTcPairs, n_pairs - r0);
+    if (n_splits > 1) {
+      for (int i = threadIdx.x; i < rows; i += kTcThreads) {
+        float* ml = part_ml + ((row0 + r0 + i) * n_splits + split) * 2;
+        ml[0] = kNegInf;
+        ml[1] = 0.f;
+      }
+    } else {
+      float* o = out + (row0 + r0) * lora;
+      for (int i = threadIdx.x; i < rows * lora; i += kTcThreads) o[i] = 0.f;
+    }
+    return;
+  }
+
+  // the split's keys: logical positions kbeg .. kend - 1, 16 a step
+  const int kbeg = j0 * BS;
+  const int kend = min((j0 + nj) * BS, pmax + 1);
+  const int nsteps = (kend - kbeg + kTcKeys - 1) / kTcKeys;
+  const int cc_chunks = lora / 8, row_chunks = (lora + rope) / 8;
+  const int ld_key = threadIdx.x / 16, ld_c0 = threadIdx.x % 16;  // 16 threads a key
+  // the pool block holding this thread's key of `step`; -1 when the key is
+  // past the split or its block is a sentinel
+  auto block_of = [&](int step) -> int {
+    const int kp = kbeg + step * kTcKeys + ld_key;
+    if (step >= nsteps || kp >= kend) return -1;
+    const int blk = table[(int64_t)b * maxb + kp / BS];
+    return (blk >= 0 && blk < n_blocks) ? blk : -1;
+  };
+  auto stage_step = [&](int step, int blk) {
+    uint8_t* st = tc_smem + (step % kTcStages) * lay.stage;
+    const int kp = kbeg + step * kTcKeys + ld_key;
+    const int64_t tok = blk >= 0 ? (int64_t)blk * BS + kp % BS : 0;
+    for (int c = ld_c0; c < row_chunks; c += 16) {
+      const bool isc = c < cc_chunks;
+      const __nv_bfloat16* src = isc ? cc + tok * lora + c * 8
+                                     : kc + tok * rope + (c - cc_chunks) * 8;
+      const int off = isc ? ld_key * lay.cc_row + c * 8
+                          : kTcKeys * lay.cc_row + ld_key * lay.kc_row + (c - cc_chunks) * 8;
+      cp_async16_fill(smem_u32(st + 2 * off), src, blk >= 0 ? 16 : 0);
+    }
+    if (ld_c0 == 0) reinterpret_cast<int*>(st + lay.kpos)[ld_key] = blk >= 0 ? kp : 0x7fffffff;
+  };
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nsteps) stage_step(s, block_of(s));
+    cp_async_commit();
+  }
+
+  // q_abs's hi and mid terms in registers, as A fragments of this warp's
+  // latent k16 steps ks = warp + 8 i (pair rows g and g + 8); its lo term in
+  // shared memory, read back by ldmatrix (registers hold at most 128)
+  const int ra = r0 + g, rb = r0 + g + 8;
+  const bool va = ra < n_pairs, vb = rb < n_pairs;
+  const int nks = lora / 16, nrs = rope / 16;
+  __nv_bfloat16* qlo_s = reinterpret_cast<__nv_bfloat16*>(tc_smem + lay.qlo);
+  uint32_t qa[kTcLatSteps][2][4];
+#pragma unroll
+  for (int i = 0; i < kTcLatSteps; ++i) {
+    const int ks = warp + kTcWarps * i;
+    float2 x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // a-regs: (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8)
+      const bool on = ks < nks && ((e & 1) ? vb : va);
+      const int64_t r = row0 + ((e & 1) ? rb : ra);
+      x[e] = on ? *reinterpret_cast<const float2*>(q_abs + r * lora + ks * 16 + 2 * t + (e >> 1) * 8)
+                : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t lo;
+      split_bf16x3(x[e].x, x[e].y, qa[i][0][e], qa[i][1][e], lo);
+      if (ks < nks)
+        *reinterpret_cast<uint32_t*>(qlo_s + (g + (e & 1) * 8) * lay.cc_row + ks * 16 +
+                                     2 * t + (e >> 1) * 8) = lo;
+    }
+  }
+  // q_rope's terms in shared memory, once per CTA
+  __nv_bfloat16* qr_s = reinterpret_cast<__nv_bfloat16*>(tc_smem + lay.qr);
+  const int half_rope = rope / 2;
+  for (int i = threadIdx.x; i < kTcPairs * half_rope; i += kTcThreads) {
+    const int r = i / half_rope, d = 2 * (i - r * half_rope);
+    float x0 = 0.f, x1 = 0.f;
+    if (r0 + r < n_pairs) {
+      const TR* src = q_rope + (row0 + r0 + r) * rope + d;
+      x0 = to_f32<TR>(src[0]);
+      x1 = to_f32<TR>(src[1]);
+    }
+    uint32_t w[3];
+    split_bf16x3(x0, x1, w[0], w[1], w[2]);
+#pragma unroll
+    for (int term = 0; term < 3; ++term)
+      *reinterpret_cast<uint32_t*>(qr_s + (term * kTcPairs + r) * lay.kc_row + d) = w[term];
+  }
+
+  float o[kTcUnits][2][4];
+#pragma unroll
+  for (int i = 0; i < kTcUnits; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][n][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};  // rows g, g + 8
+  const int qpos[2] = {p0 + ra / h_total, p0 + rb / h_total};
+  const bool vrow[2] = {va, vb};
+  float4* red = reinterpret_cast<float4*>(tc_smem + lay.red);
+  // ldmatrix row addresses: lane 8 m + r gives row r of matrix m
+  const int lm = lane / 8, lr = lane % 8;
+  const int sb_key = (lm >> 1) * 8 + lr, sb_dim = (lm & 1) * 8;  // score B: keys x dims
+  const int rb_key = (lm & 1) * 8 + lr, rb_col = (lm >> 1) * 8;  // readout B (trans)
+  const int a_row = (lm & 1) * 8 + lr, a_dim = (lm >> 1) * 8;    // A: pairs x dims
+
+  for (int k = 0; k < nsteps; ++k) {
+    const int blk_next = block_of(k + kTcStages - 1);
+    cp_async_wait_pending(kTcStages - 2);
+    __syncthreads();  // step k has landed for all; step k - 1's readers are done
+    if (k + kTcStages - 1 < nsteps) stage_step(k + kTcStages - 1, blk_next);
+    cp_async_commit();
+    const uint8_t* st = tc_smem + (k % kTcStages) * lay.stage;
+    const uint32_t s_cc = smem_u32(st);
+    const uint32_t s_kc = s_cc + kTcKeys * lay.cc_row * 2;
+
+    // scores: rope k16 step `warp` (warps below rope / 16) ...
+    if (warp < nrs) {
+      uint32_t bf[4];
+      ldsm_x4(bf, s_kc + (sb_key * lay.kc_row + 16 * warp + sb_dim) * 2);
+      float sr[2][4] = {};
+#pragma unroll
+      for (int term = 0; term < kRopeTerms; ++term) {
+        uint32_t a[4];
+        ldsm_x4(a, smem_u32(qr_s + (term * kTcPairs + a_row) * lay.kc_row + 16 * warp + a_dim));
+        mma_bf16(sr[0], a, bf[0], bf[1]);
+        mma_bf16(sr[1], a, bf[2], bf[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        red[((kTcWarps + warp) * 2 + n) * 32 + lane] =
+            make_float4(sr[n][0], sr[n][1], sr[n][2], sr[n][3]);
+    }
+    // ... and latent k16 steps warp + 8 i, each from zero, added in step order
+    float sl[2][4] = {};
+#pragma unroll
+    for (int i = 0; i < kTcLatSteps; ++i) {
+      const int ks = warp + kTcWarps * i;
+      if (ks >= nks) continue;
+      uint32_t bf[4], lo[4];
+      ldsm_x4(bf, s_cc + (sb_key * lay.cc_row + 16 * ks + sb_dim) * 2);
+      ldsm_x4(lo, smem_u32(qlo_s + a_row * lay.cc_row + 16 * ks + a_dim));
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(d, qa[i][0], bf[2 * n], bf[2 * n + 1]);
+        mma_bf16(d, qa[i][1], bf[2 * n], bf[2 * n + 1]);
+        mma_bf16(d, lo, bf[2 * n], bf[2 * n + 1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sl[n][e] = __fadd_rn(sl[n][e], d[e]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      red[(warp * 2 + n) * 32 + lane] = make_float4(sl[n][0], sl[n][1], sl[n][2], sl[n][3]);
+    __syncthreads();
+
+    // every warp sums the tiles in warp order (the same bits in every warp),
+    // then (lat + rope) * scale, masked
+    const int* kpos_s = reinterpret_cast<const int*>(st + lay.kpos);
+    float s[2][4];
+    bool ok[2][4];
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float4 lat = red[n * 32 + lane];
+#pragma unroll
+      for (int w = 1; w < kTcWarps; ++w) {
+        const float4 v = red[(w * 2 + n) * 32 + lane];
+        lat = make_float4(__fadd_rn(lat.x, v.x), __fadd_rn(lat.y, v.y),
+                          __fadd_rn(lat.z, v.z), __fadd_rn(lat.w, v.w));
+      }
+      float4 rp = red[(kTcWarps * 2 + n) * 32 + lane];
+      for (int w = 1; w < nrs; ++w) {
+        const float4 v = red[((kTcWarps + w) * 2 + n) * 32 + lane];
+        rp = make_float4(__fadd_rn(rp.x, v.x), __fadd_rn(rp.y, v.y),
+                         __fadd_rn(rp.z, v.z), __fadd_rn(rp.w, v.w));
+      }
+      const float lv[4] = {lat.x, lat.y, lat.z, lat.w};
+      const float rv[4] = {rp.x, rp.y, rp.z, rp.w};
+      const int kp[2] = {kpos_s[n * 8 + 2 * t], kpos_s[n * 8 + 2 * t + 1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // e: row (e >> 1), column n * 8 + 2t + (e & 1)
+        ok[n][e] = vrow[e >> 1] && kp[e & 1] <= qpos[e >> 1];
+        s[n][e] = ok[n][e] ? __fmul_rn(__fadd_rn(lv[e], rv[e]), scale) : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    }
+    // online softmax of rows g and g + 8 over the step's 16 keys (a quad)
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+      const float m_new = fmaxf(m_run[row], mx[row]);
+      corr[row] = expf(m_run[row] - m_new);
+      m_run[row] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = ok[n][e] ? expf(s[n][e] - m_run[e >> 1]) : 0.f;
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      rs[row] += __shfl_xor_sync(0xffffffffu, rs[row], 1);
+      rs[row] += __shfl_xor_sync(0xffffffffu, rs[row], 2);
+      l_run[row] = __fmaf_rn(l_run[row], corr[row], rs[row]);
+    }
+
+    // P's three terms as the A fragment of keys 0-15: the two C fragments
+    uint32_t pa[3][4];
+    split_bf16x3(s[0][0], s[0][1], pa[0][0], pa[1][0], pa[2][0]);
+    split_bf16x3(s[0][2], s[0][3], pa[0][1], pa[1][1], pa[2][1]);
+    split_bf16x3(s[1][0], s[1][1], pa[0][2], pa[1][2], pa[2][2]);
+    split_bf16x3(s[1][2], s[1][3], pa[0][3], pa[1][3], pa[2][3]);
+    // readout: this warp's 16-column units warp + 8 i, o = o * corr + P.cc
+#pragma unroll
+    for (int i = 0; i < kTcUnits; ++i) {
+      const int u = warp + kTcWarps * i;
+      if (u >= nks) continue;
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, s_cc + (rb_key * lay.cc_row + 16 * u + rb_col) * 2);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int term = 0; term < 3; ++term) mma_bf16(d, pa[term], bf[2 * n], bf[2 * n + 1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][n][e] = __fmaf_rn(o[i][n][e], corr[e >> 1], d[e]);
+      }
+    }
+  }
+
+  // o_lat itself with one split, else the split's partials; (m, l) by warp 0
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    if (!vrow[row]) continue;
+    const int64_t orow = row0 + (row ? rb : ra);
+    const float denom = fmaxf(l_run[row], 1e-30f);
+    float* dst = n_splits == 1 ? out + orow * lora
+                               : part_acc + (orow * n_splits + split) * lora;
+#pragma unroll
+    for (int i = 0; i < kTcUnits; ++i) {
+      const int u = warp + kTcWarps * i;
+      if (u >= nks) continue;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float a0 = o[i][n][2 * row], a1 = o[i][n][2 * row + 1];
+        *reinterpret_cast<float2*>(dst + 16 * u + 8 * n + 2 * t) = n_splits == 1
+            ? make_float2(__fdiv_rn(a0, denom), __fdiv_rn(a1, denom))
+            : make_float2(a0, a1);
+      }
+    }
+    if (n_splits > 1 && warp == 0 && t == 0) {
+      part_ml[(orow * n_splits + split) * 2] = m_run[row];
+      part_ml[(orow * n_splits + split) * 2 + 1] = l_run[row];
+    }
+  }
+}
+
+template <typename TR>
+int launch_mla(const void* q_abs, const void* q_rope, const void* cc,
+               const void* kc, const void* table, const void* pos, void* out,
+               void* part_acc, void* part_ml, int64_t b, int64_t sq, int64_t h,
+               int64_t lora, int64_t rope, int64_t n_blocks, int64_t bs,
+               int64_t maxb, int64_t bps, int64_t n_splits, int64_t tiles,
+               float scale, cudaStream_t st) {
+  const unsigned grid = (unsigned)(b * tiles * n_splits);
+  const size_t smem = (size_t)MlaTcSmem((int)lora, (int)rope).bytes;
+#define REPRO_MLA_CASE(BS_)                                                    \
+  case BS_: {                                                                  \
+    auto kern = paged_mla_tc_kernel<TR, BS_>;                                  \
+    const cudaError_t err = cudaFuncSetAttribute(                              \
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);         \
+    if (err != cudaSuccess) return (int)err;                                   \
+    kern<<<grid, kTcThreads, smem, st>>>(                                      \
+        (const float*)q_abs, (const TR*)q_rope, (const __nv_bfloat16*)cc,      \
+        (const __nv_bfloat16*)kc, (const int32_t*)table, (const int32_t*)pos,  \
+        (float*)out, (float*)part_acc, (float*)part_ml, (int)sq, (int)h,       \
+        (int)lora, (int)rope, n_blocks, (int)maxb, (int)bps, (int)n_splits,    \
+        (int)tiles, scale);                                                    \
+    break;                                                                     \
+  }
+  switch (bs) {
+    REPRO_MLA_CASE(4)
+    REPRO_MLA_CASE(8)
+    REPRO_MLA_CASE(16)
+    REPRO_MLA_CASE(32)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_MLA_CASE
+  return launch_mla_merge(part_acc, part_ml, out, b * sq * h, n_splits, lora, st);
 }
 
 }  // namespace
@@ -1303,20 +1634,35 @@ extern "C" int paged_gqa_launch(const void* q, int q_is_bf16, int packed,
 #undef REPRO_GQA_ARGS
 }
 
+// #7: the tensor-core kernel over plan_mla's grid with wave = MLA_TC_WAVE
+// (b * tiles * n_splits CTAs), then with n_splits > 1 the merge kernel over
+// the b * sq * h o_lat rows. part_acc (rows x n_splits x lora) and part_ml
+// (rows x n_splits x 2) are the f32 scratch of the partials (unused with one
+// split). The pools' rows come by 16-byte cp.async and q_abs by 8-byte loads,
+// so cc and kc must be 16-byte aligned and q_abs 8-byte aligned.
 extern "C" int paged_mla_launch(const void* q_abs, const void* q_rope,
                                 int q_rope_is_bf16, const void* cc_pool,
                                 const void* kc_pool, const void* table,
-                                const void* pos, void* out, int64_t b,
-                                int64_t sq, int64_t h, int64_t lora,
-                                int64_t rope, int64_t n_blocks, int64_t bs,
-                                int64_t maxb, float scale, void* stream) {
-  if (lora > kMaxLora || rope > kMaxRope || lora < 1 || rope < 1 ||
-      sq > kMaxSq || sq < 1 || h < 1)
+                                const void* pos, void* out, void* part_acc,
+                                void* part_ml, int64_t b, int64_t sq,
+                                int64_t h, int64_t lora, int64_t rope,
+                                int64_t n_blocks, int64_t bs, int64_t maxb,
+                                int64_t bps, int64_t n_splits, int64_t tiles,
+                                float scale, void* stream) {
+  if (lora > kMaxLora || rope > kMaxRope || lora < 16 || rope < 16 ||
+      lora % 16 || rope % 16 || sq > kMaxSq || sq < 1 || h < 1 || maxb < 1 ||
+      ((uintptr_t)cc_pool | (uintptr_t)kc_pool) % 16 || (uintptr_t)q_abs % 8)
+    return (int)cudaErrorInvalidValue;
+  if (bps < 1 || n_splits != (maxb + bps - 1) / bps ||
+      tiles != (sq * h + kTcPairs - 1) / kTcPairs ||
+      (n_splits > 1 && (!part_acc || !part_ml)) ||
+      b * tiles * n_splits > 0x7fffffff ||
+      MlaTcSmem((int)lora, (int)rope).bytes > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_MLA_ARGS                                                         \
-  q_abs, q_rope, cc_pool, kc_pool, table, pos, out, b, sq, h, lora, rope,      \
-      n_blocks, bs, maxb, scale, st
+  q_abs, q_rope, cc_pool, kc_pool, table, pos, out, part_acc, part_ml, b, sq,  \
+      h, lora, rope, n_blocks, bs, maxb, bps, n_splits, tiles, scale, st
   if (q_rope_is_bf16) return launch_mla<__nv_bfloat16>(REPRO_MLA_ARGS);
   return launch_mla<float>(REPRO_MLA_ARGS);
 #undef REPRO_MLA_ARGS

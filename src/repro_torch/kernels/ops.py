@@ -245,7 +245,9 @@ def paged_mla(q_abs, q_rope, cc_pool, kc_pool, table, pos, *, qk_dim: int):
     (q_abs.cc + q_rope.kc) MULTIPLIED by the f32 1/sqrt(qk_dim); the value
     readout is over cc itself, so the f32 result is o_lat (B, Sq, H, lora)
     for the caller's W_uv absorption. Inactive rows (all-sentinel tables)
-    give exact zeros."""
+    give exact zeros. On the card a tensor-core split-KV kernel
+    (`paged_attention.plan_mla` with wave = MLA_TC_WAVE) and, with several
+    splits, the merge kernel, both counted as one launch here."""
     name = "paged_mla"
     _need(cc_pool.dim() == 3 and kc_pool.dim() == 3, name,
           "latent pools must be 3-D")
@@ -259,6 +261,8 @@ def paged_mla(q_abs, q_rope, cc_pool, kc_pool, table, pos, *, qk_dim: int):
         return PA.paged_mla_plain(q_abs, q_rope, cc_pool, kc_pool, table, pos,
                                   qk_dim)
     _check_mla_card(name, q_abs, lora, rope, cc_pool.shape[1], operands)
+    _need(lora % 16 == 0 and rope % 16 == 0, name,
+          "latent dims must be multiples of 16 (the tensor cores' k16)")
     out = torch.empty(q_abs.shape, dtype=torch.float32, device=q_abs.device)
     PA.launch_mla(q_abs, q_rope, cc_pool, kc_pool, table, pos, out, qk_dim)
     LAUNCHES[name] += 1

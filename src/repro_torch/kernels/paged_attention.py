@@ -14,11 +14,14 @@ in f32.
 On the card #5 and #6 are one split-KV design (`csrc/paged_attention.cu`):
 `plan` cuts each row's logical blocks into fixed splits from the shapes
 alone, one CTA per (row, KV head, split) writes a partial softmax, and a
-second kernel merges the partials in split order. #8 is a split-KV design of
-its own (`plan_mla`): one CTA per (row, tile of 16 (query, head) pairs,
-split), the packed latent blocks decoded once per 16-group to bf16 in
-shared memory; #7 still runs the first port's kernel (one CTA per 4 pairs, the
-whole context).
+second kernel merges the partials in split order. #7 and #8 are split-KV
+designs over `plan_mla`'s geometry: one CTA per (row, tile of 16 (query,
+head) pairs, split) and the same merge kernel. #8 decodes the packed latent
+blocks once per 16-group to bf16 in shared memory and scores on the CUDA
+cores; #7 (`plan_mla(..., wave=MLA_TC_WAVE)`: as many splits as one wave of
+CTAs holds) runs both products on the tensor cores, its f32 operands (q_abs,
+an f32 q_rope, the probabilities) split into three bf16 terms each
+(`split_bf16x3`), so that every product is exact in f32.
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ MAX_LORA = 512   # MLA latent (value) width the kernel's lanes cover
 MAX_ROPE = 64
 SPLIT_KEYS = 16  # keys of one GQA split (whole blocks, at least one)
 ROW_CHUNK = 4    # query rows one warp of the GQA kernel carries at once
-MLA_PAIRS = 16   # (query, head) pairs of one #8 CTA: 4 a warp
+MLA_PAIRS = 16   # (query, head) pairs of one #7 or #8 CTA (an mma's m16)
 MLA_SPLIT_KEYS = 16  # keys of one #8 split below the scratch cap (whole blocks)
 MLA_SCRATCH_BYTES = 32 << 20  # cap on one #8 call's f32 partials
+MLA_TC_WAVE = 2 * 132  # CTAs of one wave of #7's kernel: 2 an SM, 132 SMs
 
 
 class Plan(NamedTuple):
@@ -75,11 +79,11 @@ def plan(b: int, sq: int, h: int, kv: int, maxb: int, bs: int, vd: int) -> Plan:
 
 
 class MlaPlan(NamedTuple):
-    """Geometry of one #8 call: `splits` runs of `blocks_per_split` logical
-    blocks over the table's `maxb` (the last may be shorter); `tiles` CTAs
-    of MLA_PAIRS (query, head) pairs per row and split; `grid` CTAs of the
-    split kernel; `scratch` f32 elements of the partials (0 with one
-    split)."""
+    """Geometry of one #7 or #8 call: `splits` runs of `blocks_per_split`
+    logical blocks over the table's `maxb` (the last may be shorter);
+    `tiles` CTAs of MLA_PAIRS (query, head) pairs per row and split; `grid`
+    CTAs of the split kernel; `scratch` f32 elements of the partials (0 with
+    one split)."""
     maxb: int
     blocks_per_split: int
     splits: int
@@ -100,16 +104,23 @@ def mla_split_cap(b: int, sq: int, h: int, lora: int) -> int:
     return max(1, MLA_SCRATCH_BYTES // (b * sq * h * (lora + 2) * 4))
 
 
-def plan_mla(b: int, sq: int, h: int, maxb: int, bs: int, lora: int) -> MlaPlan:
-    """#8's geometry for q_abs (b, sq, h, lora) over a (b, maxb) table of
-    blocks of bs tokens: splits of MLA_SPLIT_KEYS keys, lengthened until a
-    row has at most `mla_split_cap` of them. A function of shapes only, so
+def plan_mla(b: int, sq: int, h: int, maxb: int, bs: int, lora: int,
+             wave: int | None = None) -> MlaPlan:
+    """The geometry of #8 (wave None) or #7 (wave = MLA_TC_WAVE) for q_abs
+    (b, sq, h, lora) over a (b, maxb) table of blocks of bs tokens. #8:
+    splits of MLA_SPLIT_KEYS keys, lengthened until a row has at most
+    `mla_split_cap` of them. #7: the most splits (at least one, at most one
+    a block) that keep the grid within one wave of `wave` CTAs, so that the
+    partials written and read back stay few. A function of shapes only, so
     a call's bits never depend on timing."""
     tiles = -(-(sq * h) // MLA_PAIRS)
-    bps = max(1, MLA_SPLIT_KEYS // bs)
-    cap = mla_split_cap(b, sq, h, lora)
-    if -(-maxb // bps) > cap:
-        bps = -(-maxb // cap)
+    if wave is None:
+        bps = max(1, MLA_SPLIT_KEYS // bs)
+        cap = mla_split_cap(b, sq, h, lora)
+        if -(-maxb // bps) > cap:
+            bps = -(-maxb // cap)
+    else:
+        bps = -(-maxb // max(1, min(maxb, wave // (b * tiles))))
     splits = -(-maxb // bps)
     scratch = 0 if splits == 1 else b * sq * h * splits * (lora + 2)
     return MlaPlan(maxb, bps, splits, tiles, b * tiles * splits, scratch)
@@ -124,6 +135,20 @@ def mla_scale(qk_dim: int) -> float:
     """The f32 1/sqrt(qk_dim) the MLA scores are MULTIPLIED by (the f32
     image of mla_decode's scale, so kernel and reference use one scalar)."""
     return float(np.float32(1.0) / np.sqrt(np.float32(qk_dim)))
+
+
+def split_bf16x3(x: torch.Tensor):
+    """f32 x -> (hi, mid, lo) bf16 with hi + mid + lo == x exactly in f32:
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each residual
+    exact in f32 (8 + 8 + 8 significant bits). The split #7's kernel applies
+    to q_abs, an f32 q_rope and the probabilities before the tensor cores;
+    exact for every x with |x| >= 2^-110 or 0, and |x| below bf16's overflow
+    (3.39e38)."""
+    x = x.float()
+    hi = x.bfloat16()
+    r = x - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
 
 
 def paged_gqa_plain(q, k_pool, v_pool, table, pos, window=None):
@@ -203,18 +228,33 @@ def launch(q, k, v, table, pos, out, window, *, k_scales=None,
     build.check(status, "paged_gqa_q" if k_scales is not None else "paged_gqa")
 
 
+def _mla_partials(p: MlaPlan, rows: int, lora: int, device):
+    """The f32 scratch of a #7 or #8 call's partials: the tensor (acc, then
+    (m, l)) and the address of its (m, l) part; (None, None) with one
+    split."""
+    if not p.scratch:
+        return None, None
+    part = torch.empty(p.scratch, dtype=torch.float32, device=device)
+    return part, part.data_ptr() + rows * p.splits * lora * 4
+
+
 def launch_mla(q_abs, q_rope, cc, kc, table, pos, out, qk_dim) -> None:
-    """Enqueue #7 (the first port's kernel over the bf16 latent pools cc, kc) on
-    the current stream (output preallocated)."""
+    """Enqueue #7's kernels (the tensor-core split kernel over the bf16
+    latent pools cc, kc, then with several splits the merge kernel) on the
+    current stream (output preallocated; the partials' scratch allocated
+    here, sized by `plan_mla` with wave = MLA_TC_WAVE)."""
     b, sq, h, lora = q_abs.shape
     rope = q_rope.shape[3]
     n_blocks, bs = cc.shape[:2]
+    maxb = table.shape[1]
+    p = plan_mla(b, sq, h, maxb, bs, lora, wave=MLA_TC_WAVE)
+    part, part_ml = _mla_partials(p, b * sq * h, lora, q_abs.device)
     stream = torch.cuda.current_stream(q_abs.device).cuda_stream
     status = build.library().paged_mla_launch(
         q_abs.data_ptr(), q_rope.data_ptr(), int(q_rope.dtype == torch.bfloat16),
         cc.data_ptr(), kc.data_ptr(), table.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, sq, h, lora, rope, n_blocks, bs, table.shape[1],
-        mla_scale(qk_dim), stream)
+        out.data_ptr(), _ptr(part), part_ml, b, sq, h, lora, rope, n_blocks, bs,
+        maxb, p.blocks_per_split, p.splits, p.tiles, mla_scale(qk_dim), stream)
     build.check(status, "paged_mla")
 
 
@@ -228,10 +268,7 @@ def launch_mla_q(q_abs, q_rope, cc_codes, cc_scales, kc_codes, kc_scales,
     n_blocks, bs = cc_codes.shape[:2]
     maxb = table.shape[1]
     p = plan_mla(b, sq, h, maxb, bs, lora)
-    part = (torch.empty(p.scratch, dtype=torch.float32, device=q_abs.device)
-            if p.scratch else None)
-    part_ml = (None if part is None
-               else part.data_ptr() + b * sq * h * p.splits * lora * 4)
+    part, part_ml = _mla_partials(p, b * sq * h, lora, q_abs.device)
     stream = torch.cuda.current_stream(q_abs.device).cuda_stream
     status = build.library().paged_mla_q_launch(
         q_abs.data_ptr(), q_rope.data_ptr(), int(q_rope.dtype == torch.bfloat16),

@@ -18,10 +18,14 @@ fixture, never at import. Tolerances are the kernel bars of the port:
   - paged_gqa, paged_gqa_q, paged_mla, paged_mla_q: |o_kernel - o_plain|
     <= 5e-6 + 1e-5 |o_plain|, the bar of tests/test_paged_attention.py and
     tests/test_kv_quant.py (the packed kernels decode exactly, so only the
-    online softmax's fp32 order differs, and the split-KV merge of paged_gqa
-    and paged_gqa_q and of paged_mla_q only re-orders those sums); inactive
-    rows exactly 0; paged_gqa, paged_gqa_q and paged_mla_q: two calls
-    bitwise equal;
+    online softmax's fp32 order differs, and the split-KV merges only
+    re-order those sums). paged_mla runs both of its products on the tensor
+    cores with its f32 operands (q_abs, an f32 q_rope, the probabilities)
+    split into three bf16 terms each, hi + mid + lo == x exactly, and a
+    bf16 x bf16 product is exact in f32: every product equals the plain
+    version's and only the f32 sums' order differs, so the bar is the same;
+    the cases with q_abs scaled by 1e4 and 1e-4 and an f32 q_rope stress
+    that split. Inactive rows exactly 0; all four: two calls bitwise equal;
   - ms_eden_phase1 and ms_eden_phase2: BITWISE equal to their plain versions
     (the butterfly RHT, the group sums and every rounding run in one fixed
     order in both); phase 2 so with uniforms hashed in the kernel from a
@@ -375,7 +379,7 @@ def test_paged_gqa_q_matches_plain(dev, case):
 
 
 def _mla_case(dev, b, sq, h, lora, rope, bs, maxb, lens, dead_rows=(),
-              rope_dtype=torch.bfloat16, seed=0):
+              rope_dtype=torch.bfloat16, seed=0, q_scale=1.0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     n_blocks = b * maxb + 3
     perm = torch.randperm(n_blocks, generator=g).tolist()
@@ -386,7 +390,7 @@ def _mla_case(dev, b, sq, h, lora, rope, bs, maxb, lens, dead_rows=(),
         for j in range(-(-n // bs)):
             table[i, j] = perm.pop()
     pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
-    qa = torch.randn((b, sq, h, lora), generator=g) * 0.1
+    qa = torch.randn((b, sq, h, lora), generator=g) * (0.1 * q_scale)
     qr = (torch.randn((b, sq, h, rope), generator=g)).to(rope_dtype)
     cc = torch.randn((n_blocks, bs, lora), generator=g).bfloat16()
     kc = (torch.randn((n_blocks, bs, rope), generator=g) * 2).bfloat16()
@@ -411,6 +415,18 @@ MLA_CASES = [
     # Sq 16 where the scratch cap binds (#8: 3 splits of 22, 22, 20 blocks)
     dict(b=2, sq=16, h=128, lora=512, rope=64, bs=16, maxb=64,
          lens=[1000, 517]),
+    # deepseek-v3 widths stressing #7's three-term split, both with an f32
+    # q_rope (three terms too) and ragged rows over several splits: q_abs
+    # scaled by 10 (the latent part dominates) and by 1e-4 (the rope part
+    # does). Ten is the largest power of ten at which the plain f32 version
+    # itself stays within the bar of the float64 function
+    # (tests/test_torch_paged_attention.py): at 1e2 and 1e4 near-tied scores
+    # in the hundreds move any f32 order's output past it.
+    dict(b=4, sq=1, h=128, lora=512, rope=64, bs=16, maxb=32,
+         lens=[500, 37, 0, 300], dead_rows=(2,), rope_dtype=torch.float32,
+         q_scale=10.0),
+    dict(b=3, sq=2, h=128, lora=512, rope=64, bs=8, maxb=48,
+         lens=[380, 129, 2], rope_dtype=torch.float32, q_scale=1e-4),
 ]
 
 
@@ -437,10 +453,10 @@ def test_paged_mla_matches_plain(dev, case, packed):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
     for r in case.get("dead_rows", ()):
         assert int((out[r] != 0).sum()) == 0  # inactive row: exact zeros
-    if packed:  # fixed-order split merge: same bits
-        again = ops.paged_mla_q(qa, qr, ccc, ccs, kcc, kcs, table, pos,
-                                qk_dim=qk_dim)
-        assert torch.equal(out, again)
+    again = (ops.paged_mla_q(qa, qr, ccc, ccs, kcc, kcs, table, pos,
+                             qk_dim=qk_dim) if packed
+             else ops.paged_mla(qa, qr, cc, kc, table, pos, qk_dim=qk_dim))
+    assert torch.equal(out, again)  # fixed-order split merge: same bits
 
 
 

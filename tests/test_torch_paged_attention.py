@@ -318,3 +318,193 @@ def test_mla_split_merge_model_matches_plain(monkeypatch, sq, bs, scratch_bytes)
                                 table, pos, 16 + rope)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
     assert not got[2].any() and not want[2].any()
+
+
+def test_split_bf16x3_is_exact():
+    """#7's three-term split: hi + mid + lo == x bitwise in f32, each term a
+    bf16, for random values over many binades and for edge values (large
+    magnitudes below bf16's overflow, the smallest normals, the smallest x
+    whose residuals stay normal, +-0)."""
+    rng = np.random.RandomState(0)
+    x = (rng.randn(20000) * 10.0 ** rng.uniform(-30, 30, 20000)).astype(np.float32)
+    edges = np.array([1e38, 3e38, 3.3e38, 2.0 ** -126, 2.0 ** -110 * 1.7364502,
+                      1.0 + 2.0 ** -23, 1.0 - 2.0 ** -24, 0.0], np.float32)
+    x = torch.from_numpy(np.concatenate([x, edges, -edges]))
+    hi, mid, lo = PA.split_bf16x3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), x)
+    zero = x == 0
+    assert not mid[zero].any() and not lo[zero].any()  # +-0: one term
+
+
+def test_plan_mla_tc_at_deepseek_v3_shapes():
+    """#7's geometry (wave = MLA_TC_WAVE) as its head note states it: the
+    most splits that keep the grid within one wave of 264 CTAs; #8's plan
+    at the same shapes is pinned above."""
+    w = PA.MLA_TC_WAVE
+    decode = PA.plan_mla(4, 1, 128, 16, 16, 512, wave=w)
+    assert (decode.blocks_per_split, decode.splits, decode.tiles, decode.grid) == (2, 8, 8, 256)
+    long = PA.plan_mla(4, 1, 128, 256, 16, 512, wave=w)
+    assert (long.blocks_per_split, long.splits, long.grid) == (32, 8, 256)
+    assert long.scratch * 4 == 4 * 128 * 8 * 514 * 4   # 8.4 MB of partials
+    assert PA.plan_mla(4, 1, 128, 256, 16, 512).scratch == 4 * 128 * 29 * 514
+    chunk = PA.plan_mla(4, 16, 128, 16, 16, 512, wave=w)
+    assert (chunk.splits, chunk.scratch, chunk.tiles, chunk.grid) == (1, 0, 128, 512)
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16, 32])
+def test_plan_mla_wave_covers_every_block_once_in_order(bs):
+    """With a wave (#7) plan_mla's splits still tile each row's logical
+    blocks exactly once, in order; there are as many as keep b x tiles x
+    splits within the wave (at least one, at most one a block)."""
+    w = PA.MLA_TC_WAVE
+    for b, sq, h, maxb, lora in MLA_PLAN_SHAPES:
+        p = PA.plan_mla(b, sq, h, maxb, bs, lora, wave=w)
+        assert p == PA.plan_mla(b, sq, h, maxb, bs, lora, wave=w)
+        covered = [j for s in range(p.splits) for j in p.blocks(s)]
+        assert covered == list(range(maxb))
+        assert all(len(p.blocks(s)) > 0 for s in range(p.splits))
+        want = max(1, min(maxb, w // (b * p.tiles)))
+        assert p.blocks_per_split == -(-maxb // want) and p.splits <= want
+        assert p.tiles == -(-(sq * h) // PA.MLA_PAIRS)
+        assert p.grid == b * p.tiles * p.splits <= max(w, b * p.tiles)
+        assert p.scratch == (0 if p.splits == 1
+                             else b * sq * h * p.splits * (lora + 2))
+
+
+def _mla_inputs(seed, b, sq, bs, maxb, lens, dead=(), q_scale=1.0,
+                rope_dtype=torch.bfloat16, h=128, lora=512, rope=64):
+    """(q_abs, q_rope, cc, kc, table, pos) at deepseek-v3's widths from a
+    numpy seed: bf16 pools over a shuffled table, dead rows all sentinel."""
+    rng = np.random.RandomState(seed)
+    n_blocks = b * maxb + 2
+    table = np.full((b, maxb), n_blocks, np.int32)
+    free = list(rng.permutation(n_blocks))
+    for i, n in enumerate(lens):
+        if i not in dead:
+            for j in range(-(-n // bs)):
+                table[i, j] = free.pop()
+    pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
+    qa = torch.from_numpy(rng.randn(b, sq, h, lora).astype(np.float32) * (0.1 * q_scale))
+    qr = torch.from_numpy(rng.randn(b, sq, h, rope).astype(np.float32)).to(rope_dtype)
+    cc = torch.from_numpy(rng.randn(n_blocks, bs, lora).astype(np.float32)).bfloat16()
+    kc = torch.from_numpy(rng.randn(n_blocks, bs, rope).astype(np.float32) * 2).bfloat16()
+    return qa, qr, cc, kc, torch.from_numpy(table), pos
+
+
+def _terms(x):
+    """x's three bf16 terms as float64, stacked: (3, *x.shape)."""
+    return torch.stack([t.double() for t in PA.split_bf16x3(x)])
+
+
+def _mla_tc_model(q_abs, q_rope, cc, kc, table, pos, qk_dim):
+    """#7's tensor-core arithmetic over the gathered view. Operands: q_abs,
+    q_rope and the probabilities as their three bf16 terms, the pools' bf16
+    values; products exact, each 16-wide k step's sum over its 3 x 16
+    products rounded once to f32 (what one chain of three m16n8k16 mmas from
+    zero gives, up to the tensor cores' own rounding). Scores: warp w's
+    latent partial sums k steps w, w + 8, w + 16, w + 24 in f32, the
+    partials add in warp order, the rope k steps likewise, then (lat + rope)
+    * scale. Per split of plan_mla(..., wave=MLA_TC_WAVE), steps of 16 keys
+    (sentinel blocks and keys past the newest query masked) run the online
+    softmax o = o * corr + P.cc; the partials merge in split order."""
+    b, sq, h, lora = q_abs.shape
+    rope, maxb = q_rope.shape[3], table.shape[1]
+    n_blocks, bs = cc.shape[:2]
+    n, nks, nrs, warps = sq * h, lora // 16, rope // 16, 8
+    p = PA.plan_mla(b, sq, h, maxb, bs, lora, wave=PA.MLA_TC_WAVE)
+    cv = kv.gather_view(cc, table).double()                       # (B, T, lora)
+    kr = kv.gather_view(kc, table).double()
+    steps_lat = torch.einsum("zbnkd,btkd->bntk",
+                             _terms(q_abs.reshape(b, n, nks, 16)),
+                             cv.reshape(b, -1, nks, 16)).float()  # (B, N, T, nks)
+    steps_rope = torch.einsum("zbnkd,btkd->bntk",
+                              _terms(q_rope.float().reshape(b, n, nrs, 16)),
+                              kr.reshape(b, -1, nrs, 16)).float()
+    parts = []
+    for w in range(warps):
+        part = torch.zeros(steps_lat.shape[:3])
+        for ks in range(w, nks, warps):
+            part = part + steps_lat[..., ks]
+        parts.append(part)
+    lat, rp = parts[0], steps_rope[..., 0]
+    for part in parts[1:]:
+        lat = lat + part
+    for ks in range(1, nrs):
+        rp = rp + steps_rope[..., ks]
+    s = (lat + rp) * PA.mla_scale(qk_dim)                         # (B, N, T) f32
+    t_all = maxb * bs
+    live = (table >= 0) & (table < n_blocks)                      # (B, MAXB)
+    qpos = (pos.long()[:, None] + torch.arange(n)[None] // h)     # (B, N)
+    pmax = pos.long() + sq - 1
+    splits = []
+    for split in range(p.splits):
+        blk = p.blocks(split)
+        kbeg, kend = blk.start * bs, torch.clamp(pmax + 1, max=blk.stop * bs)
+        m = torch.full((b, n), PA.NEG_INF)
+        l = torch.zeros(b, n)
+        o = torch.zeros(b, n, lora)
+        for k0 in range(kbeg, blk.stop * bs, 16):
+            keys = torch.arange(k0, k0 + 16)
+            idx = keys.clamp(max=t_all - 1)
+            ok = ((keys[None] < kend[:, None]) & live[:, idx // bs])[:, None] \
+                & (keys[None, None] <= qpos[..., None])           # (B, N, 16)
+            sk = torch.where(ok, s[..., idx], PA.NEG_INF)
+            m_new = torch.maximum(m, sk.amax(-1))
+            corr = torch.exp(m - m_new)
+            pk = torch.where(ok, torch.exp(sk - m_new[..., None]), 0.0)
+            l = l * corr + pk.sum(-1)
+            m = m_new
+            d = torch.einsum("zbnk,bkl->bnl", _terms(pk), cv[:, idx]).float()
+            o = (o.double() * corr.double()[..., None] + d.double()).float()
+        splits.append((m, l, o))
+    mm = torch.full((b, n), PA.NEG_INF)
+    for m, l, _ in splits:
+        mm = torch.where(l > 0, torch.maximum(mm, m), mm)
+    ll, acc = torch.zeros(b, n), torch.zeros(b, n, lora)
+    for m, l, o in splits:
+        f = torch.where(l > 0, torch.exp(m - mm), 0.0)
+        ll = ll + l * f
+        acc = acc + o * f[..., None]
+    return (acc / ll.clamp(min=1e-30)[..., None]).reshape(b, sq, h, lora), p
+
+
+@pytest.mark.parametrize("sq,bs,maxb,lens,rope_dtype", [
+    (1, 16, 8, [40, 57, 0, 125], torch.bfloat16),
+    (1, 4, 16, [37, 64, 5, 0], torch.float32),
+    (3, 8, 8, [20, 64, 3, 0], torch.bfloat16),
+    (16, 32, 2, [16, 64, 40, 0], torch.float32)])
+def test_mla_tc_model_matches_plain(sq, bs, maxb, lens, rope_dtype):
+    """#7's tensor-core arithmetic (three-term bf16 operands, exact
+    products, f32 sums per 16-wide k step, the kernel's splits and the
+    fixed-order merge), modelled in PyTorch at deepseek-v3's widths, equals
+    PA.paged_mla_plain within the bar: ragged rows, several splits (one at
+    Sq 16), an all-sentinel row (exact zeros), bf16 and f32 q_rope."""
+    qa, qr, cc, kc, table, pos = _mla_inputs(sq * 10 + bs, 4, sq, bs, maxb, lens,
+                                             dead=(3,), rope_dtype=rope_dtype)
+    got, p = _mla_tc_model(qa, qr, cc, kc, table, pos, 192)
+    assert p.splits == (1 if sq == 16 else min(maxb, PA.MLA_TC_WAVE // (4 * p.tiles)))
+    want = PA.paged_mla_plain(qa, qr, cc, kc, table, pos, 192)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+    assert not got[3].any() and not want[3].any()
+
+
+@pytest.mark.parametrize("q_scale", [10.0, 1e-4])
+def test_plain_mla_within_bar_of_float64(q_scale):
+    """The q_abs scales of the card's stressed #7 cases keep the plain f32
+    version itself within the bar of the same function in float64 (past
+    about 10, near-tied scores in the hundreds move any f32 summation order's
+    output out of it)."""
+    qa, qr, cc, kc, table, pos = _mla_inputs(5, 4, 1, 16, 32, [500, 37, 0, 300],
+                                             dead=(2,), q_scale=q_scale,
+                                             rope_dtype=torch.float32)
+    got = PA.paged_mla_plain(qa, qr, cc, kc, table, pos, 192)
+    cv = kv.gather_view(cc, table).double()
+    s = (torch.einsum("bqhl,btl->bhqt", qa.double(), cv)
+         + torch.einsum("bqhr,btr->bhqt", qr.double(), kv.gather_view(kc, table).double())
+         ) * PA.mla_scale(192)
+    ok = torch.arange(cv.shape[1])[None, None] <= pos.long()[:, None, None]
+    s = torch.where(ok[:, None], s, PA.NEG_INF)
+    prob = torch.softmax(s, -1)
+    want = torch.einsum("bhqt,btl->bqhl", prob, cv)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
