@@ -79,7 +79,34 @@ Phases (any failure exits non-zero, before the result line):
                profiler, with all its launches and its PyTorch copy, abs,
                reduction and int64 launches counted (so in the decode
                profiles of phases 4, 4b and 6).
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5. Then, on their own lines:
+  7. pre-training as users run it, through `Trainer` (checkpoints in a
+               temporary directory, removed at the end; the free disk is
+               checked against two checkpoints' bytes first, and too little
+               fails the run):
+     7a. resume — full-width llama-200m, quartet2, AdamW, batch 8 x seq 256:
+               run A takes 8 steps with an async checkpoint every 4 (the
+               reference's rule puts it after the step of index 4, so it
+               holds 5 steps; keep 1); a fresh Trainer over freshly built
+               state resumes from it and runs to 8. Check 1: the restored
+               leaves are bitwise a host snapshot A took of that state.
+               Check 2: the resumed run's first loss is bitwise A's at that
+               step. Check 3: an uninterrupted repeat B of A; if A and B
+               agree bitwise, the resumed run must equal A bitwise in its
+               later losses and final weights, otherwise it is held to the
+               A-B spread, and the ops PyTorch reports as nondeterministic in
+               a step (use_deterministic_algorithms, warn_only) are named.
+               Prints the host ms save(blocking=False) blocks, the write's
+               seconds, the bytes on disk and the step times around it.
+     7b. the nanochat recipe — llama-200m widths with QK-norm and ReLU^2,
+               quartet2, Muon, WSD, 6 steps, QuantProbe(every_n=2): finite
+               losses and weights, the last loss below the first, kernels
+               #1-#4 launched exactly as counted (the probe's included); the
+               probe's MS-EDEN and SR relative MSE beside the paper's Table 1
+               (9.4e-3, 23.5e-3), SR's at least 2x MS-EDEN's at each probe;
+               one site's probe on the card within PROBE_CPU_RTOL of the same
+               probe on the CPU; one step profiled, with Newton-Schulz's
+               share of its device time.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b. Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
 
@@ -129,6 +156,22 @@ SERVING_KERNELS = ("nvfp4_fos_quant", "fp4_matmul", "paged_gqa")
 # the dX GEMM reuses the forward's packed W; phase 2 once per backward GEMM)
 TRAIN_LAUNCHES_PER_STEP = {"nvfp4_fos_quant": 140, "fp4_matmul": 210,
                            "ms_eden_phase1": 280, "ms_eden_phase2": 140}
+# launches of one full-width nanochat-recipe step (phase 7b): ReLU^2 leaves
+# 6 quantized linears a layer, 60 in all; otherwise as above
+NANOCHAT_LAUNCHES_PER_STEP = {"nvfp4_fos_quant": 120, "fp4_matmul": 180,
+                              "ms_eden_phase1": 240, "ms_eden_phase2": 120}
+# launches of the quantization-health probe per site it probes: the weight's
+# 4/6 quantization (#1) and its MS-EDEN requant (#3, #4); SR stays plain
+PROBE_LAUNCHES_PER_SITE = {"nvfp4_fos_quant": 1, "fp4_matmul": 0,
+                           "ms_eden_phase1": 1, "ms_eden_phase2": 1}
+PAPER_TABLE1 = {"ms_eden_mse_rel": 9.4e-3, "sr_mse_rel": 23.5e-3}
+# phase 7: 7a's run and its async checkpoint period; 7b's recipe run
+RESUME_STEPS, RESUME_EVERY = 8, 4
+NANOCHAT_STEPS, NANOCHAT_LR, NANOCHAT_PROBE_EVERY = 6, 2e-2, 2
+# the probe's card output against the CPU's on one site: its 4/6 and MS-EDEN
+# codes come from kernels bitwise their plain versions, SR and the RHT from
+# the same hashed draws and f32 ops; only the f32 means sum in another order
+PROBE_CPU_RTOL = 1e-5
 # the full-width training run of phase 5 (and of tools/quant_probe.py --train)
 TRAIN_ARGS = ["--arch", "llama_200m", "--scheme", "quartet2", "--steps", "6",
               "--seq", "256", "--batch", "8", "--lr", "2e-3", "--log-every", "1"]
@@ -1600,6 +1643,370 @@ def profile_train_step(torch, trainer, state, step_ms):
             "top": [(key, us / 1e3, n) for us, key, n in rows[:16]]}
 
 
+# --------------------------------------------------------------------------
+# phase 7: pre-training as users run it
+# --------------------------------------------------------------------------
+
+def host_leaves(torch, state):
+    """Host copies of every leaf of a training state, in checkpoint order."""
+    from repro_torch.checkpoint import checkpointer as C
+    return [x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x
+            for x in C.flatten(C.reference_tree(state))]
+
+
+def same_leaves(torch, a, b) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+def max_rel_diff(torch, a, b) -> float:
+    """The largest max|x - y| / max|y| over paired tensors."""
+    return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+               for x, y in zip(a, b))
+
+
+def train_setup(torch, cfg, optimizer, schedule, lr, total, seed=0):
+    """(train_step, freshly built full-width state on the card): seeded
+    random weights, the same for every call with the same seed."""
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import make_train_step
+    init, step = make_train_step(cfg, "quartet2", optimizer=optimizer,
+                                 schedule=schedule, base_lr=lr, total_steps=total)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return step, init(lm.init(cfg, gen, "cuda"))
+
+
+def nondeterministic_ops(torch, step, state, batch):
+    """The ops of one training step that PyTorch reports as having no
+    deterministic CUDA implementation (use_deterministic_algorithms with
+    warn_only: each such op warns, naming itself)."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(".")[0][:160] for w in seen
+                   if "determinis" in str(w.message)})
+
+
+def phase_resume(torch, card):
+    """7a: a full-width llama-200m quartet2 run (AdamW) checkpointed async
+    every RESUME_EVERY steps, resumed from its mid checkpoint by a fresh
+    Trainer over freshly built state, against the run itself and against
+    an uninterrupted repeat."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = registry.get("llama_200m")
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=8))
+    # the reference's rule saves after the step of index RESUME_EVERY: its
+    # state has taken RESUME_EVERY + 1 steps, and the checkpoint is labelled so
+    mid = RESUME_EVERY + 1
+    log(f"phase 7a: resume (full-width llama-200m, quartet2, AdamW, batch 8 x seq "
+        f"256, {RESUME_STEPS} steps, async checkpoint every {RESUME_EVERY}: "
+        f"labelled {mid}, keep 1)")
+    step, state = train_setup(torch, cfg, "adamw", "cosine", 2e-3, RESUME_STEPS)
+    # f32 on disk: every tensor leaf at 4 bytes an element
+    ckpt_bytes = sum(x.numel() * 4 if isinstance(x, torch.Tensor) else 4
+                     for x in C.flatten(C.reference_tree(state)))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(root).free
+    # at most two checkpoints on disk at once: the one resumed from and a new one
+    if free < 2.1 * ckpt_bytes:
+        shutil.rmtree(root, ignore_errors=True)
+        fail(f"phase 7a needs {2.1 * ckpt_bytes / 1e9:.2f} GB free under {root} for "
+             f"two {ckpt_bytes / 1e9:.2f} GB checkpoints; {free / 1e9:.2f} GB free")
+    dir_a, dir_r = os.path.join(root, "a"), os.path.join(root, "resume")
+    try:
+        tr_a = Trainer(TrainerConfig(total_steps=RESUME_STEPS, ckpt_dir=dir_a,
+                                     ckpt_every=RESUME_EVERY, keep_ckpts=1,
+                                     log_every=1), step, corpus,
+                       device=torch.device("cuda"))
+        ck, snap, saves = tr_a.ckpt, {}, []
+        real_save, real_gc = ck.save, ck._gc
+
+        def save(s, st, extra=None, blocking=True):
+            if s == mid:  # the host snapshot check 1 holds the restore to
+                snap["leaves"] = host_leaves(torch, st)
+            t0 = time.perf_counter()
+            real_save(s, st, extra, blocking)
+            saves.append({"step": s, "blocking": blocking,
+                          "call_s": time.perf_counter() - t0, "last": ck.last})
+
+        def gc_keeping_mid():
+            # hard-link the mid checkpoint aside before keep=1 removes it
+            src = os.path.join(dir_a, f"step_{mid:010d}")
+            dst = os.path.join(dir_r, f"step_{mid:010d}")
+            if os.path.isdir(src) and not os.path.exists(dst):
+                os.makedirs(dst)
+                for f in os.listdir(src):
+                    os.link(os.path.join(src, f), os.path.join(dst, f))
+            real_gc()
+
+        ck.save, ck._gc = save, gc_keeping_mid
+        ops.reset_launches()
+        state = tr_a.run(state)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        a_losses = [h["loss"] for h in tr_a.history]
+        a_dt = [h["dt"] * 1e3 for h in tr_a.history]
+        a_final = [p.detach().cpu() for p in adamw.leaves(state.params)]
+        if sorted(os.listdir(dir_a)) != [f"step_{RESUME_STEPS:010d}"]:
+            fail(f"run A left {sorted(os.listdir(dir_a))} (keep 1)")
+        mid_save = next((s for s in saves if s["step"] == mid), None)
+        if mid_save is None or mid_save["blocking"] or "leaves" not in snap:
+            fail(f"run A made no async save at step {mid}: {saves}")
+        del state, tr_a
+        shutil.rmtree(dir_a)
+        torch.cuda.empty_cache()
+
+        # the resumed run: a fresh Trainer and freshly built state
+        step, state = train_setup(torch, cfg, "adamw", "cosine", 2e-3, RESUME_STEPS)
+        check1 = {}
+
+        def step_r(st, batch):
+            if not check1:  # the state exactly as Trainer.run restored it
+                check1["step"] = st.step
+                check1["equal"] = same_leaves(torch, host_leaves(torch, st),
+                                              snap["leaves"])
+            return step(st, batch)
+
+        tr_r = Trainer(TrainerConfig(total_steps=RESUME_STEPS, ckpt_dir=dir_r,
+                                     ckpt_every=RESUME_EVERY, keep_ckpts=1,
+                                     log_every=1), step_r, corpus,
+                       device=torch.device("cuda"))
+        t0 = time.perf_counter()
+        state = tr_r.run(state, resume=True)
+        torch.cuda.synchronize()
+        r_wall = time.perf_counter() - t0
+        r_losses = [h["loss"] for h in tr_r.history]
+        r_final = [p.detach().cpu() for p in adamw.leaves(state.params)]
+        del state, tr_r
+        snap.clear()
+        torch.cuda.empty_cache()
+        if check1.get("step") != mid or not check1["equal"]:
+            fail(f"check 1: the restored state is not bitwise the host snapshot "
+                 f"of step {mid}: {check1}")
+        if r_losses[0] != a_losses[mid]:
+            fail(f"check 2: the resumed run's first loss {r_losses[0]!r} is not "
+                 f"run A's {a_losses[mid]!r} at step {mid}")
+
+        # run B: the uninterrupted repeat of A, and the ops that may differ
+        step, state = train_setup(torch, cfg, "adamw", "cosine", 2e-3, RESUME_STEPS)
+        tr_b = Trainer(TrainerConfig(total_steps=RESUME_STEPS, log_every=100),
+                       step, corpus, device=torch.device("cuda"))
+        state = tr_b.run(state)
+        torch.cuda.synchronize()
+        b_losses = [h["loss"] for h in tr_b.history]
+        b_final = [p.detach().cpu() for p in adamw.leaves(state.params)]
+        batch = {k: v.cuda() for k, v in corpus.batch_at(state.step).items()}
+        nondet = nondeterministic_ops(torch, step, state, batch)
+        del state, tr_b
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    ab_equal = a_losses == b_losses and same_leaves(torch, a_final, b_final)
+    r_tail = a_losses[mid:]
+    if ab_equal:
+        # the card is deterministic here: the resumed run must be bitwise A
+        if r_losses != r_tail or not same_leaves(torch, r_final, a_final):
+            fail(f"check 3: A and its repeat agree bitwise but the resumed run "
+                 f"does not: losses {r_losses} vs {r_tail}")
+        bar = "bitwise"
+    else:
+        # hold the resumed run to the spread between A and its repeat
+        loss_spread = max(abs(a - b) for a, b in zip(a_losses, b_losses))
+        w_spread = max_rel_diff(torch, b_final, a_final)
+        r_loss = max(abs(a - b) for a, b in zip(r_losses, r_tail))
+        r_w = max_rel_diff(torch, r_final, a_final)
+        if r_loss > loss_spread or r_w > w_spread:
+            fail(f"check 3: the resumed run differs from A by {r_loss:.3g} in loss "
+                 f"and {r_w:.3g} in weights, beyond A's repeat ({loss_spread:.3g}, "
+                 f"{w_spread:.3g}); ops without a deterministic implementation: "
+                 f"{nondet}")
+        bar = (f"within A's own repeat spread (loss {loss_spread:.3g}, weights "
+               f"{w_spread:.3g} max|w|; resumed {r_loss:.3g}, {r_w:.3g})")
+    last = mid_save["last"]
+    log(f"  [{card}] run A losses {[round(x, 4) for x in a_losses]}")
+    log(f"  async save at step {mid}: save() blocked the host {mid_save['call_s'] * 1e3:.1f} "
+        f"ms (device-to-host copy {last['copy_s'] * 1e3:.1f} ms, the first save: "
+        f"its pinned buffers allocated); the write took "
+        f"{last['write_s']:.2f} s on its thread, {last['bytes'] / 1e9:.3f} GB on disk "
+        f"({last['bytes'] / last['write_s'] / 1e9:.2f} GB/s); step ms around it: "
+        + ", ".join(f"{i}: {t:.1f}" for i, t in enumerate(a_dt)))
+    final_save = next(s for s in saves if s["step"] == RESUME_STEPS)
+    log(f"  final blocking save at step {RESUME_STEPS}: {final_save['call_s']:.2f} s, "
+        f"of which the device-to-host copy into the pinned buffers the first "
+        f"save made {final_save['last']['copy_s'] * 1e3:.1f} ms")
+    log(f"  resumed at step {mid} in {r_wall:.1f} s (restore included): check 1 "
+        f"(restored leaves == host snapshot) bitwise; check 2 (first loss) "
+        f"{r_losses[0]!r} == {a_losses[mid]!r}; check 3: {bar}")
+    log(f"  A == its uninterrupted repeat B bitwise: {ab_equal}; ops without a "
+        f"deterministic CUDA implementation in one step: {nondet or 'none reported'}")
+    out = {"a_losses": a_losses, "b_losses": b_losses, "r_losses": r_losses,
+           "a_step_ms": a_dt, "mid": mid, "ckpt_bytes_est": ckpt_bytes,
+           "save_block_ms": mid_save["call_s"] * 1e3,
+           "final_copy_ms": final_save["last"]["copy_s"] * 1e3,
+           "copy_ms": last["copy_s"] * 1e3, "write_s": last["write_s"],
+           "bytes_on_disk": last["bytes"], "final_save_s": final_save["call_s"],
+           "resume_wall_s": r_wall, "a_equals_b": ab_equal, "check3": bar,
+           "nondeterministic_ops": nondet, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  phase 7a took {out['phase_s']:.1f} s")
+    return out
+
+
+def probe_site_vs_cpu(torch, params, step):
+    """The probe over one site on the card and on the CPU, same weights,
+    step and seed: {metric: (card, cpu)}."""
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.quant_probe import QuantProbe
+    name, leaf = QuantProbe.sites(params)[0]
+    outs = []
+    for d in ("cuda", "cpu"):
+        path = name.split("/")  # "[0]/l0/ff/wi": rebuild that one site
+        tree = {"stages": [{path[1]: {path[2]: {path[3]: leaf.detach().to(d)}}}]}
+        probe = QuantProbe("quartet2", every_n=NANOCHAT_PROBE_EVERY, max_sites=1,
+                           registry=MetricsRegistry())
+        outs.append(probe.probe_params(tree, step=step)[name])
+    return name, {m: (outs[0][m], outs[1][m]) for m in outs[0]}
+
+
+def phase_nanochat(torch, card):
+    """7b: the paper's nanochat recipe at llama-200m's widths (QK-norm,
+    ReLU^2, Muon, WSD), quartet2, with the quantization-health probe
+    attached."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.quant_probe import QuantProbe
+    from repro_torch.optim import adamw, muon
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(registry.get("llama_200m"), qk_norm=True, mlp="relu2")
+    steps = NANOCHAT_STEPS
+    log(f"phase 7b: the nanochat recipe (llama-200m widths, QK-norm, ReLU^2, quartet2, "
+        f"Muon, WSD, lr {NANOCHAT_LR}, batch 8 x seq 256, {steps} steps), "
+        f"QuantProbe(every_n={NANOCHAT_PROBE_EVERY})")
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=8))
+    step, state = train_setup(torch, cfg, "muon", "wsd", NANOCHAT_LR, steps, seed=1)
+    probe = QuantProbe("quartet2", every_n=NANOCHAT_PROBE_EVERY,
+                       registry=MetricsRegistry())
+    samples, real_probe = [], probe.probe_params
+
+    def probe_params(params, step=0, phase="train"):
+        out = real_probe(params, step=step, phase=phase)
+        samples.append((step, out))
+        return out
+
+    probe.probe_params = probe_params
+    tr = Trainer(TrainerConfig(total_steps=steps, log_every=1), step, corpus,
+                 device=torch.device("cuda"), probe=probe)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state = tr.run(state)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    if not all(h["finite"] for h in tr.history):
+        fail(f"nanochat: non-finite loss: {losses}")
+    if not all(bool(torch.isfinite(p).all()) for p in adamw.leaves(state.params)):
+        fail("nanochat: non-finite parameters after training")
+    if not losses[-1] < losses[0]:
+        fail(f"nanochat: the loss did not fall: {losses}")
+    probed = sum(len(out) for _, out in samples)
+    if [s for s, _ in samples] != list(range(0, steps, NANOCHAT_PROBE_EVERY)):
+        fail(f"nanochat: the probe sampled at steps {[s for s, _ in samples]}")
+    want = {k: v * steps + PROBE_LAUNCHES_PER_SITE[k] * probed
+            for k, v in NANOCHAT_LAUNCHES_PER_STEP.items()}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"nanochat launches {got}, expected {want} ({steps} steps, "
+             f"{probed} probed sites)")
+    step_ms = sum(h["dt"] for h in tr.history[1:]) / (steps - 1) * 1e3
+    log(f"  [{card}] losses {[round(x, 4) for x in losses]}; {step_ms:.1f} ms/step "
+        f"(host clock, steps 2-{steps}, probe calls outside), peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  launches on the path ({steps} steps + {len(samples)} probe calls over "
+        f"{probed} sites): {launches}")
+
+    # the probe against the paper's Table 1, live on the weights trained
+    ratios = []
+    for s, out in samples:
+        me = sum(v["ms_eden_mse_rel"] for v in out.values()) / len(out)
+        sr = sum(v["sr_mse_rel"] for v in out.values()) / len(out)
+        ratios.append(sr / me)
+        log(f"  probe at step {s}: {len(out)} sites, mean relative MSE: MS-EDEN "
+            f"{me:.4g} (paper Table 1: {PAPER_TABLE1['ms_eden_mse_rel']:.3g}), SR "
+            f"{sr:.4g} (paper: {PAPER_TABLE1['sr_mse_rel']:.3g}), SR / MS-EDEN "
+            f"{sr / me:.2f}; forward 4/6 {sum(v['fwd_mse_rel'] for v in out.values()) / len(out):.4g}")
+        for site, v in out.items():
+            log(f"    {site:16s} ms_eden {v['ms_eden_mse_rel']:.4g}  sr {v['sr_mse_rel']:.4g}"
+                f"  fwd {v['fwd_mse_rel']:.4g}  clip(ms_eden) {v['ms_eden_clip_frac']:.4f}"
+                f"  outlier mass {v['rht_outlier_mass']:.3g}")
+    if min(ratios) < 2.0:
+        fail(f"nanochat: SR's relative MSE is not 2x MS-EDEN's at every probe: {ratios}")
+
+    # one site's probe on the card against the same probe on the CPU
+    site, pair = probe_site_vs_cpu(torch, state.params, samples[-1][0])
+    worst = max(abs(a - b) / (abs(b) + 1e-9) for a, b in pair.values())
+    log(f"  probe of {site} card vs CPU, same weights: max relative difference "
+        f"{worst:.3g} over {len(pair)} metrics (bar {PROBE_CPU_RTOL:g})")
+    if worst > PROBE_CPU_RTOL:
+        fail(f"nanochat: the probe's card output disagrees with the CPU: {pair}")
+
+    # Newton-Schulz's share of the step: its f32 GEMMs on every Muon leaf
+    mask = muon.partition_mask(state.params)
+    mats = [p.detach() for p, use in zip(adamw.leaves(state.params), mask) if use]
+    ns_ms, ns_launches = call_device_ms(torch, lambda: [muon.newton_schulz(m) for m in mats],
+                                        reps=1)
+    prof = profile_train_step(torch, tr, state, step_ms)
+    share = (ns_ms / prof["device_ms_per_step"]
+             if ns_ms and prof and prof["device_ms_per_step"] else None)
+    ns_flops = sum(ns_gemm_flops(m.shape) for m in mats)
+    log(f"  Newton-Schulz over the {len(mats)} Muon leaves: {ns_ms:.2f} ms on the device "
+        f"({ns_launches:g} launches, {ns_flops / 1e12:.2f} TFLOP of f32 GEMMs: "
+        f"{ns_flops / (ns_ms * 1e-3) / 1e12:.1f} TFLOP/s against the {F32_FLOPS / 1e12:g} "
+        f"peak); share of the step's device time "
+        + ("not measured" if share is None else f"{share:.1%}"))
+    out = {"losses": losses, "step_ms": step_ms,
+           "step_ms_all": [h["dt"] * 1e3 for h in tr.history],
+           "peak_mem_bytes": peak, "launches": launches,
+           "probe": [(s, o) for s, o in samples], "sr_over_ms_eden": ratios,
+           "probe_cpu_max_rel": worst, "ns_ms": ns_ms, "ns_tflop": ns_flops / 1e12,
+           "ns_share": share, "profile": prof, "phase_s": time.perf_counter() - t_phase}
+    log(f"  phase 7b took {out['phase_s']:.1f} s")
+    return out
+
+
+def ns_gemm_flops(shape) -> float:
+    """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
+    stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
+    *lead, r, c = shape
+    n, m = min(r, c), max(r, c)
+    batch = 1
+    for x in lead:
+        batch *= x
+    return batch * 5 * (2 * n * n * m + 2 * n ** 3 + 2 * n * n * m)
+
+
 def ptxas_summary(build_log: str, prefix: str):
     """One line per kernel whose mangled name holds `prefix`: its registers,
     stack, spills and static shared memory, as `nvcc -Xptxas -v` reports."""
@@ -1667,8 +2074,10 @@ def main() -> None:
     serving_kvq = phase_serving(torch, card, kv_quant=True)
     deepseek = phase_deepseek(torch, card)
     training = phase_training(torch, card)
+    resume = phase_resume(torch, card)
+    nanochat = phase_nanochat(torch, card)
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
-                 deepseek["nvfp4_pool"], training)
+                 deepseek["nvfp4_pool"], training, resume, nanochat)
 
     kernels = []
     for k, r in kern.items():
@@ -1697,7 +2106,8 @@ def main() -> None:
         {"card": card, "device": name, "torch": torch.__version__,
          "build_s": build.BUILD_INFO.get("seconds"), "kernels": kernels,
          "kernel_detail": kern, "serving": serving, "serving_kv_quant": serving_kvq,
-         "deepseek": deepseek, "training": training},
+         "deepseek": deepseek, "training": training, "resume": resume,
+         "nanochat": nanochat},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

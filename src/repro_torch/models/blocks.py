@@ -3,7 +3,8 @@ and the losses.
 
 Counterpart of `repro/models/blocks.py`. bf16 rounding happens where the
 reference rounds: `embed_lookup` returns bf16, norms compute in f32 and
-return the input dtype, and the swiglu gate is silu in f32 cast to bf16.
+return the input dtype, the swiglu gate is silu in f32 cast to bf16, and the
+relu2 activation is relu(h)^2 in f32 cast to bf16.
 """
 
 from __future__ import annotations
@@ -36,13 +37,13 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 def norm(x, p, kind: str, eps: float):
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm '{kind}' comes with a later slice")
+        raise NotImplementedError(f"norm '{kind}' comes with the whisper slice")
     return rmsnorm(x, p["g"], eps)
 
 
 def norm_init(d: int, kind: str, device) -> dict:
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm '{kind}' comes with a later slice")
+        raise NotImplementedError(f"norm '{kind}' comes with the whisper slice")
     return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
@@ -66,22 +67,27 @@ def weight_drawer(gen: torch.Generator, device):
 
 
 def mlp_apply(p, x, kind: str, scheme: str, seed, layer):
-    """swiglu feed-forward, all matmuls quantized per scheme."""
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp '{kind}' comes with a later slice")
+    """swiglu | relu2 feed-forward, all matmuls quantized per scheme."""
+    if kind not in ("swiglu", "relu2"):
+        raise NotImplementedError(f"mlp '{kind}' comes with the whisper slice")
     h = qlinear(x, p["wi"], site_seed(seed, layer, 10), scheme)
-    g = qlinear(x, p["wg"], site_seed(seed, layer, 11), scheme)
     hf = h.float()
-    a = (hf * torch.sigmoid(hf)).to(x.dtype) * g  # jax.nn.silu's form
+    if kind == "swiglu":
+        g = qlinear(x, p["wg"], site_seed(seed, layer, 11), scheme)
+        a = (hf * torch.sigmoid(hf)).to(x.dtype) * g  # jax.nn.silu's form
+    else:
+        a = (torch.relu(hf) ** 2).to(x.dtype)
     return qlinear(a, p["wo"], site_seed(seed, layer, 12), scheme)
 
 
 def mlp_init(draw, count: int, d_model: int, d_ff: int, kind: str):
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp '{kind}' comes with a later slice")
-    return {"wi": draw("wi", (count, d_ff, d_model), d_model),
-            "wo": draw("wo", (count, d_model, d_ff), d_ff),
-            "wg": draw("wg", (count, d_ff, d_model), d_model)}
+    if kind not in ("swiglu", "relu2"):
+        raise NotImplementedError(f"mlp '{kind}' comes with the whisper slice")
+    p = {"wi": draw("wi", (count, d_ff, d_model), d_model),
+         "wo": draw("wo", (count, d_model, d_ff), d_ff)}
+    if kind == "swiglu":
+        p["wg"] = draw("wg", (count, d_ff, d_model), d_model)
+    return p
 
 
 def embed_init(draw, vocab: int, d_model: int) -> torch.Tensor:

@@ -41,19 +41,25 @@ def _f32(v, device) -> torch.Tensor:
 
 @torch.no_grad()
 def update(grads: list, state: AdamWState, params, *, lr: float, b1=0.9,
-           b2=0.95, eps=1e-8, weight_decay=0.1):
+           b2=0.95, eps=1e-8, weight_decay=0.1, frozen=None):
     """One AdamW step. grads: a list aligned with `leaves(params)`. Returns
-    (params, new state); params and moments are updated in place."""
+    (params, new state); params and moments are updated in place. `frozen`
+    (bools aligned with the leaves, optional): a frozen leaf's moments
+    advance but the leaf is left as it is (Muon updates those itself)."""
     step = state.step + 1
     t = np.float32(step)
-    for g, m, v, p in zip(grads, state.mu, state.nu, leaves(params)):
+    frozen = frozen or [False] * len(grads)
+    for g, m, v, p, skip in zip(grads, state.mu, state.nu, leaves(params),
+                                frozen):
+        gf = g.float()
+        m.copy_(b1 * m + (1 - b1) * gf)
+        v.copy_(b2 * v + (1 - b2) * gf * gf)
+        if skip:
+            continue
         # f32 bias corrections as device scalars: a true division, as the
         # reference's (no reciprocal)
         bc1 = 1.0 - _f32(b1, p.device) ** _f32(t, p.device)
         bc2 = 1.0 - _f32(b2, p.device) ** _f32(t, p.device)
-        gf = g.float()
-        m.copy_(b1 * m + (1 - b1) * gf)
-        v.copy_(b2 * v + (1 - b2) * gf * gf)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
     return params, AdamWState(step, state.mu, state.nu)

@@ -12,8 +12,9 @@ quantization seed; grads are summed in microbatch order and divided by their
 number, as the reference's scan does. The step runs eagerly: PyTorch has no
 `jit`, and the step synchronizes with the host nowhere.
 
-Left out: Muon (Queue 4 of ROADMAP.md) and the `grad_transform` hook of the
-reference (data-parallel gradient compression comes with `dist/`).
+The optimizer is AdamW or Muon (`optim/muon.py`, the nanochat recipe), as
+in the reference. Left out: the `grad_transform` hook of the reference
+(data-parallel gradient compression comes with `dist/`).
 """
 
 from __future__ import annotations
@@ -24,12 +25,12 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
-from repro_torch.optim import adamw, schedules
+from repro_torch.optim import adamw, muon, schedules
 
 
 class TrainState(NamedTuple):
     params: dict
-    opt: adamw.AdamWState
+    opt: adamw.AdamWState | muon.MuonState
     step: int
 
 
@@ -50,17 +51,15 @@ def make_train_step(cfg, scheme: str, *, optimizer: str = "adamw",
     """Returns (init_state_fn, train_step_fn); train_step(state, batch) ->
     (state, metrics) with metrics {"loss", "grad_norm"} as device scalars and
     {"lr"} as a float."""
-    if optimizer == "muon":
-        raise NotImplementedError(
-            "Muon is not ported yet (ROADMAP.md Queue 4, remaining families)")
-    if optimizer != "adamw":
+    opt_mod = {"adamw": adamw, "muon": muon}.get(optimizer)
+    if opt_mod is None:
         raise ValueError(f"unknown optimizer {optimizer}")
     sched = schedules.get(schedule)
 
     def init_state(params) -> TrainState:
         for p in adamw.leaves(params):
             p.requires_grad_(True)
-        return TrainState(params, adamw.init(params), 0)
+        return TrainState(params, opt_mod.init(params), 0)
 
     def value_and_grad(params, batch, seed):
         loss = lm.lm_loss(params, cfg, batch, scheme, seed)
@@ -85,8 +84,8 @@ def make_train_step(cfg, scheme: str, *, optimizer: str = "adamw",
             grads = [g / microbatches for g in grads]
         grads, gnorm = adamw.clip_by_global_norm(grads, grad_clip)
         lr = sched(state.step, base_lr=base_lr, total_steps=total_steps)
-        params, opt = adamw.update(grads, state.opt, state.params, lr=lr,
-                                   weight_decay=weight_decay)
+        params, opt = opt_mod.update(grads, state.opt, state.params, lr=lr,
+                                     weight_decay=weight_decay)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return TrainState(params, opt, state.step + 1), metrics
 

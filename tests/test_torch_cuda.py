@@ -40,13 +40,20 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     quartet2 within atol = rtol = 5e-2; deepseek-v3 with the bf16 and the
     NVFP4 pool, bf16 logits within 2e-2 (fp32 summation order through two
     layers) and quartet2 logits within 0.3 relative RMS (an ulp of an
-    absmax can move a whole tensor's codes).
+    absmax can move a whole tensor's codes);
+  - the checkpointer on card tensors (pinned staging buffers, async write):
+    bitwise, an in-place update right after `save` not in the checkpoint;
+  - the quantization-health probe on the card against the CPU, same
+    weights and hashed draws: every metric within 1e-5 relative (its 4/6
+    and MS-EDEN codes come from kernels bitwise their plain versions; only
+    the f32 means sum in another order), one #1, #3 and #4 launch a site.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import registry
 from repro_torch.core import formats as F
 from repro_torch.core import linear as L
@@ -57,6 +64,8 @@ from repro_torch.kernels import nvfp4_quant as NQ
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import lm
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.quant_probe import QuantProbe
 from repro_torch.serve import decode as serve_decode
 from repro_torch.serve.kv_pool import KVPool
 from repro_torch.serve.prequant import prequantize
@@ -749,3 +758,52 @@ def test_qlinear_autograd_card_vs_cpu(dev, scheme):
         assert n == {"nvfp4_fos_quant": 2, "fp4_matmul": 3, "paged_gqa": 0,
                      "ms_eden_phase1": 4, "ms_eden_phase2": 2,
                      "paged_gqa_q": 0, "paged_mla": 0, "paged_mla_q": 0}
+
+
+def test_checkpoint_of_card_state_is_a_snapshot(dev, tmp_path):
+    g = torch.Generator(device=dev).manual_seed(9)
+    tree = {"w": torch.randn((64, 128), generator=g, device=dev),
+            "b": torch.randn((128,), generator=g, device=dev).bfloat16(),
+            "ids": torch.arange(12, dtype=torch.int32, device=dev),
+            "step": 3}
+    want = {k: (v.cpu().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
+    ck = Checkpointer(str(tmp_path), keep=2)
+    ck.save(1, tree, blocking=False)
+    tree["w"].add_(1.0)  # in place, as the optimizer does right after
+    tree["b"].mul_(2)
+    ptrs = {i: b.data_ptr() for i, b in ck._staging.items()}
+    ck.save(2, tree, blocking=False)  # refills the same pinned buffers
+    ck.wait()
+    assert {i: b.data_ptr() for i, b in ck._staging.items()} == ptrs
+    assert all(b.is_pinned() for b in ck._staging.values())
+    like = {k: (torch.zeros_like(v) if isinstance(v, torch.Tensor) else 0)
+            for k, v in tree.items()}
+    out, meta = ck.restore(like, step=1)
+    assert meta["step"] == 1 and out["step"] == 3
+    for k in ("w", "b", "ids"):
+        assert out[k].device.type == "cuda" and out[k].dtype == want[k].dtype
+        assert torch.equal(out[k].cpu(), want[k])
+    out, _ = ck.restore(like, step=2)
+    assert torch.equal(out["w"].cpu(), want["w"] + 1.0)
+
+
+def test_quant_probe_card_vs_cpu(dev):
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(2), "cpu")
+    got = {}
+    for d in ("cpu", "cuda"):
+        p = {"stages": [{"l0": {k: {n: t.to(d) for n, t in v.items()}
+                                for k, v in params["stages"][0]["l0"].items()
+                                if k in ("mix", "ff")}}]}
+        ops.reset_launches()
+        got[d] = QuantProbe(every_n=2, max_sites=3,
+                            registry=MetricsRegistry()).probe_params(p, step=2)
+        got[d + "_launches"] = dict(ops.LAUNCHES)
+    assert list(got["cuda"]) == list(got["cpu"]) and len(got["cpu"]) == 3
+    for site, vals in got["cpu"].items():
+        for m, v in vals.items():
+            assert abs(got["cuda"][site][m] - v) <= 1e-5 * abs(v) + 1e-9, (site, m)
+    n = got["cuda_launches"]
+    assert (n["nvfp4_fos_quant"], n["fp4_matmul"], n["ms_eden_phase1"],
+            n["ms_eden_phase2"]) == (3, 0, 3, 3)

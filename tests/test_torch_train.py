@@ -3,12 +3,16 @@
 Tolerances:
 - `qlinear` under bf16: y and dx (bf16) within one bf16 ulp, dw (f32)
   within 1e-6 max|dw| (fp32 summation order).
-- `qlinear` under tetrajet_v2, four_over_six and nvidia, with the
-  reference's own draws injected (RHT signs, SR uniforms): y within one
-  bf16 ulp, and dx, dw within the RHT bar — a rotated value on the other
-  side of a rounding boundary flips one code by one grid step, which moves a
-  GEMM output by at most ~5% of its largest magnitude at these widths:
-  |d| <= 5e-2 max|g|. (Measured: bitwise.)
+- `qlinear` under every registered scheme, with the reference's own draws
+  injected (RHT signs, SR uniforms): y within one bf16 ulp, and dx, dw
+  within the RHT bar — a rotated value on the other side of a rounding
+  boundary flips one code by one grid step, which moves a GEMM output by at
+  most ~5% of its largest magnitude at these widths: |d| <= 5e-2 max|g|.
+  The MS-EDEN schemes are held against the reference's `qlinear` with its
+  MS-EDEN quantizer swapped for the post-hoc composition its kernel path
+  computes (`ms_eden_phase1` + `ms_eden_phase2`, the port's backward).
+  (Measured: bitwise except dx of abl_c_sr, abl_e_sr, abl_c_ms_eden and
+  abl_e_ms_eden, within 1.1e-3 max|dx|.)
 - `qlinear` under quartet2 (the kernel path: post-hoc MS-EDEN, hashed
   draws): over 64 seeds the mean gradient converges to the exact product of
   the quantized operands (E against the dequantized saved W and X) as an
@@ -31,6 +35,8 @@ Tolerances:
   relative.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +45,7 @@ import torch
 
 from repro.configs import registry as jregistry
 from repro.core import linear as JL
+from repro.core import ms_eden as JME
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import SyntheticCorpus as JCorpus
 from repro.models import blocks as jblocks
@@ -49,6 +56,7 @@ from repro.train import train_step as jts
 from repro_torch.configs import registry
 from repro_torch.convert import params_from_jax
 from repro_torch.core import linear as L
+from repro_torch.core import schemes
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
 from repro_torch.launch import train as launch_train
 from repro_torch.models import blocks, lm
@@ -133,8 +141,18 @@ def test_qlinear_bf16_vjp_matches_jax():
     assert np.abs(dw.numpy() - jdw).max() <= 1e-6 * np.abs(jdw).max()
 
 
-@pytest.mark.parametrize("scheme", ["tetrajet_v2", "four_over_six", "nvidia"])
-def test_qlinear_injected_draws_match_jax(scheme):
+def _posthoc_ms_eden(x, rht_key, sr_key):
+    """The reference's kernel-path MS-EDEN in its plain form, shaped like its
+    direct `ms_eden`'s output."""
+    return types.SimpleNamespace(
+        qt=JME.ms_eden_phase2(JME.ms_eden_phase1(x, rht_key), sr_key))
+
+
+@pytest.mark.parametrize("scheme", schemes.names())
+def test_qlinear_injected_draws_match_jax(scheme, monkeypatch):
+    if schemes.get(scheme).bwd == "ms_eden":
+        monkeypatch.setattr(JL, "ME", types.SimpleNamespace(
+            ms_eden=_posthoc_ms_eden))
     seed = np.array([5, 7], np.uint32)
     jy, jdx, jdw = _jax_grads(scheme, seed)
     y, dx, dw = _port_grads(scheme, JaxDraws(seed))
@@ -221,12 +239,6 @@ def test_adamw_and_clip_match_jax():
                                    rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(tst.nu[i].numpy(), np.asarray(jst.nu[k]),
                                    rtol=1e-6, atol=1e-9)
-
-
-def test_muon_not_ported():
-    cfg = registry.get("llama_200m").reduced()
-    with pytest.raises(NotImplementedError, match="Queue 4"):
-        ts.make_train_step(cfg, "bf16", optimizer="muon")
 
 
 # --------------------------------------------------------------------------
@@ -327,7 +339,8 @@ def test_trainer_loss_falls_and_history():
     init, step = ts.make_train_step(CFG, "quartet2", base_lr=2e-3,
                                     total_steps=8)
     state = init(lm.init(CFG, torch.Generator().manual_seed(0), "cpu"))
-    trainer = Trainer(TrainerConfig(total_steps=8, log_every=100), step, corpus)
+    trainer = Trainer(TrainerConfig(total_steps=8, log_every=100), step, corpus,
+                      device=torch.device("cpu"))
     state = trainer.run(state)
     losses = [h["loss"] for h in trainer.history]
     assert state.step == 8 and len(losses) == 8
