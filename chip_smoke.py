@@ -106,7 +106,46 @@ Phases (any failure exits non-zero, before the result line):
                one site's probe on the card within PROBE_CPU_RTOL of the same
                probe on the CPU; one step profiled, with Newton-Schulz's
                share of its device time.
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b. Then, on their own lines:
+  8. serving with shared prompts (the prefix cache, its host tier and the
+               latency-aware scheduler), on phase 4's llama weights and
+               phase 6's packed deepseek-v3 weights (nothing drawn twice):
+     8a. llama-200m, quartet2, both pools, 4 slots, max_len 512, block and
+               chunk 16: 8 requests of a 384-token system prompt plus 32
+               tokens of their own, 32 new tokens, cold (cache off) and hot
+               (primed with the system prompt): exact prefill and skip
+               counts, every block free or cache-owned, the pool's attention
+               kernel launched; TTFT, decode tok/s, peak memory.
+     8b. the reference's Zipf tenant mix (6 tenants, exponent 1.1, 24
+               requests of a 128-token tenant prefix + 16 tokens, 8 new) in a
+               24-block pool (2 slots, max_len 192), cache drop against host
+               spill, and spill with the host tier bounded at half the
+               unbounded run's snapshots: cache and engine counts equal a
+               reduced CPU run's, the bounded run reuses pinned buffers;
+               hit rate, p50/p99 latency, host ms a spill (first, later,
+               into a fresh or a reused buffer), a swap-in's dispatch and
+               device ms (CUDA events), host bytes.
+     8c. scheme bf16 at full width, both pools: cold, device-hot and
+               spill-hot streams of a block-aligned match bitwise equal, a
+               host round trip byte-identical (uint8 for NVFP4); a COW match
+               (ending 8 tokens into a block): the K/V of the matched 392
+               positions byte-identical to the cold run's, the spill-hot
+               COW stream and its K/V bitwise the device-hot one's (the
+               same step shapes); against the cold stream (the rest of the
+               prompt in other step shapes) bitwise or, over the bf16
+               pool, equal up to the first token whose cold top-2 margin is
+               within BF16_TIE_ULPS bf16 ulps with at least half compared;
+               over the NVFP4 pool reported, not held (an ulp of K/V moves
+               codes); the first differing token printed.
+     8d. LatencyPolicy(aging_ticks=8) against FIFO: 9 background requests,
+               then 3 critical ones (priority 2, deadline 1 s); by a
+               tick-counting clock the admission order and prefill picks
+               equal a reduced CPU run's; by the real clock, latency by class
+               and the deadlines met.
+     8e. deepseek-v3 (2 layers), both latent pools: 3 requests over a
+               48-token prefix, the first alone: 2 x 48 tokens skipped, the
+               MLA kernel launched over adopted blocks, finite logits, the
+               pool conserved.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8. Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
 
@@ -1213,6 +1252,9 @@ def to_device(tree, d):
         return {k: to_device(v, d) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, d) for v in tree]
+    if isinstance(tree, tuple):  # a PackedQWeight, or a pair of trees
+        vals = [to_device(v, d) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
     return tree.to(d, copy=True)
 
 
@@ -1333,17 +1375,24 @@ def pool_byte_ratio(pool):
     return held / bf16
 
 
-def phase_serving(torch, card, kv_quant=False):
+def llama_weights(torch):
+    """Full-width llama-200m weights from seed 0, drawn once and shared by
+    phases 4, 4b and 8."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.get("llama_200m")
+    return lm.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+def phase_serving(torch, card, params, kv_quant=False):
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
-    from repro_torch.models import lm
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 
     pool_name = "NVFP4 pool" if kv_quant else "paged bf16 pool"
     log(f"phase {'4b' if kv_quant else '4'}: serving full-width llama-200m "
         f"(quartet2, prequant, {pool_name}, 4 slots)")
     cfg = registry.get("llama_200m")
-    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     g = torch.Generator().manual_seed(3)
     lens = torch.randint(16, 101, (8,), generator=g).tolist()
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in lens]
@@ -1393,7 +1442,8 @@ def phase_serving(torch, card, kv_quant=False):
 def phase_deepseek(torch, card):
     """Phase 6: deepseek-v3 at its published widths, 2 layers, quartet2,
     weights packed as drawn, served with the bf16 and the NVFP4 latent
-    pool."""
+    pool. Returns its numbers, the config and the packed weights (phase 8
+    serves them again)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
@@ -1460,11 +1510,9 @@ def phase_deepseek(torch, card):
         out[pool_name] = r
         del eng
         torch.cuda.empty_cache()
-    del params
-    torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 6 took {out['phase_s']:.1f} s")
-    return out
+    return out, cfg, params
 
 
 def fill_decode(eng, Request, prompts, max_new):
@@ -1996,6 +2044,681 @@ def phase_nanochat(torch, card):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: serving with shared prompts (the prefix cache, its host tier, the
+# latency-aware scheduler)
+# --------------------------------------------------------------------------
+
+SYSTEM_TOKENS = 384      # 8a/8c: a system prompt of 24 blocks of 16
+UNIQUE_TOKENS = 32       # 8a/8c: each request's own tokens after it
+# 8b: the reference's Zipf multi-tenant mix (benchmarks/serve_throughput.py
+# _zipf_tenant_workload), at this phase's block geometry
+ZIPF = {"tenants": 6, "exponent": 1.1, "requests": 24, "prefix": 128,
+        "unique": 16, "new": 8}
+# 8b/8d: token ids below the reduced vocabulary, so one prompt set serves
+# the full-width card run and the reduced CPU run it is held against
+SHARED_VOCAB = 512
+# 8c's COW case over the bf16 pool, when it is not bitwise: the stream
+# equal up to the first token whose cold top-2 logit margin is within this
+# many bf16 ulps of the top logit, at least half the tokens compared
+# (tests/_torch_streams.py's rule)
+BF16_TIE_ULPS = 2
+CACHE_STATS = ("lookups", "hits", "hit_tokens", "inserted_blocks",
+               "evicted_blocks", "spilled_blocks", "swapped_in_blocks")
+ENGINE_STATS = ("prefill_tokens", "prefill_steps", "prefill_skipped_tokens",
+                "prefix_hits", "admitted", "finished")
+
+
+def cuda_sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def fresh_suffixes(torch, g, vocab, n, length):
+    """n token lists whose first tokens all differ, so no request matches
+    another's block beyond the prompt they share."""
+    out, firsts = [], set()
+    while len(out) < n:
+        s = torch.randint(0, vocab, (length,), generator=g).tolist()
+        if s[0] not in firsts:
+            firsts.add(s[0])
+            out.append(s)
+    return out
+
+
+def quantiles(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2], xs[min(len(xs) - 1, int(len(xs) * 0.99))]
+
+
+def cache_conserved(eng) -> bool:
+    """Every block free or held by the cache alone, once each: free + live
+    references == n_blocks, and no slot holds a block."""
+    ref = eng.pool._ref
+    live = int((ref > 0).sum())
+    return (eng.pool.free_block_count + live == eng.pool.n_blocks
+            and int(ref.max(initial=0)) <= 1
+            and eng.cache.cached_blocks() == live)
+
+
+def phase_shared_prompt(torch, card, cfg, params, dev="cuda"):
+    """8a: eight requests over one 384-token system prompt, cache off (cold)
+    and on (hot, primed with the prompt alone), over both pools."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    g = torch.Generator().manual_seed(8)
+    system = torch.randint(0, cfg.vocab, (SYSTEM_TOKENS,), generator=g).tolist()
+    prompts = [system + s for s in fresh_suffixes(torch, g, cfg.vocab, 8,
+                                                  UNIQUE_TOKENS)]
+    n, new = len(prompts), 32
+    want = {"cold": (n * (SYSTEM_TOKENS + UNIQUE_TOKENS), 0, 0),
+            "hot": (SYSTEM_TOKENS + n * UNIQUE_TOKENS, n * SYSTEM_TOKENS, n)}
+    out, launches_all = {"prompt_tokens": SYSTEM_TOKENS + UNIQUE_TOKENS}, []
+    for kv_quant in (False, True):
+        pool_name = "nvfp4_pool" if kv_quant else "bf16_pool"
+        attn, other = (("paged_gqa_q", "paged_gqa") if kv_quant
+                       else ("paged_gqa", "paged_gqa_q"))
+        res = {}
+        for mode in ("cold", "hot"):
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            eng = ServeEngine(cfg, params, EngineConfig(
+                n_slots=4, max_len=512, block_size=16, prefill_chunk=16,
+                scheme="quartet2", prequant=True, kv_quant=kv_quant,
+                prefix_cache=mode == "hot", device=dev))
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            if mode == "hot":
+                eng.submit(Request(list(system), 1))  # prime the cache
+                eng.run()
+            for p in prompts:
+                eng.submit(Request(p, new))
+            results = [r for r in eng.run() if len(r.prompt) > SYSTEM_TOKENS]
+            cuda_sync(torch, dev)
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            st = eng.stats
+            got = (st["prefill_tokens"], st["prefill_skipped_tokens"],
+                   st["prefix_hits"])
+            if got != want[mode]:
+                fail(f"8a {pool_name} {mode}: (prefill tokens, skipped, hits) "
+                     f"{got}, want {want[mode]}")
+            if len(results) != n or any(len(r.tokens) != new or not all(
+                    0 <= t < cfg.vocab for t in r.tokens) for r in results):
+                fail(f"8a {pool_name} {mode}: requests not served whole")
+            if dev == "cuda" and (launches[attn] <= 0 or launches[other]):
+                fail(f"8a {pool_name} {mode}: attention launches {launches}")
+            if mode == "cold" and eng.pool.free_block_count != eng.pool.n_blocks:
+                fail(f"8a {pool_name} cold: pool blocks leaked")
+            if mode == "hot" and not cache_conserved(eng):
+                fail(f"8a {pool_name} hot: a block is neither free nor "
+                     "cache-owned, or free + live refs != n_blocks")
+            ttft = sorted(r.ttft_s for r in results)
+            res[mode] = {
+                "wall_s": wall, "prefill_tokens": st["prefill_tokens"],
+                "prefill_steps": st["prefill_steps"],
+                "skipped_tokens": st["prefill_skipped_tokens"],
+                "prefix_hits": st["prefix_hits"],
+                "ttft_s_median": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+                "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+                "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                                   if dev == "cuda" else None),
+                "cached_blocks": (eng.cache.cached_blocks()
+                                  if eng.cache is not None else 0),
+                "launches": launches}
+            launches_all.append(launches)
+            del eng
+        c, h = res["cold"], res["hot"]
+        peak = [r["peak_mem_bytes"] or 0 for r in (c, h)]
+        log(f"  8a [{card}] {pool_name}: prefill {c['prefill_tokens']} -> "
+            f"{h['prefill_tokens']} tokens ({h['skipped_tokens']} skipped, "
+            f"{h['prefix_hits']} hits; {c['prefill_steps']} -> "
+            f"{h['prefill_steps']} prefill forwards); TTFT median "
+            f"{c['ttft_s_median'] * 1e3:.1f} -> {h['ttft_s_median'] * 1e3:.1f} ms, "
+            f"max {c['ttft_s_max'] * 1e3:.1f} -> {h['ttft_s_max'] * 1e3:.1f} ms; "
+            f"decode {c['decode_tok_s']:.1f} / {h['decode_tok_s']:.1f} tok/s; "
+            f"peak memory {peak[0] / 2**30:.2f} / {peak[1] / 2**30:.2f} GiB; "
+            f"wall {c['wall_s']:.2f} -> {h['wall_s']:.2f} s; "
+            f"{h['cached_blocks']} blocks cached at the end")
+        out[pool_name] = res
+    return out, launches_all
+
+
+def zipf_prompts(torch):
+    """The Zipf tenant mix of 8b: each tenant one shared prefix, tenant
+    popularity Zipf(1.1), every request the prefix plus its own tokens."""
+    z = ZIPF
+    g = torch.Generator().manual_seed(23)
+    prefixes = [torch.randint(0, SHARED_VOCAB, (z["prefix"],), generator=g).tolist()
+                for _ in range(z["tenants"])]
+    w = torch.arange(1, z["tenants"] + 1, dtype=torch.float64) ** -z["exponent"]
+    tenants = torch.multinomial(w / w.sum(), z["requests"], replacement=True,
+                                generator=g).tolist()
+    return [prefixes[t] + torch.randint(0, SHARED_VOCAB, (z["unique"],),
+                                        generator=g).tolist()
+            for t in tenants], tenants
+
+
+def zipf_run(torch, cfg, params, dev, spill, prompts, timed=False,
+             budget=None):
+    """One pass of the Zipf mix through a 24-block pool; returns the engine,
+    its results and, when `timed`, the host-tier copies' timings. `budget`
+    bounds the host tier's bytes (host_budget_bytes)."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    eng = ServeEngine(cfg, params, EngineConfig(
+        n_slots=2, max_len=192, block_size=16, n_blocks=24, prefill_chunk=16,
+        scheme="quartet2", prequant=True, prefix_cache=True,
+        prefix_spill=spill, host_budget_bytes=budget, device=dev))
+    rec = host_tier_timers(torch, eng.pool) if timed else None
+    for p in prompts:
+        eng.submit(Request(p, ZIPF["new"]))
+    results = eng.run()
+    cuda_sync(torch, dev)
+    return eng, results, rec
+
+
+def host_tier_timers(torch, pool):
+    """Wrap the pool's two host-tier copies: host ms of each synchronous
+    read (a spill; `fresh` when it had to allocate a pinned buffer, not
+    take one from the free list), host ms to dispatch each write (a
+    swap-in) and a pair of CUDA events around it (its device time)."""
+    rec = {"read_ms": [], "read_fresh": [], "write_dispatch_ms": [],
+           "write_events": []}
+    read, write = pool.read_block_host, pool.write_block_host
+
+    def timed_read(block):
+        allocs = pool.host_allocs
+        t0 = time.perf_counter()
+        out = read(block)
+        rec["read_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["read_fresh"].append(pool.host_allocs > allocs)
+        return out
+
+    def timed_write(block, payload):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        write(block, payload)
+        b.record()
+        rec["write_dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["write_events"].append((a, b))
+
+    pool.read_block_host, pool.write_block_host = timed_read, timed_write
+    return rec
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def phase_zipf_tiers(torch, card, cfg, params, dev="cuda"):
+    """8b: the Zipf tenant mix under pool pressure: cache drop, host spill,
+    and host spill with the tier bounded at half the unbounded run's
+    snapshots (the pinned buffers of dropped snapshots are then reused).
+    The cache's and engine's counts equal a reduced CPU run's."""
+    from repro_torch.models import lm
+    prompts, tenants = zipf_prompts(torch)
+    small = cfg.reduced()
+    small_params = lm.init(small, torch.Generator().manual_seed(0), "cpu")
+    out = {"tenants": ZIPF, "hot_tenant_share": tenants.count(0) / len(tenants)}
+    budgets = {}  # spill_budget: snapshots of the spill run // 2, each pool's bytes
+    for mode in ("drop", "spill", "spill_budget"):
+        spill = mode != "drop"
+        b_card, b_cpu = budgets.get("card"), budgets.get("cpu")
+        t0 = time.perf_counter()
+        eng, results, rec = zipf_run(torch, cfg, params, dev, spill, prompts,
+                                     timed=dev == "cuda", budget=b_card)
+        wall = time.perf_counter() - t0
+        ref, _, _ = zipf_run(torch, small, small_params, "cpu", spill, prompts,
+                             budget=b_cpu)
+        card_counts = ({k: eng.cache.stats[k] for k in CACHE_STATS}
+                       | {k: eng.stats[k] for k in ENGINE_STATS})
+        cpu_counts = ({k: ref.cache.stats[k] for k in CACHE_STATS}
+                      | {k: ref.stats[k] for k in ENGINE_STATS})
+        if card_counts != cpu_counts:
+            fail(f"8b {mode}: card counts {card_counts} != CPU {cpu_counts}")
+        if eng.cache.host_nodes() != ref.cache.host_nodes():
+            fail(f"8b {mode}: {eng.cache.host_nodes()} host snapshots, the "
+                 f"CPU run {ref.cache.host_nodes()}")
+        if len(results) != ZIPF["requests"] or not cache_conserved(eng):
+            fail(f"8b {mode}: requests lost or the pool not conserved")
+        if spill and not card_counts["swapped_in_blocks"]:
+            fail(f"8b {mode}: no block was swapped back in")
+        if mode == "spill":
+            half = eng.cache.host_nodes() // 2
+            budgets = {"blocks": half,
+                       "card": half * eng.cache.host_bytes // eng.cache.host_nodes(),
+                       "cpu": half * ref.cache.host_bytes // ref.cache.host_nodes()}
+        if mode == "spill_budget" and rec is not None:
+            snaps = len(rec["read_ms"])
+            if not eng.pool.host_allocs < snaps:
+                fail(f"8b {mode}: {eng.pool.host_allocs} pinned buffers "
+                     f"allocated for {snaps} snapshots: none was reused")
+        p50, p99 = quantiles([r.latency_s for r in results])
+        cs = eng.cache.stats
+        r = {"wall_s": wall, "counts": card_counts,
+             "hit_rate": cs["hits"] / max(cs["lookups"], 1),
+             "latency_p50_s": p50, "latency_p99_s": p99,
+             "host_bytes": eng.cache.host_bytes,
+             "host_nodes": eng.cache.host_nodes(),
+             "host_budget_bytes": b_card, "host_budget_blocks": budgets.get(
+                 "blocks") if mode == "spill_budget" else None,
+             "host_buffers_allocated": eng.pool.host_allocs,
+             "host_block_bytes": eng.pool.host_block_bytes}
+        if spill and rec is not None:
+            reads, fresh = rec["read_ms"], rec["read_fresh"]
+            dev_ms = [a.elapsed_time(b) for a, b in rec["write_events"]]
+            disp = rec["write_dispatch_ms"]
+            r |= {"spill_ms_first": reads[0],
+                  "spill_ms_later_median": median(reads[1:]),
+                  "spill_ms_fresh_median": median(
+                      [t for t, f in zip(reads, fresh) if f]),
+                  "spill_ms_reused_median": median(
+                      [t for t, f in zip(reads, fresh) if not f]),
+                  "spills_timed": len(reads), "spills_fresh": sum(fresh),
+                  "swapin_dispatch_ms_median": median(disp),
+                  "swapin_device_ms_median": median(dev_ms),
+                  "swapins_timed": len(disp)}
+        out[mode] = r
+        log(f"  8b [{card}] {mode}: hit rate {r['hit_rate']:.3f} "
+            f"({cs['hits']}/{cs['lookups']}), skipped "
+            f"{eng.stats['prefill_skipped_tokens']} tokens, evicted "
+            f"{cs['evicted_blocks']}, spilled {cs['spilled_blocks']}, swapped in "
+            f"{cs['swapped_in_blocks']}; latency p50 {p50 * 1e3:.1f} ms, p99 "
+            f"{p99 * 1e3:.1f} ms; wall {wall:.2f} s; counts equal the CPU run's")
+        if spill and rec is not None:
+            budget = ("no budget" if b_card is None else
+                      f"budget {b_card} B = {budgets['blocks']} snapshots")
+            log(f"     host tier ({budget}): {r['host_bytes']} B in "
+                f"{r['host_nodes']} snapshots at the end ({r['host_block_bytes']} "
+                f"B a block); {r['host_buffers_allocated']} pinned buffers "
+                f"allocated for {len(reads)} spills; spill (device->host, "
+                f"synchronous) {r['spill_ms_first']:.3f} ms first, "
+                f"{r['spill_ms_later_median']:.3f} ms median of the later "
+                f"{len(reads) - 1}; median {r['spill_ms_fresh_median']:.3f} ms "
+                f"into a fresh buffer ({r['spills_fresh']}), "
+                f"{r['spill_ms_reused_median']:.3f} ms into a reused one "
+                f"({len(reads) - r['spills_fresh']}); swap-in dispatch "
+                f"{r['swapin_dispatch_ms_median']:.3f} ms, device "
+                f"{r['swapin_device_ms_median']:.4f} ms a block (median of "
+                f"{len(disp)})")
+        del eng
+    return out
+
+
+def recording_engine(eng):
+    """Record, per (request, token index), the sampled row's logits as f32
+    on the host (single-request runs)."""
+    rows, sample = {}, eng._sample
+
+    def rec(last_logits):
+        lf = last_logits.float().cpu()
+        for i, s in enumerate(eng.slots):
+            if s.req is not None:
+                rows[(s.req.req_id, len(s.generated))] = lf[i]
+        return sample(last_logits)
+
+    eng._sample = rec
+    return rows
+
+
+def kv_at_retirement(torch, eng):
+    """Record, per request, a copy of every token leaf of its slot's K/V
+    (positions along axis 1) just before the slot is released."""
+    from repro_torch.serve.kv_pool import token_leaves
+    got, retire = {}, eng._retire_slot
+
+    def rec(i):
+        pool, n = eng.pool, eng.pool.length(i)
+        blocks = torch.as_tensor(pool._table[i, :pool.blocks_for(n)],
+                                 dtype=torch.long, device=eng.device)
+        got[eng.slots[i].req.req_id] = [
+            leaf[:, blocks].flatten(1, 2)[:, :n].clone()
+            for leaf in token_leaves(pool.caches)]
+        return retire(i)
+
+    eng._retire_slot = rec
+    return got
+
+
+def bf16_ulp(v: float) -> float:
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(v), 2.0 ** -126))) - 7)
+
+
+def payload_round_trip(torch, pool, src):
+    """read -> write into another block -> read: byte-identical, and a
+    PackedKV pool's payload stays uint8."""
+    from repro_torch.serve.kv_pool import PackedKV, token_leaves
+    p1, n1 = pool.read_block_host(src)
+    dst = pool.alloc_cache_block()
+    pool.write_block_host(dst, p1)
+    p2, n2 = pool.read_block_host(dst)
+    pool._decref(dst)
+    same = n1 == n2 and torch.equal(p1.buf, p2.buf)
+    leaves = [leaf for st in p1.stages for kinds in st.values()
+              for pair in kinds.values() for leaf in pair]
+    packed = all(isinstance(x, PackedKV) for x in leaves)
+    uint8 = all(t.dtype == torch.uint8 for t in token_leaves(p1.stages))
+    pool.release_host(p1)
+    pool.release_host(p2)
+    return same, packed, uint8, n1
+
+
+def phase_prefix_parity(torch, card, cfg, params, dev="cuda"):
+    """8c: scheme bf16 at full width: cold, device-hot and spill-hot streams
+    of a block-aligned match bitwise equal over both pools; a match that
+    ends inside a block (COW): the matched positions' K/V byte-identical to
+    the cold run's, spill-hot bitwise device-hot, and against the cold
+    stream bitwise or (bf16 pool) the tie rule; the NVFP4 pool's reported."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.kv_pool import token_leaves
+    g = torch.Generator().manual_seed(12)
+    system = torch.randint(0, cfg.vocab, (SYSTEM_TOKENS,), generator=g).tolist()
+    a, b, c = fresh_suffixes(torch, g, cfg.vocab, 3, UNIQUE_TOKENS)
+    warm, probe = system + a, system + b
+    fork = system + a[:8] + c[:24]     # diverges 8 tokens into block 24
+    matched = SYSTEM_TOKENS + 8        # adopted blocks + the COW'd block's 8
+    new = 16
+    out = {}
+
+    def engine(**kw):
+        return ServeEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=512, block_size=16, prefill_chunk=16,
+            scheme="bf16", device=dev, **kw))
+
+    def one(eng, prompt):
+        eng.submit(Request(list(prompt), new))
+        (r,) = eng.run()
+        return r.tokens
+
+    for kv_quant in (False, True):
+        pool_name = "nvfp4_pool" if kv_quant else "bf16_pool"
+        cold_eng = engine(kv_quant=kv_quant)
+        cold_rows, cold_kv = recording_engine(cold_eng), kv_at_retirement(
+            torch, cold_eng)
+        cold = {"probe": one(cold_eng, probe), "fork": one(cold_eng, fork)}
+        hot_eng = engine(kv_quant=kv_quant, prefix_cache=True)
+        hot_rows, hot_kv = recording_engine(hot_eng), kv_at_retirement(
+            torch, hot_eng)
+        one(hot_eng, warm)
+        hot = {"probe": one(hot_eng, probe), "fork": one(hot_eng, fork)}
+        skipped = hot_eng.stats["prefill_skipped_tokens"]
+        spill_eng = engine(kv_quant=kv_quant, prefix_cache=True,
+                           prefix_spill=True)
+        one(spill_eng, warm)
+        evicted = spill_eng.cache.evict(None, 999)
+        if spill_eng.cache.cached_blocks() or spill_eng.cache.host_nodes() < 24:
+            fail(f"8c {pool_name}: the warm stream did not leave for the host tier")
+        node = next(iter(spill_eng.cache.root.children.values()))
+        spilled_uint8 = all(t.dtype == torch.uint8
+                            for t in token_leaves(node.host.stages))
+        spill_kv = kv_at_retirement(torch, spill_eng)
+        spill_hot = one(spill_eng, probe)
+        swapped = spill_eng.cache.stats["swapped_in_blocks"]
+        if hot["probe"] != cold["probe"] or spill_hot != cold["probe"]:
+            fail(f"8c {pool_name}: block-aligned streams differ: cold "
+                 f"{cold['probe']}, hot {hot['probe']}, spill-hot {spill_hot}")
+        if skipped != SYSTEM_TOKENS + SYSTEM_TOKENS + 8 or swapped < 24:
+            fail(f"8c {pool_name}: skipped {skipped} (want "
+                 f"{2 * SYSTEM_TOKENS + 8}), swapped in {swapped} (want >= 24)")
+        if kv_quant and not spilled_uint8:
+            fail("8c nvfp4_pool: the spilled payload is not uint8")
+        blk = next(iter(spill_eng.cache.root.children.values())).block
+        same, packed, uint8, nbytes = payload_round_trip(torch, spill_eng.pool, blk)
+        if not same or (kv_quant and not (packed and uint8)):
+            fail(f"8c {pool_name}: host round trip not byte-identical "
+                 f"(same {same}, packed {packed}, uint8 {uint8})")
+        # the COW fork again, from the spill tier: its divergent block is
+        # swapped in from the host and copied, the rest computed in the
+        # device-hot run's step shapes
+        spill_fork = one(spill_eng, fork)
+        # COW: the hot run adopts 24 blocks, copies block 24 (8 matched
+        # positions) and computes 392..407 as one 16-token chunk and
+        # 408..415 as single-token steps; the cold run computes 384..415 in
+        # 16-token chunks (GEMMs of M = 4 slots x 16 = 64 rows against
+        # M = 4 rows for the single tokens)
+        hkv, ckv = hot_kv[2], cold_kv[1]   # the fork: hot's third, cold's second
+        prefix_same = all(torch.equal(h[:, :matched], k[:, :matched])
+                          for h, k in zip(hkv, ckv))
+        if not prefix_same:
+            fail(f"8c {pool_name}: the COW stream's K/V of the {matched} "
+                 "matched positions differ from the cold run's")
+        if spill_fork != hot["fork"] or not all(
+                torch.equal(h, k) for h, k in zip(hkv, spill_kv[2])):
+            fail(f"8c {pool_name}: the spill-hot COW stream or its K/V differ "
+                 f"from the device-hot one's: {spill_fork} against {hot['fork']}")
+        rest = [(h[:, matched:len(fork)] != k[:, matched:len(fork)])
+                for h, k in zip(hkv, ckv)]
+        rest_diff = sum(int(d.sum()) for d in rest) / sum(d.numel() for d in rest)
+        cow_bitwise = hot["fork"] == cold["fork"]
+        first_diff = next((j for j, (x, y) in enumerate(zip(hot["fork"],
+                                                          cold["fork"]))
+                           if x != y), None)
+        # the logits of every step whose history agrees: up to and
+        # including the first differing token
+        shared = new if first_diff is None else first_diff + 1
+        devs = [float((hot_rows[(2, j)] - cold_rows[(1, j)]).abs().max())
+                for j in range(shared)]
+        ulps = [bf16_ulp(float(cold_rows[(1, j)].abs().max()))
+                for j in range(shared)]
+        logit_dev, dev_ulps = max(devs), max(d / u for d, u in zip(devs, ulps))
+        margins = [cold_rows[(1, j)].topk(2).values for j in range(new)]
+        first_tie = next((j for j, t in enumerate(margins)
+                          if float(t[0] - t[1])
+                          <= BF16_TIE_ULPS * bf16_ulp(float(t[0]))), None)
+        compared = new if first_tie is None else first_tie
+        tie_rule_met = cow_bitwise or (first_diff >= compared
+                                       and compared >= new // 2)
+        if not kv_quant and not tie_rule_met:
+            fail(f"8c {pool_name}: COW stream differs at token {first_diff}, "
+                 f"first near-tie at {first_tie}: outside the "
+                 f"{BF16_TIE_ULPS}-ulp rule (>= {new // 2} tokens compared)")
+        out[pool_name] = {
+            "block_aligned_bitwise": True, "skipped_tokens": skipped,
+            "evicted_blocks": evicted, "swapped_in_blocks": swapped,
+            "spilled_payload_uint8": spilled_uint8,
+            "round_trip_identical": same, "block_bytes": nbytes,
+            "cow_matched_kv_identical": prefix_same,
+            "cow_rest_kv_diff_fraction": rest_diff,
+            "cow_spill_hot_bitwise_device_hot": True,
+            "cow_bitwise": cow_bitwise, "cow_tie_rule_met": tie_rule_met,
+            "cow_first_diff": first_diff,
+            "cow_first_tie": first_tie, "cow_logit_max_abs_dev": logit_dev,
+            "cow_logit_max_dev_ulps": dev_ulps}
+        log(f"  8c [{card}] {pool_name}, bf16: cold == device-hot == spill-hot "
+            f"bitwise over {new} tokens ({skipped} tokens skipped, {swapped} "
+            f"blocks swapped in); host round trip byte-identical ({nbytes} B"
+            f"{', packed uint8' if kv_quant else ', bf16'}); COW at token "
+            f"{matched}: K/V of the matched positions byte-identical, "
+            f"spill-hot == device-hot bitwise (stream and K/V), "
+            f"{rest_diff:.2%} of the prompt rest's K/V elements differ (GEMM M = 4 "
+            f"single-token rows in the hot run, 64 chunk rows in the cold); "
+            f"stream {'bitwise' if cow_bitwise else f'first differing token {first_diff}'}"
+            f", first near-tie at {first_tie}; logits max |hot - cold| "
+            f"{logit_dev:.4g} ({dev_ulps:.3g} bf16 ulps of the row's largest) "
+            f"while the streams agree; the {BF16_TIE_ULPS}-ulp rule "
+            + ("met" if tie_rule_met else "not met (not held over the NVFP4 "
+               "pool: an ulp of K/V moves codes)"))
+        del cold_eng, hot_eng, spill_eng
+    return out
+
+
+class TickClock:
+    """A clock that reads the engine's tick count: scheduling by it is the
+    same on every device."""
+
+    def __init__(self):
+        self.eng = None
+
+    def __call__(self) -> float:
+        return float(self.eng.stats["ticks"]) if self.eng is not None else 0.0
+
+
+def sched_prompts(torch):
+    g = torch.Generator().manual_seed(9)
+    background = [torch.randint(0, SHARED_VOCAB, (48,), generator=g).tolist()
+                  for _ in range(9)]
+    critical = [torch.randint(0, SHARED_VOCAB, (32,), generator=g).tolist()
+                for _ in range(3)]
+    return background, critical
+
+
+def sched_run(torch, cfg, params, dev, policy, tick_clock):
+    """9 background requests (priority 0), then 3 critical ones (priority 2,
+    deadline 1 s): returns the admission order, the prefill picks (slot,
+    request) and the results."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.scheduler import FifoPolicy, LatencyPolicy
+    clock = TickClock() if tick_clock else None
+    eng = ServeEngine(cfg, params, EngineConfig(
+        n_slots=4, max_len=128, block_size=16, prefill_chunk=16,
+        scheme="quartet2", prequant=True, device=dev, clock=clock,
+        scheduler=LatencyPolicy(aging_ticks=8) if policy == "latency"
+        else FifoPolicy()))
+    if clock is not None:
+        clock.eng = eng
+    admitted, picks = [], []
+    try_admit, pick = eng._try_admit, eng.sched.pick_prefill
+
+    def recording_admit(req):
+        ok = try_admit(req)
+        if ok:
+            admitted.append(req.req_id)
+        return ok
+
+    def recording_pick(cands, now):
+        i = pick(cands, now)
+        picks.append((i, eng.slots[i].req.req_id))
+        return i
+
+    eng._try_admit, eng.sched.pick_prefill = recording_admit, recording_pick
+    background, critical = sched_prompts(torch)
+    for p in background:
+        eng.submit(Request(p, 8))
+    for p in critical:
+        eng.submit(Request(p, 8, priority=2, deadline_s=1.0))
+    results = eng.run()
+    cuda_sync(torch, dev)
+    return admitted, picks, results
+
+
+def phase_scheduler(torch, card, cfg, params, dev="cuda"):
+    """8d: LatencyPolicy(aging_ticks=8) against FIFO. By a tick-counting
+    clock, the admission order and prefill picks on the card equal the
+    reduced CPU run's; by the real clock, latency by class."""
+    from repro_torch.models import lm
+    small = cfg.reduced()
+    small_params = lm.init(small, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for policy in ("fifo", "latency"):
+        adm, picks, _ = sched_run(torch, cfg, params, dev, policy, True)
+        adm_cpu, picks_cpu, _ = sched_run(torch, small, small_params, "cpu",
+                                          policy, True)
+        if (adm, picks) != (adm_cpu, picks_cpu):
+            fail(f"8d {policy}: card order {adm} / picks {picks} != CPU "
+                 f"{adm_cpu} / {picks_cpu}")
+        _, _, results = sched_run(torch, cfg, params, dev, policy, False)
+        crit = [r for r in results if r.deadline_s is not None]
+        bg = [r for r in results if r.deadline_s is None]
+        c50, c99 = quantiles([r.latency_s for r in crit])
+        b50, b99 = quantiles([r.latency_s for r in bg])
+        met = sum(bool(r.deadline_met) for r in crit) / len(crit)
+        out[policy] = {"admission_order": adm, "prefill_picks": picks,
+                       "critical_p50_s": c50, "critical_p99_s": c99,
+                       "background_p50_s": b50, "background_p99_s": b99,
+                       "deadlines_met": met}
+        log(f"  8d [{card}] {policy}: admission order {adm} (equal to the CPU "
+            f"run's, as are the {len(picks)} prefill picks); critical latency "
+            f"p50 {c50 * 1e3:.1f} ms p99 {c99 * 1e3:.1f} ms, background p50 "
+            f"{b50 * 1e3:.1f} ms p99 {b99 * 1e3:.1f} ms; deadlines met {met:.2f}")
+    return out
+
+
+def phase_deepseek_prefix(torch, card, cfg, params, dev="cuda"):
+    """8e: deepseek-v3 (2 layers) with the prefix cache over both latent
+    pools: three requests over a 48-token prefix, the first alone, then the
+    other two adopt its blocks."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    g = torch.Generator().manual_seed(10)
+    prefix = torch.randint(0, cfg.vocab, (48,), generator=g).tolist()
+    prompts = [prefix + s for s in fresh_suffixes(torch, g, cfg.vocab, 3, 8)]
+    out, launches_all = {}, []
+    for kv_quant in (False, True):
+        pool_name = "nvfp4_pool" if kv_quant else "bf16_pool"
+        attn = "paged_mla_q" if kv_quant else "paged_mla"
+        eng = ServeEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=128, block_size=16, prefill_chunk=16,
+            scheme="quartet2", prequant=False, kv_quant=kv_quant,
+            prefix_cache=True, device=dev))
+        finite, sample = [True], eng._sample
+
+        def checked(last_logits, _sample=sample, _finite=finite):
+            _finite[0] &= bool(torch.isfinite(last_logits).all())
+            return _sample(last_logits)
+
+        eng._sample = checked
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        eng.submit(Request(prompts[0], 8))
+        eng.run()
+        first = dict(ops.LAUNCHES)
+        for p in prompts[1:]:
+            eng.submit(Request(p, 8))
+        eng.step()
+        adopted = sorted(eng.pool._shared_upto)
+        eng.run()
+        cuda_sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        hot_attn = launches[attn] - first[attn]
+        st = eng.stats
+        if (st["prefill_skipped_tokens"], st["prefix_hits"]) != (96, 2):
+            fail(f"8e {pool_name}: skipped {st['prefill_skipped_tokens']}, "
+                 f"hits {st['prefix_hits']} (want 96, 2)")
+        if adopted[-2:] != [3, 3] or not finite[0] or (
+                dev == "cuda" and hot_attn <= 0):
+            fail(f"8e {pool_name}: adopted blocks {adopted}, {attn} launches "
+                 f"over them {hot_attn}, logits finite {finite[0]}")
+        if not cache_conserved(eng):
+            fail(f"8e {pool_name}: the pool is not conserved")
+        out[pool_name] = {"wall_s": wall, "skipped_tokens": 96,
+                          "attn_launches_over_adopted": hot_attn,
+                          "launches": launches}
+        launches_all.append(launches)
+        log(f"  8e [{card}] deepseek-v3 {pool_name}: 2 x 48 prefix tokens "
+            f"skipped, {attn} launched {hot_attn} times over 3 adopted blocks, "
+            f"logits finite, pool conserved; wall {wall:.2f} s")
+        del eng
+    return out, launches_all
+
+
+def phase_prefix(torch, card, llama_params, deepseek_cfg, deepseek_params):
+    """Phase 8: serving with shared prompts (8a-8e)."""
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    cfg = registry.get("llama_200m")
+    log("phase 8: serving with shared prompts (prefix cache, host tier, "
+        "latency-aware scheduler)")
+    out = {}
+    out["shared_prompt"], launches_a = phase_shared_prompt(
+        torch, card, cfg, llama_params)
+    out["zipf_tiers"] = phase_zipf_tiers(torch, card, cfg, llama_params)
+    out["parity_bf16"] = phase_prefix_parity(torch, card, cfg, llama_params)
+    out["scheduler"] = phase_scheduler(torch, card, cfg, llama_params)
+    out["deepseek"], launches_e = phase_deepseek_prefix(
+        torch, card, deepseek_cfg, deepseek_params)
+    runs = launches_a + launches_e
+    out["launches"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 8 took {out['phase_s']:.1f} s; launches on its main paths: "
+        f"{out['launches']}")
+    return out
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -2070,14 +2793,29 @@ def main() -> None:
     kern["fp4_matmul"]["groups"] = phase_matmul_groups(torch)
     phase_small_reference(torch)
     phase_train_reference(torch)
-    serving = phase_serving(torch, card)
-    serving_kvq = phase_serving(torch, card, kv_quant=True)
-    deepseek = phase_deepseek(torch, card)
+    llama = llama_weights(torch)
+    serving = phase_serving(torch, card, llama)
+    serving_kvq = phase_serving(torch, card, llama, kv_quant=True)
+    # phase 8 serves these weights again; they wait in host memory through
+    # phases 6, 5 and 7 (and deepseek-v3's from its end), whose weight bytes
+    # and peak device memory then count their own model alone
+    held_llama = to_device(llama, "cpu")
+    del llama
+    torch.cuda.empty_cache()
+    deepseek, ds_cfg, ds_params = phase_deepseek(torch, card)
+    held = (held_llama, to_device(ds_params, "cpu"))
+    del held_llama, ds_params
+    torch.cuda.empty_cache()
     training = phase_training(torch, card)
     resume = phase_resume(torch, card)
     nanochat = phase_nanochat(torch, card)
+    llama, ds_params = to_device(held, "cuda")
+    del held
+    prefix = phase_prefix(torch, card, llama, ds_cfg, ds_params)
+    del llama, ds_params
+    torch.cuda.empty_cache()
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
-                 deepseek["nvfp4_pool"], training, resume, nanochat)
+                 deepseek["nvfp4_pool"], training, resume, nanochat, prefix)
 
     kernels = []
     for k, r in kern.items():
@@ -2107,7 +2845,7 @@ def main() -> None:
          "build_s": build.BUILD_INFO.get("seconds"), "kernels": kernels,
          "kernel_detail": kern, "serving": serving, "serving_kv_quant": serving_kvq,
          "deepseek": deepseek, "training": training, "resume": resume,
-         "nanochat": nanochat},
+         "nanochat": nanochat, "prefix": prefix},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,15 @@
-"""NVFP4 serving: ServeEngine, paged KV pool, prequant weights, sampling.
+"""NVFP4 serving: ServeEngine, paged KV pool, prefix cache, scheduler,
+prequant weights, sampling.
 
 Modules (import them directly):
 
-    engine    — ServeEngine: FIFO admission, chunked prefill, continuous
-                batching over fixed decode slots
-    kv_pool   — block-based paged bf16 KV pool + per-sequence block tables
-    prequant  — quantize-once NVFP4 weight cache
-    sampling  — greedy / temperature / top-k sampling
-    decode    — the engine's paged step builder
+    engine        — ServeEngine: policy-ordered admission, chunked prefill,
+                    continuous batching over fixed decode slots
+    kv_pool       — block-based paged KV pool (bf16 or NVFP4), refcounted
+                    blocks, per-sequence read/write block tables, host copies
+    prefix_cache  — radix prefix cache with copy-on-write and a host tier
+    scheduler     — FIFO and latency-aware admission / prefill policies
+    prequant      — quantize-once NVFP4 weight cache
+    sampling      — greedy / temperature / top-k sampling
+    decode        — the engine's paged step builder
 """

@@ -1,14 +1,17 @@
 """ServeEngine: continuous-batching NVFP4 serving.
 
 Counterpart of `repro/serve/engine.py`. The engine owns a fixed set of
-decode SLOTS (the batch dimension of every step), a FIFO request queue with
+decode SLOTS (the batch dimension of every step), a request queue with
 admission control, a paged KV pool, and a quantize-once weight cache. Each
 tick:
 
-  1. ADMIT   — move queued requests into free slots in FIFO order while the
-               pool can back prompt + max_new tokens (the head request is
-               never overtaken).
-  2. PREFILL — one chunk of ONE prefilling slot (the lowest-index one): a
+  1. ADMIT   — offer queued requests free slots in the order the scheduler
+               POLICY gives (`serve/scheduler.py`; the default FifoPolicy
+               never overtakes the head request) while the pool can back
+               prompt + max_new tokens. With the prefix cache
+               (`serve/prefix_cache.py`) the longest cached prompt prefix is
+               aliased read-only into the slot and its prefill skipped.
+  2. PREFILL — one chunk of ONE prefilling slot (the policy picks which): a
                full `prefill_chunk`, or a single token for the prompt's
                trailing remainder, through the same decode-mode forward as
                decoding; other slots are masked inactive.
@@ -16,14 +19,14 @@ tick:
                join as finished ones retire, never restarting the batch.
 
 Slot states: FREE -> PREFILL -> DECODE -> FREE. Raggedness travels as data
-(per-slot position vector, active mask, block table). Counters live in the
-plain `stats` dict.
+(per-slot position vector, active mask, block tables). Counters live in the
+plain `stats` dict; every timestamp comes from `self.clock`.
 
 With `kv_quant=True` the pool stores every token leaf as NVFP4 `PackedKV`
 bytes (0.28125x the bf16 bytes) and decode attention runs the packed-operand
-kernels. Later slices bring speculative decoding, the prefix cache and its
-spill tier, mesh sharding, disaggregated roles, dense caches and other
-scheduler policies; asking for any of them raises NotImplementedError.
+kernels. Later slices bring speculative decoding, mesh sharding,
+disaggregated roles and dense caches; asking for any of them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.serve import decode as serve_decode
-from repro_torch.serve.kv_pool import KVPool
+from repro_torch.serve.kv_pool import KVPool, OutOfBlocks
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.prequant import prequantize
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
+from repro_torch.serve.scheduler import FifoPolicy
 
 FREE, PREFILL, DECODE = "free", "prefill", "decode"
 
@@ -61,6 +66,11 @@ class Request:
     sampling: SamplingParams = field(default_factory=SamplingParams)
     req_id: int = -1          # assigned by submit()
     arrival_s: float = 0.0    # stamped by submit()
+    # latency-aware scheduling (LatencyPolicy; FifoPolicy ignores them)
+    priority: int = 0                # higher = more urgent
+    deadline_s: float | None = None  # seconds after arrival
+    queued_ticks: int = 0            # aging counter (engine-owned)
+    cached_hint: int = 0             # prefix-cache matched tokens (engine)
 
 
 @dataclass
@@ -71,6 +81,17 @@ class RequestResult:
     arrival_s: float = 0.0
     finish_s: float = 0.0
     ttft_s: float | None = None   # submit -> first sampled token
+    deadline_s: float | None = None
+
+    @property
+    def latency_s(self) -> float:
+        return self.finish_s - self.arrival_s
+
+    @property
+    def deadline_met(self) -> bool | None:
+        if self.deadline_s is None:
+            return None
+        return self.latency_s <= self.deadline_s
 
 
 @dataclass(frozen=True)
@@ -86,29 +107,35 @@ class EngineConfig:
     base_seed: int = 0            # seeds the sampling generator
     device: str = "cuda"
     kv_quant: bool = False        # NVFP4 PackedKV pool instead of bf16
+    # radix prefix cache: retired streams' blocks stay cached and a new
+    # request aliases its longest cached prefix (COW at the divergence),
+    # skipping that prefill. Inactive (engine.cache is None) where sharing
+    # is unsound: sliding-window pools.
+    prefix_cache: bool = False
+    # host-RAM tier under the cache (needs prefix_cache): eviction copies
+    # blocks to host memory, and a later match swaps them back in
+    prefix_spill: bool = False
+    host_budget_bytes: int | None = None  # LRU trim of the host tier
+    scheduler: Any = None         # serve/scheduler.py policy; None = FIFO
+    clock: Any = None             # () -> seconds; None = time.perf_counter
     # options of the reference engine that later slices port
     paged: bool = True
     spec_k: int = 0
     mesh: Any = None
-    prefix_cache: bool = False
-    prefix_spill: bool = False
     role: str = "both"
-    scheduler: Any = None
+    replicate_hits: int | None = None
 
 
 # (field, set?, what, the later slice of ROADMAP.md's Queue 1 that ports it)
 _LATER = (
     ("spec_k", lambda e: e.spec_k > 0, "speculative decoding", "engine features"),
-    ("prefix_cache", lambda e: e.prefix_cache, "the prefix cache", "engine features"),
-    ("prefix_spill", lambda e: e.prefix_spill, "the prefix cache's spill tier",
-     "engine features"),
-    ("scheduler", lambda e: e.scheduler is not None,
-     "the latency-aware scheduler policies", "engine features"),
     ("paged", lambda e: not e.paged, "dense per-slot caches", "dense caches"),
     ("mesh", lambda e: e.mesh is not None, "mesh-sharded serving",
      "distribution"),
     ("role", lambda e: e.role != "both", "disaggregated prefill/decode roles",
      "distribution"),
+    ("replicate_hits", lambda e: e.replicate_hits is not None,
+     "cross-shard replication of hot prefix blocks", "distribution"),
 )
 
 
@@ -121,12 +148,14 @@ class _Slot:
     last_tok: int = 0
     generated: list[int] = field(default_factory=list)
     first_token_s: float | None = None
+    cache_nodes: list = field(default_factory=list)  # pinned radix nodes
 
 
 def _stats_dict() -> dict:
     return {k: 0 for k in ("ticks", "admitted", "finished", "rejected",
                            "prefill_tokens", "prefill_steps",
-                           "decode_tokens", "decode_steps")} | {
+                           "decode_tokens", "decode_steps",
+                           "prefill_skipped_tokens", "prefix_hits")} | {
         "prefill_s": 0.0, "decode_s": 0.0}
 
 
@@ -139,6 +168,10 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"EngineConfig.{name}: {what} is not ported yet; it comes "
                     f"with the '{later}' slice (ROADMAP.md, Queue 1)")
+        if e.prefix_spill and not e.prefix_cache:
+            raise ValueError("prefix_spill=True requires prefix_cache=True "
+                             "(the host tier is a property of the cache)")
+        self.clock = e.clock if e.clock is not None else time.perf_counter
         self.device = torch.device(e.device)
         params = _to_device(params, self.device)
         self.params = prequantize(params, cfg, e.scheme) if e.prequant else params
@@ -153,6 +186,13 @@ class ServeEngine:
         self._step = serve_decode.make_paged_serve_step(cfg, e.scheme)
         self._gen = torch.Generator(device=self.device).manual_seed(e.base_seed)
         self.stats = _stats_dict()
+        self.cache = None
+        self._matches: dict[int, tuple[int, Any]] = {}  # req_id -> (epoch, Match)
+        if e.prefix_cache and PrefixCache.supported(self.pool):
+            self.cache = PrefixCache(
+                self.pool, spill=e.prefix_spill,
+                host_budget_bytes=e.host_budget_bytes, clock=self.clock)
+        self.sched = e.scheduler if e.scheduler is not None else FifoPolicy()
 
     # ------------------------------------------------------------------
     # public API
@@ -175,7 +215,7 @@ class ServeEngine:
             self.stats["rejected"] += 1
             raise QueueFull(f"queue at capacity ({self.econf.max_queue})")
         request.req_id = next(self._ids)
-        request.arrival_s = time.perf_counter()
+        request.arrival_s = self.clock()
         self.queue.append(request)
         return request.req_id
 
@@ -198,27 +238,142 @@ class ServeEngine:
         self.stats["ticks"] += 1
         self._admit()
         self._prefill_tick()
-        return self._decode_tick()
+        finished = self._decode_tick()
+        if self.cache is not None and self.cache.spill:
+            # this tick's swap-ins become plain cached blocks: the stream
+            # orders their writes before any later read, nothing waits
+            self.cache.complete_swaps()
+        return finished
 
     def _admit(self) -> None:
-        while self.queue:
-            i = next((j for j, s in enumerate(self.slots) if s.state == FREE),
-                     None)
-            req = self.queue[0]
-            total = len(req.prompt) + req.max_new
-            if i is None or not self.pool.can_admit(total, self._max_growth):
-                return  # FIFO: the head request is never overtaken
-            self.queue.popleft()
-            self.pool.commit(i, total, self._max_growth)
-            self.slots[i] = _Slot(state=PREFILL, req=req)
-            self.stats["admitted"] += 1
+        for r in self.queue:
+            r.queued_ticks += 1  # scheduler aging (LatencyPolicy)
+        if not self.queue:
+            return
+        now = self.clock()
+        if self.cache is not None and not self.sched.head_of_line:
+            # cache-aware ordering: a large cached prefix is cheap to admit
+            for r in self.queue:
+                r.cached_hint = self.cache.hint_tokens(self._match(r))
+        while self.queue and any(s.state == FREE for s in self.slots):
+            admitted = False
+            for req in self.sched.admission_order(self.queue, now):
+                if self._try_admit(req):
+                    self.queue.remove(req)
+                    admitted = True
+                    break
+                if self.sched.head_of_line:
+                    return  # FIFO: the head request is never overtaken
+            if not admitted:
+                return
+
+    def _match(self, req: Request):
+        """Cache match of a queued request, memoized until the tree's epoch
+        moves (prompts are immutable)."""
+        hit = self._matches.get(req.req_id)
+        if hit is None or hit[0] != self.cache.epoch:
+            hit = (self.cache.epoch, self.cache.match(req.prompt))
+            self._matches[req.req_id] = hit
+        return hit[1]
+
+    def _try_admit(self, req: Request) -> bool:
+        """Place `req` in a FREE slot, aliasing its cached prefix; False
+        when the pool cannot back it now."""
+        total = len(req.prompt) + req.max_new
+        plan = pinned = None
+        if self.cache is not None:
+            m = self._match(req)
+            # the last prompt token is always computed (its logits give the
+            # first generated token), so the usable match stops below it
+            mtoks, adopt, tail = m.plan(len(req.prompt) - 1,
+                                        self.pool.block_size)
+            if mtoks > 0:
+                plan = (mtoks, adopt, tail)
+                # pin BEFORE any eviction below can see these nodes unpinned
+                pinned = adopt + ([tail] if tail is not None else [])
+                self.cache.acquire(pinned)
+        i = self._place(total, plan)
+        if i is None and plan is not None:
+            # the pinned plan cannot be backed: try cold, where eviction
+            # may also take the plan's (now unpinned) nodes
+            self.cache.release(pinned)
+            plan = pinned = None
+            i = self._place(total, None)
+        if i is None:
+            if pinned:
+                self.cache.release(pinned)
+            return False
+        if plan is not None and self.cache.spill:
+            # swap spilled blocks of the plan back in (dispatched copies).
+            # Only the allocator's shortage is caught: it is raised before
+            # any copy of the block is dispatched, and the request is then
+            # admitted cold; a failing device copy propagates.
+            try:
+                self.cache.materialize(pinned, 0)
+            except OutOfBlocks:
+                self.cache.release(pinned)
+                plan = pinned = None
+        self.pool.commit(i, total, self._max_growth)
+        prefix_len = 0
+        nodes: list = []
+        if plan is not None:
+            mtoks, adopt, tail = plan
+            if adopt:
+                self.pool.adopt_prefix(i, [n.blocks[0] for n in adopt],
+                                       len(adopt) * self.pool.block_size)
+            if tail is not None:
+                self.pool.cow_block(i, tail.blocks[0])
+                self.cache.release([tail])  # private copy made; unpin
+            self.pool.ensure(i, mtoks)
+            prefix_len = mtoks
+            nodes = adopt
+            self.stats["prefill_skipped_tokens"] += mtoks
+            self.stats["prefix_hits"] += 1
+        self.slots[i] = _Slot(state=PREFILL, req=req, cursor=prefix_len,
+                              cache_nodes=nodes)
+        self.stats["admitted"] += 1
+        if self.cache is not None:
+            # book once per ADMITTED request; only an adopted match is a hit
+            self.cache.record(m if plan is not None else None)
+            self._matches.pop(req.req_id, None)
+        return True
+
+    def _place(self, total: int, plan) -> int | None:
+        """The first FREE slot, if the pool can back `total` positions there
+        (evicting unpinned cached prefixes when short). One shard: a plan's
+        device-resident blocks are adopted, not allocated."""
+        i = next((j for j, s in enumerate(self.slots) if s.state == FREE),
+                 None)
+        if i is None:
+            return None
+        cached = 0
+        if plan is not None:
+            cached = sum(1 for node in plan[1] if 0 in node.blocks)
+        return i if self._admissible(i, total, cached) else None
+
+    def _admissible(self, slot: int, total: int, cached: int) -> bool:
+        if self.pool.can_admit(total, self._max_growth, slot=slot,
+                               cached_blocks=cached):
+            return True
+        if self.cache is not None:
+            short = self.pool.admission_shortfall(
+                total, self._max_growth, slot=slot, cached_blocks=cached)
+            if short and self.cache.evict(0, short) >= short:
+                return self.pool.can_admit(total, self._max_growth,
+                                           slot=slot, cached_blocks=cached)
+        return False
 
     def _prefill_tick(self) -> None:
         e = self.econf
-        i = next((j for j, s in enumerate(self.slots) if s.state == PREFILL),
-                 None)
-        if i is None:
+        cands = [(i, s) for i, s in enumerate(self.slots)
+                 if s.state == PREFILL]
+        if not cands:
             return
+        # the policy's preemption point; slots not picked keep aging
+        i = self.sched.pick_prefill(cands, self.clock())
+        for j, s in cands:
+            if j != i:
+                s.req.queued_ticks += 1
         slot = self.slots[i]
         prompt = slot.req.prompt
         remaining = len(prompt) - slot.cursor
@@ -230,12 +385,12 @@ class ServeEngine:
         pos[i] = slot.cursor
         active = np.zeros((e.n_slots,), bool)
         active[i] = True
-        t0 = time.perf_counter()
+        t0 = self.clock()
         logits = self._forward(tokens, pos, active)
         done = slot.cursor + size == len(prompt)
         tok = int(self._sample(logits[:, -1])[i]) if done else None
         self._sync()
-        now = time.perf_counter()
+        now = self.clock()
         self.stats["prefill_s"] += now - t0
         self.stats["prefill_tokens"] += size
         self.stats["prefill_steps"] += 1
@@ -250,11 +405,22 @@ class ServeEngine:
             slot.first_token_s = now
 
     def _retire_slot(self, i: int) -> RequestResult:
+        """Complete slot `i`: cache the stream's blocks while the slot still
+        references them, then release its pins and pool state."""
         slot = self.slots[i]
         res = RequestResult(
             slot.req.req_id, list(slot.req.prompt), list(slot.generated),
-            arrival_s=slot.req.arrival_s, finish_s=time.perf_counter(),
-            ttft_s=slot.first_token_s - slot.req.arrival_s)
+            arrival_s=slot.req.arrival_s, finish_s=self.clock(),
+            ttft_s=slot.first_token_s - slot.req.arrival_s,
+            deadline_s=slot.req.deadline_s)
+        if self.cache is not None:
+            # only the tokens whose K/V the pool holds: the last generated
+            # token was sampled but never fed (the reference inserts it too,
+            # leaving an unwritten position in a cached full block)
+            stream = slot.req.prompt + slot.generated
+            self.cache.insert(stream[:self.pool.length(i)], i)
+            if slot.cache_nodes:
+                self.cache.release(slot.cache_nodes)
         self.pool.release(i)
         self.slots[i] = _Slot()
         self.stats["finished"] += 1
@@ -280,10 +446,10 @@ class ServeEngine:
             tokens[i, 0] = slot.last_tok
             pos[i] = slot.length
             active[i] = True
-        t0 = time.perf_counter()
+        t0 = self.clock()
         logits = self._forward(tokens, pos, active)
         toks = self._sample(logits[:, -1])
-        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_s"] += self.clock() - t0
         self.stats["decode_tokens"] += len(dec)
         self.stats["decode_steps"] += 1
         for i in dec:
@@ -299,6 +465,8 @@ class ServeEngine:
 
     def _forward(self, tokens, pos, active) -> torch.Tensor:
         dev = self.device
+        # stacked read/write tables: scatters go through the write view,
+        # whose adopted entries hold the sentinel (kv_pool.tables_device)
         logits, _ = self._step(
             self.params, self.pool.caches, self.pool.tables_device(),
             torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),

@@ -28,13 +28,26 @@ zeros; PyTorch indexing raises instead, so this port masks explicitly:
 
 Pool leaves are updated IN PLACE (the reference rebinds donated buffers).
 
-Left for later slices: dense per-slot caches, shards, refcounted prefix
-sharing / COW, and the host spill tier.
+Blocks are REFCOUNTED for the prefix cache (`serve/prefix_cache.py`): a
+physical block may back the same logical prefix of several slots and the
+cache at once. `adopt_prefix` aliases cached blocks read-only into a fresh
+slot, `cow_block` gives a slot a private copy of a cached block, and
+`_decref` is the only way back to the free list. `tables_device` stacks a
+READ table and a WRITE table whose adopted entries hold the sentinel, so a
+scatter through a shared block lands in the scratch block: the masking is
+in the data. The host tier snapshots a block's bytes into host memory
+(`read_block_host`, pinned buffers reused through a free list on a card)
+and writes them back with a non-blocking copy on the current stream
+(`write_block_host`), which orders every later step after it.
+
+Left for later slices: dense per-slot caches and mesh shards (one shard
+here: `shard_of_slot` is 0).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -185,6 +198,50 @@ def init_cache(cfg: ArchConfig, *, n_blocks: int, block_size: int,
     return stages
 
 
+def token_leaves(caches):
+    """Every token-pool tensor of a cache tree, in a fixed order (stage,
+    layer, kind, leaf; a PackedKV gives its codes, then its scales)."""
+    out = []
+    for stage in caches:
+        for kinds in stage.values():
+            for pair in kinds.values():
+                for leaf in pair:
+                    out.extend(leaf if isinstance(leaf, PackedKV) else (leaf,))
+    return out
+
+
+def _like_tree(caches, leaves):
+    """`leaves` (in `token_leaves` order) laid out in `caches`' structure."""
+    it = iter(leaves)
+    out = []
+    for stage in caches:
+        one = {}
+        for lk, kinds in stage.items():
+            one[lk] = {kind: tuple(
+                PackedKV(next(it), next(it)) if isinstance(leaf, PackedKV)
+                else next(it) for leaf in pair) for kind, pair in kinds.items()}
+        out.append(one)
+    return out
+
+
+@dataclass
+class HostBlock:
+    """One pool block's bytes in host memory: a host-tier snapshot.
+
+    `stages` mirrors the token kinds of `KVPool.caches` (a list of stages of
+    {"l<i>": {kind: (leaf, leaf)}}), each leaf of shape (count, BS, ...) in
+    the pool leaf's dtype; a PackedKV stays a PackedKV of uint8 codes and
+    scale bits, never dequantized. Every leaf is a view of `buf`, one flat
+    uint8 buffer, pinned when the pool lies on a card. `done` is the CUDA
+    event recorded on the stream after the last copy out of `buf` was
+    dispatched (None on the CPU, where copies are synchronous); the pool
+    reuses `buf` only once that event has completed."""
+
+    stages: list
+    buf: torch.Tensor
+    done: object = None
+
+
 # --------------------------------------------------------------------------
 # host-side allocator
 # --------------------------------------------------------------------------
@@ -202,10 +259,18 @@ class KVPool:
 
     Slot lifecycle: `commit(slot, total)` (bind + reserve growth) ->
     `ensure(slot, n)` before each forward so every position < n has a
-    backing block -> `release(slot)` (unbind; blocks return to the free
-    list). Misuse raises SlotError. Token blocks are never zeroed: stale
-    values sit behind the position mask. Blocks are owned by one slot at a
-    time (no prefix sharing in this slice).
+    backing block -> `release(slot)` (unbind; each block loses this slot's
+    reference). Misuse raises SlotError. Token blocks are
+    never zeroed: stale values sit behind the position mask.
+
+    Blocks are refcounted (`_ref`): one reference per slot table row that
+    holds the block plus at most one prefix-cache hold. A block is free iff
+    its count is 0, and `_decref` is the only path back to the free list,
+    so a shared block is never double-freed. `adopt_prefix` aliases cached
+    blocks read-only (masked out of the write table), `cow_block` copies a
+    cached block privately, `alloc_cache_block` takes a block owned by the
+    cache alone (a swap-in target), and `evict_hook` (set by the prefix
+    cache) frees cached blocks when the free list runs dry.
 
     Pure sliding-window stacks (`reclaim_window`) free blocks mid-sequence
     once they fall out of every future query's window (`ensure` reclaims
@@ -213,7 +278,8 @@ class KVPool:
 
     `quantized=True` stores every token leaf as an NVFP4 `PackedKV`; it
     requires `paged=True`, as the reference does. `paged=False` (dense
-    per-slot caches) is not ported yet.
+    per-slot caches) is not ported yet, and neither are mesh shards: the
+    pool has one shard.
     """
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
@@ -230,6 +296,7 @@ class KVPool:
             raise NotImplementedError(
                 "dense per-slot caches come with a later slice")
         self.cfg = cfg
+        self.paged = paged
         self.quantized = quantized
         self.n_slots = n_slots
         self.max_len = max_len
@@ -251,16 +318,42 @@ class KVPool:
         self._committed = [0] * n_slots  # reserved blocks per admitted seq
         self._bound = [False] * n_slots
         self._lengths = [0] * n_slots    # logical tokens backed per slot
-        self._table_dev = None
+        self._ref = np.zeros(self.n_blocks, np.int32)
+        # leading logical blocks of each slot that are aliased (read-only)
+        self._shared_upto = [0] * n_slots
+        # set by the prefix cache: callable(shard, need) -> blocks freed
+        self.evict_hook = None
+        self._tables_dev = None
         self.window = reclaim_window(cfg, self.specs)
         self._alloc_upto = [0] * n_slots   # logical blocks ever allocated
         self._live_from = [0] * n_slots    # first logical block still owned
+        # host tier: flat buffers of one block's bytes, reused; the bytes of
+        # free buffers kept are bounded by host_keep_bytes (None: unbounded)
+        leaves = token_leaves(self.caches)
+        self._host_shapes = [(t.dtype, (t.shape[0], *t.shape[2:]))
+                             for t in leaves]
+        self._host_offsets, off = [], 0
+        for t in leaves:
+            self._host_offsets.append(off)
+            off += -(-t[:, 0].numel() * t.element_size() // 16) * 16
+        self.host_block_bytes = off
+        self.host_keep_bytes: int | None = None
+        self.host_allocs = 0
+        self._host_free: list[torch.Tensor] = []
+        self._host_pending: list[HostBlock] = []
 
     # ---- block accounting ----
+
+    def shard_of_slot(self, slot: int) -> int:
+        return 0
 
     @property
     def free_block_count(self) -> int:
         return len(self._free)
+
+    def _outstanding(self) -> int:
+        return sum(self._committed[i] - len(self._owned[i])
+                   for i in range(self.n_slots))
 
     def blocks_for(self, n_tokens: int) -> int:
         return math.ceil(n_tokens / self.block_size)
@@ -280,17 +373,29 @@ class KVPool:
             return False
         return self.max_live_blocks(total_tokens, max_growth) <= self.n_blocks
 
-    def can_admit(self, total_tokens: int,
-                  max_growth: int | None = None) -> bool:
+    def can_admit(self, total_tokens: int, max_growth: int | None = None,
+                  slot: int | None = None, cached_blocks: int = 0) -> bool:
         """Can a sequence of total_tokens be fully served alongside every
         already-admitted one? Subtracts outstanding commitments (reserved,
-        not yet allocated) so growing sequences never exhaust the pool."""
+        not yet allocated) so growing sequences never exhaust the pool;
+        `cached_blocks` (prefix-cache blocks the candidate would adopt, not
+        allocate) reduce its demand."""
         if total_tokens > self.max_len:
             return False
-        outstanding = sum(self._committed[i] - len(self._owned[i])
-                          for i in range(self.n_slots))
-        need = self.max_live_blocks(total_tokens, max_growth)
-        return self.free_block_count - outstanding >= need
+        return self.admission_shortfall(total_tokens, max_growth, slot,
+                                        cached_blocks) == 0
+
+    def admission_shortfall(self, total_tokens: int,
+                            max_growth: int | None = None,
+                            slot: int | None = None,
+                            cached_blocks: int = 0) -> int:
+        """Free blocks missing for `can_admit` to pass (0 when it passes):
+        what the engine asks the prefix cache to evict before admitting."""
+        if total_tokens > self.max_len:
+            return 0
+        need = max(0, self.max_live_blocks(total_tokens, max_growth)
+                   - cached_blocks)
+        return max(0, need - (len(self._free) - self._outstanding()))
 
     def commit(self, slot: int, total_tokens: int,
                max_growth: int | None = None) -> None:
@@ -303,6 +408,16 @@ class KVPool:
         self._bound[slot] = True
         self._committed[slot] = self.max_live_blocks(total_tokens, max_growth)
 
+    def _pop_free(self, what: str) -> int:
+        """The lowest free block, evicting cached blocks when none is free
+        (the caller checks every other precondition first)."""
+        if not self._free and not (self.evict_hook is not None
+                                   and self.evict_hook(0, 1) > 0):
+            raise OutOfBlocks(what)
+        blk = self._free.pop()
+        self._ref[blk] = 1
+        return blk
+
     def ensure(self, slot: int, n_tokens: int) -> None:
         """Allocate blocks so positions [0, n_tokens) of `slot` are backed."""
         if not self._bound[slot]:
@@ -314,13 +429,11 @@ class KVPool:
         if self.window is not None:
             self._reclaim(slot)
         while self._alloc_upto[slot] < need:
-            if not self._free:
-                raise OutOfBlocks(f"slot {slot}: pool exhausted")
-            blk = self._free.pop()
+            blk = self._pop_free(f"slot {slot}: pool exhausted")
             self._table[slot, self._alloc_upto[slot]] = blk
             self._owned[slot].append(blk)
             self._alloc_upto[slot] += 1
-            self._table_dev = None
+            self._dirty()
         self._lengths[slot] = max(self._lengths[slot], n_tokens)
 
     def _reclaim(self, slot: int) -> None:
@@ -338,34 +451,197 @@ class KVPool:
             blk = int(self._table[slot, j])
             self._table[slot, j] = self.sentinel
             self._owned[slot].remove(blk)
-            self._free.append(blk)
+            self._decref(blk)
         self._live_from[slot] = first_live
-        self._table_dev = None
+        self._dirty()
 
     def length(self, slot: int) -> int:
         return self._lengths[slot]
 
     def release(self, slot: int) -> None:
-        """Unbind `slot`; its blocks return to the free list."""
+        """Unbind `slot`, dropping its block references: blocks nobody else
+        holds return to the free list."""
         if not self._bound[slot]:
             raise SlotError(f"slot {slot}: release on an unbound slot "
                             "(double-free?)")
         self._bound[slot] = False
         self._committed[slot] = 0
         self._lengths[slot] = 0
-        # reversed so the first-allocated block pops first next time
-        self._free.extend(reversed(self._owned[slot]))
+        # reversed so an exclusive slot's first-allocated block pops first
+        for blk in reversed(self._owned[slot]):
+            self._decref(blk)
         self._owned[slot] = []
         if self._alloc_upto[slot]:
             self._table[slot, :] = self.sentinel
-            self._table_dev = None
+            self._dirty()
         self._alloc_upto[slot] = 0
         self._live_from[slot] = 0
+        self._shared_upto[slot] = 0
+
+    def _dirty(self) -> None:
+        self._tables_dev = None
 
     def tables_device(self) -> torch.Tensor:
-        """Device copy of the (n_slots, max_blocks) int32 block table, cached
-        until the host table changes. Without prefix sharing the read and
-        write views coincide, so one table serves both."""
-        if self._table_dev is None:
-            self._table_dev = torch.tensor(self._table, device=self.device)
-        return self._table_dev
+        """The (n_slots, 2, max_blocks) int32 device tables, cached until the
+        host table changes: [:, 0] the READ table, [:, 1] the WRITE table,
+        in which every adopted (shared) logical block holds the sentinel,
+        so a scatter through it lands in the scratch block. Stored as a
+        (2, n_slots, max_blocks) tensor and returned permuted, so each view
+        `[:, k]` is contiguous."""
+        if self._tables_dev is None:
+            wt = self._table.copy()
+            for s, k in enumerate(self._shared_upto):
+                wt[s, :k] = self.sentinel
+            self._tables_dev = torch.from_numpy(
+                np.stack([self._table, wt])).to(self.device).permute(1, 0, 2)
+        return self._tables_dev
+
+    # ---- prefix sharing (refcounted aliasing + copy-on-write) ----
+
+    def _decref(self, block: int) -> None:
+        """Drop one reference; the last reference frees the block."""
+        self._ref[block] -= 1
+        if self._ref[block] < 0:
+            raise SlotError(f"block {block}: decref below zero (double free)")
+        if self._ref[block] == 0:
+            self._free.append(block)
+
+    def incref(self, block: int) -> None:
+        """Add an external (prefix-cache) hold on an allocated block."""
+        if self._ref[block] <= 0:
+            raise SlotError(f"block {block}: incref on a free block")
+        self._ref[block] += 1
+
+    def refcount(self, block: int) -> int:
+        return int(self._ref[block])
+
+    def adopt_prefix(self, slot: int, blocks: list[int],
+                     n_tokens: int) -> None:
+        """Alias cached `blocks` READ-ONLY as `slot`'s logical prefix: each
+        is incref'd and masked out of the write table. Only on a freshly
+        committed slot, and not on sliding-window pools (a reclaimed prefix
+        is not fully resident)."""
+        if not self._bound[slot]:
+            raise SlotError(f"slot {slot}: adopt_prefix on an unbound slot")
+        if self._owned[slot]:
+            raise SlotError(f"slot {slot}: adopt_prefix after allocation")
+        if self.window is not None:
+            raise SlotError("adopt_prefix on a sliding-window pool: "
+                            "reclaimed prefixes are not fully resident")
+        if n_tokens > len(blocks) * self.block_size:
+            raise SlotError(f"slot {slot}: {n_tokens} tokens exceed "
+                            f"{len(blocks)} adopted blocks")
+        for j, blk in enumerate(blocks):
+            self.incref(blk)
+            self._table[slot, j] = blk
+            self._owned[slot].append(blk)
+        self._alloc_upto[slot] = len(blocks)
+        self._shared_upto[slot] = len(blocks)
+        self._lengths[slot] = max(self._lengths[slot], n_tokens)
+        self._dirty()
+
+    def cow_block(self, slot: int, src: int) -> int:
+        """Copy-on-write: append a PRIVATE copy of block `src` as `slot`'s
+        next logical block (the divergence or a partial tail lies inside a
+        cached block). Returns the new block id."""
+        if not self._bound[slot]:
+            raise SlotError(f"slot {slot}: cow_block on an unbound slot")
+        if self._ref[src] <= 0:
+            raise SlotError(f"block {src}: COW from a free block")
+        j = self._alloc_upto[slot]
+        if j >= self.max_blocks:
+            # checked BEFORE popping: a pop-then-raise would strand the
+            # popped block at refcount 1 with no owner
+            raise OutOfBlocks(f"slot {slot}: table full at COW")
+        dst = self._pop_free(f"slot {slot}: no free block for COW")
+        self._table[slot, j] = dst
+        self._owned[slot].append(dst)
+        self._alloc_upto[slot] = j + 1
+        self._copy_block_device(src, dst)
+        self._dirty()
+        return dst
+
+    def _copy_block_device(self, src: int, dst: int) -> None:
+        """Device copy of block `src` -> `dst` in every token leaf, one
+        indexed copy a leaf on the current stream; a PackedKV's codes and
+        scales both move before any later step can read the block."""
+        for leaf in token_leaves(self.caches):
+            leaf[:, dst] = leaf[:, src]
+
+    def alloc_cache_block(self, shard: int = 0) -> int:
+        """One block OWNED BY THE PREFIX CACHE (ref 1, no slot): a swap-in
+        target. Evicts like `ensure` under pressure; pin (acquire) the cache
+        path being materialized first."""
+        return self._pop_free(f"shard {shard}: no free block for the cache")
+
+    # ---- host spill tier ----
+    #
+    # The prefix cache's host tier keeps IMMUTABLE snapshots of block
+    # bytes: host -> device -> host is the identity, for bf16 and for the
+    # packed uint8 bytes of a PackedKV pool alike.
+
+    def _host_buffer(self) -> torch.Tensor:
+        self.poll_host()
+        if self._host_free:
+            return self._host_free.pop()
+        self.host_allocs += 1
+        return torch.empty(self.host_block_bytes, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+
+    def read_block_host(self, block: int):
+        """Snapshot block `block` of every token leaf into host memory.
+
+        Returns `(payload, nbytes)`: a `HostBlock` and its leaves' bytes.
+        Synchronous (the copies complete before it returns). On a card the
+        buffer is pinned, taken from the pool's free list when one is
+        there, so a spill allocates pinned memory (through PyTorch's
+        caching host allocator, which calls `cudaHostAlloc` when it holds
+        no freed block) only when the tier grows past its high-water mark."""
+        buf = self._host_buffer()
+        views = []
+        for leaf, off, (dtype, shape) in zip(token_leaves(self.caches),
+                                              self._host_offsets,
+                                              self._host_shapes):
+            n = math.prod(shape) * leaf.element_size()
+            v = buf[off:off + n].view(dtype).view(shape)
+            v.copy_(leaf[:, block])
+            views.append(v)
+        nbytes = sum(v.numel() * v.element_size() for v in views)
+        return HostBlock(_like_tree(self.caches, views), buf), nbytes
+
+    def write_block_host(self, block: int, payload: HostBlock) -> None:
+        """Write a `read_block_host` payload into block `block`.
+
+        Dispatch-only: on a card, non-blocking host-to-device copies from
+        the pinned buffer on the current stream, which orders every later
+        step after them; the event recorded behind them (`payload.done`)
+        keeps the buffer from reuse until they have run. A pageable source
+        would make the copy synchronous, so it is refused."""
+        if self.device.type == "cuda" and not payload.buf.is_pinned():
+            raise ValueError("write_block_host needs a pinned host buffer: "
+                             "a pageable source makes the copy synchronous")
+        for leaf, src in zip(token_leaves(self.caches),
+                             token_leaves(payload.stages)):
+            leaf[:, block].copy_(src, non_blocking=True)
+        if self.device.type == "cuda":
+            payload.done = torch.cuda.Event()
+            payload.done.record()
+
+    def release_host(self, payload: HostBlock) -> None:
+        """The prefix cache dropped `payload`: its buffer returns to the
+        free list once every copy out of it has run."""
+        self._host_pending.append(payload)
+        self.poll_host()
+
+    def poll_host(self) -> None:
+        """Recycle released buffers whose copies have completed (kept while
+        the free buffers' bytes stay within `host_keep_bytes`)."""
+        keep = []
+        for p in self._host_pending:
+            if p.done is not None and not p.done.query():
+                keep.append(p)
+            elif (self.host_keep_bytes is None
+                  or (len(self._host_free) + 1) * self.host_block_bytes
+                  <= self.host_keep_bytes):
+                self._host_free.append(p.buf)
+        self._host_pending = keep

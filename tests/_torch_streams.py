@@ -31,6 +31,13 @@ def run_jax(jcfg, jparams, prompts, max_new, **econf):
     """Reference streams {req_id: tokens} plus, per (req_id, token index),
     (the sampling call that produced the token, the reference's top-2
     logit margin there, its top logit)."""
+    res, margins, _ = run_jax_engine(jcfg, jparams, prompts, max_new, **econf)
+    return res, margins
+
+
+def run_jax_engine(jcfg, jparams, prompts, max_new, **econf):
+    """`run_jax`, also returning the reference engine (its stats and
+    cache after the run). Margins follow FIFO's prefill pick."""
     eng = jengine.ServeEngine(jcfg, jparams, jengine.EngineConfig(**econf))
     phase, calls, margins = [None], [0], {}
     for name in ("_prefill_tick", "_decode_tick"):
@@ -59,19 +66,20 @@ def run_jax(jcfg, jparams, prompts, max_new, **econf):
     for p in prompts:
         eng.submit(jengine.Request(p, max_new))
     res = {r.req_id: r.tokens for r in eng.run()}
-    return res, margins
+    return res, margins, eng
 
 
 def run_port(cfg, jparams, prompts, max_new, **econf):
     """The port's streams {req_id: tokens} on the CPU from the reference's
-    parameters; every pool block is free at the end. Returns the engine
-    too."""
+    parameters; every pool block is free at the end, or held by the prefix
+    cache alone. Returns the engine too."""
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     eng = ServeEngine(cfg, params, EngineConfig(device="cpu", **econf))
     for p in prompts:
         eng.submit(Request(p, max_new))
     res = {r.req_id: r.tokens for r in eng.run()}
-    assert eng.pool.free_block_count == eng.pool.n_blocks
+    held = eng.cache.cached_blocks() if eng.cache is not None else 0
+    assert eng.pool.free_block_count + held == eng.pool.n_blocks
     assert not eng.has_work() and eng.stats["finished"] == len(prompts)
     return res, eng
 

@@ -46,7 +46,18 @@ fixture, never at import. Tolerances are the kernel bars of the port:
   - the quantization-health probe on the card against the CPU, same
     weights and hashed draws: every metric within 1e-5 relative (its 4/6
     and MS-EDEN codes come from kernels bitwise their plain versions; only
-    the f32 means sum in another order), one #1, #3 and #4 launch a site.
+    the f32 means sum in another order), one #1, #3 and #4 launch a site;
+  - the prefix cache's block copies and host tier: bitwise (a COW'd block
+    in every leaf, PackedKV codes and scales alike; a host round trip; a
+    swap-in whose snapshot is dropped right after dispatch), and a scatter
+    through an adopted block's write-table sentinel lands in scratch only;
+  - prefix-cache streams under scheme bf16 (reduced llama, both pools):
+    hot and spill-hot streams of a block-aligned match bitwise the cold
+    one; a COW stream's matched K/V byte-identical to the cold run's, its
+    spill-hot repeat bitwise, and its tokens bitwise cold or equal up to
+    the first token whose cold top-2 logit margin is within 2 bf16 ulps of
+    the top logit, at least half compared (the rest of the prompt runs in
+    other step shapes than the cold run's).
 """
 
 import numpy as np
@@ -67,6 +78,7 @@ from repro_torch.models import lm
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.quant_probe import QuantProbe
 from repro_torch.serve import decode as serve_decode
+from repro_torch.serve import kv_pool as KV
 from repro_torch.serve.kv_pool import KVPool
 from repro_torch.serve.prequant import prequantize
 
@@ -807,3 +819,206 @@ def test_quant_probe_card_vs_cpu(dev):
     n = got["cuda_launches"]
     assert (n["nvfp4_fos_quant"], n["fp4_matmul"], n["ms_eden_phase1"],
             n["ms_eden_phase2"]) == (3, 0, 3, 3)
+
+
+# --------------------------------------------------------------------------
+# the prefix cache's block copies and host tier on the card
+# --------------------------------------------------------------------------
+
+def _random_pool(dev, quantized, n_slots=2, max_len=64, seed=11):
+    """A reduced llama pool on `dev` whose every token leaf holds random
+    bytes (a PackedKV's codes and scales alike)."""
+    cfg = registry.get("llama_200m").reduced()
+    pool = KVPool(cfg, n_slots, max_len, block_size=16, device=dev,
+                  quantized=quantized)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for leaf in KV.token_leaves(pool.caches):
+        if leaf.dtype == torch.uint8:
+            leaf.copy_(torch.randint(0, 256, leaf.shape, generator=g,
+                                     device=dev, dtype=torch.uint8))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=dev))
+    return pool
+
+
+def _block(pool, b):
+    return [leaf[:, b].cpu().clone() for leaf in KV.token_leaves(pool.caches)]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "nvfp4"])
+def test_cow_copies_every_leaf_of_a_block(dev, quantized):
+    """cow_block on the card: the new block equals its source in every
+    leaf (a PackedKV's codes AND scales), and no other block moves."""
+    pool = _random_pool(dev, quantized)
+    pool.commit(0, 40)
+    pool.ensure(0, 16)
+    src = int(pool._table[0, 0])
+    pool.incref(src)            # as the prefix cache holds it
+    pool.release(0)
+    before = {b: _block(pool, b) for b in range(pool.n_blocks + 1)}
+    pool.commit(1, 40)
+    dst = pool.cow_block(1, src)
+    torch.cuda.synchronize()
+    for b in range(pool.n_blocks + 1):
+        want = before[src] if b == dst else before[b]
+        assert all(torch.equal(x, y) for x, y in zip(_block(pool, b), want)), b
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "nvfp4"])
+def test_host_round_trip_is_byte_identical(dev, quantized):
+    """read_block_host -> write_block_host -> read_block_host on the card:
+    the same bytes, pinned buffers, a PackedKV payload stays uint8."""
+    pool = _random_pool(dev, quantized)
+    p1, n1 = pool.read_block_host(3)
+    assert p1.buf.is_pinned() and n1 <= pool.host_block_bytes
+    if quantized:
+        assert all(t.dtype == torch.uint8
+                   for t in KV.token_leaves(p1.stages))
+    pool.write_block_host(7, p1)
+    p2, n2 = pool.read_block_host(7)
+    assert n1 == n2 and torch.equal(p1.buf, p2.buf)
+    assert all(torch.equal(x, y) for x, y in zip(_block(pool, 7),
+                                                 _block(pool, 3)))
+    pool.release_host(p1)
+    pool.release_host(p2)
+    pool.poll_host()            # both copies have run (read is synchronous)
+    assert len(pool._host_free) == 2 and not pool._host_pending
+
+
+def test_swap_in_survives_its_snapshot_dropped_after_dispatch(dev):
+    """A swap-in whose snapshot the cache drops straight after dispatch:
+    the buffer stays referenced (pending, not reusable) until the event
+    behind its copy completes, and the block gets the snapshot's bytes."""
+    pool = _random_pool(dev, False)
+    payload, _ = pool.read_block_host(2)
+    want = _block(pool, 2)
+    torch.cuda._sleep(200_000_000)   # keep the stream busy: the copy waits
+    pool.write_block_host(6, payload)
+    pool.release_host(payload)       # as _trim_host does
+    assert payload in pool._host_pending and not pool._host_free
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(_block(pool, 6), want))
+    pool.poll_host()
+    assert not pool._host_pending and len(pool._host_free) == 1
+
+
+def test_write_table_sentinels_send_scatters_to_scratch(dev):
+    """A scatter through the write table of a slot that adopted a shared
+    block lands in the scratch block: the shared block and block 0 keep
+    their bytes."""
+    pool = _random_pool(dev, False)
+    pool.commit(0, 32)
+    pool.ensure(0, 32)
+    shared = [int(b) for b in pool._table[0, :2]]
+    for b in shared:
+        pool.incref(b)
+    pool.release(0)
+    pool.commit(1, 48)
+    pool.adopt_prefix(1, shared, 32)
+    pool.ensure(1, 40)
+    before = {b: _block(pool, b) for b in (0, *shared)}
+    scratch = _block(pool, pool.n_blocks)
+    rt, wt = KV.split_tables(pool.tables_device())
+    assert int(wt[1, 0]) == int(wt[1, 1]) == pool.sentinel
+    k = pool.caches[0]["l0"]["kv"][0][0]        # layer 0's K leaf
+    pos = torch.arange(0, 40, dtype=torch.int32, device=dev)[None].expand(2, 40)
+    vals = torch.full((2, 40, *k.shape[2:]), 7.0, dtype=torch.bfloat16,
+                      device=dev)
+    valid = torch.tensor([[False] * 40, [True] * 40], device=dev)
+    KV.scatter_tokens(k, wt, pos.contiguous(), vals, valid)
+    torch.cuda.synchronize()
+    for b in (0, *shared):
+        assert all(torch.equal(x, y) for x, y in zip(_block(pool, b), before[b]))
+    own = int(pool._table[1, 2])
+    assert (k[own, :8] == 7.0).all()              # positions 32..39
+    assert not torch.equal(_block(pool, pool.n_blocks)[0], scratch[0])
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(abs(v), 2.0 ** -126))) - 7)
+
+
+def _recorders(eng):
+    """Per (request, token index) the sampled row's f32 logits, and per
+    request its slot's K/V leaves (positions on axis 1) at retirement."""
+    rows, kv = {}, {}
+    sample, retire = eng._sample, eng._retire_slot
+
+    def rec_sample(last_logits):
+        lf = last_logits.float().cpu()
+        for i, s in enumerate(eng.slots):
+            if s.req is not None:
+                rows[(s.req.req_id, len(s.generated))] = lf[i]
+        return sample(last_logits)
+
+    def rec_retire(i):
+        pool, n = eng.pool, eng.pool.length(i)
+        blocks = torch.as_tensor(pool._table[i, :pool.blocks_for(n)],
+                                 dtype=torch.long, device=eng.device)
+        kv[eng.slots[i].req.req_id] = [
+            leaf[:, blocks].flatten(1, 2)[:, :n].clone()
+            for leaf in KV.token_leaves(pool.caches)]
+        return retire(i)
+
+    eng._sample, eng._retire_slot = rec_sample, rec_retire
+    return rows, kv
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_pool", "nvfp4_pool"])
+def test_prefix_streams_on_card_against_cold(dev, kv_quant):
+    """scheme bf16, reduced llama on the card, the cache built with the
+    host tier and LatencyPolicy: a block-aligned hot stream and a spill-hot
+    one are bitwise cold. A COW stream (the match ends inside a block, so
+    the rest of the prompt runs in other step shapes than the cold run's:
+    cuBLAS may pick another algorithm) holds the matched positions' K/V
+    byte-identical to the cold run's, and a spill-hot COW stream (the same
+    step shapes) bitwise the device-hot one, K/V included; its tokens are
+    bitwise cold, or else equal up to the first token whose cold top-2
+    logit margin is within 2 bf16 ulps of the top logit, at least half of
+    them compared (tests/_torch_streams.py's rule)."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.scheduler import LatencyPolicy
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(8)
+    system = rng.randint(0, cfg.vocab, 64).tolist()
+    a, b, c = (rng.randint(0, cfg.vocab, 16).tolist() for _ in range(3))
+    warm, probe, fork = system + a, system + b, system + a[:8] + c[:8]
+    matched, new = 72, 12
+
+    def engine(**kw):
+        return ServeEngine(cfg, params, EngineConfig(
+            n_slots=2, max_len=128, block_size=16, prefill_chunk=16,
+            scheme="bf16", kv_quant=kv_quant, device="cuda", **kw))
+
+    def one(eng, p):
+        eng.submit(Request(list(p), new))
+        return eng.run()[0].tokens
+
+    cold_eng = engine()
+    cold_rows, cold_kv = _recorders(cold_eng)
+    cold_probe, cold_fork = one(cold_eng, probe), one(cold_eng, fork)
+    eng = engine(prefix_cache=True, prefix_spill=True,
+                 scheduler=LatencyPolicy())
+    _, hot_kv = _recorders(eng)
+    one(eng, warm)
+    assert one(eng, probe) == cold_probe
+    hot_fork = one(eng, fork)
+    assert eng.stats["prefill_skipped_tokens"] == 64 + 72
+    assert eng.cache.evict(None, 999) > 0 and eng.cache.cached_blocks() == 0
+    assert one(eng, probe) == cold_probe             # spill-hot
+    assert eng.cache.stats["swapped_in_blocks"] >= 4
+    assert one(eng, fork) == hot_fork                # spill-hot COW
+    for h, k in zip(hot_kv[2], cold_kv[1]):          # the fork in each
+        assert torch.equal(h[:, :matched], k[:, :matched])
+    assert all(torch.equal(h, k) for h, k in zip(hot_kv[2], hot_kv[4]))
+    if hot_fork == cold_fork:
+        return
+    checked = 0
+    for j in range(new):
+        top2 = cold_rows[(1, j)].topk(2).values
+        if float(top2[0] - top2[1]) <= 2 * _bf16_ulp(float(top2[0])):
+            break
+        assert hot_fork[j] == cold_fork[j], j
+        checked += 1
+    assert checked >= new // 2, checked

@@ -10,7 +10,7 @@ prompts, one prompt crossing a prefill-chunk boundary) with the same weights
     random-init model's logits are nearly flat, so the narrow margin comes
     early: the claim covers the first sampled token here.
 Also: every pool block is free at the end, each option of the reference
-engine that this slice does not port raises NotImplementedError, and
+engine that the port does not have yet raises NotImplementedError, and
 `kv_quant=True` builds the NVFP4 pool.
 """
 
@@ -82,9 +82,8 @@ def test_quartet2_streams_equal_jax_up_to_a_narrow_margin():
 
 
 @pytest.mark.parametrize("option", [
-    dict(spec_k=2), dict(prefix_cache=True),
-    dict(prefix_spill=True), dict(mesh=object()), dict(role="prefill"),
-    dict(paged=False), dict(scheduler=object())])
+    dict(spec_k=2), dict(mesh=object()), dict(role="prefill"),
+    dict(paged=False), dict(replicate_hits=2)])
 def test_unported_options_raise(option):
     cfg = registry.get("llama_200m").reduced()
     with pytest.raises(NotImplementedError):

@@ -12,7 +12,7 @@ its own build/): one deepseek-v3 decode step's calls of #7 and #8
 (`chip_smoke.mla_step_group`: 2 layers, 4 rows, H 128, lora 512, rope 64,
 BS 16) at phase 3's lengths (40, 57, 72, 25 tokens), at 4 rows x 4,096
 tokens, and as 16-token prefill chunks (Sq 16 over rows of 16, 64, 100, 33
-tokens, phase 3's chunk case): CUDA-event time, the device time of every kernel the calls launch
+tokens, phase 3's chunk case; there also the plain version's time): CUDA-event time, the device time of every kernel the calls launch
 (torch.profiler, so the checkout's kernel names do not matter), kernels a
 call and their names, the bound, and SDPA over the gathered view as the
 yardstick. With --waves, #7 of the second tree (CHANGE in the order above) is
@@ -66,14 +66,18 @@ for label, lens, maxb, reps, sq in (("phase3", [40, 57, 72, 25], 16, 20, 1),
                                     ("chunk16", [16, 64, 100, 33], 16, 20, 16)):
     for packed, name, wave in runs:
         PA.MLA_TC_WAVE = wave or default_wave
+        # the plain version once, for the chunks only (at 4,096 tokens it
+        # takes seconds a call)
         r = cs.mla_step_group(torch, F, PA, ops, KV, packed, lens, maxb, reps,
-                              seed=500, plain_reps=0, sq=sq)
+                              seed=500, plain_reps=int(label == "chunk16"),
+                              sq=sq)
         dev, kernels = cs.call_device_ms(torch, r["fn"])
         t_bytes = r["bytes"] / cs.HBM_BYTES_S * 1e3
         t_ops = r["ops"] / r["peak"] * 1e3
         out[f"{name} {label}"] = {
             "calls": r["calls"], "ms": r["ms"], "profiler_ms": dev,
             "kernels_per_call": kernels / r["calls"], "kernels": kernel_names(r["fn"]),
+            "plain_ms": r["plain_ms"],
             "library_ms": r["library_ms"],
             "library_profiler_ms": r["library_profiler_ms"],
             "bound_ms": max(t_bytes, t_ops),
@@ -117,7 +121,8 @@ def main() -> None:
             print(f"{tree}: {name}: {v['calls']} calls, {v['kernels_per_call']:.2f} "
                   f"kernels a call ({', '.join(v['kernels'])}): events {v['ms']:.4f} ms, "
                   f"device {v['profiler_ms']} "
-                  f"ms, SDPA {v['library_ms']:.4f} ms (device {v['library_profiler_ms']}), "
+                  f"ms, plain {v.get('plain_ms')} ms, "
+                  f"SDPA {v['library_ms']:.4f} ms (device {v['library_profiler_ms']}), "
                   f"bound {v['bound_ms']:.5f} ms ({v['bound_by']})", flush=True)
     Path(a.out).parent.mkdir(parents=True, exist_ok=True)
     Path(a.out).write_text(json.dumps(out, indent=1))

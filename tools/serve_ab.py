@@ -30,8 +30,11 @@ sys.path[:0] = [".", "src"]
 import torch
 import chip_smoke as cs
 out = {}
+# chip_smoke draws the llama weights once and passes them in (since phase 8);
+# an older checkout draws them inside phase_serving
+args = (cs.llama_weights(torch),) if hasattr(cs, "llama_weights") else ()
 for name, kvq in (("bf16", False), ("nvfp4", True)):
-    r = cs.phase_serving(torch, "", kv_quant=kvq)
+    r = cs.phase_serving(torch, "", *args, kv_quant=kvq)
     prof = r.get("profile") or {}
     out[name] = {"decode_tok_s": r["decode_tok_s"], "decode_step_ms": r["decode_step_ms"],
                  "ttft_s_median": r["ttft_s_median"],
