@@ -145,7 +145,28 @@ Phases (any failure exits non-zero, before the result line):
                48-token prefix, the first alone: 2 x 48 tokens skipped, the
                MLA kernel launched over adopted blocks, finite logits, the
                pool conserved.
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8. Then, on their own lines:
+  9. self-speculative decoding, cancel and the token hook (phase 4's and
+               phase 6's weights, bf16 pools): the kernels at a verify
+               chunk's shapes against their plain versions and timed (#2 at
+               M = 16 and 20, #5 and #7 at Sq 4 from mid-sequence positions);
+     9a. llama-200m quartet2, phase 4's traffic, spec_k 3 over 2 draft
+               layers: acceptance, tokens a slot a round, decode tok/s
+               against phase 4's, a second run bitwise, the streams'
+               agreement with phase 4's (reported); a full-batch round's
+               host ms, device ms of the draft, catch-up and verify (the
+               kernels inside each range's card-side span), launches by
+               kernel and regime, host syncs by source (sync debug mode).
+     9b. scheme bf16: the verify chunk's logits within VERIFY_STEP_ULPS of
+               single-token steps over the same tokens (held); phase 4's
+               streams spec against non-spec by the tie rule (reported).
+     9c. spec_k 4: the verify's device ms with #2 at M = 20 (wgmma).
+     9d. deepseek-v3 (2 layers), spec_k 3 over 1 draft layer: as 9a.
+     9e. 8a's shared-prompt traffic hot: the draft's catch-up over the
+               skipped tokens (3,072 in 192 forwards) and every count equal
+               to a reduced CPU run's.
+     9f. cancel of an in-flight and a queued request, both pools freed,
+               the resubmission a cache hit, the hook's tokens each result's.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9. Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
 
@@ -1415,7 +1436,8 @@ def phase_serving(torch, card, params, kv_quant=False):
              f"times, pool bytes {ratio} of bf16 (want 0 and 0.28125)")
     out = {"prompt_lens": lens, "pool_bytes_over_bf16": ratio,
            **serving_numbers(results, eng.stats, setup_s, wall, peak, launches),
-           "launches_per_decode_step": None}
+           "launches_per_decode_step": None,
+           "streams": {r.req_id: r.tokens for r in results}}
     # launches of one decode step at full batch, counted on one tick
     fill_decode(eng, Request, prompts, 12)
     ops.reset_launches()
@@ -1494,6 +1516,7 @@ def phase_deepseek(torch, card):
                  f"{launches}")
         r = serving_numbers(results, eng.stats, setup_s, wall, peak, launches)
         r["pool_bytes_over_bf16"] = pool_byte_ratio(eng.pool)
+        r["streams"] = {res.req_id: res.tokens for res in results}
         fill_decode(eng, Request, prompts, 12)
         ops.reset_launches()
         eng.step()
@@ -2719,6 +2742,621 @@ def phase_prefix(torch, card, llama_params, deepseek_cfg, deepseek_params):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 9: self-speculative decoding, cancel and the token hook
+# --------------------------------------------------------------------------
+
+SPEC_K, SPEC_DRAFT = 3, 2     # 9a/9b/9e/9f: llama-200m's first 2 of 10 layers
+SPEC_K_WIDE = 4               # 9c: the verify's GEMMs at M = 4 x 5 = 20 (wgmma)
+SPEC_DS_DRAFT = 1             # 9d: deepseek-v3's first of 2 layers
+SPEC_ROUNDS = 8               # rounds in each measured window
+SPEC_PARTS = ("spec_draft", "spec_catchup", "spec_verify")
+
+
+def label_spec_parts(eng):
+    """Wrap the round's device parts in profiler ranges: the K-step draft,
+    the draft's catch-up forwards, and the engine's forward (in a window of
+    decode ticks only the verify chunk calls it)."""
+    from torch.profiler import record_function
+
+    def wrap(obj, attr, label):
+        fn = getattr(obj, attr)
+
+        def run(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        setattr(obj, attr, run)
+    wrap(eng.draft, "propose", "spec_draft")
+    wrap(eng.draft, "forward", "spec_catchup")
+    wrap(eng, "_forward", "spec_verify")
+
+
+def spec_engine(cfg, params, dev, **kw):
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    return ServeEngine(cfg, params, EngineConfig(**{**dict(
+        n_slots=4, max_len=256, block_size=16, prefill_chunk=16,
+        scheme="quartet2", prequant=True, spec_k=SPEC_K,
+        draft_layers=SPEC_DRAFT, device=dev), **kw}))
+
+
+def spec_run(torch, cfg, params, prompts, max_new, dev="cuda", **kw):
+    """One run of `prompts` through a fresh engine: (engine, {id: tokens},
+    wall s); every block of both pools free at the end."""
+    from repro_torch.serve.engine import Request
+    eng = spec_engine(cfg, params, dev, **kw)
+    for p in prompts:
+        eng.submit(Request(list(p), max_new))
+    t0 = time.perf_counter()
+    res = {r.req_id: r.tokens for r in eng.run()}
+    cuda_sync(torch, dev)
+    wall = time.perf_counter() - t0
+    if sorted(res) != list(range(len(prompts))) or any(
+            len(t) != max_new or not all(0 <= x < cfg.vocab for x in t)
+            for t in res.values()):
+        fail("9: a request was not served whole")
+    pools = [eng.pool] + ([eng.draft.pool] if eng.draft is not None else [])
+    if any(p.free_block_count != p.n_blocks for p in pools):
+        fail("9: pool blocks leaked (main or draft pool)")
+    return eng, res, wall
+
+
+def spec_numbers(st, wall):
+    """Acceptance (accepted / usable drafts) and tokens a slot emits a
+    round (each slot-round emits its accepted drafts plus one)."""
+    slot_rounds = st["decode_tokens"] - st["accepted_tokens"]
+    return {"acceptance": st["accepted_tokens"] / max(st["draft_tokens"], 1),
+            "tokens_per_slot_round": st["decode_tokens"] / max(slot_rounds, 1),
+            "rounds": st["spec_rounds"], "draft_tokens": st["draft_tokens"],
+            "accepted_tokens": st["accepted_tokens"],
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "round_ms_host": st["decode_s"] / max(st["spec_rounds"], 1) * 1e3,
+            "wall_s": wall}
+
+
+def agreement(a, b):
+    """Tokens equal before each row's first difference, over all tokens,
+    and the first differing index of each row (None: equal)."""
+    same, total, first = 0, 0, {}
+    for rid in sorted(a):
+        d = next((j for j, (x, y) in enumerate(zip(a[rid], b[rid])) if x != y),
+                 None)
+        first[rid] = d
+        same += len(a[rid]) if d is None else d
+        total += len(a[rid])
+    return same / total, first
+
+
+def spec_round_profile(torch, eng, prompts, k, rounds=SPEC_ROUNDS):
+    """Rounds at a full batch (4 slots decoding, nothing queued): host ms a
+    round (unprofiled); launches a round by kernel and by the regimes of #2
+    and #1; host syncs a round by the Python line that caused them (CUDA
+    sync debug mode); and from the profiler the device ms a round inside
+    each part's range (draft, catch-up, verify), all device ms a round and
+    the busy share. The requests are cancelled at the end."""
+    import warnings
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import nvfp4_quant as NQ
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request
+    ids = [eng.submit(Request(p[:16], 3 * rounds * (k + 1) + 4))
+           for p in prompts[:4]]
+    while any(s.state != "decode" for s in eng.slots):
+        eng.step()
+
+    def window():
+        r0 = eng.stats["spec_rounds"]
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+        return eng.stats["spec_rounds"] - r0
+
+    t0 = time.perf_counter()
+    n = window()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    ops.reset_launches()
+    FM.REGIME_LAUNCHES.update(gemv=0, mma=0)
+    NQ.REGIME_LAUNCHES.update(cluster=0, two_pass=0)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            n = window()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = {key: v / n for key, v in ops.LAUNCHES.items() if v}
+    regimes = {**{f"fp4_matmul.{r}": v / n for r, v in FM.REGIME_LAUNCHES.items()},
+               **{f"nvfp4_fos_quant.{r}": v / n
+                  for r, v in NQ.REGIME_LAUNCHES.items()}}
+    syncs = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            syncs[key] = syncs.get(key, 0) + 1 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        n = window()
+    # a range's device-side span (its annotation on the card's timeline)
+    # holds the kernels launched inside it; kernels are every other device
+    # event
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    kernels = [(ev.time_range.start, ev.time_range.elapsed_us()) for ev in evs
+               if ev.name not in SPEC_PARTS]
+    parts = {}
+    for lab in SPEC_PARTS:
+        spans = [(ev.time_range.start, ev.time_range.end) for ev in evs
+                 if ev.name == lab]
+        parts[lab] = sum(us for t, us in kernels
+                         if any(a <= t < b for a, b in spans)) / 1e3 / n
+    dev_us = sum(us for _, us in kernels)
+    for rid in ids:
+        eng.cancel(rid)
+    dev_ms = dev_us / 1e3 / n
+    out = {"host_ms_per_round": host_ms,
+           "device_ms_per_round": dev_ms if dev_us > 0 else None,
+           "busy_share": dev_ms / host_ms if dev_us > 0 else None,
+           "part_device_ms": parts, "launches_per_round": launches,
+           "regimes_per_round": regimes,
+           "syncs_per_round": sum(syncs.values()), "sync_sources": syncs}
+    log(f"    {rounds} full-batch rounds: host {host_ms:.2f} ms a round, device "
+        + (f"{dev_ms:.3f} ms (busy {dev_ms / host_ms:.1%}); draft "
+           f"{parts['spec_draft']:.3f}, catch-up {parts['spec_catchup']:.3f}, "
+           f"verify {parts['spec_verify']:.3f} ms a round"
+           if dev_us > 0 else "not measured (no device time in the profile)"))
+    log(f"    launches a round: {launches}; regimes: {regimes}")
+    log(f"    host syncs a round: {out['syncs_per_round']:g} ("
+        + ", ".join(f"{key} {v:g}" for key, v in sorted(
+            syncs.items(), key=lambda kv: -kv[1])) + ")")
+    return out
+
+
+def llama_prompts(torch, vocab):
+    """Phase 4's prompts: 8 of 16-100 tokens from seed 3."""
+    g = torch.Generator().manual_seed(3)
+    lens = torch.randint(16, 101, (8,), generator=g).tolist()
+    return [torch.randint(0, vocab, (n,), generator=g).tolist() for n in lens]
+
+
+def phase_spec_llama(torch, card, cfg, params, base, dev="cuda"):
+    """9a: llama-200m quartet2, phase 4's traffic, spec_k 3 over 2 draft
+    layers; two runs bitwise, their streams' agreement with phase 4's (not
+    held), the round's profile. 9c: the same at spec_k 4."""
+    from repro_torch.kernels import ops
+    prompts = llama_prompts(torch, cfg.vocab)
+    spec_run(torch, cfg, params, prompts[:2], 4, dev)      # warm-up
+    ops.reset_launches()
+    eng, a, wall = spec_run(torch, cfg, params, prompts, 32, dev)
+    launches = dict(ops.LAUNCHES)
+    _, b, _ = spec_run(torch, cfg, params, prompts, 32, dev)
+    if a != b:
+        fail(f"9a: two spec runs differ: first differing {agreement(a, b)[1]}")
+    r = spec_numbers(eng.stats, wall)
+    r["launches"] = launches
+    if base is not None:
+        agree, first = agreement(a, base["streams"])
+        r.update(nonspec_decode_tok_s=base["decode_tok_s"],
+                 agreement_with_nonspec=agree, first_diff_vs_nonspec=first)
+    if dev == "cuda" and any(launches[key] <= 0 for key in SERVING_KERNELS):
+        fail(f"9a: a kernel of the path was not launched: {launches}")
+    log(f"  9a [{card}] llama-200m quartet2 spec_k {SPEC_K} / {SPEC_DRAFT} draft "
+        f"layers: acceptance {r['acceptance']:.4f} ({r['accepted_tokens']} of "
+        f"{r['draft_tokens']}), {r['tokens_per_slot_round']:.3f} tokens a slot a "
+        f"round, {r['rounds']} rounds; decode {r['decode_tok_s']:.1f} tok/s "
+        f"({r['round_ms_host']:.2f} ms a round, host)"
+        + (f" against phase 4's {base['decode_tok_s']:.1f} non-spec; streams "
+           f"agree with phase 4's on {r['agreement_with_nonspec']:.1%} of tokens "
+           "(quartet2: reported, not held)" if base is not None else "")
+        + "; a second run bitwise equal")
+    if dev == "cuda":
+        label_spec_parts(eng)
+        r["profile"] = spec_round_profile(torch, eng, prompts, SPEC_K)
+    out = {"spec": r}
+    r4 = {}
+    if dev == "cuda":
+        log(f"  9c [{card}] spec_k {SPEC_K_WIDE}: the verify's GEMMs at M = "
+            f"{4 * (SPEC_K_WIDE + 1)}")
+        eng4 = spec_engine(cfg, params, dev, spec_k=SPEC_K_WIDE)
+        label_spec_parts(eng4)
+        r4["profile"] = spec_round_profile(torch, eng4, prompts, SPEC_K_WIDE)
+        v3 = r["profile"]["part_device_ms"]["spec_verify"]
+        v4 = r4["profile"]["part_device_ms"]["spec_verify"]
+        reg = r4["profile"]["regimes_per_round"]
+        log(f"  9c verify device ms a round: {v4:.3f} (M = 20, wgmma: "
+            f"{reg['fp4_matmul.mma']:g} launches) against 9a's {v3:.3f} (M = 16, "
+            f"gemv: {r['profile']['regimes_per_round']['fp4_matmul.gemv']:g})")
+    out["spec_k4"] = r4
+    return out
+
+
+def margin_recorder(eng):
+    """Record the top-2 logit margin and the top logit of every sampled
+    row, per (request, token index): the prefill tick samples its picked
+    slot (FIFO: the lowest-index prefilling one), a decode tick every
+    decoding slot."""
+    margins, phase = {}, [None]
+    for name in ("_prefill_tick", "_decode_tick"):
+        def tick(_orig=getattr(eng, name), _name=name):
+            phase[0] = _name
+            return _orig()
+        setattr(eng, name, tick)
+    sample = eng._sample
+
+    def rec(last_logits):
+        top2 = last_logits.float().topk(2, dim=-1).values.cpu()
+        if phase[0] == "_prefill_tick":
+            rows = [min(i for i, s in enumerate(eng.slots)
+                        if s.state == "prefill")]
+        else:
+            rows = [i for i, s in enumerate(eng.slots) if s.state == "decode"]
+        for i in rows:
+            s = eng.slots[i]
+            margins[(s.req.req_id, len(s.generated))] = (
+                float(top2[i, 0] - top2[i, 1]), float(top2[i, 0]))
+        return sample(last_logits)
+
+    eng._sample = rec
+    return margins
+
+
+def tie_rule(got, want, margins, max_new):
+    """tests/_torch_streams.py's rule: each row equal up to its first token
+    whose reference top-2 margin is within BF16_TIE_ULPS bf16 ulps of the top
+    logit, at least half of all tokens compared. Returns (equal where
+    compared, tokens compared); the rule is met when both hold."""
+    compared, equal = 0, True
+    for rid in want:
+        for j in range(max_new):
+            margin, top = margins[(rid, j)]
+            if margin <= BF16_TIE_ULPS * bf16_ulp(top):
+                break
+            equal &= got[rid][j] == want[rid][j]
+            compared += 1
+    return equal, compared
+
+
+# 9b: the verify chunk's bf16 logits against single-token steps over the
+# same tokens, in bf16 ulps of the row's largest logit (8c's COW stream sits
+# 2.5 ulps from cold: another pair of step shapes)
+VERIFY_STEP_ULPS = 4
+
+
+def verify_against_steps(torch, cfg, params, scheme, k=SPEC_K, rounds=4,
+                         dev="cuda"):
+    """The verify chunk's arithmetic against the non-spec step's, teacher
+    forced: 4 rows of a 48-token prompt prefilled alike into two pools,
+    then `rounds` times the same K + 1 tokens as K + 1 (4, 1) steps into
+    one and as one (4, K + 1) chunk into the other (each pool reads the K/V
+    its own steps wrote, as the two engines do). Returns the largest
+    |chunk - step| logit in bf16 ulps of its row's largest logit, the
+    relative RMS difference, and the share of argmaxes that agree."""
+    from repro_torch.serve import decode as serve_decode
+    from repro_torch.serve.kv_pool import KVPool
+    from repro_torch.serve.prequant import prequantize
+    p = prequantize(params, cfg, scheme)
+    step = serve_decode.make_paged_serve_step(cfg, scheme)
+    g = torch.Generator().manual_seed(19)
+    n = 48 + rounds * (k + 1)
+    toks = torch.randint(0, cfg.vocab, (4, n), generator=g,
+                         dtype=torch.int32).to(dev)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+    at = lambda n: torch.full((4,), n, dtype=torch.int32, device=dev)
+    pools = []
+    for _ in range(2):
+        pool = KVPool(cfg, 4, 256, block_size=16, device=dev)
+        for s in range(4):
+            pool.commit(s, n)
+            pool.ensure(s, n)
+        for c in range(3):
+            step(p, pool.caches, pool.tables_device(),
+                 toks[:, 16 * c:16 * (c + 1)], at(16 * c), act)
+        pools.append(pool)
+    steps = torch.stack([step(p, pools[0].caches, pools[0].tables_device(),
+                              toks[:, t:t + 1], at(t), act)[0][:, 0]
+                         for t in range(48, n)], 1).float()
+    chunk = torch.cat([step(p, pools[1].caches, pools[1].tables_device(),
+                            toks[:, t:t + k + 1], at(t), act)[0]
+                       for t in range(48, n, k + 1)], 1).float()
+    top = steps.abs().amax(-1, keepdim=True).cpu()
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(2.0 ** -126))) - 7)
+    d = (chunk - steps).abs().cpu()
+    return (float((d / ulp).max()),
+            float((d.pow(2).mean() / steps.cpu().pow(2).mean()).sqrt()),
+            float((chunk.argmax(-1) == steps.argmax(-1)).double().mean()))
+
+
+def phase_spec_bf16(torch, card, cfg, params, dev="cuda"):
+    """9b: scheme bf16. Held: the verify chunk's logits within
+    VERIFY_STEP_ULPS of single-token steps over the same tokens. Reported:
+    phase 4's traffic, spec against non-spec by the tie rule with its floor
+    (the verify runs n_slots x 4 rows where the step runs n_slots, so the
+    streams part where an ulp decides an argmax), and quartet2's
+    teacher-forced gap."""
+    from repro_torch.serve.engine import Request
+    ulps, rel, same = verify_against_steps(torch, cfg, params, "bf16", dev=dev)
+    q_ulps, q_rel, q_same = verify_against_steps(torch, cfg, params, "quartet2",
+                                                 dev=dev)
+    prompts = llama_prompts(torch, cfg.vocab)
+    base_eng = spec_engine(cfg, params, dev, scheme="bf16", spec_k=0)
+    margins = margin_recorder(base_eng)
+    for p in prompts:
+        base_eng.submit(Request(p, 32))
+    base = {r.req_id: r.tokens for r in base_eng.run()}
+    _, spec, _ = spec_run(torch, cfg, params, prompts, 32, dev, scheme="bf16")
+    equal, compared = tie_rule(spec, base, margins, 32)
+    met = equal and compared >= len(prompts) * 32 // 2
+    agree, first = agreement(spec, base)
+    log(f"  9b [{card}] bf16 verify chunk against single-token steps, same "
+        f"tokens: logits within {ulps:.3g} bf16 ulps of the row's largest "
+        f"(bar {VERIFY_STEP_ULPS}), relative RMS {rel:.3g}, argmax agreement "
+        f"{same:.1%}; quartet2 (reported): {q_ulps:.3g} ulps, relative RMS "
+        f"{q_rel:.3g}, argmax {q_same:.1%}")
+    log(f"  9b [{card}] bf16 streams (reported): spec against non-spec "
+        f"{'bitwise' if spec == base else 'not bitwise'}, {agree:.1%} of tokens "
+        f"before each row's first difference (first differing token by request "
+        f"{first}); the {BF16_TIE_ULPS}-ulp tie rule "
+        f"{'met' if met else 'not met'} ({compared} of {len(prompts) * 32} "
+        f"compared before a near-tie, {'all' if equal else 'not all'} equal)")
+    if not ulps <= VERIFY_STEP_ULPS:
+        fail(f"9b: the verify chunk's bf16 logits are {ulps} ulps from the "
+             f"single-token steps' (bar {VERIFY_STEP_ULPS})")
+    return {"verify_vs_steps_ulps": ulps, "verify_vs_steps_rel_rms": rel,
+            "verify_vs_steps_argmax": same, "quartet2_verify_vs_steps_ulps": q_ulps,
+            "quartet2_verify_vs_steps_rel_rms": q_rel,
+            "quartet2_verify_vs_steps_argmax": q_same,
+            "bitwise": spec == base, "tie_rule_met": met, "compared": compared,
+            "equal_where_compared": equal, "agreement": agree,
+            "first_diff": first}
+
+
+def deepseek_prompts(torch, vocab):
+    """Phase 6's prompts: 4 of 16-64 tokens from seed 6."""
+    g = torch.Generator().manual_seed(6)
+    lens = torch.randint(16, 65, (4,), generator=g).tolist()
+    return [torch.randint(0, vocab, (n,), generator=g).tolist() for n in lens]
+
+
+def phase_spec_deepseek(torch, card, cfg, params, base, dev="cuda"):
+    """9d: deepseek-v3 (2 layers), quartet2, bf16 latent pool, phase 6's
+    traffic, spec_k 3 over 1 draft layer."""
+    from repro_torch.kernels import ops
+    prompts = deepseek_prompts(torch, cfg.vocab)
+    kw = dict(prequant=False, draft_layers=SPEC_DS_DRAFT)  # packed already
+    spec_run(torch, cfg, params, prompts[:1], 2, dev, **kw)   # warm-up
+    ops.reset_launches()
+    eng, a, wall = spec_run(torch, cfg, params, prompts, 16, dev, **kw)
+    launches = dict(ops.LAUNCHES)
+    _, b, _ = spec_run(torch, cfg, params, prompts, 16, dev, **kw)
+    if a != b:
+        fail(f"9d: two spec runs differ: {agreement(a, b)[1]}")
+    if dev == "cuda" and (launches["paged_mla"] <= 0 or launches["paged_mla_q"]
+                          or launches["paged_gqa"]):
+        fail(f"9d: attention launches {launches}")
+    r = spec_numbers(eng.stats, wall)
+    r["launches"] = launches
+    if base is not None:
+        agree, first = agreement(a, base["streams"])
+        r.update(nonspec_decode_tok_s=base["decode_tok_s"],
+                 agreement_with_nonspec=agree, first_diff_vs_nonspec=first)
+    log(f"  9d [{card}] deepseek-v3 quartet2 spec_k {SPEC_K} / {SPEC_DS_DRAFT} "
+        f"draft layer: acceptance {r['acceptance']:.4f}, "
+        f"{r['tokens_per_slot_round']:.3f} tokens a slot a round, decode "
+        f"{r['decode_tok_s']:.2f} tok/s ({r['round_ms_host']:.1f} ms a round)"
+        + (f" against phase 6's {base['decode_tok_s']:.2f}; streams agree on "
+           f"{r['agreement_with_nonspec']:.1%}" if base is not None else "")
+        + "; a second run bitwise equal")
+    if dev == "cuda":
+        label_spec_parts(eng)
+        r["profile"] = spec_round_profile(torch, eng, prompts, SPEC_K)
+    return r
+
+
+SPEC_PREFIX_COUNTS = ("prefill_tokens", "prefill_steps", "prefill_skipped_tokens",
+                      "prefix_hits", "draft_catchup_tokens",
+                      "draft_catchup_steps", "admitted", "finished")
+
+
+def spec_prefix_run(torch, cfg, params, dev, draft_layers):
+    """8a's shared-prompt traffic (ids below SHARED_VOCAB), hot: a
+    384-token system prompt primes the cache, then 8 requests of it plus
+    32 own tokens, 32 new, through a spec engine with the prefix cache."""
+    from repro_torch.serve.engine import Request
+    g = torch.Generator().manual_seed(9)
+    system = torch.randint(0, SHARED_VOCAB, (SYSTEM_TOKENS,), generator=g).tolist()
+    prompts = [system + s for s in fresh_suffixes(torch, g, SHARED_VOCAB, 8,
+                                                  UNIQUE_TOKENS)]
+    eng = spec_engine(cfg, params, dev, max_len=512, prefix_cache=True,
+                      draft_layers=draft_layers)
+    eng.submit(Request(list(system), 1))
+    eng.run()
+    for p in prompts:
+        eng.submit(Request(p, 32))
+    t0 = time.perf_counter()
+    res = eng.run()
+    cuda_sync(torch, dev)
+    wall = time.perf_counter() - t0
+    if len(res) != 8 or any(len(r.tokens) != 32 for r in res):
+        fail("9e: requests not served whole")
+    if not cache_conserved(eng) or (eng.draft.pool.free_block_count
+                                    != eng.draft.pool.n_blocks):
+        fail("9e: a block is neither free nor cache-owned, or the draft pool "
+             "leaked")
+    return {key: eng.stats[key] for key in SPEC_PREFIX_COUNTS}, wall, res
+
+
+def phase_spec_prefix(torch, card, cfg, params, dev="cuda"):
+    """9e: speculation over prefix-cache hits: the draft, whose pool never
+    aliases, catches up over every skipped prompt token; the counts equal
+    a reduced CPU run's."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    ops.reset_launches()
+    counts, wall, res = spec_prefix_run(torch, cfg, params, dev, SPEC_DRAFT)
+    launches = dict(ops.LAUNCHES)
+    small = registry.get("llama_200m").reduced()
+    small_params = lm.init(small, torch.Generator().manual_seed(0), "cpu")
+    cpu, _, _ = spec_prefix_run(torch, small, small_params, "cpu", 1)
+    if counts != cpu:
+        fail(f"9e: counts {counts} differ from the reduced CPU run's {cpu}")
+    want = (8 * SYSTEM_TOKENS, 8 * SYSTEM_TOKENS // 16)
+    if (counts["draft_catchup_tokens"], counts["draft_catchup_steps"]) != want:
+        fail(f"9e: draft catch-up {counts}, want {want} (tokens, forwards)")
+    ttft = sorted(r.ttft_s for r in res)
+    log(f"  9e [{card}] spec over prefix hits: {counts['prefill_skipped_tokens']} "
+        f"prefill tokens skipped in {counts['prefix_hits']} hits; the draft caught "
+        f"up over {counts['draft_catchup_tokens']} tokens in "
+        f"{counts['draft_catchup_steps']} forwards; counts equal the reduced CPU "
+        f"run's; TTFT median {ttft[len(ttft) // 2] * 1e3:.1f} ms; wall {wall:.2f} s")
+    return {"counts": counts, "wall_s": wall, "launches": launches,
+            "ttft_s_median": ttft[len(ttft) // 2]}
+
+
+def phase_spec_cancel(torch, card, cfg, params, dev="cuda"):
+    """9f: cancel and the token hook on a spec engine with the prefix cache:
+    one request cancelled mid-stream, one while queued; both pools freed;
+    the cancelled prompt hits the cache when resubmitted; the hook's tokens
+    equal each result's, the result last."""
+    from repro_torch.serve.engine import Request
+    prompts = llama_prompts(torch, cfg.vocab)[:6]
+    calls = []
+    # room for every stream in the cache: the cancelled one must survive
+    # to the resubmission
+    eng = spec_engine(cfg, params, dev, prefix_cache=True, n_blocks=128,
+                      token_hook=lambda req, new, res: calls.append(
+                          (req.req_id, list(new), res)))
+    ids = [eng.submit(Request(p, 32)) for p in prompts]
+    while len(eng.slots[0].generated) < 4:
+        eng.step()
+    cut = list(eng.slots[0].generated)
+    fed = eng.pool.length(0)
+    queued = ids[5] in [r.req_id for r in eng.queue]
+    if not (queued and eng.cancel(ids[0]) and eng.cancel(ids[5])
+            and not eng.cancel(ids[0]) and not eng.cancel(10_000)):
+        fail("9f: cancel of an in-flight, a queued or an unknown id misbehaved")
+    results = eng.run()
+    cuda_sync(torch, dev)
+    if sorted(r.req_id for r in results) != ids[1:5]:
+        fail(f"9f: results {[r.req_id for r in results]}, want {ids[1:5]}")
+    if not cache_conserved(eng) or (eng.draft.pool.free_block_count
+                                    != eng.draft.pool.n_blocks):
+        fail("9f: blocks of a pool leaked after the cancels")
+    for r in results:
+        mine = [(new, res) for rid, new, res in calls if rid == r.req_id]
+        if ([t for new, _ in mine for t in new] != r.tokens or mine[-1][1] is not r
+                or any(res is not None for _, res in mine[:-1])):
+            fail(f"9f: the hook's tokens for request {r.req_id} differ from "
+                 "its result, or the result did not come last")
+    hooked = [t for rid, new, _ in calls if rid == ids[0] for t in new]
+    if hooked != cut or any(rid == ids[5] for rid, _, _ in calls):
+        fail("9f: the hook's tokens of the cancelled requests are wrong")
+    before = eng.stats["prefill_skipped_tokens"]
+    eng.submit(Request(prompts[0], 2))
+    eng.run()
+    skipped = eng.stats["prefill_skipped_tokens"] - before
+    if skipped != len(prompts[0]) - 1:
+        fail(f"9f: the resubmitted prompt skipped {skipped} tokens, want "
+             f"{len(prompts[0]) - 1}")
+    log(f"  9f [{card}] cancel: one request after {len(cut)} tokens ({fed} "
+        f"positions fed) and one queued; both pools freed; the resubmission "
+        f"skipped {skipped} prompt tokens; the hook's {len(calls)} calls gave each "
+        "result's tokens exactly once, the result last")
+    return {"cancelled_after_tokens": len(cut), "fed": fed,
+            "resubmit_skipped": skipped, "hook_calls": len(calls)}
+
+
+def phase_spec_kernels(torch):
+    """The kernels at the verify chunk's shapes against their plain
+    versions under their bars, and one verify step's calls of each timed:
+    #2 at M = 16 (4 slots x 4 rows, the last gemv row count) and M = 20
+    (spec_k 4: wgmma) over llama-200m's 70 linears, #5 at Sq = 4 from
+    mid-sequence positions over its 10 layers, #7 at Sq = 4 over
+    deepseek-v3's 2 layers."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serve import kv_pool as KV
+    log("phase 9: kernels at the verify chunk's shapes against their plain versions")
+    g = torch.Generator(device="cuda").manual_seed(90)
+    quant = lambda shape, scale=1.0, dt=torch.float32: ops.nvfp4_fos_quant(
+        (torch.randn(shape, generator=g, device="cuda") * scale).to(dt))
+    errs = {"fp4_matmul": 0.0, "paged_gqa": 0.0, "paged_mla": 0.0}
+    weights = [{name: quant((n, k), k ** -0.5) for name, (n, k) in ARCH_SHAPES.items()}
+               for _ in range(10)]
+    groups = {}
+    for m in (4 * (SPEC_K + 1), 4 * (SPEC_K_WIDE + 1)):
+        acts = {k: quant((m, k), dt=torch.bfloat16) for k in (1280, 3456)}
+        for name in ("wq", "wi", "w2"):
+            w = weights[0][name]
+            errs["fp4_matmul"] = max(errs["fp4_matmul"], check_matmul(
+                torch, FM, ops, acts[w[0].shape[1] * 2], w))
+        calls = [(acts[w[0].shape[1] * 2], w, torch.bfloat16)
+                 for lw in weights for w in lw.values()]
+        log(f"  fp4_matmul over one verify chunk's 70 GEMMs at M = {m}:")
+        groups[f"M{m}"] = matmul_group(torch, FM, ops, calls, 20)
+    results = {"fp4_matmul": groups}
+    lens = [51, 100, 133, 20]  # mid-sequence: 4 queries from n - 4
+    for i in range(2):
+        case = attn_case(torch, b=4, sq=4, h=10, kv=10, hd=128, bs=16, maxb=16,
+                         lens=lens, seed=91 + i)
+        errs["paged_gqa"] = max(errs["paged_gqa"], check_attn(
+            torch, PA, ops, case, f"llama-200m verify B4 Sq4 #{i}"))
+    layers = [attn_case(torch, b=4, sq=4, h=10, kv=10, hd=128, bs=16, maxb=16,
+                        lens=lens, seed=300 + i) for i in range(10)]
+    sd = [sdpa_yardstick(torch, *c, KV) for c in layers]
+    at_bytes, at_ops = map(sum, zip(*(attn_bytes_ops(*c) for c in layers)))
+    fn = lambda: [ops.paged_gqa(*c) for c in layers]
+    sdpa_fn = lambda: [f() for f in sd]
+    att = {"paged_gqa": dict(
+        fn=fn, ms=time_ms(torch, fn, 20),
+        plain_ms=time_ms(torch, lambda: [PA.paged_gqa_plain(*c) for c in layers], 3),
+        library_ms=time_ms(torch, sdpa_fn, 20),
+        library_profiler_ms=device_ms(torch, sdpa_fn, ""),
+        bytes=at_bytes, ops=at_ops, peak=F32_FLOPS, calls=len(layers))}
+    mla_lens = [44, 61, 76, 29]  # phase 6's prompts mid-decode, 4 queries each
+    args = mla_case(torch, F, b=4, sq=4, bs=16, maxb=16, lens=mla_lens,
+                    packed=False, seed=92)
+    out, again = ops.paged_mla(*args, qk_dim=192), ops.paged_mla(*args, qk_dim=192)
+    torch.cuda.synchronize()
+    errs["paged_mla"] = check_against_plain(
+        torch, "paged_mla", out, PA.paged_mla_plain(*args, 192), (),
+        "deepseek-v3 verify B4 Sq4 H128")
+    if not torch.equal(out, again):
+        fail("paged_mla Sq4: two calls on the same inputs differ")
+    att["paged_mla"] = mla_step_group(torch, F, PA, ops, KV, False, mla_lens, 16,
+                                      20, seed=500, sq=4)
+    log("  one verify chunk's attention calls (llama-200m 10 layers, deepseek-v3 "
+        f"{DEEPSEEK_LAYERS}), Sq = 4:")
+    finish_results(att, errs)
+    results.update(att)
+    del weights
+    torch.cuda.empty_cache()
+    return results, errs
+
+
+def phase_spec(torch, card, llama_params, ds_cfg, ds_params, serving, deepseek):
+    """Phase 9: self-speculative decoding (9a-9f) and its kernels' holds."""
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    log("phase 9: self-speculative decoding, cancel and the token hook")
+    out = {}
+    out["kernels"], errs = phase_spec_kernels(torch)
+    cfg = registry.get("llama_200m")
+    out["llama"] = phase_spec_llama(torch, card, cfg, llama_params, serving)
+    out["bf16"] = phase_spec_bf16(torch, card, cfg, llama_params)
+    out["deepseek"] = phase_spec_deepseek(torch, card, ds_cfg, ds_params,
+                                          deepseek["bf16_pool"])
+    out["prefix"] = phase_spec_prefix(torch, card, cfg, llama_params)
+    out["cancel"] = phase_spec_cancel(torch, card, cfg, llama_params)
+    runs = [out["llama"]["spec"], out["deepseek"], out["prefix"]]
+    out["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in runs[0]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 9 took {out['phase_s']:.1f} s; launches on its main paths: "
+        f"{out['launches']}")
+    return out, errs
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -2812,10 +3450,14 @@ def main() -> None:
     llama, ds_params = to_device(held, "cuda")
     del held
     prefix = phase_prefix(torch, card, llama, ds_cfg, ds_params)
+    spec, spec_errs = phase_spec(torch, card, llama, ds_cfg, ds_params, serving,
+                                 deepseek)
+    for k, err in spec_errs.items():
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
     del llama, ds_params
     torch.cuda.empty_cache()
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
-                 deepseek["nvfp4_pool"], training, resume, nanochat, prefix)
+                 deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec)
 
     kernels = []
     for k, r in kern.items():
@@ -2845,7 +3487,7 @@ def main() -> None:
          "build_s": build.BUILD_INFO.get("seconds"), "kernels": kernels,
          "kernel_detail": kern, "serving": serving, "serving_kv_quant": serving_kvq,
          "deepseek": deepseek, "training": training, "resume": resume,
-         "nanochat": nanochat, "prefix": prefix},
+         "nanochat": nanochat, "prefix": prefix, "spec": spec},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

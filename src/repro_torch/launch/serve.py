@@ -3,6 +3,7 @@
     python -m repro_torch.launch.serve --arch llama_200m [--tokens 32] [--kv-quant]
         [--prefix-cache [--prefix-spill] [--host-budget-bytes N]]
         [--scheduler fifo|latency] [--shared-prefix N]
+        [--spec-k K --draft-layers L] [--temperature T] [--top-k K]
 
 Builds seeded random weights, prequantizes them (quartet2: NVFP4 4/6 packed
 weights), serves `--batch` requests through `ServeEngine` on the paged bf16
@@ -11,7 +12,11 @@ per second labelled with the device they ran on. `--shared-prefix N` serves
 N requests over one `--prompt-len`-token system prompt, each with 4 tokens
 of its own, through a cold engine (cache off) and a hot one (prefix cache
 on, primed with the system prompt), and prints the prefill tokens the hot
-engine skipped and its cache hit rate. Runs on the card unless `--device
+engine skipped and its cache hit rate. `--spec-k K --draft-layers L`
+decodes self-speculatively (the first L layers draft K tokens a round, the
+full model verifies them in one chunk) and prints the acceptance rate and
+the tokens each slot emits a round; `--temperature` and `--top-k` set every
+request's sampling (greedy by default). Runs on the card unless `--device
 cpu` is given (`--reduced` shrinks the model to its CPU smoke size).
 """
 
@@ -27,6 +32,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.models import lm
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import FifoPolicy, LatencyPolicy
 
 SHARED_SUFFIX = 4   # --shared-prefix: each request's own tokens
@@ -39,12 +45,12 @@ def device_label(device: torch.device) -> str:
     return "cpu"
 
 
-def _serve(cfg, params, econf, prompts, max_new):
+def _serve(cfg, params, econf, prompts, max_new, sampling=SamplingParams()):
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, econf)
     setup_s = time.perf_counter() - t0
     for p in prompts:
-        eng.submit(Request(p, max_new))
+        eng.submit(Request(p, max_new, sampling))
     t0 = time.perf_counter()
     results = eng.run()
     return eng, results, setup_s, time.perf_counter() - t0
@@ -109,6 +115,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--scheduler", choices=("fifo", "latency"), default="fifo")
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
                     help="N requests over one system prompt, cold vs hot")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="self-speculative decoding: draft tokens a round")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="layers of the truncated-stack draft")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0: greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep the k highest logits (0: all)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's CPU smoke size (ArchConfig.reduced)")
@@ -124,7 +138,8 @@ def main(argv=None) -> dict:
     params = lm.init(cfg, gen, device)
     block = 16
     extra = SHARED_SUFFIX if args.shared_prefix else 0
-    max_len = -(-(args.prompt_len + extra + args.tokens) // block) * block
+    max_len = -(-(args.prompt_len + extra + args.tokens + args.spec_k)
+                // block) * block
     econf = EngineConfig(
         n_slots=min(args.batch, args.shared_prefix or args.batch),
         max_len=max_len, block_size=block, scheme=args.scheme,
@@ -133,15 +148,17 @@ def main(argv=None) -> dict:
         prefix_spill=args.prefix_spill,
         host_budget_bytes=args.host_budget_bytes,
         scheduler=LatencyPolicy() if args.scheduler == "latency"
-        else FifoPolicy(), device=str(device))
+        else FifoPolicy(), spec_k=args.spec_k,
+        draft_layers=args.draft_layers, device=str(device))
     rng = np.random.RandomState(args.seed)
     label = device_label(device)
     if args.shared_prefix:
         return _shared_prefix(cfg, params, econf, args, rng, label)
     prompts = [rng.randint(0, cfg.vocab, args.prompt_len).tolist()
                for _ in range(args.batch)]
-    eng, results, setup_s, wall = _serve(cfg, params, econf, prompts,
-                                         args.tokens)
+    eng, results, setup_s, wall = _serve(
+        cfg, params, econf, prompts, args.tokens,
+        SamplingParams(args.temperature, args.top_k))
     st = eng.stats
     out = {
         "device": label, "arch": cfg.name, "scheme": args.scheme,
@@ -151,10 +168,20 @@ def main(argv=None) -> dict:
         "free_blocks": eng.pool.free_block_count,
         "n_blocks": eng.pool.n_blocks,
     }
+    spec = ""
+    if args.spec_k:
+        out["acceptance_rate"] = (st["accepted_tokens"]
+                                  / max(st["draft_tokens"], 1))
+        # each slot's round emits its accepted drafts plus one token
+        slot_rounds = st["decode_tokens"] - st["accepted_tokens"]
+        out["tokens_per_round"] = st["decode_tokens"] / max(slot_rounds, 1)
+        spec = (f", spec_k {args.spec_k} over {args.draft_layers} draft "
+                f"layers: acceptance {out['acceptance_rate']:.3f}, "
+                f"{out['tokens_per_round']:.2f} tokens a slot a round")
     print(f"[{out['device']}] {cfg.name} {args.scheme}: {len(results)} "
           f"requests, prefill {out['prefill_tok_s']:.1f} tok/s, decode "
-          f"{out['decode_tok_s']:.1f} tok/s, wall {wall:.2f} s, pool blocks "
-          f"free {out['free_blocks']}/{out['n_blocks']}")
+          f"{out['decode_tok_s']:.1f} tok/s{spec}, wall {wall:.2f} s, pool "
+          f"blocks free {out['free_blocks']}/{out['n_blocks']}")
     print("sample ids:", results[0].tokens[:8] if results else [])
     return out
 

@@ -10,8 +10,10 @@ leaves). Decode caches are the paged pool's stage-aligned leaves, updated in
 place. The reference's REMAT is off, so training recomputes nothing.
 
 Ported: (gqa, mlp) layers in train and decode mode, (mla, moe) layers in
-decode mode. The other families, MLA/MoE training and the prefill/encode
-modes raise NotImplementedError and come with later slices.
+decode mode. `forward_prefix` runs the first n layers of the same stack with
+the same head (the self-speculative draft). The other families, MLA/MoE
+training and the prefill/encode modes raise NotImplementedError and come
+with later slices.
 """
 
 from __future__ import annotations
@@ -128,6 +130,120 @@ def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
     return x + mlp_apply(p["ff"], h, cfg.mlp, scheme, seed, layer_id)
 
 
+def total_layers(cfg: ArchConfig) -> int:
+    return sum(count * len(pattern) for pattern, count in layer_specs(cfg))
+
+
+def _prefix_plan(cfg: ArchConfig, n_prefix: int):
+    """Cut layer_specs after the first `n_prefix` layers.
+
+    Returns (specs, plan) where plan entries (si, rep_start, reps, pat_len)
+    select `reps` repetitions of stage `si` starting at repetition
+    `rep_start`, truncated to the first `pat_len` layers of the pattern. A
+    cut inside a multi-layer pattern yields a trailing partial entry (reps =
+    1), so any 0 < n_prefix < total_layers is a valid draft depth."""
+    specs = layer_specs(cfg)
+    total = total_layers(cfg)
+    if not 0 < n_prefix < total:
+        raise ValueError(
+            f"prefix depth must satisfy 0 < n < {total}, got {n_prefix}")
+    plan, left = [], n_prefix
+    for si, (pattern, count) in enumerate(specs):
+        if left <= 0:
+            break
+        per = len(pattern)
+        reps = min(count, left // per)
+        if reps:
+            plan.append((si, 0, reps, per))
+            left -= reps * per
+        if left and reps < count:
+            plan.append((si, reps, 1, left))
+            left = 0
+    return specs, plan
+
+
+def prefix_specs(cfg: ArchConfig, n_prefix: int):
+    """layer_specs truncated to the first n_prefix layers (the draft stack)."""
+    specs, plan = _prefix_plan(cfg, n_prefix)
+    return [(specs[si][0][:plen], reps) for si, _, reps, plen in plan]
+
+
+def _slice_layers(tree, sl: slice):
+    """`tree` with every stacked leaf cut to the layers `sl` (views)."""
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, sl) for k, v in tree.items()}
+    if isinstance(tree, PackedQWeight):
+        return PackedQWeight(*(t[sl] for t in tree))
+    return tree[sl]
+
+
+def prefix_stage_params(params, cfg: ArchConfig, n_prefix: int):
+    """Stage parameters aligned with prefix_specs: views of the stacked
+    leaves (PackedQWeight stacks included), so the draft owns no weights and
+    its layers keep the full model's layer ids and site seeds."""
+    specs, plan = _prefix_plan(cfg, n_prefix)
+    out = []
+    for si, r0, reps, plen in plan:
+        sp = params["stages"][si]
+        sub = {f"l{i}": sp[f"l{i}"] for i in range(plen)}
+        if r0 == 0 and reps == specs[si][1] and plen == len(specs[si][0]):
+            out.append(sub)
+        else:
+            out.append(_slice_layers(sub, slice(r0, r0 + reps)))
+    return out
+
+
+def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
+                pos, positions, active, block_table):
+    """The layers of `stages` ([(pattern, count)], aligned with
+    `stage_params` and, in decode mode, with the pool-shaped `caches`). A
+    layer's id, hence its quantization site seeds, is its index in the full
+    stack: stages cut by `prefix_specs` start where the full model's do."""
+    from repro_torch.serve.kv_pool import index_leaf  # kv_pool imports lm
+    off = 0
+    for si, (pattern, count) in enumerate(stages):
+        sp = stage_params[si]
+        for idx in range(count):
+            lp = layer_params(sp, idx)
+            for li, spec in enumerate(pattern):
+                cache = None
+                if mode == "decode":
+                    kind = "mla" if spec[0] == "mla" else "kv"
+                    cache = tuple(index_leaf(leaf, idx)
+                                  for leaf in caches[si][f"l{li}"][kind])
+                x = _apply_layer(spec, lp[f"l{li}"], x, cfg, scheme, seed,
+                                 off + idx * len(pattern) + li, mode=mode,
+                                 cache=cache, pos=pos, positions=positions,
+                                 active=active, block_table=block_table)
+        off += count * len(pattern)
+    return x
+
+
+def _forward(params, stage_params, stages, cfg, inputs, scheme, seed, *,
+             caches, mode, pos, active, block_table, head):
+    if mode not in ("train", "decode"):
+        raise NotImplementedError(
+            f"mode '{mode}' comes with a later slice (train and decode are "
+            "ported)")
+    _check_family(cfg, mode)
+    x = embed_lookup(params["embed"], inputs["tokens"])
+    b, s = x.shape[:2]
+    positions = None
+    if mode == "decode":
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
+    else:
+        positions = torch.arange(s, device=x.device)[None, :]
+    x = _run_stages(stage_params, x, cfg, scheme, seed, stages=stages,
+                    mode=mode, caches=caches, pos=pos, positions=positions,
+                    active=active, block_table=block_table)
+    x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    if not head:
+        return x, caches
+    logits = lm_head(x, head_weight(params, cfg), cfg.quantize_lm_head, scheme,
+                     seed)
+    return logits, caches
+
+
 def forward(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
             caches=None, mode: str = "decode", pos=None, active=None,
             block_table=None, head: bool = True):
@@ -143,41 +259,25 @@ def forward(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
     Returns (logits_or_hidden, caches); the reference's third output, the MoE
     aux loss, is dropped (serving does not use it; training of the MoE family
     comes with a later slice)."""
-    if mode not in ("train", "decode"):
-        raise NotImplementedError(
-            f"mode '{mode}' comes with a later slice (train and decode are "
-            "ported)")
-    _check_family(cfg, mode)
-    from repro_torch.serve.kv_pool import index_leaf  # kv_pool imports lm
-    x = embed_lookup(params["embed"], inputs["tokens"])
-    b, s = x.shape[:2]
-    positions = None
-    if mode == "decode":
-        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
-    else:
-        positions = torch.arange(s, device=x.device)[None, :]
-    off = 0
-    for si, (pattern, count) in enumerate(layer_specs(cfg)):
-        sp = params["stages"][si]
-        for idx in range(count):
-            lp = layer_params(sp, idx)
-            for li, spec in enumerate(pattern):
-                cache = None
-                if mode == "decode":
-                    kind = "mla" if spec[0] == "mla" else "kv"
-                    cache = tuple(index_leaf(leaf, idx)
-                                  for leaf in caches[si][f"l{li}"][kind])
-                x = _apply_layer(spec, lp[f"l{li}"], x, cfg, scheme, seed,
-                                 off + idx * len(pattern) + li, mode=mode,
-                                 cache=cache, pos=pos, positions=positions,
-                                 active=active, block_table=block_table)
-        off += count * len(pattern)
-    x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    if not head:
-        return x, caches
-    logits = lm_head(x, head_weight(params, cfg), cfg.quantize_lm_head, scheme,
-                     seed)
-    return logits, caches
+    return _forward(params, params["stages"], layer_specs(cfg), cfg, inputs,
+                    scheme, seed, caches=caches, mode=mode, pos=pos,
+                    active=active, block_table=block_table, head=head)
+
+
+def forward_prefix(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
+                   n_prefix: int, caches=None, mode: str = "decode", pos=None,
+                   active=None, block_table=None):
+    """Early-exit forward: the first `n_prefix` layers, the final norm and
+    the shared head. This is the self-speculative DRAFT stack
+    (`serve/spec_decode.py`): it reuses the full model's (possibly packed)
+    parameters, and each of its layers computes bit for bit what the same
+    layer computes inside the full stack at the same step shape. `caches`
+    must be prefix-shaped (`kv_pool.init_cache(specs=prefix_specs(cfg,
+    n_prefix))`). Returns (logits, caches), as `forward`."""
+    return _forward(params, prefix_stage_params(params, cfg, n_prefix),
+                    prefix_specs(cfg, n_prefix), cfg, inputs, scheme, seed,
+                    caches=caches, mode=mode, pos=pos, active=active,
+                    block_table=block_table, head=True)
 
 
 def lm_loss(params, cfg: ArchConfig, batch, scheme: str, seed) -> torch.Tensor:

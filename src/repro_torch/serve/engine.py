@@ -17,16 +17,21 @@ tick:
                decoding; other slots are masked inactive.
   3. DECODE  — one batched step over all slots in DECODE state; new requests
                join as finished ones retire, never restarting the batch.
+               With `spec_k > 0` the step is a self-speculative round
+               (`serve/spec_decode.py`): the first `draft_layers` layers
+               propose spec_k tokens a slot and one (n_slots, spec_k + 1)
+               chunk verifies them.
 
 Slot states: FREE -> PREFILL -> DECODE -> FREE. Raggedness travels as data
 (per-slot position vector, active mask, block tables). Counters live in the
-plain `stats` dict; every timestamp comes from `self.clock`.
+plain `stats` dict; every timestamp comes from `self.clock`. `cancel`
+withdraws a queued or in-flight request; `token_hook` streams each slot's
+new tokens at tick boundaries.
 
 With `kv_quant=True` the pool stores every token leaf as NVFP4 `PackedKV`
 bytes (0.28125x the bf16 bytes) and decode attention runs the packed-operand
-kernels. Later slices bring speculative decoding, mesh sharding,
-disaggregated roles and dense caches; asking for any of them raises
-NotImplementedError.
+kernels. Later slices bring mesh sharding, disaggregated roles and dense
+caches; asking for any of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
 from repro_torch.serve import decode as serve_decode
+from repro_torch.serve import spec_decode
 from repro_torch.serve.kv_pool import KVPool, OutOfBlocks
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.prequant import prequantize
@@ -118,9 +125,18 @@ class EngineConfig:
     host_budget_bytes: int | None = None  # LRU trim of the host tier
     scheduler: Any = None         # serve/scheduler.py policy; None = FIFO
     clock: Any = None             # () -> seconds; None = time.perf_counter
+    # self-speculative decoding (serve/spec_decode.py): spec_k tokens a round
+    # proposed by the first draft_layers layers, verified in one chunk;
+    # 0 disables it. Exact verification is defined against the bf16 cache
+    # image, so kv_quant excludes it.
+    spec_k: int = 0
+    draft_layers: int = 0
+    # callable(req, new_tokens, result) at tick boundaries whenever a slot's
+    # stream grows (result: the RequestResult at retirement, else None);
+    # reassignable as `engine.token_hook`
+    token_hook: Any = None
     # options of the reference engine that later slices port
     paged: bool = True
-    spec_k: int = 0
     mesh: Any = None
     role: str = "both"
     replicate_hits: int | None = None
@@ -128,7 +144,6 @@ class EngineConfig:
 
 # (field, set?, what, the later slice of ROADMAP.md's Queue 1 that ports it)
 _LATER = (
-    ("spec_k", lambda e: e.spec_k > 0, "speculative decoding", "engine features"),
     ("paged", lambda e: not e.paged, "dense per-slot caches", "dense caches"),
     ("mesh", lambda e: e.mesh is not None, "mesh-sharded serving",
      "distribution"),
@@ -147,6 +162,8 @@ class _Slot:
     length: int = 0               # tokens currently in the cache
     last_tok: int = 0
     generated: list[int] = field(default_factory=list)
+    emitted: int = 0              # generated tokens already passed to the hook
+    draft_len: int = 0            # tokens the speculative draft has consumed
     first_token_s: float | None = None
     cache_nodes: list = field(default_factory=list)  # pinned radix nodes
 
@@ -155,7 +172,10 @@ def _stats_dict() -> dict:
     return {k: 0 for k in ("ticks", "admitted", "finished", "rejected",
                            "prefill_tokens", "prefill_steps",
                            "decode_tokens", "decode_steps",
-                           "prefill_skipped_tokens", "prefix_hits")} | {
+                           "prefill_skipped_tokens", "prefix_hits",
+                           "draft_tokens", "accepted_tokens", "spec_rounds",
+                           "draft_catchup_tokens", "draft_catchup_steps",
+                           "cancelled")} | {
         "prefill_s": 0.0, "decode_s": 0.0}
 
 
@@ -171,6 +191,15 @@ class ServeEngine:
         if e.prefix_spill and not e.prefix_cache:
             raise ValueError("prefix_spill=True requires prefix_cache=True "
                              "(the host tier is a property of the cache)")
+        if e.spec_k > 0:
+            if e.kv_quant:
+                raise ValueError(
+                    "kv_quant=True is incompatible with spec_k > 0: exact "
+                    "speculative verification is defined against the bf16 "
+                    "cache image")
+            if e.draft_layers <= 0:
+                raise ValueError("spec_k > 0 requires draft_layers >= 1")
+            lm.prefix_specs(cfg, e.draft_layers)  # 0 < n < total_layers
         self.clock = e.clock if e.clock is not None else time.perf_counter
         self.device = torch.device(e.device)
         params = _to_device(params, self.device)
@@ -178,8 +207,15 @@ class ServeEngine:
         self.pool = KVPool(cfg, e.n_slots, e.max_len, block_size=e.block_size,
                            n_blocks=e.n_blocks, device=self.device,
                            quantized=e.kv_quant)
-        # largest per-ensure growth (a prefill chunk or one decode token)
-        self._max_growth = e.prefill_chunk
+        self.draft = (spec_decode.DraftStack(cfg, self.params, e, self.device)
+                      if e.spec_k > 0 else None)
+        # a verify chunk writes up to spec_k positions past a sequence's
+        # final token: admission reserves that margin in both pools
+        self._margin = e.spec_k
+        # largest per-ensure growth (a prefill chunk, a verify chunk or one
+        # decode token)
+        self._max_growth = max(e.prefill_chunk, e.spec_k + 1)
+        self.token_hook = e.token_hook
         self.slots = [_Slot() for _ in range(e.n_slots)]
         self.queue: deque[Request] = deque()
         self._ids = itertools.count()
@@ -201,7 +237,7 @@ class ServeEngine:
     def submit(self, request: Request) -> int:
         """Queue a request; raises Unservable when no pool state can ever
         back it, QueueFull at capacity."""
-        total = len(request.prompt) + request.max_new
+        total = len(request.prompt) + request.max_new + self._margin
         if not request.prompt or request.max_new < 1:
             self.stats["rejected"] += 1
             raise Unservable("a request needs a prompt and max_new >= 1")
@@ -218,6 +254,27 @@ class ServeEngine:
         request.arrival_s = self.clock()
         self.queue.append(request)
         return request.req_id
+
+    def cancel(self, req_id: int, reason: str = "cancelled") -> bool:
+        """Withdraw a request: a QUEUED one leaves the queue; an in-flight
+        one frees its slot in both pools, its committed stream first
+        inserted into the prefix cache (the tokens were paid for, and a
+        resubmission reuses them). `reason` names why ("cancelled",
+        "disconnected", "requeued"); the instrumentation that records it
+        comes with `obs/`. False when `req_id` is unknown (retired,
+        rejected or never submitted)."""
+        for r in self.queue:
+            if r.req_id == req_id:
+                self.queue.remove(r)
+                self._matches.pop(req_id, None)
+                self.stats["cancelled"] += 1
+                return True
+        for i, s in enumerate(self.slots):
+            if s.req is not None and s.req.req_id == req_id:
+                self._release_slot(i)
+                self.stats["cancelled"] += 1
+                return True
+        return False
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(s.state != FREE for s in self.slots)
@@ -279,7 +336,7 @@ class ServeEngine:
     def _try_admit(self, req: Request) -> bool:
         """Place `req` in a FREE slot, aliasing its cached prefix; False
         when the pool cannot back it now."""
-        total = len(req.prompt) + req.max_new
+        total = len(req.prompt) + req.max_new + self._margin
         plan = pinned = None
         if self.cache is not None:
             m = self._match(req)
@@ -329,6 +386,10 @@ class ServeEngine:
             nodes = adopt
             self.stats["prefill_skipped_tokens"] += mtoks
             self.stats["prefix_hits"] += 1
+        if self.draft is not None:
+            # the draft pool never aliases the cache: _prefill_tick catches
+            # the draft up over a skipped prefix
+            self.draft.pool.commit(i, total, self._max_growth)
         self.slots[i] = _Slot(state=PREFILL, req=req, cursor=prefix_len,
                               cache_nodes=nodes)
         self.stats["admitted"] += 1
@@ -352,6 +413,9 @@ class ServeEngine:
         return i if self._admissible(i, total, cached) else None
 
     def _admissible(self, slot: int, total: int, cached: int) -> bool:
+        if self.draft is not None and not self.draft.pool.can_admit(
+                total, self._max_growth, slot=slot):
+            return False
         if self.pool.can_admit(total, self._max_growth, slot=slot,
                                cached_blocks=cached):
             return True
@@ -376,6 +440,9 @@ class ServeEngine:
                 s.req.queued_ticks += 1
         slot = self.slots[i]
         prompt = slot.req.prompt
+        if self.draft is not None and slot.draft_len < slot.cursor:
+            self._draft_catchup(i, slot)
+            return  # bounded work: one chunk a tick
         remaining = len(prompt) - slot.cursor
         size = e.prefill_chunk if remaining >= e.prefill_chunk else 1
         self.pool.ensure(i, slot.cursor + size)
@@ -387,6 +454,11 @@ class ServeEngine:
         active[i] = True
         t0 = self.clock()
         logits = self._forward(tokens, pos, active)
+        if self.draft is not None:
+            # the draft's cache covers the prompt too: the same chunk
+            # through the prefix stack
+            self.draft.pool.ensure(i, slot.cursor + size)
+            self.draft.forward(tokens, pos, active)
         done = slot.cursor + size == len(prompt)
         tok = int(self._sample(logits[:, -1])[i]) if done else None
         self._sync()
@@ -395,6 +467,7 @@ class ServeEngine:
         self.stats["prefill_tokens"] += size
         self.stats["prefill_steps"] += 1
         slot.cursor += size
+        slot.draft_len = slot.cursor
         if done:
             # prompt fully cached: the first generated token comes from the
             # logits of the prompt's last position
@@ -403,28 +476,60 @@ class ServeEngine:
             slot.last_tok = tok
             slot.generated.append(tok)
             slot.first_token_s = now
+            self._flush(i)
+
+    def _draft_catchup(self, i: int, slot: _Slot) -> None:
+        """One chunk of the draft over prompt tokens a prefix-cache hit let
+        the full model skip (a full prefill chunk, or one token of the
+        remainder)."""
+        e = self.econf
+        gap = slot.cursor - slot.draft_len
+        size = e.prefill_chunk if gap >= e.prefill_chunk else 1
+        tokens = np.zeros((e.n_slots, size), np.int32)
+        tokens[i] = slot.req.prompt[slot.draft_len: slot.draft_len + size]
+        pos = np.zeros((e.n_slots,), np.int32)
+        pos[i] = slot.draft_len
+        active = np.zeros((e.n_slots,), bool)
+        active[i] = True
+        t0 = self.clock()
+        self.draft.pool.ensure(i, slot.draft_len + size)
+        self.draft.forward(tokens, pos, active)
+        self._sync()
+        self.stats["prefill_s"] += self.clock() - t0
+        self.stats["draft_catchup_tokens"] += size
+        self.stats["draft_catchup_steps"] += 1
+        slot.draft_len += size
 
     def _retire_slot(self, i: int) -> RequestResult:
-        """Complete slot `i`: cache the stream's blocks while the slot still
-        references them, then release its pins and pool state."""
+        """Complete slot `i`: pass the result through the hook, then free
+        the slot (`_release_slot`)."""
         slot = self.slots[i]
         res = RequestResult(
             slot.req.req_id, list(slot.req.prompt), list(slot.generated),
             arrival_s=slot.req.arrival_s, finish_s=self.clock(),
             ttft_s=slot.first_token_s - slot.req.arrival_s,
             deadline_s=slot.req.deadline_s)
+        self._flush(i, res)
+        self._release_slot(i)
+        self.stats["finished"] += 1
+        return res
+
+    def _release_slot(self, i: int) -> None:
+        """Cache slot `i`'s stream while the slot still references its
+        blocks, then drop its pins and its state in both pools. Only the
+        tokens whose K/V the pool holds are cached: the last generated token
+        was sampled but never fed (the reference inserts it too at
+        retirement, leaving an unwritten position in a cached full block)."""
+        slot = self.slots[i]
         if self.cache is not None:
-            # only the tokens whose K/V the pool holds: the last generated
-            # token was sampled but never fed (the reference inserts it too,
-            # leaving an unwritten position in a cached full block)
             stream = slot.req.prompt + slot.generated
             self.cache.insert(stream[:self.pool.length(i)], i)
             if slot.cache_nodes:
                 self.cache.release(slot.cache_nodes)
         self.pool.release(i)
+        if self.draft is not None:
+            self.draft.pool.release(i)
         self.slots[i] = _Slot()
-        self.stats["finished"] += 1
-        return res
 
     def _decode_tick(self) -> list[RequestResult]:
         e = self.econf
@@ -436,6 +541,16 @@ class ServeEngine:
                 finished.append(self._retire_slot(i))
                 dec.remove(i)
         if not dec:
+            return finished
+        if e.spec_k > 0:
+            t0 = self.clock()
+            emitted = spec_decode.spec_round(self, dec)
+            self._sync()
+            self.stats["decode_s"] += self.clock() - t0
+            self.stats["decode_tokens"] += emitted
+            self.stats["decode_steps"] += 1
+            for i in dec:
+                self._flush(i)
             return finished
         tokens = np.zeros((e.n_slots, 1), np.int32)
         pos = np.zeros((e.n_slots,), np.int32)
@@ -457,7 +572,22 @@ class ServeEngine:
             slot.length += 1
             slot.last_tok = toks[i]
             slot.generated.append(slot.last_tok)
+            self._flush(i)
         return finished
+
+    def _flush(self, i: int, result: RequestResult | None = None) -> None:
+        """Pass slot `i`'s generated tokens not yet emitted to the token
+        hook, with the final result at retirement. Called only at tick
+        boundaries (after the first token, after a decode step or a round,
+        at retirement), so between ticks every token has been emitted and a
+        cancel strands none."""
+        if self.token_hook is None:
+            return
+        s = self.slots[i]
+        new = s.generated[s.emitted:]
+        if new or result is not None:
+            s.emitted = len(s.generated)
+            self.token_hook(s.req, new, result)
 
     # ------------------------------------------------------------------
     # device steps

@@ -285,7 +285,7 @@ class KVPool:
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
                  paged: bool = True, block_size: int = 16,
                  n_blocks: int | None = None, device="cuda",
-                 quantized: bool = False):
+                 quantized: bool = False, specs=None):
         assert max_len % block_size == 0, \
             f"max_len {max_len} must be a multiple of block_size {block_size}"
         if quantized and not paged:
@@ -306,7 +306,13 @@ class KVPool:
             n_slots * self.max_blocks
         self.sentinel = self.n_blocks
         self.device = torch.device(device)
-        self.specs = lm.layer_specs(cfg)
+        # `specs`: the layer specs the pool backs (a draft stack passes
+        # lm.prefix_specs); default the full model's
+        self.specs = specs if specs is not None else lm.layer_specs(cfg)
+        # recurrent state kinds (rwkv, griffin) come with their families:
+        # every ported stack holds token kinds only, which a speculative
+        # rollback truncates for free
+        self.has_state_kinds = False
         self.caches = init_cache(cfg, n_blocks=self.n_blocks,
                                  block_size=block_size, device=device,
                                  specs=self.specs, quantized=quantized)
@@ -327,6 +333,7 @@ class KVPool:
         self.window = reclaim_window(cfg, self.specs)
         self._alloc_upto = [0] * n_slots   # logical blocks ever allocated
         self._live_from = [0] * n_slots    # first logical block still owned
+        self._floor = [0] * n_slots        # least length `truncate` allows
         # host tier: flat buffers of one block's bytes, reused; the bytes of
         # free buffers kept are bounded by host_keep_bytes (None: unbounded)
         leaves = token_leaves(self.caches)
@@ -454,8 +461,31 @@ class KVPool:
             self._decref(blk)
         self._live_from[slot] = first_live
         self._dirty()
+        # freed keys end at first_live*BS - 1; a truncate to n keeps windows
+        # sound only while n - window >= that newest freed key
+        self._floor[slot] = first_live * self.block_size + self.window - 1
+
+    def truncate(self, slot: int, n_tokens: int) -> None:
+        """Logically shrink `slot` to n_tokens positions (speculative
+        rollback). The slot keeps every block it owns (the next rounds grow
+        back into them), and stale values past n_tokens stay behind the
+        position mask until overwritten: only the length moves. Below the
+        window-reclaim floor the rolled-back windows would need freed keys,
+        so that is a SlotError."""
+        if not self._bound[slot]:
+            raise SlotError(f"slot {slot}: truncate on an unbound slot")
+        if n_tokens < 0 or n_tokens > self._lengths[slot]:
+            raise SlotError(
+                f"slot {slot}: truncate to {n_tokens} outside "
+                f"[0, {self._lengths[slot]}]")
+        if n_tokens < self._floor[slot]:
+            raise SlotError(
+                f"slot {slot}: truncate to {n_tokens} below the "
+                f"window-reclaim floor {self._floor[slot]}")
+        self._lengths[slot] = n_tokens
 
     def length(self, slot: int) -> int:
+        """Logical backed length of `slot` (ensure grows it, truncate cuts)."""
         return self._lengths[slot]
 
     def release(self, slot: int) -> None:
@@ -476,6 +506,7 @@ class KVPool:
             self._dirty()
         self._alloc_upto[slot] = 0
         self._live_from[slot] = 0
+        self._floor[slot] = 0
         self._shared_upto[slot] = 0
 
     def _dirty(self) -> None:

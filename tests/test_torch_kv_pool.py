@@ -90,6 +90,34 @@ def test_window_reclaim_frees_blocks_behind_the_window():
     assert np.all(pool.tables_device().numpy() == pool.sentinel)
 
 
+def test_truncate_moves_only_the_length_above_the_reclaim_floor():
+    """A speculative rollback keeps every block and moves the length; it
+    may not go below what reclaimed windows still need, nor past the
+    length, nor touch an unbound slot."""
+    pool = _pool(max_len=32)
+    pool.commit(0, 32)
+    pool.ensure(0, 13)
+    table = pool.tables_device().clone()
+    pool.truncate(0, 9)
+    assert pool.length(0) == 9 and torch.equal(pool.tables_device(), table)
+    assert pool.free_block_count == pool.n_blocks - 4
+    for bad in (-1, 10):
+        with pytest.raises(SlotError):
+            pool.truncate(0, bad)
+    with pytest.raises(SlotError):
+        pool.truncate(1, 0)
+    pool.release(0)
+    win = _pool(max_len=32)
+    win.window = 6                          # as a pure sliding-window stack
+    win.commit(0, 32, max_growth=4)
+    win.ensure(0, 16)
+    win.ensure(0, 20)                       # frees blocks 0, 1 (keys 0..7)
+    assert win._floor[0] == 2 * 4 + 6 - 1   # newest freed key + window
+    win.truncate(0, 13)
+    with pytest.raises(SlotError):
+        win.truncate(0, 12)
+
+
 # --------------------------------------------------------------------------
 # refcounted sharing, against the reference allocator
 # --------------------------------------------------------------------------
@@ -138,14 +166,15 @@ def _both(ref, port, name, *args):
 
 def test_pool_random_walk_matches_reference():
     """One seeded sequence of commit, grow, adopt, COW, a cache
-    insert + release, release and a cache eviction drives the reference
+    insert + release, release, a cache eviction and a truncate (one past
+    the length too) drives the reference
     pool and the port's; tables (read and write views), refcounts, free
     lists, owners and lengths agree after every operation."""
     ref, port = _pair(n_slots=3, max_len=32, n_blocks=14)
     rng = np.random.RandomState(0)
     cached: list[int] = []          # blocks the walk holds as "the cache"
     weights = {"commit": 3, "grow": 2, "adopt": 4, "cow": 2,
-               "insert_release": 3, "release": 1, "evict": 1}
+               "insert_release": 3, "release": 1, "evict": 1, "truncate": 1}
     kinds = list(weights)
     p = np.array(list(weights.values()), float) / sum(weights.values())
     counts = dict.fromkeys(kinds, 0)
@@ -176,6 +205,9 @@ def test_pool_random_walk_matches_reference():
             _both(ref, port, "release", s)
         elif op == "evict" and cached:
             _both(ref, port, "_decref", cached.pop(rng.randint(len(cached))))
+        elif op == "truncate" and bound:
+            _both(ref, port, "truncate", s,
+                  int(rng.randint(0, port.length(s) + 2)))
         else:
             continue
         counts[op] += 1
