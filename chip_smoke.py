@@ -166,7 +166,34 @@ Phases (any failure exits non-zero, before the result line):
                to a reduced CPU run's.
      9f. cancel of an in-flight and a queued request, both pools freed,
                the resubmission a cache hit, the hook's tokens each result's.
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9. Then, on their own lines:
+ 10. serving over HTTP (phase 4's llama weights and requests, 4 slots, 32
+               new tokens each) through `serve/frontend.py`: the engine ticks
+               on the bridge's thread, an asyncio loop serves HTTP on
+               127.0.0.1 (an ephemeral port), obs on. #1, #2 (M 4 gemv, M 64
+               wgmma), #5 and #6 launched on the bridge's thread: bitwise the
+               main thread's launches, within their bars of the plain
+               versions. Every await and join is bounded (HTTP_WAIT_S); an
+               HTTP 500, an engine-thread fault or a thread that does not
+               stop fails the phase.
+     10a. quartet2, bf16 pool, prefix cache: 8 concurrent SSE clients; every
+               stream whole, every block free after the cache is emptied;
+               decode tok/s and TTFT p50/p99 (client-seen and the trace's)
+               against engine.run() of the same traffic (the streams'
+               agreement reported, not held); /metrics bytes and ms; run()
+               with obs on bitwise obs off; on direct engine.step() calls in
+               the main thread, host and device ms a decode step and host
+               syncs a step with obs on and off (the syncs held equal).
+     10b. scheme bf16 over the bf16 and the NVFP4 pool, phase 4's first 4
+               requests: the SSE streams bitwise run()'s, obs on bitwise off.
+     10c. bf16 lifecycles: a client reset mid-stream (cancelled
+               "disconnected", blocks reclaimed, the follow-up a prefix hit;
+               its agreement with run() reported); 429 with Retry-After at max_queue
+               1; a spent tenant budget 429; drain under load (in-flight
+               finish bitwise, new ones 503, drained set); the
+               reason-labelled rejection counters in /metrics; on a fake
+               clock, visibility requeue and a resume bitwise the
+               uninterrupted stream.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10. Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
 
@@ -1434,7 +1461,7 @@ def phase_serving(torch, card, params, kv_quant=False):
     if kv_quant and (launches["paged_gqa"] != 0 or ratio != 0.28125):
         fail(f"kv_quant serving: paged_gqa launched {launches['paged_gqa']} "
              f"times, pool bytes {ratio} of bf16 (want 0 and 0.28125)")
-    out = {"prompt_lens": lens, "pool_bytes_over_bf16": ratio,
+    out = {"prompt_lens": lens, "prompts": prompts, "pool_bytes_over_bf16": ratio,
            **serving_numbers(results, eng.stats, setup_s, wall, peak, launches),
            "launches_per_decode_step": None,
            "streams": {r.req_id: r.tokens for r in results}}
@@ -3357,6 +3384,663 @@ def phase_spec(torch, card, llama_params, ds_cfg, ds_params, serving, deepseek):
     return out, errs
 
 
+# --------------------------------------------------------------------------
+# phase 10: serving over HTTP (the frontend, its engine thread, obs)
+# --------------------------------------------------------------------------
+
+HTTP_WAIT_S = 120.0   # any one await or join of phase 10: a timeout fails it
+STEP_WINDOW = 16      # decode steps in a window of 10a's obs on / off costs
+HTTP_NEW = 32         # new tokens a request (phase 4's)
+
+
+async def aw(x):
+    import asyncio
+    return await asyncio.wait_for(x, HTTP_WAIT_S)
+
+
+async def http_exchange(port, method, path, obj=None, headers=None):
+    """One request: (status, headers, body bytes, ms on the host clock)."""
+    import asyncio
+    t0 = time.perf_counter()
+    reader, writer = await aw(asyncio.open_connection("127.0.0.1", port))
+    body = json.dumps(obj).encode() if obj is not None else b""
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+    writer.write((f"{method} {path} HTTP/1.1\r\nHost: t\r\n{extra}"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+    await aw(writer.drain())
+    status = int((await aw(reader.readline())).split()[1])
+    hdrs = {}
+    while True:
+        h = await aw(reader.readline())
+        if h in (b"\r\n", b"\n", b""):
+            break
+        k, _, v = h.decode().partition(":")
+        hdrs[k.strip().lower()] = v.strip()
+    payload = await aw(reader.read())
+    writer.close()
+    if status == 500:
+        fail(f"HTTP 500 from {method} {path}: {payload[:200]!r}")
+    return status, hdrs, payload, (time.perf_counter() - t0) * 1e3
+
+
+async def post_json(port, path, obj, headers=None):
+    status, hdrs, payload, _ = await http_exchange(port, "POST", path, obj,
+                                                   headers)
+    return status, json.loads(payload) if payload else None, hdrs
+
+
+async def sse_client(port, prompt, max_new, kill_after=None, tenant=None):
+    """One streamed completion: status, tokens, whether [DONE] came, the
+    Retry-After header, and the client-seen TTFT (request sent -> first
+    `data:` line, host clock). `kill_after`: reset the socket after that
+    many tokens."""
+    import asyncio
+    t0 = time.perf_counter()
+    reader, writer = await aw(asyncio.open_connection("127.0.0.1", port))
+    body = json.dumps({"prompt": prompt, "max_tokens": max_new, "stream": True,
+                       **({"user": tenant} if tenant else {})}).encode()
+    writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+    await aw(writer.drain())
+    status = int((await aw(reader.readline())).split()[1])
+    out = {"status": status, "tokens": [], "done": False, "ttft_s": None,
+           "retry_after": None}
+    while True:
+        line = await aw(reader.readline())
+        if status != 200:
+            if line.lower().startswith(b"retry-after:"):
+                out["retry_after"] = float(line.split(b":", 1)[1])
+            if not line:
+                break
+            continue
+        if not line:
+            break
+        if not line.startswith(b"data: "):
+            continue
+        if out["ttft_s"] is None:
+            out["ttft_s"] = time.perf_counter() - t0
+        payload = line[6:].strip()
+        if payload == b"[DONE]":
+            out["done"] = True
+            break
+        out["tokens"].extend(json.loads(payload)["choices"][0]["tokens"])
+        if kill_after is not None and len(out["tokens"]) >= kill_after:
+            writer.transport.abort()  # RST: the server sees a dead peer
+            return out
+    writer.close()
+    if status == 500:
+        fail("HTTP 500 from a streamed completion")
+    return out
+
+
+class Served:
+    """Engine thread + HTTP frontend on 127.0.0.1, an ephemeral port. On exit
+    the thread must have stopped and the bridge must hold no error: an
+    engine-thread fault (and so any errored handle) fails the phase."""
+
+    def __init__(self, eng, fconf=None, **bridge_kw):
+        from repro_torch.serve.frontend import CompletionFrontend, EngineBridge
+        self.bridge = EngineBridge(eng, **bridge_kw)
+        self.fe = CompletionFrontend(self.bridge, fconf)
+        self.steps_on = set()
+        step = eng.step
+
+        def recorded():  # the threads that tick the engine
+            import threading
+            self.steps_on.add(threading.get_ident())
+            return step()
+
+        eng.step = recorded
+
+    async def __aenter__(self):
+        self.bridge.start()
+        self.thread = self.bridge._thread
+        await aw(self.fe.start())
+        return self
+
+    async def __aexit__(self, *exc):
+        await aw(self.fe.stop())
+        self.bridge.stop()
+        if self.thread.is_alive():
+            fail("the engine thread did not stop")
+        if self.bridge.error is not None:
+            fail(f"the engine thread failed: {self.bridge.error!r}")
+        if self.steps_on - {self.thread.ident}:
+            fail("the engine was ticked outside the bridge's thread")
+
+    @property
+    def port(self):
+        return self.fe.port
+
+    async def call(self, fn):
+        import asyncio
+        return await aw(asyncio.wrap_future(self.bridge.call(fn)))
+
+    async def until(self, pred, what):
+        import asyncio
+        for _ in range(int(HTTP_WAIT_S / 0.01)):
+            if await self.call(pred):
+                return
+            await asyncio.sleep(0.01)
+        fail(f"timed out waiting for {what}")
+
+
+def run_async(coro):
+    import asyncio
+    return asyncio.run(asyncio.wait_for(coro, 10 * HTTP_WAIT_S))
+
+
+def http_engine(cfg, params, dev, **kw):
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    return ServeEngine(cfg, params, EngineConfig(**{**dict(
+        n_slots=4, max_len=256, block_size=16, prefill_chunk=16,
+        scheme="quartet2", device=dev), **kw}))
+
+
+def new_obs():
+    from repro_torch.obs import Instrumentation, MetricsRegistry
+    return Instrumentation(registry=MetricsRegistry())
+
+
+def direct_run(torch, cfg, params, dev, prompts, max_new, **kw):
+    """`engine.run()` over the prompts on the calling thread: (engine,
+    results in submission order, wall s)."""
+    from repro_torch.serve.engine import Request
+    eng = http_engine(cfg, params, dev, **kw)
+    ids = [eng.submit(Request(p, max_new)) for p in prompts]
+    t0 = time.perf_counter()
+    res = {r.req_id: r for r in eng.run()}
+    cuda_sync(torch, dev)
+    return eng, [res[i] for i in ids], time.perf_counter() - t0
+
+
+def streamed(torch, eng, prompts, max_new, dev):
+    """The prompts as concurrent SSE clients of a frontend over `eng`: the
+    client results in prompt order, the wall s, the /metrics scrape (bytes,
+    ms; None with obs off) and the launches made while serving. Every
+    stream must be whole; afterwards every pool block is free once the
+    cache (if any) is emptied."""
+    import asyncio
+    from repro_torch.kernels import ops
+
+    async def scenario():
+        async with Served(eng) as srv:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = await aw(asyncio.gather(
+                *[sse_client(srv.port, p, max_new) for p in prompts]))
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            scrape = None
+            if eng.obs.enabled:
+                st, _, text, ms = await http_exchange(srv.port, "GET", "/metrics")
+                if st != 200 or b"serve_engine_finished_total" not in text:
+                    fail(f"/metrics answered {st} without the engine's counters")
+                scrape = {"bytes": len(text), "ms": ms}
+
+            def books(e):
+                if e.cache is not None:
+                    e.cache.evict(None, e.cache.cached_blocks())
+                return e.pool.free_block_count, e.pool.n_blocks, e.has_work()
+            free, total, busy = await srv.call(books)
+            return res, wall, scrape, launches, (free, total, busy)
+
+    res, wall, scrape, launches, (free, total, busy) = run_async(scenario())
+    cuda_sync(torch, dev)
+    if not all(r["status"] == 200 and r["done"] and len(r["tokens"]) == max_new
+               for r in res):
+        fail(f"a stream was not served whole: {[(r['status'], r['done'], len(r['tokens'])) for r in res]}")
+    if busy or free != total:
+        fail(f"after the streams {total - free} pool blocks are held "
+             f"(work left: {busy})")
+    return res, wall, scrape, launches
+
+
+def quantiles_s(xs):
+    xs = sorted(xs)
+    return {"p50": xs[len(xs) // 2], "p99": xs[min(len(xs) - 1,
+                                                    int(0.99 * len(xs)))]}
+
+
+def decode_window_costs(torch, engines, prompts, dev):
+    """Obs off against obs on, on direct `engine.step()` calls in the main
+    thread at a full batch (4 slots decoding): host ms a decode step over
+    three alternating windows each (off, on, off, on, off, on), then on the
+    card host syncs a step (CUDA sync debug mode, one window each) and
+    device ms a step (torch.profiler, one window each). The requests are
+    cancelled at the end."""
+    import warnings
+    from repro_torch.serve.engine import Request
+    for eng in engines.values():
+        for p in prompts[:4]:
+            eng.submit(Request(p[:16], 5 * STEP_WINDOW + 8))
+        while any(s.state != "decode" for s in eng.slots):
+            eng.step()
+
+    def window(eng):
+        cuda_sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(STEP_WINDOW):
+            eng.step()
+        cuda_sync(torch, dev)
+        return (time.perf_counter() - t0) / STEP_WINDOW * 1e3
+
+    host = {k: [] for k in engines}
+    for _ in range(3):
+        for k, eng in engines.items():
+            host[k].append(window(eng))
+    out = {k: {"host_ms_per_step": sum(v) / len(v), "host_ms_windows": v,
+               "syncs_per_step": None, "device_ms_per_step": None}
+           for k, v in host.items()}
+    if dev == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        for k, eng in engines.items():
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    window(eng)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out[k]["syncs_per_step"] = sum(
+                "synchroniz" in str(w.message) for w in caught) / STEP_WINDOW
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                window(eng)
+            us = sum(getattr(ev, "self_device_time_total", 0.0)
+                     for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA)
+            out[k]["device_ms_per_step"] = us / 1e3 / STEP_WINDOW if us else None
+    for eng in engines.values():
+        for s in list(eng.slots):
+            if s.req is not None:
+                eng.cancel(s.req.req_id)
+    return out
+
+
+def phase_http_quartet2(torch, card, cfg, params, prompts, dev="cuda"):
+    """10a: quartet2, the bf16 pool, the prefix cache: phase 4's requests as
+    concurrent SSE clients against `engine.run()` of the same traffic."""
+    log("  10a: quartet2, bf16 pool, prefix cache: "
+        f"{len(prompts)} concurrent SSE clients against engine.run()")
+    kw = dict(prefix_cache=True)
+    run_eng, run_res, run_wall = direct_run(torch, cfg, params, dev, prompts,
+                                            HTTP_NEW, **kw)
+    on_eng, on_res, _ = direct_run(torch, cfg, params, dev, prompts, HTTP_NEW,
+                                   obs=new_obs(), **kw)
+    if [r.tokens for r in on_res] != [r.tokens for r in run_res]:
+        fail("10a: quartet2 streams with obs on differ from obs off (run())")
+    obs = new_obs()
+    eng = http_engine(cfg, params, dev, obs=obs, **kw)
+    res, wall, scrape, launches = streamed(torch, eng, prompts, HTTP_NEW, dev)
+    same = sum(a == b for r, rr in zip(res, run_res)
+               for a, b in zip(r["tokens"], rr.tokens))
+    agg = obs.trace_sink.aggregates()
+    st, rst = eng.stats, run_eng.stats
+    n_tok = len(prompts) * HTTP_NEW
+    out = {
+        "http": {"decode_tok_s": st["decode_tokens"] / st["decode_s"],
+                 "tok_s_wall": n_tok / wall, "wall_s": wall,
+                 "client_ttft_s": quantiles_s([r["ttft_s"] for r in res]),
+                 "trace_ttft_s": {k: agg["ttft_s"][k] for k in ("p50", "p99")},
+                 "trace_queue_wait_s": {k: agg["queue_wait_s"][k]
+                                        for k in ("p50", "p99")},
+                 "trace_decode_tok_s": {k: agg["decode_tok_s"][k]
+                                        for k in ("p50", "p99")},
+                 "metrics_scrape": scrape, "prefix_hits": st["prefix_hits"]},
+        "run": {"decode_tok_s": rst["decode_tokens"] / rst["decode_s"],
+                "tok_s_wall": n_tok / run_wall, "wall_s": run_wall,
+                "ttft_s": quantiles_s([r.ttft_s for r in run_res])},
+        "tokens_equal_to_run": same, "tokens": n_tok, "launches": launches}
+    h, r = out["http"], out["run"]
+    log(f"    [{card}] HTTP: decode {h['decode_tok_s']:.1f} tok/s in steps, "
+        f"{h['tok_s_wall']:.1f} tok/s wall ({wall:.2f} s); run(): "
+        f"{r['decode_tok_s']:.1f} tok/s in steps, {r['tok_s_wall']:.1f} tok/s wall "
+        f"({run_wall:.2f} s)")
+    log(f"    TTFT p50/p99: client-seen {h['client_ttft_s']['p50'] * 1e3:.1f}/"
+        f"{h['client_ttft_s']['p99'] * 1e3:.1f} ms, the trace's "
+        f"{h['trace_ttft_s']['p50'] * 1e3:.1f}/{h['trace_ttft_s']['p99'] * 1e3:.1f} ms, "
+        f"run()'s {r['ttft_s']['p50'] * 1e3:.1f}/{r['ttft_s']['p99'] * 1e3:.1f} ms; "
+        f"queue wait p50 {h['trace_queue_wait_s']['p50'] * 1e3:.1f} ms, decode "
+        f"p50 {h['trace_decode_tok_s']['p50'] * 1e3:.2f} ms a token")
+    log(f"    /metrics scrape {scrape['bytes']} bytes in {scrape['ms']:.2f} ms; "
+        f"streams against run(): {same} of {n_tok} tokens equal (reported, not "
+        "held: arrival changes batches, and quartet2's absmax couples rows)")
+    log(f"    launches while serving: {launches}")
+    # obs on against off on direct steps in the main thread
+    engines = {"off": http_engine(cfg, params, dev),
+               "on": http_engine(cfg, params, dev, obs=new_obs())}
+    costs = decode_window_costs(torch, engines, prompts, dev)
+    out["step_costs"] = costs
+    off, on = costs["off"], costs["on"]
+    log(f"    decode step, obs off / on (main thread, {STEP_WINDOW}-step windows): "
+        f"host {off['host_ms_per_step']:.3f} / {on['host_ms_per_step']:.3f} ms, "
+        + (f"device {off['device_ms_per_step']:.3f} / {on['device_ms_per_step']:.3f} "
+           f"ms, host syncs {off['syncs_per_step']:g} / {on['syncs_per_step']:g}"
+           if dev == "cuda" and off["device_ms_per_step"] and on["device_ms_per_step"]
+           else "device not measured"))
+    if dev == "cuda" and off["syncs_per_step"] != on["syncs_per_step"]:
+        fail(f"10a: obs changes host syncs a decode step: {off['syncs_per_step']} "
+             f"off, {on['syncs_per_step']} on")
+    return out
+
+
+def phase_http_bf16(torch, card, cfg, params, prompts, dev="cuda"):
+    """10b: scheme bf16 over both pools: the SSE streams of phase 4's first
+    4 requests (one wave of the 4 slots) bitwise the `engine.run()` streams
+    of the same prompts, obs on bitwise obs off. Returns its numbers and
+    run()'s streams over the bf16 pool."""
+    out, ref, prompts = {}, None, prompts[:4]
+    for kv_quant in (False, True):
+        pool = "NVFP4 pool" if kv_quant else "bf16 pool"
+        kw = dict(scheme="bf16", kv_quant=kv_quant)
+        _, run_res, _ = direct_run(torch, cfg, params, dev, prompts, HTTP_NEW,
+                                   **kw)
+        want = [r.tokens for r in run_res]
+        ref = ref or want
+        _, on_res, _ = direct_run(torch, cfg, params, dev, prompts, HTTP_NEW,
+                                  obs=new_obs(), **kw)
+        if [r.tokens for r in on_res] != want:
+            fail(f"10b: bf16 ({pool}) streams with obs on differ from obs off")
+        eng = http_engine(cfg, params, dev, obs=new_obs(), **kw)
+        res, wall, _, launches = streamed(torch, eng, prompts, HTTP_NEW, dev)
+        got = [r["tokens"] for r in res]
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"10b: SSE streams over the {pool} differ from run() "
+                 f"(requests {bad})")
+        out["nvfp4_pool" if kv_quant else "bf16_pool"] = {
+            "wall_s": wall, "launches": launches}
+        log(f"  10b [{card}] bf16, {pool}: {len(prompts)} SSE streams bitwise "
+            f"run()'s, obs on bitwise off; wall {wall:.2f} s; launches {launches}")
+    return out, ref
+
+
+def phase_http_lifecycles(torch, card, cfg, params, prompts, ref, dev="cuda"):
+    """10c: lifecycles under bf16: a client reset mid-stream, queue-full and
+    budget 429s, drain under load, the reason-labelled counters, and (on a
+    fake clock, the bridge driven in this thread) visibility requeue and
+    resume. `ref`: run()'s bf16 streams of `prompts`."""
+    import asyncio
+    from repro_torch.kernels import ops
+    from repro_torch.serve.frontend import (H_REQUEUED, H_RETIRED, EngineBridge,
+                                            FrontendConfig, TenantQuota)
+    out = {}
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    def count():
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        ops.reset_launches()
+
+    # ---- a client reset mid-stream ---------------------------------------
+    obs = new_obs()
+    eng = http_engine(cfg, params, dev, scheme="bf16", prefix_cache=True,
+                      obs=obs)
+
+    async def disconnect():
+        async with Served(eng) as srv:
+            ops.reset_launches()
+            cut = await sse_client(srv.port, prompts[0], HTTP_NEW, kill_after=2)
+            if cut["status"] != 200 or cut["done"] or len(cut["tokens"]) < 2:
+                fail(f"10c: the reset stream ran whole: {cut}")
+            await srv.until(lambda e: e.stats["cancelled"] == 1,
+                            "the disconnect's cancel")
+            conserved = await srv.call(lambda e: (
+                not e.has_work() and e.pool.free_block_count
+                + e.cache.cached_blocks() == e.pool.n_blocks))
+            if not conserved:
+                fail("10c: the reset request's blocks were not reclaimed")
+            before = await srv.call(lambda e: e.stats["prefill_skipped_tokens"])
+            again = await sse_client(srv.port, prompts[0], HTTP_NEW)
+            count()
+            after = await srv.call(lambda e: (e.stats["prefill_skipped_tokens"],
+                                              e.stats["prefix_hits"]))
+            return cut, again, before, after
+
+    cut, again, before, (skipped, hits) = run_async(disconnect())
+    if not again["done"] or len(again["tokens"]) != HTTP_NEW:
+        fail("10c: the follow-up stream after the reset was not served whole")
+    # reported, not held: the prompt (32 tokens) ends on a block, so the hit
+    # stops one token short and recomputes the last prompt position in a
+    # (4, 1) step where the cold run computed it inside a 16-token chunk
+    agree = next((j for j, (a, b) in enumerate(zip(again["tokens"], ref[0]))
+                  if a != b), HTTP_NEW)
+    if hits < 1 or skipped - before <= 0:
+        fail(f"10c: the follow-up did not hit the cached prefix ({hits} hits)")
+    states = [t.state for t in obs.trace_sink.traces]
+    n_disc = obs.registry.value("serve_cancellations_total",
+                                engine=obs.engine_label, reason="disconnected")
+    if "disconnected" not in states or n_disc != 1:
+        fail(f"10c: the reset was not recorded as disconnected ({states})")
+    out["disconnect"] = {"tokens_before_reset": len(cut["tokens"]),
+                         "follow_up_skipped": skipped - before,
+                         "follow_up_equal_to_run_for": agree}
+    log(f"  10c [{card}] reset after {len(cut['tokens'])} tokens: cancelled "
+        f"'disconnected', blocks reclaimed; the follow-up skipped "
+        f"{skipped - before} prompt tokens; its first {agree} of {HTTP_NEW} "
+        "tokens equal run()'s (reported: its last prompt position runs in "
+        "another step shape)")
+
+    # ---- 429s, drain, the reason-labelled counters -----------------------
+    obs = new_obs()
+    eng = http_engine(cfg, params, dev, scheme="bf16", max_queue=1, obs=obs)
+    budget = len(prompts[1]) + HTTP_NEW
+    fc = FrontendConfig(tenants={"acme": TenantQuota(token_budget=budget)})
+    flood = [prompts[i % len(prompts)] for i in range(12)]
+
+    async def limits():
+        async with Served(eng, fc) as srv:
+            ops.reset_launches()
+            acme = [await post_json(srv.port, "/v1/completions",
+                                    {"prompt": prompts[1], "max_tokens": HTTP_NEW},
+                                    {"x-tenant": "acme"}) for _ in range(2)]
+            res = await aw(asyncio.gather(
+                *[sse_client(srv.port, p, HTTP_NEW) for p in flood]))
+            b = srv.bridge
+            handles = []
+            for p in prompts[2:4]:  # one at a time: the queue holds one
+                await srv.until(lambda e: not e.queue, "an empty queue")
+                handles.append(await aw(asyncio.wrap_future(b.submit(
+                    p, HTTP_NEW, track_visibility=False))))
+            await srv.until(lambda e: any(h.tokens for h in handles),
+                            "tokens of the drained requests")
+            drain = await post_json(srv.port, "/admin/drain", {})
+            closed = await post_json(srv.port, "/v1/completions",
+                                     {"prompt": prompts[0], "max_tokens": 4})
+            if not await aw(asyncio.get_running_loop().run_in_executor(
+                    None, b.drained.wait, HTTP_WAIT_S)):
+                fail("10c: drain never completed")
+            count()
+            _, _, text, _ = await http_exchange(srv.port, "GET", "/metrics")
+            await post_json(srv.port, "/admin/undrain", {})
+            return acme, res, handles, drain, closed, text.decode()
+
+    acme, res, handles, drain, closed, text = run_async(limits())
+    if [a[0] for a in acme] != [200, 429] or \
+            acme[1][1]["error"]["reason"] != "budget_exhausted":
+        fail(f"10c: tenant budget: statuses {[a[0] for a in acme]}")
+    ok = [r for r in res if r["status"] == 200]
+    full = [r for r in res if r["status"] == 429]
+    if len(ok) + len(full) != len(res) or not ok or not full:
+        fail(f"10c: saturation gave {[r['status'] for r in res]}")
+    if not all(r["done"] and len(r["tokens"]) == HTTP_NEW for r in ok):
+        fail("10c: an admitted stream under saturation was not served whole")
+    if not all(r["retry_after"] and r["retry_after"] > 0 for r in full):
+        fail("10c: a 429 came without Retry-After")
+    if drain[0] != 202 or closed[0] != 503 or "retry-after" not in closed[2] \
+            or closed[1]["error"]["reason"] != "draining":
+        fail(f"10c: drain answered {drain[0]}, a new request {closed[0]}")
+    if not all(h.state == H_RETIRED for h in handles) or \
+            [h.tokens for h in handles] != ref[2:4]:
+        fail("10c: the in-flight requests did not finish bitwise under drain")
+    lbl = obs.engine_label
+    want = {f'serve_rejections_total{{engine="{lbl}",reason="queue_full"}} '
+            f'{len(full)}',
+            f'serve_frontend_rejections_total{{engine="{lbl}",'
+            f'reason="budget_exhausted"}} 1',
+            f'serve_frontend_rejections_total{{engine="{lbl}",'
+            f'reason="draining"}} 1'}
+    if not want <= set(text.splitlines()):
+        fail(f"10c: /metrics lacks {want - set(text.splitlines())}")
+    out["limits"] = {"served": len(ok), "queue_full_429": len(full),
+                     "retry_after_s": sorted(r["retry_after"] for r in full)[0]}
+    log(f"  10c [{card}] 12 concurrent clients at max_queue 1: {len(ok)} served "
+        f"whole, {len(full)} got 429 with Retry-After (least "
+        f"{out['limits']['retry_after_s']:.3f} s); tenant budget 429; drain: the "
+        "2 in-flight finished bitwise, a new request 503; /metrics counts every "
+        "rejection by reason")
+
+    # ---- visibility requeue and resume (fake clock, this thread) ---------
+    # requeued at 8 generated tokens: the resubmitted 40-token prompt hits
+    # its 2 cached blocks and feeds the other 8 in (4, 1) steps, the decode
+    # step's shape, so the resumed stream is held bitwise (a resubmitted
+    # prompt whose uncached rest spans a whole prefill chunk would run it
+    # as one, and be held only to ulps)
+    class Clock:
+        t = 100.0
+
+        def __call__(self):
+            return self.t
+
+    clock = Clock()
+    eng = http_engine(cfg, params, dev, scheme="bf16", prefix_cache=True,
+                      clock=clock, obs=new_obs())
+    bridge = EngineBridge(eng, visibility_timeout_s=5.0)
+    fut = bridge.submit(prompts[0], HTTP_NEW)
+    bridge._drain_commands()
+    h = fut.result(timeout=HTTP_WAIT_S)
+    while len(h.tokens) < 4:
+        eng.step()
+    first = h.read_new()[0]
+    while len(h.tokens) < 8:
+        eng.step()
+    clock.t += 60.0
+    bridge._check_visibility(clock())
+    if h.state != H_REQUEUED or eng.has_work():
+        fail("10c: a stalled consumer was not requeued")
+    bridge.resume(h)
+    bridge._drain_commands()
+    skipped = eng.stats["prefill_skipped_tokens"]
+    while eng.has_work():
+        eng.step()
+    cuda_sync(torch, dev)
+    count()
+    rest = h.read_new()[0]
+    if h.state != H_RETIRED or first + rest != ref[0] or h.tokens != ref[0]:
+        fail("10c: the resumed stream is not bitwise the uninterrupted one")
+    if eng.stats["prefill_skipped_tokens"] <= skipped:
+        fail("10c: the resume did not hit the cached prefix")
+    out["requeue"] = {"resume_skipped": eng.stats["prefill_skipped_tokens"]
+                      - skipped}
+    log(f"  10c [{card}] visibility timeout (fake clock): requeued after "
+        f"{len(first)} read tokens, resumed over {out['requeue']['resume_skipped']} "
+        "cached tokens, the stream bitwise the uninterrupted one")
+    out["launches"] = launches
+    return out
+
+
+def thread_kernel_holds(torch, bridge):
+    """#1, #2 (gemv at M 4, wgmma at M 64), #5 and #6 at llama-200m's
+    shapes, launched on a started bridge's engine thread: bitwise the same
+    launches from the main thread, and within each kernel's bar of its
+    plain version. Returns {kernel: max |kernel - plain|}."""
+    import threading
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import nvfp4_quant as NQ
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((4, 1280), generator=g, device="cuda").bfloat16()
+    n, k = ARCH_SHAPES["wi"]
+    mm = {m: (ops.nvfp4_fos_quant(torch.randn((m, k), generator=g, device="cuda")),
+              ops.nvfp4_fos_quant(torch.randn((n, k), generator=g, device="cuda")))
+          for m in (4, 64)}
+    lens = [37, 100, 1, 256]
+    attn = attn_case(torch, 4, 1, 10, 10, 128, 16, 16, lens, seed=10)
+    attn_q = gqa_q_case(torch, F, 4, 1, 10, 10, 128, 16, 16, lens, seed=10)
+
+    def launch_all():
+        o = {"nvfp4_fos_quant": ops.nvfp4_fos_quant(x),
+             **{f"fp4_matmul_m{m}": (ops.fp4_matmul(a[0], a[1], b[0], b[1],
+                                                    a[2], b[2]),)
+                for m, (a, b) in mm.items()},
+             "paged_gqa": (ops.paged_gqa(*attn),),
+             "paged_gqa_q": (ops.paged_gqa_q(*attn_q),)}
+        torch.cuda.synchronize()
+        return o
+
+    main = launch_all()
+    tid, other = bridge.call(lambda e: (threading.get_ident(),
+                                        launch_all())).result(HTTP_WAIT_S)
+    if tid != bridge._thread.ident or tid == threading.main_thread().ident:
+        fail("the kernel holds did not run on the bridge's thread")
+    for key, outs in main.items():
+        if not all(torch.equal(a, b) for a, b in zip(outs, other[key])):
+            fail(f"{key}: the bridge thread's launch differs from the main "
+                 "thread's")
+    errs = {}
+    pk, sk, gk = other["nvfp4_fos_quant"]
+    pr, sr, gr = NQ.nvfp4_fos_quant_plain(x)
+    ordk = F.fp4_decode(F.unpack_fp4(pk)).abs()
+    ordr = F.fp4_decode(F.unpack_fp4(pr)).abs()
+    frac = (F.unpack_fp4(pk) != F.unpack_fp4(pr)).double().mean().item()
+    if not (torch.equal(sk, sr) and torch.equal(gk, gr)) or frac >= 1e-4:
+        fail(f"nvfp4_fos_quant on the bridge's thread: scales differ or "
+             f"{frac} of codes do")
+    errs["nvfp4_fos_quant"] = (ordk - ordr).abs().max().item()
+    for m, (a, b) in mm.items():
+        c = other[f"fp4_matmul_m{m}"][0]
+        ref = FM.fp4_matmul_plain(a[0], a[1], b[0], b[1], a[2], b[2])
+        err = (c - ref).abs().max().item()
+        if not err <= 1e-5 * ref.abs().max().item():
+            fail(f"fp4_matmul M {m} on the bridge's thread: {err} off its plain "
+                 "version")
+        errs["fp4_matmul"] = max(errs.get("fp4_matmul", 0.0), err)
+    for key, plain, args in (("paged_gqa", PA.paged_gqa_plain, attn),
+                             ("paged_gqa_q", PA.paged_gqa_q_plain, attn_q)):
+        o, ref = other[key][0], plain(*args)
+        if ((o - ref).abs() > 5e-6 + 1e-5 * ref.abs()).any():
+            fail(f"{key} on the bridge's thread: outside 5e-6 + 1e-5 |ref|")
+        errs[key] = (o - ref).abs().max().item()
+    log("  10: #1, #2 (M 4 gemv, M 64 wgmma), #5 and #6 launched on the bridge's "
+        "thread: bitwise the main thread's launches and within their bars of the "
+        "plain versions: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs
+
+
+def phase_http(torch, card, llama_params, prompts):
+    """Phase 10: serving over HTTP through the frontend and its engine
+    thread, with the obs layer (10a-10c), and the kernel holds from the
+    bridge's thread."""
+    from repro_torch.configs import registry
+    from repro_torch.serve.frontend import EngineBridge
+    t0 = time.perf_counter()
+    log("phase 10: serving over HTTP (SSE frontend, engine thread, obs)")
+    cfg = registry.get("llama_200m")
+    bridge = EngineBridge(http_engine(cfg, llama_params, "cuda",
+                                      scheme="bf16")).start()
+    thread = bridge._thread
+    errs = thread_kernel_holds(torch, bridge)
+    bridge.stop()
+    if bridge.error is not None or thread.is_alive():
+        fail("the kernel holds' bridge failed or did not stop")
+    out = {"quartet2": phase_http_quartet2(torch, card, cfg, llama_params, prompts)}
+    out["bf16"], ref = phase_http_bf16(torch, card, cfg, llama_params, prompts)
+    out["lifecycles"] = phase_http_lifecycles(torch, card, cfg, llama_params,
+                                              prompts, ref)
+    runs = [out["quartet2"], out["bf16"]["bf16_pool"], out["bf16"]["nvfp4_pool"],
+            out["lifecycles"]]
+    out["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in runs[0]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 10 took {out['phase_s']:.1f} s; launches on its main paths "
+        f"(all from the bridge's thread but 10c's resume): {out['launches']}")
+    return out, errs
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -3454,10 +4138,16 @@ def main() -> None:
                                  deepseek)
     for k, err in spec_errs.items():
         kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
-    del llama, ds_params
+    del ds_params
+    torch.cuda.empty_cache()
+    http, http_errs = phase_http(torch, card, llama, serving["prompts"])
+    for k, err in http_errs.items():
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
+    del llama
     torch.cuda.empty_cache()
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
-                 deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec)
+                 deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec,
+                 http)
 
     kernels = []
     for k, r in kern.items():
@@ -3487,7 +4177,7 @@ def main() -> None:
          "build_s": build.BUILD_INFO.get("seconds"), "kernels": kernels,
          "kernel_detail": kern, "serving": serving, "serving_kv_quant": serving_kvq,
          "deepseek": deepseek, "training": training, "resume": resume,
-         "nanochat": nanochat, "prefix": prefix, "spec": spec},
+         "nanochat": nanochat, "prefix": prefix, "spec": spec, "http": http},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,6 +9,10 @@ compiles to an object in its own `nvcc` process, all started together; one
 link step then makes the library.
 
 No `--use_fast_math`: the kernels rely on IEEE division and `expf`.
+
+`build()` and `library()` hold one module lock, so threads reaching their
+first launch together (the serving frontend's engine thread and the
+caller's) build and load the library once.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -53,6 +58,8 @@ SIGNATURES = {
 
 _LIB = None
 BUILD_INFO: dict = {}
+# re-entrant: library() holds it across its call of build()
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -77,6 +84,11 @@ def _digest() -> str:
 def build() -> Path:
     """Compile the sources (in parallel) and link the library; returns its
     path. A library already built from the same sources is reused."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> Path:
     out_dir = BUILD_ROOT / _digest()
     lib_path = out_dir / "librepro_torch_kernels.so"
     if lib_path.exists():
@@ -119,13 +131,17 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn, args in SIGNATURES.items():
-            getattr(lib, fn).argtypes = list(args)
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, args in SIGNATURES.items():
+                getattr(lib, fn).argtypes = list(args)
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
 
 
 def check(status: int, name: str) -> None:

@@ -4,6 +4,7 @@
         [--prefix-cache [--prefix-spill] [--host-budget-bytes N]]
         [--scheduler fifo|latency] [--shared-prefix N]
         [--spec-k K --draft-layers L] [--temperature T] [--top-k K]
+        [--obs] [--http PORT]
 
 Builds seeded random weights, prequantizes them (quartet2: NVFP4 4/6 packed
 weights), serves `--batch` requests through `ServeEngine` on the paged bf16
@@ -16,8 +17,16 @@ engine skipped and its cache hit rate. `--spec-k K --draft-layers L`
 decodes self-speculatively (the first L layers draft K tokens a round, the
 full model verifies them in one chunk) and prints the acceptance rate and
 the tokens each slot emits a round; `--temperature` and `--top-k` set every
-request's sampling (greedy by default). Runs on the card unless `--device
-cpu` is given (`--reduced` shrinks the model to its CPU smoke size).
+request's sampling (greedy by default). `--obs` attaches an
+`obs.Instrumentation` (registry counters, request traces) and prints the
+traces' TTFT, queue-wait and per-token decode percentiles. `--http PORT`
+serves the engine the other flags build over HTTP instead
+(`serve/frontend.py`: POST /v1/completions with SSE streaming, /metrics,
+/healthz, /v1/stats, /admin/drain) on 127.0.0.1:PORT until interrupted; 0
+binds an ephemeral port, and the bound port is printed. Requests over
+`--prompt-len` + `--tokens` positions are refused as unservable. Runs on the
+card unless `--device cpu` is given (`--reduced` shrinks the model to its
+CPU smoke size).
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.models import lm
+from repro_torch.obs import Instrumentation, MetricsRegistry
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+from repro_torch.serve.frontend import FrontendConfig, serve_forever
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import FifoPolicy, LatencyPolicy
 
@@ -64,7 +75,7 @@ def _shared_prefix(cfg, params, econf, args, rng, label) -> dict:
                for _ in range(args.shared_prefix)]
     cold, _, _, cold_wall = _serve(
         cfg, params, dataclasses.replace(econf, prefix_cache=False,
-                                         prefix_spill=False),
+                                         prefix_spill=False, obs=None),
         prompts, args.tokens)
     eng = ServeEngine(cfg, params,
                       dataclasses.replace(econf, prefix_cache=True))
@@ -123,6 +134,10 @@ def main(argv=None) -> dict:
                     help="sampling temperature (0: greedy)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="keep the k highest logits (0: all)")
+    ap.add_argument("--obs", action="store_true",
+                    help="attach an obs.Instrumentation (metrics, traces)")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve over HTTP on 127.0.0.1:PORT (0: ephemeral)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's CPU smoke size (ArchConfig.reduced)")
@@ -149,9 +164,22 @@ def main(argv=None) -> dict:
         host_budget_bytes=args.host_budget_bytes,
         scheduler=LatencyPolicy() if args.scheduler == "latency"
         else FifoPolicy(), spec_k=args.spec_k,
-        draft_layers=args.draft_layers, device=str(device))
+        draft_layers=args.draft_layers, device=str(device),
+        obs=Instrumentation(registry=MetricsRegistry()) if args.obs else None)
     rng = np.random.RandomState(args.seed)
     label = device_label(device)
+    if args.http is not None:
+        def ready(port):
+            print(f"[{label}] {cfg.name} {args.scheme}: serving "
+                  f"http://127.0.0.1:{port}/v1/completions (port {port})",
+                  flush=True)
+
+        try:
+            serve_forever(ServeEngine(cfg, params, econf),
+                          FrontendConfig(port=args.http), on_ready=ready)
+        except KeyboardInterrupt:
+            pass  # Ctrl-C: the bridge and the socket are closed on the way
+        return {}
     if args.shared_prefix:
         return _shared_prefix(cfg, params, econf, args, rng, label)
     prompts = [rng.randint(0, cfg.vocab, args.prompt_len).tolist()
@@ -182,6 +210,12 @@ def main(argv=None) -> dict:
           f"requests, prefill {out['prefill_tok_s']:.1f} tok/s, decode "
           f"{out['decode_tok_s']:.1f} tok/s{spec}, wall {wall:.2f} s, pool "
           f"blocks free {out['free_blocks']}/{out['n_blocks']}")
+    if eng.obs.enabled:
+        out["traces"] = agg = eng.obs.trace_sink.aggregates()
+        print(f"[{out['device']}] traces of {agg['retired']} requests: "
+              + ", ".join(f"{k} p50 {agg[k]['p50'] * 1e3:.2f} ms p99 "
+                          f"{agg[k]['p99'] * 1e3:.2f} ms"
+                          for k in ("queue_wait_s", "ttft_s", "decode_tok_s")))
     print("sample ids:", results[0].tokens[:8] if results else [])
     return out
 

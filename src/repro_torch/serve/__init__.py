@@ -12,4 +12,7 @@ Modules (import them directly):
     prequant      — quantize-once NVFP4 weight cache
     sampling      — greedy / temperature / top-k sampling
     decode        — the engine's paged step builder
+    spec_decode   — self-speculative decoding (truncated-stack draft)
+    frontend      — streaming HTTP frontend (SSE) over an engine-thread
+                    bridge, tenant quotas, drain
 """

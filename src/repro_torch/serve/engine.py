@@ -23,10 +23,20 @@ tick:
                chunk verifies them.
 
 Slot states: FREE -> PREFILL -> DECODE -> FREE. Raggedness travels as data
-(per-slot position vector, active mask, block tables). Counters live in the
-plain `stats` dict; every timestamp comes from `self.clock`. `cancel`
-withdraws a queued or in-flight request; `token_hook` streams each slot's
-new tokens at tick boundaries.
+(per-slot position vector, active mask, block tables). Every timestamp
+comes from `self.clock`. `cancel` withdraws a queued or in-flight request;
+`token_hook` streams each slot's new tokens at tick boundaries (the seam
+the HTTP frontend, `serve/frontend.py`, rides).
+
+Observability (`EngineConfig.obs`, an `obs.Instrumentation`): counters move
+from the plain `stats` dict into a metrics registry behind the same
+mapping, each request gets a lifecycle trace, and the pool, the prefix
+cache, the scheduler and the speculative path report through the same
+object. Off (`obs=None`, the `NULL` sentinel) every hook site costs one
+attribute read; on, the hooks read the host clock and host state only: no
+host sync and no device work. One difference from the reference: the port
+fills `RequestResult.ttft_s` with obs off too (with obs on it is the
+trace's value, as the reference computes it).
 
 With `kv_quant=True` the pool stores every token leaf as NVFP4 `PackedKV`
 bytes (0.28125x the bf16 bytes) and decode attention runs the packed-operand
@@ -47,6 +57,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
+from repro_torch.obs.instrumentation import NULL, legacy_stats_dict
 from repro_torch.serve import decode as serve_decode
 from repro_torch.serve import spec_decode
 from repro_torch.serve.kv_pool import KVPool, OutOfBlocks
@@ -59,11 +70,35 @@ FREE, PREFILL, DECODE = "free", "prefill", "decode"
 
 
 class QueueFull(RuntimeError):
-    """Admission control: the request queue is at capacity."""
+    """Admission control: the request queue is at capacity.
+
+    Structured: `reason`, `queue_depth` and `retry_after_s` let the HTTP
+    frontend build a 429 with Retry-After, and the obs layer a
+    reason-labelled rejection counter, from the exception itself. `info()`
+    is the JSON-safe dict both read."""
+
+    reason = "queue_full"
+
+    def __init__(self, msg: str = "", *, reason: str | None = None,
+                 queue_depth: int = 0, retry_after_s: float | None = None):
+        super().__init__(msg)
+        if reason is not None:
+            self.reason = reason
+        self.queue_depth = queue_depth
+        self.retry_after_s = retry_after_s
+
+    def info(self) -> dict:
+        return {"reason": self.reason, "queue_depth": self.queue_depth,
+                "retry_after_s": self.retry_after_s}
 
 
 class Unservable(QueueFull, ValueError):
-    """A request no pool state can ever back (rejected at submit)."""
+    """A request no pool state can ever back (rejected at submit). Carries
+    QueueFull's fields with `retry_after_s=None`: retrying is pointless.
+    QueueFull leads the MRO, so its keyword-aware __init__ wins over
+    ValueError's."""
+
+    reason = "unservable"
 
 
 @dataclass
@@ -89,6 +124,9 @@ class RequestResult:
     finish_s: float = 0.0
     ttft_s: float | None = None   # submit -> first sampled token
     deadline_s: float | None = None
+    # from the request's trace when observability is on; None otherwise
+    queue_wait_s: float | None = None   # submit -> slot admission
+    decode_tok_s: float | None = None   # mean per-token decode latency
 
     @property
     def latency_s(self) -> float:
@@ -135,6 +173,9 @@ class EngineConfig:
     # stream grows (result: the RequestResult at retirement, else None);
     # reassignable as `engine.token_hook`
     token_hook: Any = None
+    # observability (obs/instrumentation.py Instrumentation); None disables
+    # every hook beyond the plain stats dict
+    obs: Any = None
     # options of the reference engine that later slices port
     paged: bool = True
     mesh: Any = None
@@ -168,17 +209,6 @@ class _Slot:
     cache_nodes: list = field(default_factory=list)  # pinned radix nodes
 
 
-def _stats_dict() -> dict:
-    return {k: 0 for k in ("ticks", "admitted", "finished", "rejected",
-                           "prefill_tokens", "prefill_steps",
-                           "decode_tokens", "decode_steps",
-                           "prefill_skipped_tokens", "prefix_hits",
-                           "draft_tokens", "accepted_tokens", "spec_rounds",
-                           "draft_catchup_tokens", "draft_catchup_steps",
-                           "cancelled")} | {
-        "prefill_s": 0.0, "decode_s": 0.0}
-
-
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, econf: EngineConfig | None = None):
         self.cfg = cfg
@@ -202,8 +232,13 @@ class ServeEngine:
             lm.prefix_specs(cfg, e.draft_layers)  # 0 < n < total_layers
         self.clock = e.clock if e.clock is not None else time.perf_counter
         self.device = torch.device(e.device)
+        # resolved first, so prequantization can report the raw weights'
+        # quantization health through the probe
+        self.obs = e.obs if e.obs is not None else NULL
+        probe = self.obs.quant_probe if self.obs.enabled else None
         params = _to_device(params, self.device)
-        self.params = prequantize(params, cfg, e.scheme) if e.prequant else params
+        self.params = (prequantize(params, cfg, e.scheme, probe=probe)
+                       if e.prequant else params)
         self.pool = KVPool(cfg, e.n_slots, e.max_len, block_size=e.block_size,
                            n_blocks=e.n_blocks, device=self.device,
                            quantized=e.kv_quant)
@@ -221,7 +256,6 @@ class ServeEngine:
         self._ids = itertools.count()
         self._step = serve_decode.make_paged_serve_step(cfg, e.scheme)
         self._gen = torch.Generator(device=self.device).manual_seed(e.base_seed)
-        self.stats = _stats_dict()
         self.cache = None
         self._matches: dict[int, tuple[int, Any]] = {}  # req_id -> (epoch, Match)
         if e.prefix_cache and PrefixCache.supported(self.pool):
@@ -229,55 +263,103 @@ class ServeEngine:
                 self.pool, spill=e.prefix_spill,
                 host_budget_bytes=e.host_budget_bytes, clock=self.clock)
         self.sched = e.scheduler if e.scheduler is not None else FifoPolicy()
+        # a plain dict with obs off; registry-backed counters behind the
+        # same mapping with obs on
+        if self.obs.enabled:
+            self._stats = self.obs.stats_view()
+            self.pool.obs = self.obs
+            if self.cache is not None:
+                self.cache.obs = self.obs
+        else:
+            self._stats = legacy_stats_dict()
+
+    @property
+    def stats(self):
+        """Engine counters (a dict, or the registry view with obs on)."""
+        return self._stats
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
 
     def submit(self, request: Request) -> int:
-        """Queue a request; raises Unservable when no pool state can ever
-        back it, QueueFull at capacity."""
+        """Queue a request; raises Unservable (a QueueFull and a ValueError)
+        when no pool state can ever back it, QueueFull (with queue depth
+        and a suggested retry_after_s) at capacity."""
         total = len(request.prompt) + request.max_new + self._margin
+        exc = None
         if not request.prompt or request.max_new < 1:
-            self.stats["rejected"] += 1
-            raise Unservable("a request needs a prompt and max_new >= 1")
-        if not self.pool.can_ever_admit(total, self._max_growth):
-            self.stats["rejected"] += 1
-            raise Unservable(
+            exc = Unservable("a request needs a prompt and max_new >= 1",
+                             queue_depth=len(self.queue))
+        elif not self.pool.can_ever_admit(total, self._max_growth):
+            exc = Unservable(
                 f"request needs {total} positions but the pool serves at "
                 f"most max_len={self.econf.max_len} / "
-                f"{self.pool.n_blocks} blocks")
-        if len(self.queue) >= self.econf.max_queue:
+                f"{self.pool.n_blocks} blocks", queue_depth=len(self.queue))
+        elif len(self.queue) >= self.econf.max_queue:
+            # checked after unservability: a permanent rejection must not
+            # pass for a transient one (clients would retry forever)
+            exc = QueueFull(f"queue at capacity ({self.econf.max_queue})",
+                            queue_depth=len(self.queue),
+                            retry_after_s=self.suggested_retry_after_s())
+        if exc is not None:
             self.stats["rejected"] += 1
-            raise QueueFull(f"queue at capacity ({self.econf.max_queue})")
+            if self.obs.enabled:
+                self.obs.on_reject(request, exc.reason, self.clock())
+            raise exc
         request.req_id = next(self._ids)
         request.arrival_s = self.clock()
         self.queue.append(request)
+        if self.obs.enabled:
+            self.obs.on_submit(request, request.arrival_s)
         return request.req_id
 
     def cancel(self, req_id: int, reason: str = "cancelled") -> bool:
         """Withdraw a request: a QUEUED one leaves the queue; an in-flight
         one frees its slot in both pools, its committed stream first
         inserted into the prefix cache (the tokens were paid for, and a
-        resubmission reuses them). `reason` names why ("cancelled",
-        "disconnected", "requeued"); the instrumentation that records it
-        comes with `obs/`. False when `req_id` is unknown (retired,
-        rejected or never submitted)."""
+        resubmission reuses them). `reason` ("cancelled", "disconnected",
+        "requeued": the frontend's lifecycle states) labels the trace's
+        terminal span and the cancellation counter. False when `req_id` is
+        unknown (retired, rejected or never submitted)."""
+        t = self.clock()
         for r in self.queue:
             if r.req_id == req_id:
                 self.queue.remove(r)
                 self._matches.pop(req_id, None)
                 self.stats["cancelled"] += 1
+                if self.obs.enabled:
+                    self.obs.on_cancel(r, t, reason=reason)
                 return True
         for i, s in enumerate(self.slots):
             if s.req is not None and s.req.req_id == req_id:
                 self._release_slot(i)
                 self.stats["cancelled"] += 1
+                if self.obs.enabled:
+                    self.obs.on_cancel(s.req, t, reason=reason)
                 return True
         return False
 
+    def suggested_retry_after_s(self) -> float:
+        """Backpressure hint for rejected clients: seconds until the engine
+        has plausibly worked the backlog down. The queued and in-flight
+        tokens still to generate over the decode rate observed so far,
+        clamped to [0.5, 60]; 1.0 before any decode step has run."""
+        if self.stats["decode_tokens"] <= 0:
+            return 1.0
+        backlog = sum(r.max_new for r in self.queue)
+        for s in self.slots:
+            if s.req is not None:
+                backlog += max(s.req.max_new - len(s.generated), 0)
+        rate = self.stats["decode_tokens"] / max(self.stats["decode_s"], 1e-9)
+        return float(min(max(backlog / max(rate, 1e-9), 0.5), 60.0))
+
     def has_work(self) -> bool:
         return bool(self.queue) or any(s.state != FREE for s in self.slots)
+
+    @property
+    def free_slots(self) -> int:
+        return sum(s.state == FREE for s in self.slots)
 
     def run(self) -> list[RequestResult]:
         """Drain queue + slots; returns results in completion order."""
@@ -300,11 +382,16 @@ class ServeEngine:
             # this tick's swap-ins become plain cached blocks: the stream
             # orders their writes before any later read, nothing waits
             self.cache.complete_swaps()
+        if self.obs.enabled:
+            self.obs.on_tick(self)  # occupancy / pool / cache gauges
         return finished
 
     def _admit(self) -> None:
         for r in self.queue:
             r.queued_ticks += 1  # scheduler aging (LatencyPolicy)
+        if self.obs.enabled:
+            # queue depth / aging / slack: the policy knows its urgency model
+            self.sched.observe(self.obs, self.queue, self.clock())
         if not self.queue:
             return
         now = self.clock()
@@ -393,6 +480,8 @@ class ServeEngine:
         self.slots[i] = _Slot(state=PREFILL, req=req, cursor=prefix_len,
                               cache_nodes=nodes)
         self.stats["admitted"] += 1
+        if self.obs.enabled:
+            self.obs.on_admit(req, i, prefix_len, self.clock())
         if self.cache is not None:
             # book once per ADMITTED request; only an adopted match is a hit
             self.cache.record(m if plan is not None else None)
@@ -459,6 +548,7 @@ class ServeEngine:
             # through the prefix stack
             self.draft.pool.ensure(i, slot.cursor + size)
             self.draft.forward(tokens, pos, active)
+        t_disp = self.clock() - t0
         done = slot.cursor + size == len(prompt)
         tok = int(self._sample(logits[:, -1])[i]) if done else None
         self._sync()
@@ -466,6 +556,8 @@ class ServeEngine:
         self.stats["prefill_s"] += now - t0
         self.stats["prefill_tokens"] += size
         self.stats["prefill_steps"] += 1
+        if self.obs.enabled:
+            self.obs.on_prefill_step(t_disp, now - t0)
         slot.cursor += size
         slot.draft_len = slot.cursor
         if done:
@@ -476,6 +568,10 @@ class ServeEngine:
             slot.last_tok = tok
             slot.generated.append(tok)
             slot.first_token_s = now
+            if self.obs.enabled:
+                # stamped after the sample, as the reference does: with obs
+                # on the result's TTFT is this trace's
+                self.obs.on_first_token(slot.req, self.clock())
             self._flush(i)
 
     def _draft_catchup(self, i: int, slot: _Slot) -> None:
@@ -494,8 +590,12 @@ class ServeEngine:
         t0 = self.clock()
         self.draft.pool.ensure(i, slot.draft_len + size)
         self.draft.forward(tokens, pos, active)
+        t_disp = self.clock() - t0
         self._sync()
-        self.stats["prefill_s"] += self.clock() - t0
+        t_sync = self.clock() - t0
+        self.stats["prefill_s"] += t_sync
+        if self.obs.enabled:
+            self.obs.on_prefill_step(t_disp, t_sync)
         self.stats["draft_catchup_tokens"] += size
         self.stats["draft_catchup_steps"] += 1
         slot.draft_len += size
@@ -509,6 +609,11 @@ class ServeEngine:
             arrival_s=slot.req.arrival_s, finish_s=self.clock(),
             ttft_s=slot.first_token_s - slot.req.arrival_s,
             deadline_s=slot.req.deadline_s)
+        if self.obs.enabled:
+            # closes the trace; queue wait, TTFT and per-token decode
+            # latency come from it
+            self.obs.on_retire(slot.req, res, len(slot.generated),
+                               res.finish_s)
         self._flush(i, res)
         self._release_slot(i)
         self.stats["finished"] += 1
@@ -545,10 +650,14 @@ class ServeEngine:
         if e.spec_k > 0:
             t0 = self.clock()
             emitted = spec_decode.spec_round(self, dec)
+            t_disp = self.clock() - t0
             self._sync()
-            self.stats["decode_s"] += self.clock() - t0
+            t_sync = self.clock() - t0
+            self.stats["decode_s"] += t_sync
             self.stats["decode_tokens"] += emitted
             self.stats["decode_steps"] += 1
+            if self.obs.enabled:
+                self.obs.on_decode_step(t_disp, t_sync)
             for i in dec:
                 self._flush(i)
             return finished
@@ -563,10 +672,14 @@ class ServeEngine:
             active[i] = True
         t0 = self.clock()
         logits = self._forward(tokens, pos, active)
-        toks = self._sample(logits[:, -1])
-        self.stats["decode_s"] += self.clock() - t0
+        t_disp = self.clock() - t0
+        toks = self._sample(logits[:, -1])  # the step's host sync
+        t_sync = self.clock() - t0
+        self.stats["decode_s"] += t_sync
         self.stats["decode_tokens"] += len(dec)
         self.stats["decode_steps"] += 1
+        if self.obs.enabled:
+            self.obs.on_decode_step(t_disp, t_sync)
         for i in dec:
             slot = self.slots[i]
             slot.length += 1

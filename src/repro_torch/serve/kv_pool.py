@@ -329,6 +329,10 @@ class KVPool:
         self._shared_upto = [0] * n_slots
         # set by the prefix cache: callable(shard, need) -> blocks freed
         self.evict_hook = None
+        # observability hook (obs/instrumentation.py Instrumentation), set
+        # by the engine when EngineConfig(obs=...) is on; None costs one
+        # `is not None` test per allocation event
+        self.obs = None
         self._tables_dev = None
         self.window = reclaim_window(cfg, self.specs)
         self._alloc_upto = [0] * n_slots   # logical blocks ever allocated
@@ -357,6 +361,25 @@ class KVPool:
     @property
     def free_block_count(self) -> int:
         return len(self._free)
+
+    def utilization(self) -> dict:
+        """Host-side occupancy for the per-tick gauges
+        (obs/instrumentation.py): free blocks per shard (one shard here),
+        allocated blocks, and internal fragmentation: token capacity in
+        allocated blocks that no live position occupies (partial tail
+        blocks plus window-reclaim slack)."""
+        free = len(self._free)
+        cap = live = 0
+        for i in range(self.n_slots):
+            if not self._bound[i]:
+                continue
+            cap += len(self._owned[i]) * self.block_size
+            live += self._lengths[i] - self._live_from[i] * self.block_size
+        frag = max(cap - live, 0)
+        return {"free_by_shard": [free],
+                "allocated_blocks": self.n_blocks - free,
+                "frag_tokens": frag,
+                "frag_ratio": frag / cap if cap else 0.0}
 
     def _outstanding(self) -> int:
         return sum(self._committed[i] - len(self._owned[i])
@@ -435,12 +458,16 @@ class KVPool:
                               f"{self.max_blocks}-entry block table")
         if self.window is not None:
             self._reclaim(slot)
+        taken = 0
         while self._alloc_upto[slot] < need:
             blk = self._pop_free(f"slot {slot}: pool exhausted")
             self._table[slot, self._alloc_upto[slot]] = blk
             self._owned[slot].append(blk)
             self._alloc_upto[slot] += 1
+            taken += 1
             self._dirty()
+        if taken and self.obs is not None:
+            self.obs.on_pool_alloc(taken)
         self._lengths[slot] = max(self._lengths[slot], n_tokens)
 
     def _reclaim(self, slot: int) -> None:
@@ -459,6 +486,8 @@ class KVPool:
             self._table[slot, j] = self.sentinel
             self._owned[slot].remove(blk)
             self._decref(blk)
+        if self.obs is not None:
+            self.obs.on_pool_reclaim(first_live - self._live_from[slot])
         self._live_from[slot] = first_live
         self._dirty()
         # freed keys end at first_live*BS - 1; a truncate to n keeps windows
@@ -536,6 +565,8 @@ class KVPool:
             raise SlotError(f"block {block}: decref below zero (double free)")
         if self._ref[block] == 0:
             self._free.append(block)
+            if self.obs is not None:
+                self.obs.on_pool_free(1)
 
     def incref(self, block: int) -> None:
         """Add an external (prefix-cache) hold on an allocated block."""
@@ -590,6 +621,9 @@ class KVPool:
         self._alloc_upto[slot] = j + 1
         self._copy_block_device(src, dst)
         self._dirty()
+        if self.obs is not None:
+            self.obs.on_pool_alloc(1)
+            self.obs.on_pool_cow()
         return dst
 
     def _copy_block_device(self, src: int, dst: int) -> None:
@@ -603,7 +637,10 @@ class KVPool:
         """One block OWNED BY THE PREFIX CACHE (ref 1, no slot): a swap-in
         target. Evicts like `ensure` under pressure; pin (acquire) the cache
         path being materialized first."""
-        return self._pop_free(f"shard {shard}: no free block for the cache")
+        blk = self._pop_free(f"shard {shard}: no free block for the cache")
+        if self.obs is not None:
+            self.obs.on_pool_alloc(1)
+        return blk
 
     # ---- host spill tier ----
     #

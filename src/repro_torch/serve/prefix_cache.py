@@ -144,6 +144,10 @@ class PrefixCache:
                       "inserted_blocks": 0, "evicted_blocks": 0,
                       "spilled_blocks": 0, "swapped_in_blocks": 0,
                       "replicated_blocks": 0, "swapin_s": 0.0}
+        # observability hook (set by the engine with EngineConfig(obs=...)):
+        # mirrors these events into registry counters. Replication comes
+        # with mesh shards, so `on_cache_replicate` is never called here.
+        self.obs = None
         pool.evict_hook = self.evict
         pool.host_keep_bytes = host_budget_bytes
 
@@ -163,13 +167,16 @@ class PrefixCache:
         """Book one lookup (and its hit): once per admission, with None for
         an admission that did not use its match."""
         self.stats["lookups"] += 1
-        if match is not None and match.tokens:
+        hit = match is not None and match.tokens
+        if hit:
             self.stats["hits"] += 1
             self.stats["hit_tokens"] += match.tokens
             for n in match.nodes:
                 n.hits += 1
             if match.partial_node is not None:
                 match.partial_node.hits += 1
+        if self.obs is not None:
+            self.obs.on_cache_record(bool(hit), match.tokens if hit else 0)
 
     def hint_tokens(self, match: Match) -> int:
         """Scheduler hint (Request.cached_hint): device-resident matched
@@ -261,8 +268,11 @@ class PrefixCache:
             pool.write_block_host(blk, payload)
             n.blocks[shard] = blk
             self._inflight.append(blk)
+        dt = self.wall() - t0
         self.stats["swapped_in_blocks"] += len(missing)
-        self.stats["swapin_s"] += self.wall() - t0
+        self.stats["swapin_s"] += dt
+        if self.obs is not None:
+            self.obs.on_cache_swap_in(len(missing), dt)
         self._trim_host()
         return len(missing)
 
@@ -346,6 +356,8 @@ class PrefixCache:
             node = child
             added += 1
         self.stats["inserted_blocks"] += added
+        if self.obs is not None:
+            self.obs.on_cache_insert(added)
         if added:
             self.epoch += 1
         return added
@@ -389,6 +401,8 @@ class PrefixCache:
                     if self.spill:
                         self._snapshot(n)
                         self.stats["spilled_blocks"] += 1
+                        if self.obs is not None:
+                            self.obs.on_cache_spill(1, n.host_bytes)
                     self.pool._decref(n.blocks.pop(sh))
                     freed += 1
                     if freed >= need:
@@ -399,6 +413,8 @@ class PrefixCache:
                 if freed >= need:
                     break
         self.stats["evicted_blocks"] += freed
+        if self.obs is not None and freed:
+            self.obs.on_cache_evict(freed)
         if self.spill and freed:
             self._trim_host()
         return freed

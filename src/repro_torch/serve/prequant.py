@@ -70,12 +70,19 @@ def _map_leaves(tree, fn, key=None):
     return fn(key, tree)
 
 
-def prequantize(params, cfg: ArchConfig, scheme: str):
+def prequantize(params, cfg: ArchConfig, scheme: str, probe=None):
     """Params with decode-path weights replaced by PackedQWeight stacks.
-    No-op for schemes that do not quantize weights."""
+    No-op for schemes that do not quantize weights.
+
+    `probe` (obs/quant_probe.py QuantProbe, optional) samples the RAW
+    weights' quantization health (per-site MSE, scale saturation, clip
+    fraction) before packing, so the one weight quantization every serving
+    run depends on is observed, not assumed."""
     sch = S.get(scheme)
     if sch.fwd_w == "none":
         return params
+    if probe is not None:
+        probe.probe_params(params, phase="prequant")
     kind = sch.fwd_w
 
     def maybe_pack(key, leaf):

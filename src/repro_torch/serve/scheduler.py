@@ -19,8 +19,8 @@ queued_ticks // aging_ticks. Aging counts engine ticks, so it is
 deterministic: a waiting request outranks any fixed-priority competitor
 after at most (priority gap + 1) * aging_ticks ticks. Policies read no
 clock themselves: `now` is the engine's `clock()`, so a test drives them
-with a fake clock. The per-tick `observe` telemetry of the reference comes
-with the port's `obs/` engine instrumentation.
+with a fake clock. With observability on, the engine calls `observe` once
+a tick to report queue depth and aging (LatencyPolicy adds deadline slack).
 """
 
 from __future__ import annotations
@@ -43,6 +43,13 @@ class SchedulerPolicy:
         """candidates: [(slot_index, slot), ...] in slot order, all in
         PREFILL state. Returns the slot index to advance."""
         return candidates[0][0]
+
+    def observe(self, obs, queue, now: float) -> None:
+        """Per-tick scheduler telemetry (queue depth and aging) through the
+        engine's Instrumentation; subclasses extend it with their own
+        urgency model. Host-side only."""
+        obs.queue_depth.set(len(queue))
+        obs.queue_age.set(max((r.queued_ticks for r in queue), default=0))
 
 
 class FifoPolicy(SchedulerPolicy):
@@ -72,6 +79,13 @@ class LatencyPolicy(SchedulerPolicy):
             queue,
             key=lambda r: (-self.effective_priority(r), self._slack(r, now),
                            -r.cached_hint, r.req_id))
+
+    def observe(self, obs, queue, now: float) -> None:
+        super().observe(obs, queue, now)
+        slacks = [self._slack(r, now) for r in queue
+                  if r.deadline_s is not None]
+        if slacks:  # finite only: +Inf would poison the JSON exposition
+            obs.queue_slack.set(min(slacks))
 
     def pick_prefill(self, candidates, now: float) -> int:
         """The most urgent PREFILL slot gets the chunk. The engine ages the

@@ -190,6 +190,8 @@ def spec_round(eng, dec: list[int]) -> int:
         # caps them at remaining - 1
         eng.stats["draft_tokens"] += min(k, remaining - 1)
         eng.stats["accepted_tokens"] += nacc - 1
+        if eng.obs.enabled:
+            eng.obs.spec_accepted_hist.observe(float(nacc - 1))
         emitted += nacc
         s.generated.extend(emit)
         s.length = length0 + nacc

@@ -62,8 +62,17 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     `forward` of the config cut to its layers, logits and K/V, at Sq 1 and
     4; the spec engine's streams bitwise repeatable, both pools freed.
     The kernels' cases above include the verify chunk's shapes: #2 at M =
-    16 and 20, #5 and #7 at Sq 4 from mid-sequence positions.
+    16 and 20, #5 and #7 at Sq 4 from mid-sequence positions;
+  - threads (the HTTP frontend ticks the engine on a thread of its own):
+    #1, #2 (both kernels) and #5 launched from a non-main thread bitwise
+    the same launches from the main thread; SSE streams of the reduced
+    llama under scheme bf16, over the bf16 and the NVFP4 pool, bitwise the
+    engine's `run()` streams, every step on the bridge's thread.
 """
+
+import asyncio
+import json
+import threading
 
 import numpy as np
 import pytest
@@ -1121,3 +1130,110 @@ def test_spec_engine_on_card_is_repeatable_and_frees_both_pools(dev):
     assert all(ops.LAUNCHES[k] > 0
                for k in ("nvfp4_fos_quant", "fp4_matmul", "paged_gqa"))
     assert run() == a and all(len(t) == 10 for t in a.values())
+
+
+# ---- threads: the frontend's engine thread ------------------------------
+
+def _on_thread(fn):
+    out = []
+    t = threading.Thread(target=lambda: out.append(fn()))
+    t.start()
+    t.join(timeout=120)
+    assert out, "the thread did not finish"
+    return out[0]
+
+
+def test_kernels_on_another_thread_bitwise_main_thread(dev):
+    """#1, #2 (M 4: gemv, M 64: wgmma) and #5 launched from a thread that is
+    not the main thread, on its current stream, give the main thread's
+    bits."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((4, 1280), generator=g, device=dev).bfloat16()
+
+    def quant():
+        r = ops.nvfp4_fos_quant(x)
+        torch.cuda.synchronize()
+        return r
+
+    assert all(torch.equal(a, b) for a, b in zip(quant(), _on_thread(quant)))
+    for m in (4, 64):
+        args = _fp4_operands(dev, m, 3456, 1280, 7)
+
+        def mm():
+            c = ops.fp4_matmul(*args)
+            torch.cuda.synchronize()
+            return c
+
+        assert torch.equal(mm(), _on_thread(mm))
+    (q, kp, vp, table, pos), _ = _pool_case(
+        dev, b=4, sq=1, h=10, kv=10, hd=128, bs=16, maxb=16,
+        lens=[37, 100, 1, 256])
+
+    def attn():
+        o = ops.paged_gqa(q, kp, vp, table, pos)
+        torch.cuda.synchronize()
+        return o
+
+    ops.reset_launches()
+    assert torch.equal(attn(), _on_thread(attn))
+    assert ops.LAUNCHES["paged_gqa"] == 2
+
+
+async def _sse_tokens(port, prompt, max_new):
+    reader, writer = await asyncio.wait_for(
+        asyncio.open_connection("127.0.0.1", port), 60)
+    body = json.dumps({"prompt": prompt, "max_tokens": max_new,
+                       "stream": True}).encode()
+    writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+    await asyncio.wait_for(writer.drain(), 60)
+    toks, done = [], False
+    while True:
+        line = await asyncio.wait_for(reader.readline(), 60)
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            if line[6:].strip() == b"[DONE]":
+                done = True
+                break
+            toks.extend(json.loads(line[6:])["choices"][0]["tokens"])
+    writer.close()
+    assert done
+    return toks
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "nvfp4"])
+def test_sse_streams_on_card_bitwise_run(dev, kv_quant):
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.frontend import CompletionFrontend, EngineBridge
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab, n).tolist() for n in (9, 20, 13, 5)]
+    econf = EngineConfig(n_slots=2, max_len=48, prefill_chunk=8,
+                         scheme="bf16", kv_quant=kv_quant, device="cuda")
+    eng = ServeEngine(cfg, params, econf)
+    ids = [eng.submit(Request(p, 12)) for p in prompts]
+    ref = {r.req_id: r.tokens for r in eng.run()}
+    eng = ServeEngine(cfg, params, econf)
+    ticked = set()
+    step = eng.step
+    eng.step = lambda: (ticked.add(threading.get_ident()), step())[1]
+
+    async def scenario():
+        bridge = EngineBridge(eng).start()
+        fe = await asyncio.wait_for(CompletionFrontend(bridge).start(), 60)
+        try:
+            return await asyncio.wait_for(asyncio.gather(
+                *[_sse_tokens(fe.port, p, 12) for p in prompts]), 120)
+        finally:
+            await asyncio.wait_for(fe.stop(), 60)
+            bridge.stop()
+            assert bridge.error is None
+
+    ops.reset_launches()
+    got = asyncio.run(scenario())
+    assert got == [ref[i] for i in ids]
+    assert ticked and threading.main_thread().ident not in ticked
+    assert ops.LAUNCHES["paged_gqa_q" if kv_quant else "paged_gqa"] > 0
+    assert eng.pool.free_block_count == eng.pool.n_blocks
