@@ -169,25 +169,14 @@ def paged_gqa_q_plain(q, k_codes, k_scales, v_codes, v_scales, table, pos,
 
 
 def paged_mla_plain(q_abs, q_rope, cc_pool, kc_pool, table, pos, qk_dim):
-    """Absorbed-form MLA decode over the gathered latent view:
-    s = (q_abs.cc + q_rope.kc) * scale, causal per absolute position,
-    softmax, readout over cc. q_abs (B, Sq, H, lora), q_rope (B, Sq, H,
-    rope); pools (P, BS, lora) / (P, BS, rope), bf16 or PackedKV.
-    Returns o_lat f32 (B, Sq, H, lora)."""
+    """Absorbed-form MLA decode over the gathered latent view
+    (`models.mla.latent_attend`). q_abs (B, Sq, H, lora), q_rope (B, Sq, H,
+    rope); pools (P, BS, lora) / (P, BS, rope), bf16 or PackedKV. Returns
+    o_lat f32 (B, Sq, H, lora)."""
+    from repro_torch.models.mla import latent_attend
     from repro_torch.serve.kv_pool import gather_view
-    cv = gather_view(cc_pool, table).float()
-    kv = gather_view(kc_pool, table).float()
-    sq = q_abs.shape[1]
-    positions = pos.long()[:, None] + torch.arange(sq, device=pos.device)[None]
-    s_lat = torch.einsum("bqhl,btl->bhqt", q_abs.float(), cv)
-    s_rope = torch.einsum("bqhr,btr->bhqt", q_rope.float(), kv)
-    s = (s_lat + s_rope) * mla_scale(qk_dim)  # an f32 value: exact scalar
-    tmask = (torch.arange(cv.shape[1], device=pos.device)[None, None, :]
-             <= positions[:, :, None])                         # (B, Sq, T)
-    s = torch.where(tmask[:, None], s, NEG_INF)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    prob = e / e.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhqt,btl->bqhl", prob, cv)
+    return latent_attend(q_abs, q_rope, gather_view(cc_pool, table),
+                         gather_view(kc_pool, table), pos, qk_dim)
 
 
 def paged_mla_q_plain(q_abs, q_rope, cc_codes, cc_scales, kc_codes,

@@ -1,6 +1,7 @@
 """Serve a model through the port's continuous-batching engine.
 
     python -m repro_torch.launch.serve --arch llama_200m [--tokens 32] [--kv-quant]
+        [--dense] [--legacy]
         [--prefix-cache [--prefix-spill] [--host-budget-bytes N]]
         [--scheduler fifo|latency] [--shared-prefix N]
         [--spec-k K --draft-layers L] [--temperature T] [--top-k K]
@@ -8,8 +9,12 @@
 
 Builds seeded random weights, prequantizes them (quartet2: NVFP4 4/6 packed
 weights), serves `--batch` requests through `ServeEngine` on the paged bf16
-pool (`--kv-quant`: the NVFP4 pool), and prints prefill and decode tokens
-per second labelled with the device they ran on. `--shared-prefix N` serves
+pool (`--kv-quant`: the NVFP4 pool; `--dense`: dense per-slot caches), and
+prints prefill and decode tokens per second labelled with the device they
+ran on. `--legacy` runs the fixed-batch seed loop instead
+(`serve.decode.greedy_generate`: one prefill of the `--batch` prompts, then
+batched single-token steps over dense caches, every weight re-quantized at
+every step) and prints its tokens per second. `--shared-prefix N` serves
 N requests over one `--prompt-len`-token system prompt, each with 4 tokens
 of its own, through a cold engine (cache off) and a hot one (prefix cache
 on, primed with the system prompt), and prints the prefill tokens the hot
@@ -41,6 +46,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.models import lm
 from repro_torch.obs import Instrumentation, MetricsRegistry
+from repro_torch.serve.decode import greedy_generate
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 from repro_torch.serve.frontend import FrontendConfig, serve_forever
 from repro_torch.serve.sampling import SamplingParams
@@ -108,6 +114,27 @@ def _shared_prefix(cfg, params, econf, args, rng, label) -> dict:
     return out
 
 
+def _legacy(cfg, params, args, rng, device, label) -> dict:
+    """The fixed-batch seed loop over `--batch` prompts of `--prompt-len`
+    tokens: wall time of the whole `greedy_generate` call, synchronized."""
+    prompts = rng.randint(0, cfg.vocab, (args.batch, args.prompt_len))
+    t0 = time.perf_counter()
+    gen = greedy_generate(params, cfg, args.scheme, prompts, args.tokens,
+                          device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    n = args.batch * args.tokens
+    out = {"device": label, "arch": cfg.name, "scheme": args.scheme,
+           "legacy": True, "requests": args.batch, "wall_s": wall,
+           "tok_s": n / wall, "tokens": gen.cpu().tolist()}
+    print(f"[{label}] {cfg.name} {args.scheme} legacy loop: generate "
+          f"{args.batch}x{args.tokens} tokens in {wall * 1e3:.0f} ms = "
+          f"{out['tok_s']:.1f} tok/s")
+    print("sample ids:", out["tokens"][0][:8])
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="llama_200m")
@@ -118,6 +145,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-quant", action="store_true",
                     help="NVFP4-quantized paged KV pool (PackedKV)")
+    ap.add_argument("--dense", action="store_true",
+                    help="dense per-slot caches instead of the paged pool")
+    ap.add_argument("--legacy", action="store_true",
+                    help="the fixed-batch greedy loop (greedy_generate) "
+                    "instead of the engine")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache over the pool")
     ap.add_argument("--prefix-spill", action="store_true",
@@ -142,6 +174,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's CPU smoke size (ArchConfig.reduced)")
     args = ap.parse_args(argv)
+    if args.dense and (args.shared_prefix or args.prefix_cache
+                       or args.prefix_spill):
+        ap.error("the prefix cache shares pool blocks: it needs the paged "
+                 "pool (drop --dense)")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -155,9 +191,14 @@ def main(argv=None) -> dict:
     extra = SHARED_SUFFIX if args.shared_prefix else 0
     max_len = -(-(args.prompt_len + extra + args.tokens + args.spec_k)
                 // block) * block
+    rng = np.random.RandomState(args.seed)
+    label = device_label(device)
+    if args.legacy:
+        return _legacy(cfg, params, args, rng, device, label)
     econf = EngineConfig(
         n_slots=min(args.batch, args.shared_prefix or args.batch),
         max_len=max_len, block_size=block, scheme=args.scheme,
+        paged=not args.dense,
         base_seed=args.seed, kv_quant=args.kv_quant,
         prefix_cache=args.prefix_cache or args.prefix_spill,
         prefix_spill=args.prefix_spill,
@@ -166,8 +207,6 @@ def main(argv=None) -> dict:
         else FifoPolicy(), spec_k=args.spec_k,
         draft_layers=args.draft_layers, device=str(device),
         obs=Instrumentation(registry=MetricsRegistry()) if args.obs else None)
-    rng = np.random.RandomState(args.seed)
-    label = device_label(device)
     if args.http is not None:
         def ready(port):
             print(f"[{label}] {cfg.name} {args.scheme}: serving "

@@ -1,14 +1,15 @@
-"""GQA attention: RoPE, full-sequence SDPA (training), decode SDPA and the
-paged decode step.
+"""GQA attention: RoPE, full-sequence SDPA (train and prefill), chunked
+online-softmax SDPA for long sequences, decode SDPA and the cached decode
+step over the paged pool or a dense per-slot cache.
 
 Counterpart of `repro/models/attention.py`. All four projections run through
 the quantized linear; scores and softmax stay f32, as fp32 einsums as in the
-reference. The chunked online-softmax path the reference takes above
-CHUNK_THRESHOLD tokens is not ported yet: `attend` raises there.
-Attention over the paged pool goes through `kernels.ops.paged_gqa` (bf16
-pool) or `kernels.ops.paged_gqa_q` (NVFP4 `PackedKV` pool): the CUDA kernel
-for tensors on the card, the gather_view + decode_sdpa plain version on the
-CPU.
+reference. Above CHUNK_THRESHOLD tokens `attend` takes `chunked_sdpa`, the
+reference's online softmax over KV blocks. Attention over the paged pool
+goes through `kernels.ops.paged_gqa` (bf16 pool) or `kernels.ops.paged_gqa_q`
+(NVFP4 `PackedKV` pool): the CUDA kernel for tensors on the card, the
+gather_view + decode_sdpa plain version on the CPU. A dense cache (no block
+table) is attended by `decode_sdpa` itself, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ from repro_torch.kernels.paged_attention import sqrt_hd
 from repro_torch.models.blocks import rmsnorm, site_seed
 
 NEG_INF = -1e30
-# the reference switches to chunked online-softmax attention above this
-# sequence length (repro/models/attention.py:CHUNK_THRESHOLD)
+# plain (materialized-scores) attention up to this sequence length; chunked
+# online softmax above it, in blocks of Q_BLOCK queries and KV_BLOCK keys
 CHUNK_THRESHOLD = 8192
+Q_BLOCK = 1024
+KV_BLOCK = 1024
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float):
@@ -78,11 +81,67 @@ def sdpa(q, k, v, *, causal=True, window=None, q_off=0):
     return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
+def _dead_block(q_off: int, qb: int, k_off: int, kb: int, causal: bool,
+                window) -> bool:
+    """Whether every (query, key) pair of a block is masked: all keys in the
+    future of the block's last query, or all behind the first query's
+    window."""
+    return ((causal and k_off > q_off + qb - 1)
+            or (window is not None and k_off + kb - 1 <= q_off - window))
+
+
+def chunked_sdpa(q, k, v, *, causal=True, window=None):
+    """Online-softmax attention over KV blocks: never materializes (Sq, Sk)
+    scores; the peak transient is (B, KV, rep, Q_BLOCK, KV_BLOCK) f32.
+
+    The reference's block arithmetic and shape rules: Sq is a multiple of
+    Q_BLOCK (or shorter, one block), Sk splits into max(Sk // KV_BLOCK, 1)
+    equal blocks. Blocks whose pairs are all masked are skipped: in the
+    reference's scan such a block leaves (m, l, acc) unchanged bit for bit
+    after a live block (p = exp(-1e30 - m) = 0, corr = 1), and before the
+    first live block (window) its sums are wiped by corr = exp(-1e30 - m)
+    = 0, so skipping computes the same values with half the work (causal)."""
+    b, sq, h, hd = q.shape
+    vd = v.shape[-1]
+    kv = k.shape[2]
+    rep = h // kv
+    sk = k.shape[1]
+    nq, qb = (sq // Q_BLOCK, Q_BLOCK) if sq >= Q_BLOCK else (1, sq)
+    nk = max(sk // KV_BLOCK, 1)
+    kb = sk // nk
+    qf = q.reshape(b, nq, qb, kv, rep, hd).float()
+    kf = k.reshape(b, nk, kb, kv, hd).float()
+    vf = v.reshape(b, nk, kb, kv, vd).float()
+    div = torch.tensor(sqrt_hd(hd), dtype=torch.float32, device=q.device)
+    outs = []
+    for qi in range(nq):
+        q_off = qi * qb
+        m = torch.full((b, kv, rep, qb), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kv, rep, qb), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kv, rep, qb, vd), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            if _dead_block(q_off, qb, ki * kb, kb, causal, window):
+                continue
+            s = torch.einsum("bqgrh,bkgh->bgrqk", qf[:, qi], kf[:, ki]) / div
+            s = s + _mask_bias(qb, kb, q_off - ki * kb, causal, window,
+                               q.device)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgv->bgrqv", p, vf[:, ki])
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4))            # (b, qb, kv, rep, vd)
+    return torch.cat(outs, dim=1).reshape(b, sq, h, vd).to(q.dtype)
+
+
 def attend(q, k, v, *, causal=True, window=None):
     if q.shape[1] > CHUNK_THRESHOLD or k.shape[1] > CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            f"sequences above {CHUNK_THRESHOLD} tokens take the reference's "
-            "chunked_sdpa, which a later slice ports")
+        return chunked_sdpa(q, k, v, causal=causal, window=window)
     return sdpa(q, k, v, causal=causal, window=window)
 
 
@@ -141,7 +200,8 @@ def _project_qkv(p, x, cfg, scheme, seed, layer, positions):
 
 def gqa_apply(p, x, cfg, scheme, seed, layer, *, causal=True, window=None,
               positions=None):
-    """Full-sequence GQA (training). Returns (out, (k, v))."""
+    """Full-sequence GQA (train / prefill). Returns (out, (k, v)), which
+    prefill writes into the dense decode cache."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -153,20 +213,23 @@ def gqa_apply(p, x, cfg, scheme, seed, layer, *, causal=True, window=None,
 
 def gqa_decode(p, x, cfg, scheme, seed, layer, cache_kv, pos, *, window=None,
                active=None, block_table=None):
-    """Cached decode / chunked-prefill step over the paged pool. x: (B, Sq, D).
+    """Cached decode / chunked-prefill step. x: (B, Sq, D).
 
     pos: (B,) int32 absolute position of each row's first token. active:
-    (B,) bool rows whose cache may be written. block_table: (B, MAXB) int32
-    (or a stacked (B, 2, MAXB) read/write pair). cache_kv holds the layer's
-    pool leaves (P + 1, BS, KV, hd), the last block being the write-only
-    scratch block of `serve.kv_pool` — they are UPDATED IN PLACE (the
-    reference rebinds donated buffers) and returned for symmetry.
+    (B,) bool rows whose cache may be written. The cache leaves are UPDATED
+    IN PLACE (the reference rebinds donated buffers) and returned for
+    symmetry; each holds one write-only scratch slot that no reader sees,
+    where every dropped write lands (inactive rows, negative positions,
+    sentinel entries), since PyTorch indexing raises where JAX's
+    `mode="drop"` drops:
+      - block_table (B, MAXB) int32 (or a stacked (B, 2, MAXB) read/write
+        pair): cache_kv holds the layer's paged pool leaves (P + 1, BS, KV,
+        hd), the last block the scratch block of `serve.kv_pool`;
+      - block_table None: dense per-slot caches (B, max_len + 1, KV, hd),
+        position max_len the scratch position; readers see [:, :max_len].
 
     Row-local: row b reads and writes only row b of x, positions and cache.
     """
-    if block_table is None:
-        raise NotImplementedError(
-            "dense per-slot caches come with a later slice; pass a block table")
     from repro_torch.serve import kv_pool as KV
     b, sq = x.shape[:2]
     posb = pos.to(torch.int32).expand(b).contiguous()
@@ -177,19 +240,32 @@ def gqa_decode(p, x, cfg, scheme, seed, layer, cache_kv, pos, *, window=None,
     valid = positions >= 0
     if active is not None:
         valid &= active[:, None]
-    rt, wt = KV.split_tables(block_table)
-    KV.scatter_tokens(kc, wt, positions, k, valid)
-    KV.scatter_tokens(vc, wt, positions, v, valid)
-    kr, vr = KV.readable(kc), KV.readable(vc)  # without the scratch block
-    if isinstance(kr, KV.PackedKV):
-        o = ops.paged_gqa_q(q, kr.codes, kr.scales, vr.codes, vr.scales, rt,
-                            posb, window=window)
+    if block_table is None:
+        cap = kc.shape[1] - 1
+        if window is not None and cap == window:
+            raise NotImplementedError(
+                "ring-buffer (cap == window) caches belong to sliding-window "
+                "lattn layers, which come with the griffin slice (ROADMAP.md "
+                "Queue 1 item 7)")
+        KV.scatter_dense(kc, positions, k, valid)
+        KV.scatter_dense(vc, positions, v, valid)
+        o = decode_sdpa(q, kc[:, :cap], vc[:, :cap], posb, window=window)
     else:
-        o = ops.paged_gqa(q, kr, vr, rt, posb, window=window)
-    o = o.to(q.dtype)
+        rt, wt = KV.split_tables(block_table)
+        KV.scatter_tokens(kc, wt, positions, k, valid)
+        KV.scatter_tokens(vc, wt, positions, v, valid)
+        kr, vr = KV.readable(kc), KV.readable(vc)  # without the scratch block
+        if isinstance(kr, KV.PackedKV):
+            o = ops.paged_gqa_q(q, kr.codes, kr.scales, vr.codes, vr.scales,
+                                rt, posb, window=window)
+        else:
+            o = ops.paged_gqa(q, kr, vr, rt, posb, window=window)
+        o = o.to(q.dtype)
     if active is not None:
-        # Inactive rows must not read cache memory: any nonzero value would
-        # leak into active rows through the per-tensor activation absmax.
+        # Inactive rows must not read cache memory: their stale contents are
+        # layout-dependent (dense keeps retired sequences' K/V, the pool
+        # reads zeros), and any nonzero value would leak into active rows
+        # through the per-tensor activation absmax.
         o = o * active[:, None, None, None].to(o.dtype)
     out = qlinear(o.reshape(b, sq, -1), p["wo"], site_seed(seed, layer, 3), scheme)
     return out, (kc, vc)

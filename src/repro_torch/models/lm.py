@@ -1,19 +1,21 @@
-"""The language model: the dense family (train and decode modes) and the
-MLA + MoE family (deepseek-v3, decode mode).
+"""The language model: the dense family (train, prefill and decode modes)
+and the MLA + MoE family (deepseek-v3, prefill and decode modes).
 
 Counterpart of `repro/models/lm.py`. A model is a list of STAGES; each stage
 is `count` structurally identical layers whose parameters are stacked on a
 leading axis, as in the reference, so converted parameters keep their
 layout. The reference's stacked-stage scan becomes a Python loop over layers
 that takes each layer's slice as a view (gradients flow into the stacked
-leaves). Decode caches are the paged pool's stage-aligned leaves, updated in
-place. The reference's REMAT is off, so training recomputes nothing.
+leaves). Decode caches are stage-aligned leaves updated in place: the paged
+pool's (`serve.kv_pool.init_cache`, addressed through a block table) or
+dense per-slot caches (`init_cache` here), which prefill fills and decode
+extends. The reference's REMAT is off, so training recomputes nothing.
 
-Ported: (gqa, mlp) layers in train and decode mode, (mla, moe) layers in
-decode mode. `forward_prefix` runs the first n layers of the same stack with
-the same head (the self-speculative draft). The other families, MLA/MoE
-training and the prefill/encode modes raise NotImplementedError and come
-with later slices.
+Ported: (gqa, mlp) layers in every mode but encode, (mla, moe) layers in
+prefill (the expanded form, `mla.mla_apply`) and decode. `forward_prefix`
+runs the first n layers of the same stack with the same head (the
+self-speculative draft). The other families, MLA/MoE training and the encode
+mode raise NotImplementedError and come with later slices.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from repro_torch.models.blocks import (chunked_head_ce, embed_init,
 
 def _check_family(cfg: ArchConfig, mode: str = "decode") -> None:
     """Raise for what the port does not run yet: families other than dense
-    gqa and MLA + MoE, and MLA + MoE outside decode mode."""
+    gqa and MLA + MoE, and MLA + MoE training."""
     dense = cfg.family == "dense" and cfg.attn == "gqa" and not cfg.moe
     mla_moe = (cfg.family == "moe" and cfg.attn == "mla"
                and cfg.moe is not None and cfg.mla is not None)
@@ -44,10 +46,10 @@ def _check_family(cfg: ArchConfig, mode: str = "decode") -> None:
             f"{cfg.name}: family '{cfg.family}' (attn '{cfg.attn}') is not "
             "ported yet; the port runs the dense gqa family and serves MLA + "
             "MoE")
-    if mla_moe and mode != "decode":
+    if mla_moe and mode == "train":
         raise NotImplementedError(
-            f"{cfg.name}: MLA + MoE {mode} comes with the MLA/MoE training "
-            "slice; this slice serves it (decode mode)")
+            f"{cfg.name}: MLA + MoE training comes with the MLA/MoE training "
+            "slice; the port runs it in prefill and decode mode")
 
 
 def layer_specs(cfg: ArchConfig) -> list[tuple[tuple[tuple[str, str], ...], int]]:
@@ -109,25 +111,68 @@ def head_weight(params, cfg):
 
 def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
                  pos, positions, active, block_table):
-    """One (mixer, ff) layer; in decode mode the cache updates in place. The
-    MoE aux loss is dropped (no ported path trains the MoE family yet)."""
+    """One (mixer, ff) layer. In prefill mode the layer's K/V (or latents)
+    fill positions [0, S) of its dense `cache`; in decode mode the cache
+    updates in place. The MoE aux loss is dropped (no ported path trains the
+    MoE family yet)."""
     mixer, ff = spec
     h = norm(x, p["n1"], cfg.norm, cfg.norm_eps)
-    if mode == "train":
-        o, _ = A.gqa_apply(p["mix"], h, cfg, scheme, seed, layer_id,
-                           causal=True, positions=positions)
-    elif mixer == "mla":
-        o, _ = M.mla_decode(p["mix"], h, cfg, scheme, seed, layer_id, cache,
-                            pos, active=active, block_table=block_table)
+    if mode == "decode":
+        step = M.mla_decode if mixer == "mla" else A.gqa_decode
+        o, _ = step(p["mix"], h, cfg, scheme, seed, layer_id, cache, pos,
+                    active=active, block_table=block_table)
     else:
-        o, _ = A.gqa_decode(p["mix"], h, cfg, scheme, seed, layer_id, cache,
-                            pos, active=active, block_table=block_table)
+        if mixer == "mla":
+            o, new = M.mla_apply(p["mix"], h, cfg, scheme, seed, layer_id,
+                                 positions=positions)
+        else:
+            o, new = A.gqa_apply(p["mix"], h, cfg, scheme, seed, layer_id,
+                                 causal=True, positions=positions)
+        if cache is not None:
+            _fill_cache(cache, new)
     x = x + o
     h = norm(x, p["n2"], cfg.norm, cfg.norm_eps)
     if ff == "moe":
         o, _aux = X.moe_apply(p["ff"], h, cfg, scheme, seed, layer_id)
         return x + o
     return x + mlp_apply(p["ff"], h, cfg.mlp, scheme, seed, layer_id)
+
+
+def _fill_cache(cache, new) -> None:
+    """Write prefill K/V (or latents) (B, S, ...) into positions [0, S) of
+    the dense cache leaves (B, max_len + 1, ...), IN PLACE."""
+    for leaf, n in zip(cache, new):
+        leaf[:, : n.shape[1]] = n.to(leaf.dtype)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
+               specs=None) -> list:
+    """Dense per-slot decode caches aligned with layer_specs(cfg) (or
+    `specs`, e.g. a draft stack's `prefix_specs`), zero-initialized: per
+    stage {"l<i>": {"kv": (k, v)}} with leaves (count, batch, max_len + 1,
+    KV, hd), or {"l<i>": {"mla": (c, k_rope)}} with leaves (count, batch,
+    max_len + 1, kv_lora | rope), all bf16. Position max_len of each row is
+    a write-only scratch position that takes every dropped write (PyTorch
+    indexing raises where the reference's scatter drops); readers see
+    [:, :max_len]. Prefill fills [0, S) and decode mode extends it when the
+    forward gets no block table."""
+    def leaf(*feat):
+        return torch.zeros((count, batch, max_len + 1, *feat),
+                           dtype=torch.bfloat16, device=device)
+
+    stages = []
+    for pattern, count in (specs if specs is not None else layer_specs(cfg)):
+        one = {}
+        for i, (mixer, _ff) in enumerate(pattern):
+            if mixer == "mla":
+                m = cfg.mla
+                one[f"l{i}"] = {"mla": (leaf(m.kv_lora_rank),
+                                        leaf(m.qk_rope_head_dim))}
+            else:
+                one[f"l{i}"] = {"kv": (leaf(cfg.n_kv_heads, cfg.hd),
+                                       leaf(cfg.n_kv_heads, cfg.hd))}
+        stages.append(one)
+    return stages
 
 
 def total_layers(cfg: ArchConfig) -> int:
@@ -196,9 +241,9 @@ def prefix_stage_params(params, cfg: ArchConfig, n_prefix: int):
 def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
                 pos, positions, active, block_table):
     """The layers of `stages` ([(pattern, count)], aligned with
-    `stage_params` and, in decode mode, with the pool-shaped `caches`). A
-    layer's id, hence its quantization site seeds, is its index in the full
-    stack: stages cut by `prefix_specs` start where the full model's do."""
+    `stage_params` and with `caches`, paged or dense, when given). A layer's
+    id, hence its quantization site seeds, is its index in the full stack:
+    stages cut by `prefix_specs` start where the full model's do."""
     from repro_torch.serve.kv_pool import index_leaf  # kv_pool imports lm
     off = 0
     for si, (pattern, count) in enumerate(stages):
@@ -207,7 +252,7 @@ def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
             lp = layer_params(sp, idx)
             for li, spec in enumerate(pattern):
                 cache = None
-                if mode == "decode":
+                if caches is not None and mode != "train":
                     kind = "mla" if spec[0] == "mla" else "kv"
                     cache = tuple(index_leaf(leaf, idx)
                                   for leaf in caches[si][f"l{li}"][kind])
@@ -221,10 +266,10 @@ def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
 
 def _forward(params, stage_params, stages, cfg, inputs, scheme, seed, *,
              caches, mode, pos, active, block_table, head):
-    if mode not in ("train", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(
-            f"mode '{mode}' comes with a later slice (train and decode are "
-            "ported)")
+            f"mode '{mode}' comes with a later slice (train, prefill and "
+            "decode are ported)")
     _check_family(cfg, mode)
     x = embed_lookup(params["embed"], inputs["tokens"])
     b, s = x.shape[:2]
@@ -252,10 +297,14 @@ def forward(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
     mode="train": causal full-sequence forward from position 0 (no caches);
     with head=False the final normed hidden states are returned (`lm_loss`
     fuses the head with a chunked CE).
+    mode="prefill": the same forward from position 0, writing each layer's
+    K/V (or MLA latents) into positions [0, S) of the dense `caches`
+    (`init_cache`) when given.
     mode="decode": `pos` (B,) int32 per-row start positions (S > 1 is a
     chunked-prefill step); `active` (B,) bool gates cache writes per row;
     `block_table` (B, MAXB) int32 indexes the paged pool `caches`
-    (`serve.kv_pool.init_cache`), which come back updated in place.
+    (`serve.kv_pool.init_cache`); without one the `caches` are dense
+    (`init_cache`). They come back updated in place.
     Returns (logits_or_hidden, caches); the reference's third output, the MoE
     aux loss, is dropped (serving does not use it; training of the MoE family
     comes with a later slice)."""

@@ -1,15 +1,19 @@
-"""Multi-head Latent Attention (DeepSeek-V2/V3), decode form.
+"""Multi-head Latent Attention (DeepSeek-V2/V3).
 
-Counterpart of `repro/models/mla.py`. Decode uses the weight-absorbed form
-over the compressed latent cache (kv_lora + rope values per position, shared
-by every head): q_nope is absorbed through W_uk into the latent space, the
-attention runs over the latent pools (`kernels.ops.paged_mla`, or
-`paged_mla_q` over NVFP4 pools), and W_uv maps the latent readout back to
-per-head values. The projections wq_a, wq_b, wkv_a and wo are quantized
-linears; `wkv_b` enters the two absorbed einsums as a RAW f32 matrix (never
-packed, `serve/prequant.py`), which run in full f32 (TF32 is off for the
-package, `repro_torch/__init__.py`). The expanded form (`mla_apply`, train
-and prefill) comes with the MLA training slice.
+Counterpart of `repro/models/mla.py`. Prefill uses the expanded form
+(`mla_apply`): `wkv_b` expands the latent into per-head keys and values
+through the quantized linear (site 3, on the raw f32 matrix even in a packed
+tree, since `serve/prequant.py` never packs it) and standard attention runs
+over them. Decode uses the weight-absorbed form over the compressed latent
+cache (kv_lora + rope values per position, shared by every head): q_nope is
+absorbed through W_uk into the latent space, the attention runs over the
+latent pools (`kernels.ops.paged_mla`, or `paged_mla_q` over NVFP4 pools) or
+over a dense per-slot latent cache (`latent_attend`), and W_uv maps the
+latent readout back to per-head values. The projections wq_a, wq_b, wkv_a
+and wo are quantized linears; in decode `wkv_b` enters the two absorbed
+einsums RAW, in full f32 (TF32 is off for the package,
+`repro_torch/__init__.py`). MLA training (the backward of `mla_apply`)
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 
 from repro_torch.core.linear import qlinear
 from repro_torch.kernels import ops
-from repro_torch.models.attention import apply_rope, rope_tables
+from repro_torch.kernels.paged_attention import mla_scale
+from repro_torch.models.attention import NEG_INF, apply_rope, attend, rope_tables
 from repro_torch.models.blocks import rmsnorm, site_seed
 
 
@@ -59,24 +64,67 @@ def _latent(p, x, cfg, scheme, seed, layer, positions):
     return q_nope, apply_rope(q_rope, cos, sin), c, apply_rope(k_rope, cos, sin)
 
 
+def mla_apply(p, x, cfg, scheme, seed, layer, *, positions=None):
+    """Expanded-form MLA (prefill). Returns (out, (c, k_rope)), the latents
+    prefill writes into the dense decode cache."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope, c, k_rope = _latent(p, x, cfg, scheme, seed, layer,
+                                        positions)
+    kvb = qlinear(c, p["wkv_b"], site_seed(seed, layer, 3), scheme)
+    kvb = kvb.reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb[..., : m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
+    # the rope part folds into the head dim, so standard SDPA applies
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, k_rope.shape[-1])],
+                       dim=-1)
+    o = attend(q_full, k_full, v, causal=True)
+    out = qlinear(o.reshape(b, s, -1), p["wo"], site_seed(seed, layer, 4),
+                  scheme)
+    return out, (c, k_rope[:, :, 0, :])
+
+
+def latent_attend(q_abs, q_rope, cv, kv, pos, qk_dim):
+    """Absorbed-form attention over latent views (the reference's
+    gathered-view / dense arithmetic): s = (q_abs.c + q_rope.kr) * scale,
+    causal per absolute position, softmax, readout over c. q_abs (B, Sq, H,
+    lora) f32, q_rope (B, Sq, H, rope); cv (B, T, lora), kv (B, T, rope);
+    pos (B,) first-token positions. Returns o_lat f32 (B, Sq, H, lora)."""
+    cv, kv = cv.float(), kv.float()
+    sq = q_abs.shape[1]
+    positions = pos.long()[:, None] + torch.arange(sq, device=pos.device)[None]
+    s_lat = torch.einsum("bqhl,btl->bhqt", q_abs.float(), cv)
+    s_rope = torch.einsum("bqhr,btr->bhqt", q_rope.float(), kv)
+    s = (s_lat + s_rope) * mla_scale(qk_dim)  # an f32 value: exact scalar
+    tmask = (torch.arange(cv.shape[1], device=pos.device)[None, None, :]
+             <= positions[:, :, None])                         # (B, Sq, T)
+    s = torch.where(tmask[:, None], s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    prob = e / e.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqt,btl->bqhl", prob, cv)
+
+
 def mla_decode(p, x, cfg, scheme, seed, layer, cache, pos, *, active=None,
                block_table=None):
-    """Absorbed-form decode over the paged latent pools. x: (B, Sq, D), Sq
-    >= 1 (Sq > 1 is a chunked-prefill step).
+    """Absorbed-form decode over the latent cache. x: (B, Sq, D), Sq >= 1
+    (Sq > 1 is a chunked-prefill step).
 
-    cache = (cc, kc): the layer's pool leaves (P + 1, BS, kv_lora) and
-    (P + 1, BS, rope), bf16 or NVFP4 `PackedKV`, the last block the
-    write-only scratch block of `serve.kv_pool`; they are UPDATED IN PLACE
-    (the new latents are scattered before attending) and returned. pos: (B,)
-    first-token positions; active: (B,) write gate; block_table as for
-    `gqa_decode`.
+    cache = (cc, kc), UPDATED IN PLACE (the new latents are written before
+    attending) and returned, each with one write-only scratch slot for
+    dropped writes, as in `attention.gqa_decode`:
+      - block_table given (as for `gqa_decode`): the layer's pool leaves
+        (P + 1, BS, kv_lora) and (P + 1, BS, rope), bf16 or NVFP4
+        `PackedKV`, the last block the scratch block of `serve.kv_pool`;
+      - block_table None: dense per-slot latents (B, max_len + 1, kv_lora)
+        and (B, max_len + 1, rope), position max_len the scratch position.
+    pos: (B,) first-token positions; active: (B,) write gate.
       score_h(t) = q_nope_h^T W_uk_h c_t + q_rope_h^T kr_t  (W_uk absorbed)
       out_h      = (sum_t p_t c_t)^T W_uv_h                 (W_uv after)
     Row-local, as `gqa_decode`.
     """
-    if block_table is None:
-        raise NotImplementedError(
-            "dense per-slot caches come with a later slice; pass a block table")
     from repro_torch.serve import kv_pool as KV
     m = cfg.mla
     b, sq = x.shape[:2]
@@ -98,16 +146,25 @@ def mla_decode(p, x, cfg, scheme, seed, layer, cache, pos, *, active=None,
     q_abs = torch.einsum("bqhn,hnl->bqhl", q_nope.float(), w_uk).contiguous()
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
 
-    rt, wt = KV.split_tables(block_table)
-    KV.scatter_tokens(cc, wt, positions, c_new, valid)
-    KV.scatter_tokens(kc, wt, positions, kr_new[:, :, 0, :], valid)
-    cr, kr = KV.readable(cc), KV.readable(kc)  # without the scratch block
-    q_rope = q_rope.contiguous()
-    if isinstance(cr, KV.PackedKV):
-        o_lat = ops.paged_mla_q(q_abs, q_rope, cr.codes, cr.scales, kr.codes,
-                                kr.scales, rt, posb, qk_dim=qk_dim)
+    if block_table is None:
+        cap = cc.shape[1] - 1
+        KV.scatter_dense(cc, positions, c_new, valid)
+        KV.scatter_dense(kc, positions, kr_new[:, :, 0, :], valid)
+        o_lat = latent_attend(q_abs, q_rope, cc[:, :cap], kc[:, :cap], posb,
+                              qk_dim)
     else:
-        o_lat = ops.paged_mla(q_abs, q_rope, cr, kr, rt, posb, qk_dim=qk_dim)
+        rt, wt = KV.split_tables(block_table)
+        KV.scatter_tokens(cc, wt, positions, c_new, valid)
+        KV.scatter_tokens(kc, wt, positions, kr_new[:, :, 0, :], valid)
+        cr, kr = KV.readable(cc), KV.readable(kc)  # without the scratch block
+        q_rope = q_rope.contiguous()
+        if isinstance(cr, KV.PackedKV):
+            o_lat = ops.paged_mla_q(q_abs, q_rope, cr.codes, cr.scales,
+                                    kr.codes, kr.scales, rt, posb,
+                                    qk_dim=qk_dim)
+        else:
+            o_lat = ops.paged_mla(q_abs, q_rope, cr, kr, rt, posb,
+                                  qk_dim=qk_dim)
     o = torch.einsum("bqhl,hvl->bqhv", o_lat, w_uv)
     if active is not None:
         # as in gqa_decode: inactive rows must not carry cache values into

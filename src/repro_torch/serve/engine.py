@@ -40,8 +40,10 @@ trace's value, as the reference computes it).
 
 With `kv_quant=True` the pool stores every token leaf as NVFP4 `PackedKV`
 bytes (0.28125x the bf16 bytes) and decode attention runs the packed-operand
-kernels. Later slices bring mesh sharding, disaggregated roles and dense
-caches; asking for any of them raises NotImplementedError.
+kernels. With `paged=False` the pool holds dense per-slot caches and the
+step runs without a block table (the reference's dense layout; no prefix
+cache). Later slices bring mesh sharding and disaggregated roles; asking
+for either raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -155,7 +157,7 @@ class EngineConfig:
     # radix prefix cache: retired streams' blocks stay cached and a new
     # request aliases its longest cached prefix (COW at the divergence),
     # skipping that prefill. Inactive (engine.cache is None) where sharing
-    # is unsound: sliding-window pools.
+    # is unsound: dense pools and sliding-window pools.
     prefix_cache: bool = False
     # host-RAM tier under the cache (needs prefix_cache): eviction copies
     # blocks to host memory, and a later match swaps them back in
@@ -176,8 +178,10 @@ class EngineConfig:
     # observability (obs/instrumentation.py Instrumentation); None disables
     # every hook beyond the plain stats dict
     obs: Any = None
-    # options of the reference engine that later slices port
+    # False: dense per-slot caches (n_slots, max_len + 1, ...) instead of
+    # the paged pool; requires kv_quant=False
     paged: bool = True
+    # options of the reference engine that later slices port
     mesh: Any = None
     role: str = "both"
     replicate_hits: int | None = None
@@ -185,7 +189,6 @@ class EngineConfig:
 
 # (field, set?, what, the later slice of ROADMAP.md's Queue 1 that ports it)
 _LATER = (
-    ("paged", lambda e: not e.paged, "dense per-slot caches", "dense caches"),
     ("mesh", lambda e: e.mesh is not None, "mesh-sharded serving",
      "distribution"),
     ("role", lambda e: e.role != "both", "disaggregated prefill/decode roles",
@@ -239,9 +242,9 @@ class ServeEngine:
         params = _to_device(params, self.device)
         self.params = (prequantize(params, cfg, e.scheme, probe=probe)
                        if e.prequant else params)
-        self.pool = KVPool(cfg, e.n_slots, e.max_len, block_size=e.block_size,
-                           n_blocks=e.n_blocks, device=self.device,
-                           quantized=e.kv_quant)
+        self.pool = KVPool(cfg, e.n_slots, e.max_len, paged=e.paged,
+                           block_size=e.block_size, n_blocks=e.n_blocks,
+                           device=self.device, quantized=e.kv_quant)
         self.draft = (spec_decode.DraftStack(cfg, self.params, e, self.device)
                       if e.spec_k > 0 else None)
         # a verify chunk writes up to spec_k positions past a sequence's
@@ -709,7 +712,8 @@ class ServeEngine:
     def _forward(self, tokens, pos, active) -> torch.Tensor:
         dev = self.device
         # stacked read/write tables: scatters go through the write view,
-        # whose adopted entries hold the sentinel (kv_pool.tables_device)
+        # whose adopted entries hold the sentinel (kv_pool.tables_device);
+        # None for a dense pool, whose step runs on the dense caches
         logits, _ = self._step(
             self.params, self.pool.caches, self.pool.tables_device(),
             torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),

@@ -40,8 +40,14 @@ in the data. The host tier snapshots a block's bytes into host memory
 and writes them back with a non-blocking copy on the current stream
 (`write_block_host`), which orders every later step after it.
 
-Left for later slices: dense per-slot caches and mesh shards (one shard
-here: `shard_of_slot` is 0).
+With `paged=False` the pool holds dense per-slot caches instead
+(`lm.init_cache`: (count, n_slots, max_len + 1, ...) leaves, position
+max_len of each row the write-only scratch position), the layout of the
+reference's dense mode and of the fixed-batch loop: the same masking
+conventions and the same attention arithmetic, with no blocks. It tracks
+bindings and lengths only; the block-level operations raise SlotError.
+
+Left for a later slice: mesh shards (one shard here: `shard_of_slot` is 0).
 """
 
 from __future__ import annotations
@@ -154,6 +160,22 @@ def scatter_tokens(pool, table: torch.Tensor, positions: torch.Tensor,
     blk = torch.where(ok, blk, n_blocks)
     off = torch.where(ok, p % bs, 0)
     pool[blk, off] = vals.to(pool.dtype)
+
+
+def scatter_dense(cache: torch.Tensor, positions: torch.Tensor,
+                  vals: torch.Tensor, valid: torch.Tensor) -> None:
+    """Write per-token values into a dense per-slot cache leaf, IN PLACE.
+
+    cache: (B, max_len + 1, ...) whose last position is the write-only
+    scratch position; positions: (B, S) absolute positions; vals: (B, S,
+    ...); valid: (B, S). Row b's token at position p lands at [b, p];
+    invalid tokens and positions outside [0, max_len) land in the scratch
+    position, which no reader sees (the reference's dropped writes)."""
+    cap = cache.shape[1] - 1
+    ok = valid & (positions >= 0) & (positions < cap)
+    idx = torch.where(ok, positions, cap).long()
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache[rows, idx] = vals.to(cache.dtype)
 
 
 def init_cache(cfg: ArchConfig, *, n_blocks: int, block_size: int,
@@ -277,9 +299,11 @@ class KVPool:
     before growing), keeping live blocks O(window) per slot.
 
     `quantized=True` stores every token leaf as an NVFP4 `PackedKV`; it
-    requires `paged=True`, as the reference does. `paged=False` (dense
-    per-slot caches) is not ported yet, and neither are mesh shards: the
-    pool has one shard.
+    requires `paged=True`, as the reference does. `paged=False` builds
+    dense per-slot caches: `ensure` tracks lengths only, admission is
+    bounded by max_len alone, `tables_device` is None (the step attends the
+    dense caches), and adopting, COW and the host tier raise SlotError.
+    Mesh shards are not ported: the pool has one shard.
     """
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
@@ -292,9 +316,6 @@ class KVPool:
             raise ValueError(
                 "quantized=True requires paged=True: the NVFP4 cache format "
                 "is a property of pool blocks")
-        if not paged:
-            raise NotImplementedError(
-                "dense per-slot caches come with a later slice")
         self.cfg = cfg
         self.paged = paged
         self.quantized = quantized
@@ -313,9 +334,12 @@ class KVPool:
         # every ported stack holds token kinds only, which a speculative
         # rollback truncates for free
         self.has_state_kinds = False
-        self.caches = init_cache(cfg, n_blocks=self.n_blocks,
-                                 block_size=block_size, device=device,
-                                 specs=self.specs, quantized=quantized)
+        self.caches = (init_cache(cfg, n_blocks=self.n_blocks,
+                                  block_size=block_size, device=device,
+                                  specs=self.specs, quantized=quantized)
+                       if paged else
+                       lm.init_cache(cfg, n_slots, max_len, device=device,
+                                     specs=self.specs))
         self._table = np.full((n_slots, self.max_blocks), self.sentinel,
                               np.int32)
         # pop() -> the lowest free block id first
@@ -334,13 +358,15 @@ class KVPool:
         # `is not None` test per allocation event
         self.obs = None
         self._tables_dev = None
-        self.window = reclaim_window(cfg, self.specs)
+        # sliding-window reclamation frees blocks: paged pools only
+        self.window = reclaim_window(cfg, self.specs) if paged else None
         self._alloc_upto = [0] * n_slots   # logical blocks ever allocated
         self._live_from = [0] * n_slots    # first logical block still owned
         self._floor = [0] * n_slots        # least length `truncate` allows
         # host tier: flat buffers of one block's bytes, reused; the bytes of
-        # free buffers kept are bounded by host_keep_bytes (None: unbounded)
-        leaves = token_leaves(self.caches)
+        # free buffers kept are bounded by host_keep_bytes (None: unbounded).
+        # A dense pool has no blocks, hence no host tier.
+        leaves = token_leaves(self.caches) if paged else []
         self._host_shapes = [(t.dtype, (t.shape[0], *t.shape[2:]))
                              for t in leaves]
         self._host_offsets, off = [], 0
@@ -367,7 +393,11 @@ class KVPool:
         (obs/instrumentation.py): free blocks per shard (one shard here),
         allocated blocks, and internal fragmentation: token capacity in
         allocated blocks that no live position occupies (partial tail
-        blocks plus window-reclaim slack)."""
+        blocks plus window-reclaim slack). A dense pool reports zero
+        blocks."""
+        if not self.paged:
+            return {"free_by_shard": [0], "allocated_blocks": 0,
+                    "frag_tokens": 0, "frag_ratio": 0.0}
         free = len(self._free)
         cap = live = 0
         for i in range(self.n_slots):
@@ -401,7 +431,8 @@ class KVPool:
                        max_growth: int | None = None) -> bool:
         if total_tokens > self.max_len:
             return False
-        return self.max_live_blocks(total_tokens, max_growth) <= self.n_blocks
+        return (not self.paged) or (
+            self.max_live_blocks(total_tokens, max_growth) <= self.n_blocks)
 
     def can_admit(self, total_tokens: int, max_growth: int | None = None,
                   slot: int | None = None, cached_blocks: int = 0) -> bool:
@@ -409,9 +440,12 @@ class KVPool:
         already-admitted one? Subtracts outstanding commitments (reserved,
         not yet allocated) so growing sequences never exhaust the pool;
         `cached_blocks` (prefix-cache blocks the candidate would adopt, not
-        allocate) reduce its demand."""
+        allocate) reduce its demand. A dense pool is bounded by max_len
+        alone."""
         if total_tokens > self.max_len:
             return False
+        if not self.paged:
+            return True
         return self.admission_shortfall(total_tokens, max_growth, slot,
                                         cached_blocks) == 0
 
@@ -421,7 +455,7 @@ class KVPool:
                             cached_blocks: int = 0) -> int:
         """Free blocks missing for `can_admit` to pass (0 when it passes):
         what the engine asks the prefix cache to evict before admitting."""
-        if total_tokens > self.max_len:
+        if not self.paged or total_tokens > self.max_len:
             return 0
         need = max(0, self.max_live_blocks(total_tokens, max_growth)
                    - cached_blocks)
@@ -452,6 +486,11 @@ class KVPool:
         """Allocate blocks so positions [0, n_tokens) of `slot` are backed."""
         if not self._bound[slot]:
             raise SlotError(f"slot {slot}: ensure on an unbound slot")
+        if not self.paged:
+            if n_tokens > self.max_len:
+                raise OutOfBlocks(f"slot {slot}: {n_tokens} > max_len")
+            self._lengths[slot] = max(self._lengths[slot], n_tokens)
+            return
         need = self.blocks_for(n_tokens)
         if need > self.max_blocks:
             raise OutOfBlocks(f"slot {slot}: {n_tokens} tokens exceed the "
@@ -526,6 +565,8 @@ class KVPool:
         self._bound[slot] = False
         self._committed[slot] = 0
         self._lengths[slot] = 0
+        if not self.paged:
+            return
         # reversed so an exclusive slot's first-allocated block pops first
         for blk in reversed(self._owned[slot]):
             self._decref(blk)
@@ -547,7 +588,9 @@ class KVPool:
         in which every adopted (shared) logical block holds the sentinel,
         so a scatter through it lands in the scratch block. Stored as a
         (2, n_slots, max_blocks) tensor and returned permuted, so each view
-        `[:, k]` is contiguous."""
+        `[:, k]` is contiguous. None for a dense pool (no block table)."""
+        if not self.paged:
+            return None
         if self._tables_dev is None:
             wt = self._table.copy()
             for s, k in enumerate(self._shared_upto):
@@ -583,6 +626,8 @@ class KVPool:
         is incref'd and masked out of the write table. Only on a freshly
         committed slot, and not on sliding-window pools (a reclaimed prefix
         is not fully resident)."""
+        if not self.paged:
+            raise SlotError("adopt_prefix on a dense pool: no block table")
         if not self._bound[slot]:
             raise SlotError(f"slot {slot}: adopt_prefix on an unbound slot")
         if self._owned[slot]:
@@ -606,6 +651,8 @@ class KVPool:
         """Copy-on-write: append a PRIVATE copy of block `src` as `slot`'s
         next logical block (the divergence or a partial tail lies inside a
         cached block). Returns the new block id."""
+        if not self.paged:
+            raise SlotError("cow_block on a dense pool: no block table")
         if not self._bound[slot]:
             raise SlotError(f"slot {slot}: cow_block on an unbound slot")
         if self._ref[src] <= 0:
@@ -665,6 +712,8 @@ class KVPool:
         there, so a spill allocates pinned memory (through PyTorch's
         caching host allocator, which calls `cudaHostAlloc` when it holds
         no freed block) only when the tier grows past its high-water mark."""
+        if not self.paged:
+            raise SlotError("read_block_host on a dense pool: no blocks")
         buf = self._host_buffer()
         views = []
         for leaf, off, (dtype, shape) in zip(token_leaves(self.caches),
@@ -685,6 +734,8 @@ class KVPool:
         step after them; the event recorded behind them (`payload.done`)
         keeps the buffer from reuse until they have run. A pageable source
         would make the copy synchronous, so it is refused."""
+        if not self.paged:
+            raise SlotError("write_block_host on a dense pool: no blocks")
         if self.device.type == "cuda" and not payload.buf.is_pinned():
             raise ValueError("write_block_host needs a pinned host buffer: "
                              "a pageable source makes the copy synchronous")

@@ -153,9 +153,12 @@ class PrefixCache:
 
     @staticmethod
     def supported(pool: KVPool) -> bool:
-        # a shared PackedKV block is shared packed bytes, immutable once
-        # written (per-token deterministic RTN): no special casing
-        return pool.window is None
+        """Sharing is by physical block: a paged pool without window
+        reclaim (a reclaimed prefix is not resident) and without recurrent
+        state kinds. A shared PackedKV block is shared packed bytes,
+        immutable once written (per-token deterministic RTN): no special
+        casing."""
+        return pool.paged and pool.window is None and not pool.has_state_kinds
 
     def _tick(self) -> int:
         self._clock += 1

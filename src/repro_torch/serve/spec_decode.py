@@ -66,7 +66,7 @@ class DraftStack:
     """The truncated-stack draft: `lm.forward_prefix` over the engine's own
     parameters (views of its stacked, possibly packed, leaves) and a KV pool
     of its own over `lm.prefix_specs`, with the main pool's slot count and
-    block geometry so slot indices line up. The draft pool never aliases
+    layout (paged block geometry, or dense) so slot indices line up. The draft pool never aliases
     the prefix cache."""
 
     def __init__(self, cfg, params, econf, device: torch.device):
@@ -77,7 +77,7 @@ class DraftStack:
         self.params = params
         self.device = device
         self.pool = KVPool(cfg, econf.n_slots, econf.max_len,
-                           block_size=econf.block_size,
+                           paged=econf.paged, block_size=econf.block_size,
                            n_blocks=econf.n_blocks, device=device,
                            specs=self.specs)
 

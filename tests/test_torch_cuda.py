@@ -67,7 +67,13 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     #1, #2 (both kernels) and #5 launched from a non-main thread bitwise
     the same launches from the main thread; SSE streams of the reduced
     llama under scheme bf16, over the bf16 and the NVFP4 pool, bitwise the
-    engine's `run()` streams, every step on the bridge's thread.
+    engine's `run()` streams, every step on the bridge's thread;
+  - dense per-slot caches: the engine's step without a block table, reduced
+    llama under bf16, card against CPU: logits within 2e-2, argmax equal
+    off 2-ulp near-ties (the tie rule), the caches within one bf16 ulp;
+    `chunked_sdpa` at its own 1,024 blocks over 2,048 f32 tokens against
+    plain sdpa on the card within 2e-3 (the reference's bar), two calls
+    bitwise.
 """
 
 import asyncio
@@ -1237,3 +1243,67 @@ def test_sse_streams_on_card_bitwise_run(dev, kv_quant):
     assert ticked and threading.main_thread().ident not in ticked
     assert ops.LAUNCHES["paged_gqa_q" if kv_quant else "paged_gqa"] > 0
     assert eng.pool.free_block_count == eng.pool.n_blocks
+
+
+# --------------------------------------------------------------------------
+# dense per-slot caches and chunked attention on the card
+# --------------------------------------------------------------------------
+
+def test_dense_step_on_card_against_cpu(dev):
+    """The engine's step over dense caches (no block table), reduced llama
+    under scheme bf16, card against CPU over the same schedule: row 0's
+    8-token prefill chunk (row 1 inactive), row 1's, then 3 decode steps of
+    both rows. Logits within 2e-2 (fp32 summation order through two
+    layers); each active row's argmax equal wherever the CPU's top-2 margin
+    is above 2 bf16 ulps of its top logit (the tie rule), and the dense
+    caches' written positions within one bf16 ulp of the CPU's."""
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(12)
+    p0, p1 = rng.randint(0, cfg.vocab, 8), rng.randint(0, cfg.vocab, 8)
+    steps = [([p0, [0] * 8], [0, 0], [True, False]),
+             ([[0] * 8, p1], [0, 0], [False, True])]
+    for d in range(3):
+        t = rng.randint(0, cfg.vocab, 2)
+        steps.append(([[t[0]], [t[1]]], [8 + d, 8 + d], [True, True]))
+    outs = {}
+    for d in ("cpu", "cuda"):
+        pool = KVPool(cfg, 2, 32, paged=False, block_size=16, device=d)
+        assert pool.tables_device() is None
+        step = serve_decode.make_paged_serve_step(cfg, "bf16")
+        p = _to(params, d)
+        seq = []
+        for toks, pos, act in steps:
+            lg, _ = step(p, pool.caches, None,
+                         torch.tensor(np.asarray(toks), dtype=torch.int32, device=d),
+                         torch.tensor(pos, dtype=torch.int32, device=d),
+                         torch.tensor(act, device=d))
+            seq.append((lg[:, -1].float().cpu(), act))
+        outs[d] = seq, [t[:, :, :11].float().cpu()
+                        for t in KV.token_leaves(pool.caches)]
+    (card, card_kv), (cpu, cpu_kv) = outs["cuda"], outs["cpu"]
+    for (a, act), (b, _) in zip(card, cpu):
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= 2e-2
+        for i in np.nonzero(act)[0]:
+            top2 = b[i].topk(2).values
+            if float(top2[0] - top2[1]) > 2 * _bf16_ulp(float(top2[0])):
+                assert a[i].argmax() == b[i].argmax()
+    for a, b in zip(card_kv, cpu_kv):
+        assert (a - b).abs().max() <= _bf16_ulp(float(b.abs().max()))
+
+
+@pytest.mark.parametrize("window", [None, 1536])
+def test_chunked_sdpa_on_card_against_sdpa(dev, window):
+    """chunked_sdpa at its own blocks (1,024 queries x 1,024 keys) over
+    2,048 tokens at llama-200m's heads (10 x 128), f32, against plain sdpa
+    on the card within 2e-3 (the reference's bar); two calls bitwise."""
+    from repro_torch.models import attention as A
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn((1, 2048, 10, 128), generator=g, device=dev)
+               for _ in range(3))
+    out = A.chunked_sdpa(q, k, v, causal=True, window=window)
+    again = A.chunked_sdpa(q, k, v, causal=True, window=window)
+    ref = A.sdpa(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= 2e-3

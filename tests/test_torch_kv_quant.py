@@ -136,8 +136,11 @@ def test_quantized_pool_construction_and_guards():
     with pytest.raises(ValueError):
         kv.KVPool(cfg, 2, 32, block_size=4, device="cpu", paged=False,
                   quantized=True)
-    with pytest.raises(NotImplementedError):
-        kv.KVPool(cfg, 2, 32, block_size=4, device="cpu", paged=False)
+    dense = kv.KVPool(cfg, 2, 32, block_size=4, device="cpu", paged=False)
+    dk, _ = dense.caches[0]["l0"]["kv"]          # dense caches stay bf16
+    assert not dense.paged and not dense.quantized
+    assert dk.dtype == torch.bfloat16
+    assert dk.shape == (cfg.n_layers, 2, 33, cfg.n_kv_heads, cfg.hd)
     odd = cfg.__class__(**{**cfg.__dict__, "head_dim": 8})
     with pytest.raises(ValueError):
         kv.KVPool(odd, 2, 32, block_size=4, device="cpu", quantized=True)
