@@ -226,7 +226,63 @@ Phases (any failure exits non-zero, before the result line):
                16,384 against their plain versions; chunked_sdpa, plain sdpa
                and F.scaled_dot_product_attention (a yardstick) timed; peak
                memory.
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 11. Then, on their own lines:
+ 12. the rest of the transformer registry, MoE and MLA training (each model
+               drawn from its own seed; nothing of phases 4-11 is reused):
+     12a. granite-8b, chatglm3-6b, nemotron-4-15b, llava-next-mistral-7b (text
+               prompts, as the engine serves it) and deepseek-moe-16b at their
+               published widths, each cut to 8 layers for the time limit
+               (REGISTRY_LAYERS), quartet2, weights packed as drawn
+               (`init_packed`, PACK_CHUNK matrices of f32 at a time),
+               bf16 paged pool, 4 slots, 4 requests of 16-64 prompt tokens
+               and 8 new tokens each; chatglm3-6b again over the NVFP4 pool.
+               Each run: tokens in the vocabulary, every block free, #1, #2
+               and #5 (#6 over the NVFP4 pool) launched and no other
+               attention kernel; decode tok/s, host and device ms of a
+               decode step and the busy share (4 profiled steps), host
+               syncs of one decode step by source,
+               peak memory, resident and packed weight bytes.
+     12b. #5 and #6 at the registry's group sizes, H/KV 4 (granite, llava),
+               6 (nemotron), 16 (chatglm3) and 1 (deepseek-moe), hd 128, Sq 1
+               and 16, both pools, against their plain versions within the
+               attention bar, two calls bitwise equal; one decode step's
+               calls of each config timed with the bound and SDPA.
+     12c. llava: stub embeds of 2 x 64 through `make_prefill_step` into dense
+               caches, then 4 decode steps from tokens through
+               `make_serve_step`: finite, a second run bitwise, #1 / #2
+               launches reported.
+     12d. deepseek-moe-16b at its published widths, depth cut to 2 layers
+               (about 9 GB of f32 state a layer: 28 do not fit one card),
+               quartet2, AdamW, batch 4 x 256, 4 steps through
+               `repro_torch.launch.train`'s code path: losses and weights
+               finite, the loss equal to its CE and aux read on their own
+               (ce + 0.01 x aux) with aux > 0, #1-#4 launched, no SR uniform
+               tensor drawn; ms and device ms a step, busy share, peak
+               memory, host syncs a step by source (the expert loop's among
+               them). Then the same recipe under bf16 (its losses beside
+               quartet2's), and a reduced deepseek-moe-16b quartet2 train
+               step x3, the card against the CPU within 1e-3 relative (as
+               phase 3's reduced llama-200m step).
+     12e. one `mla_apply` forward + backward at deepseek-v3's published
+               widths (H 128, q_lora 1536, kv_lora 512 + rope 64) over 2 x
+               64 tokens, quartet2, with tensor draws injected as the
+               reference's tests inject theirs, the card against the CPU:
+               the output within MLA_TRAIN_REL_RMS, every gradient by the
+               quartet2 noise rule (below Q2_NOISE_FRACTION of the CPU's
+               quartet2-bf16 distance, both on the card), beside the card
+               against itself with x moved one bf16 ulp; wkv_a's 576-wide dX contraction padded
+               to 640, that GEMM on the card within 1e-3 max|C| of its plain
+               composition on the same operands; #1-#4 launched.
+               deepseek-v3 does not train on one card at its widths (one
+               MoE layer's f32 state is about 180 GB).
+     12f. #1, #2 and #3/#4 against their plain versions at every shape
+               12a, 12c and 12d gave them (`KernelShapes`): #1 by
+               `check_quant`, #2 by `check_matmul` (both regimes), each
+               backward GEMM's operands as laid out, phase 1 and phase 2
+               bitwise and the GEMM within 1e-3 max|C| of its plain
+               composition; the errors go into the kernels line.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 11, 12; the
+reduced CPU runs that 8b, 8d, 9e and 12e hold the card against run in a
+process of their own from the start (`cpu_references`). Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
 
@@ -893,6 +949,44 @@ def check_phase2_pair(torch, MR, ops, pa, pb, draws, tag):
                      f"{tuple(pb[1].shape)}: not bitwise equal to the plain version")
 
 
+def check_backward_gemm(torch, draws, a, b):
+    """The backward GEMM a @ b^T on the card against its plain composition
+    (phase 1, phase 2 and the GEMM's plain versions) within 1e-3 of max|C|,
+    bitwise the same on hashed uniforms as on the same uniforms as tensors;
+    and fp4_matmul on its requant operands (`check_matmul`, whose error is
+    returned). a and b may be views, as the backward hands them."""
+    from repro_torch.core import rht as R
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import ms_eden_requant as MR
+    from repro_torch.kernels import ops
+    (ma, d), mb = a.shape, b.shape[0]
+    signs = draws.signs(1, R.block_size(d), "cuda")
+    ua = draws.uniform(2, (ma, d // 16), "cuda")
+    ub = draws.uniform(3, (mb, d // 16), "cuda")
+    mm_err = check_matmul(torch, FM, ops, ops.ms_eden_requant(a, signs, ua),
+                          ops.ms_eden_requant(b, signs, ub))
+    c = ops.quartet2_backward_gemm(a, b, signs, ua, ub)
+    c_keys = ops.quartet2_backward_gemm(a, b, signs, draws.keys(2), draws.keys(3))
+    torch.cuda.synchronize()
+    if not torch.equal(c, c_keys):
+        fail(f"quartet2_backward_gemm ({ma},{mb},{d}): hashed uniforms differ "
+             "from the same uniforms as tensors")
+    qa, qb = MR.phase1_plain(a, signs), MR.phase1_plain(b, signs)
+    sa = MR.phase2_plain(qa[4], *qa[1:4], ua)
+    sb = MR.phase2_plain(qb[4], *qb[1:4], ub)
+    ref = FM.fp4_matmul_plain(qa[0], sa[0], qb[0], sb[0], sa[1], sb[1])
+    err = (c - ref).abs().max().item()
+    bar = 1e-3 * ref.abs().max().item()
+    exact = (a @ b.T)
+    rel = ((c - exact).norm() / exact.norm()).item()
+    log(f"  quartet2_backward_gemm (Ma,Mb,D)=({ma},{mb},{d}): max|dC| vs plain "
+        f"composition {err:.3g} (bar {bar:.3g}); relative error vs the "
+        f"exact f32 product {rel:.4f}")
+    if not err <= bar:
+        fail(f"quartet2_backward_gemm ({ma},{mb},{d}): {err} > {bar}")
+    return mm_err
+
+
 def phase_requant(torch):
     """Kernels #3/#4 against their plain versions at the training shapes, the
     backward GEMM against its plain composition, and the time of the 280
@@ -943,30 +1037,7 @@ def phase_requant(torch):
     for ma, mb, d in backward_gemms(TRAIN_T):
         a = torch.randn((ma, d), generator=g, device="cuda")
         b = torch.randn((mb, d), generator=g, device="cuda")
-        signs = draws.signs(1, R.block_size(d), "cuda")
-        ua = draws.uniform(2, (ma, d // 16), "cuda")
-        ub = draws.uniform(3, (mb, d // 16), "cuda")
-        mm_err = max(mm_err, check_matmul(torch, FM, ops, ops.ms_eden_requant(a, signs, ua),
-                                          ops.ms_eden_requant(b, signs, ub)))
-        c = ops.quartet2_backward_gemm(a, b, signs, ua, ub)
-        c_keys = ops.quartet2_backward_gemm(a, b, signs, draws.keys(2), draws.keys(3))
-        torch.cuda.synchronize()
-        if not torch.equal(c, c_keys):
-            fail(f"quartet2_backward_gemm ({ma},{mb},{d}): hashed uniforms differ "
-                 "from the same uniforms as tensors")
-        qa, qb = MR.phase1_plain(a, signs), MR.phase1_plain(b, signs)
-        sa = MR.phase2_plain(qa[4], *qa[1:4], ua)
-        sb = MR.phase2_plain(qb[4], *qb[1:4], ub)
-        ref = FM.fp4_matmul_plain(qa[0], sa[0], qb[0], sb[0], sa[1], sb[1])
-        err = (c - ref).abs().max().item()
-        bar = 1e-3 * ref.abs().max().item()
-        exact = (a @ b.T)
-        rel = ((c - exact).norm() / exact.norm()).item()
-        log(f"  quartet2_backward_gemm (Ma,Mb,D)=({ma},{mb},{d}): max|dC| vs plain "
-            f"composition {err:.3g} (bar {bar:.3g}); relative error vs the "
-            f"exact f32 product {rel:.4f}")
-        if not err <= bar:
-            fail(f"quartet2_backward_gemm ({ma},{mb},{d}): {err} > {bar}")
+        mm_err = max(mm_err, check_backward_gemm(torch, draws, a, b))
 
     # ---- one full-width training step's requant: 280 phase-1 calls on the
     # operands as the backward hands them (E row-major; W^T, E^T, X^T views),
@@ -1300,7 +1371,7 @@ def phase_gqa_splits(torch):
     return errs
 
 
-def phase_train_reference(torch):
+def phase_train_reference(torch, arch="llama_200m"):
     """A quartet2 train step at reduced size, the card against the CPU: same
     weights, batches and hashed draws; only fp32 summation orders differ."""
     from repro_torch.configs import registry
@@ -1308,7 +1379,7 @@ def phase_train_reference(torch):
     from repro_torch.models import lm
     from repro_torch.train.train_step import make_train_step
 
-    cfg = registry.get("llama_200m").reduced()
+    cfg = registry.get(arch).reduced()
     params = lm.init(cfg, torch.Generator().manual_seed(4), "cpu")
     corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
     losses = {}
@@ -1321,11 +1392,12 @@ def phase_train_reference(torch):
             seq.append(float(m["loss"]))
         losses[d] = seq
     worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    log(f"  reduced llama-200m quartet2 train step x3: card {losses['cuda']} vs "
+    log(f"  reduced {cfg.name} quartet2 train step x3: card {losses['cuda']} vs "
         f"CPU {losses['cpu']}: max relative difference {worst:.3g}")
     # the same numbers up to fp32 summation order: 1e-3 of the loss
     if not all(map(lambda v: v == v, losses["cuda"])) or worst > 1e-3:
-        fail("reduced quartet2 train step: card disagrees with the CPU")
+        fail(f"reduced {cfg.name} quartet2 train step: card disagrees with the CPU")
+    return {"card": losses["cuda"], "cpu": losses["cpu"], "max_rel": worst}
 
 
 def to_device(tree, d):
@@ -1401,13 +1473,13 @@ def serve_once(torch, cfg, params, EngineConfig, Request, ServeEngine, prompts,
                                    prequant=True, device="cuda"), **econf_kw})
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, econf)
-    torch.cuda.synchronize()
+    cuda_sync(torch, econf.device)
     setup_s = time.perf_counter() - t0
     for p in prompts:
         eng.submit(Request(p, max_new))
     t0 = time.perf_counter()
     results = eng.run()
-    torch.cuda.synchronize()
+    cuda_sync(torch, econf.device)
     return eng, results, setup_s, time.perf_counter() - t0
 
 
@@ -2158,6 +2230,28 @@ def cuda_sync(torch, dev):
         torch.cuda.synchronize()
 
 
+def host_syncs(torch, fn, dev="cuda"):
+    """{source line: count} of the host syncs fn makes (CUDA sync debug
+    mode), and fn's result; ({}, fn()) off the card."""
+    import warnings
+    if dev != "cuda":
+        return {}, fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            syncs[key] = syncs.get(key, 0) + 1
+    return syncs, out
+
+
 def fresh_suffixes(torch, g, vocab, n, length):
     """n token lists whose first tokens all differ, so no request matches
     another's block beyond the prompt they share."""
@@ -2342,30 +2436,24 @@ def phase_zipf_tiers(torch, card, cfg, params, dev="cuda"):
     and host spill with the tier bounded at half the unbounded run's
     snapshots (the pinned buffers of dropped snapshots are then reused).
     The cache's and engine's counts equal a reduced CPU run's."""
-    from repro_torch.models import lm
     prompts, tenants = zipf_prompts(torch)
-    small = cfg.reduced()
-    small_params = lm.init(small, torch.Generator().manual_seed(0), "cpu")
+    refs = cpu_reference("zipf")
     out = {"tenants": ZIPF, "hot_tenant_share": tenants.count(0) / len(tenants)}
-    budgets = {}  # spill_budget: snapshots of the spill run // 2, each pool's bytes
+    budgets = {}  # spill_budget: snapshots of the spill run // 2, its bytes
     for mode in ("drop", "spill", "spill_budget"):
-        spill = mode != "drop"
-        b_card, b_cpu = budgets.get("card"), budgets.get("cpu")
+        spill, b_card = mode != "drop", budgets.get("card")
         t0 = time.perf_counter()
         eng, results, rec = zipf_run(torch, cfg, params, dev, spill, prompts,
                                      timed=dev == "cuda", budget=b_card)
         wall = time.perf_counter() - t0
-        ref, _, _ = zipf_run(torch, small, small_params, "cpu", spill, prompts,
-                             budget=b_cpu)
         card_counts = ({k: eng.cache.stats[k] for k in CACHE_STATS}
                        | {k: eng.stats[k] for k in ENGINE_STATS})
-        cpu_counts = ({k: ref.cache.stats[k] for k in CACHE_STATS}
-                      | {k: ref.stats[k] for k in ENGINE_STATS})
+        cpu_counts, cpu_nodes = refs[mode]
         if card_counts != cpu_counts:
             fail(f"8b {mode}: card counts {card_counts} != CPU {cpu_counts}")
-        if eng.cache.host_nodes() != ref.cache.host_nodes():
+        if eng.cache.host_nodes() != cpu_nodes:
             fail(f"8b {mode}: {eng.cache.host_nodes()} host snapshots, the "
-                 f"CPU run {ref.cache.host_nodes()}")
+                 f"CPU run {cpu_nodes}")
         if len(results) != ZIPF["requests"] or not cache_conserved(eng):
             fail(f"8b {mode}: requests lost or the pool not conserved")
         if spill and not card_counts["swapped_in_blocks"]:
@@ -2373,8 +2461,7 @@ def phase_zipf_tiers(torch, card, cfg, params, dev="cuda"):
         if mode == "spill":
             half = eng.cache.host_nodes() // 2
             budgets = {"blocks": half,
-                       "card": half * eng.cache.host_bytes // eng.cache.host_nodes(),
-                       "cpu": half * ref.cache.host_bytes // ref.cache.host_nodes()}
+                       "card": half * eng.cache.host_bytes // eng.cache.host_nodes()}
         if mode == "spill_budget" and rec is not None:
             snaps = len(rec["read_ms"])
             if not eng.pool.host_allocs < snaps:
@@ -2693,14 +2780,10 @@ def phase_scheduler(torch, card, cfg, params, dev="cuda"):
     """8d: LatencyPolicy(aging_ticks=8) against FIFO. By a tick-counting
     clock, the admission order and prefill picks on the card equal the
     reduced CPU run's; by the real clock, latency by class."""
-    from repro_torch.models import lm
-    small = cfg.reduced()
-    small_params = lm.init(small, torch.Generator().manual_seed(0), "cpu")
     out = {}
     for policy in ("fifo", "latency"):
         adm, picks, _ = sched_run(torch, cfg, params, dev, policy, True)
-        adm_cpu, picks_cpu, _ = sched_run(torch, small, small_params, "cpu",
-                                          policy, True)
+        adm_cpu, picks_cpu = cpu_reference("sched")[policy]
         if (adm, picks) != (adm_cpu, picks_cpu):
             fail(f"8d {policy}: card order {adm} / picks {picks} != CPU "
                  f"{adm_cpu} / {picks_cpu}")
@@ -2778,6 +2861,78 @@ def phase_deepseek_prefix(torch, card, cfg, params, dev="cuda"):
             f"logits finite, pool conserved; wall {wall:.2f} s")
         del eng
     return out, launches_all
+
+
+def cpu_references(with_mla=True, threads=None):
+    """The reduced CPU runs that 8b, 8d, 9e and 12e hold the card against:
+    8b's Zipf mix in each mode ((counts, host snapshots); spill_budget
+    bounded at half the spill run's snapshots), 8d's admission order and
+    prefill picks under each policy, 9e's counts, and 12e's quartet2
+    `mla_apply` pass at deepseek-v3's widths. They need nothing of the card,
+    so `main` runs them in a process of their own while the card runs the
+    earlier phases (`start_cpu_references`)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    if threads:  # leave the other cores to the card's host work
+        torch.set_num_threads(threads)
+    small = registry.get("llama_200m").reduced()
+    params = lm.init(small, torch.Generator().manual_seed(0), "cpu")
+    prompts, _ = zipf_prompts(torch)
+    zipf, budget = {}, None
+    for mode in ("drop", "spill", "spill_budget"):
+        ref, _, _ = zipf_run(torch, small, params, "cpu", mode != "drop", prompts,
+                             budget=budget)
+        nodes = ref.cache.host_nodes()
+        zipf[mode] = ({k: ref.cache.stats[k] for k in CACHE_STATS}
+                      | {k: ref.stats[k] for k in ENGINE_STATS}, nodes)
+        if mode == "spill":
+            budget = nodes // 2 * ref.cache.host_bytes // nodes
+    sched = {policy: sched_run(torch, small, params, "cpu", policy, True)[:2]
+             for policy in ("fifo", "latency")}
+    spec_prefix, _, _ = spec_prefix_run(torch, small, params, "cpu", 1)
+    out = {"zipf": zipf, "sched": sched, "spec_prefix": spec_prefix}
+    return (out | mla_reference()) if with_mla else out
+
+
+def mla_reference():
+    """12e's CPU pass at deepseek-v3's widths, as {"mla": ...}."""
+    import torch
+    from repro_torch.configs import registry
+    cfg = registry.get("deepseek_v3_671b")
+    p, x, _, target, seed = mla_inputs(torch, cfg)
+    return {"mla": mla_pass(torch, cfg, p, x, target, seed, "cpu", "quartet2")}
+
+
+_CPU_REFS = {}
+
+
+def start_cpu_references():
+    """Start `cpu_references` in a process of its own (spawned, so it holds
+    no CUDA state) on 4 threads; `cpu_reference` waits for it, and ends the
+    process. The counts it gives do not depend on the thread count (the
+    card's full-width runs equal the reduced CPU runs'), and the MLA pass is
+    held to bars far above an fp32 summation order's effect."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    _CPU_REFS["pool"] = pool
+    _CPU_REFS["pending"] = pool.apply_async(cpu_references, (True, 4))
+
+
+def cpu_reference(key):
+    """One of `cpu_references`' results: from the process that
+    `start_cpu_references` started, else computed here (the sub-phases' CPU
+    rehearsals, or a phase run on its own), the MLA pass only when asked."""
+    if "pending" in _CPU_REFS:
+        _CPU_REFS["value"] = _CPU_REFS.pop("pending").get()
+        _CPU_REFS["pool"].close()
+        _CPU_REFS.pop("pool").join()
+    value = _CPU_REFS.setdefault("value", {})
+    if key not in value:
+        value.update(mla_reference() if key == "mla"
+                     else cpu_references(with_mla=False))
+    return value[key]
 
 
 def phase_prefix(torch, card, llama_params, deepseek_cfg, deepseek_params):
@@ -2894,7 +3049,6 @@ def spec_round_profile(torch, eng, prompts, k, rounds=SPEC_ROUNDS):
     sync debug mode); and from the profiler the device ms a round inside
     each part's range (draft, catch-up, verify), all device ms a round and
     the busy share. The requests are cancelled at the end."""
-    import warnings
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import fp4_matmul as FM
@@ -2919,22 +3073,12 @@ def spec_round_profile(torch, eng, prompts, k, rounds=SPEC_ROUNDS):
     ops.reset_launches()
     FM.REGIME_LAUNCHES.update(gemv=0, mma=0)
     NQ.REGIME_LAUNCHES.update(cluster=0, two_pass=0)
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            n = window()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    syncs, n = host_syncs(torch, window)
     launches = {key: v / n for key, v in ops.LAUNCHES.items() if v}
     regimes = {**{f"fp4_matmul.{r}": v / n for r, v in FM.REGIME_LAUNCHES.items()},
                **{f"nvfp4_fos_quant.{r}": v / n
                   for r, v in NQ.REGIME_LAUNCHES.items()}}
-    syncs = {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            key = f"{Path(w.filename).name}:{w.lineno}"
-            syncs[key] = syncs.get(key, 0) + 1 / n
+    syncs = {key: v / n for key, v in syncs.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         n = window()
     # a range's device-side span (its annotation on the card's timeline)
@@ -3248,15 +3392,11 @@ def phase_spec_prefix(torch, card, cfg, params, dev="cuda"):
     """9e: speculation over prefix-cache hits: the draft, whose pool never
     aliases, catches up over every skipped prompt token; the counts equal
     a reduced CPU run's."""
-    from repro_torch.configs import registry
     from repro_torch.kernels import ops
-    from repro_torch.models import lm
     ops.reset_launches()
     counts, wall, res = spec_prefix_run(torch, cfg, params, dev, SPEC_DRAFT)
     launches = dict(ops.LAUNCHES)
-    small = registry.get("llama_200m").reduced()
-    small_params = lm.init(small, torch.Generator().manual_seed(0), "cpu")
-    cpu, _, _ = spec_prefix_run(torch, small, small_params, "cpu", 1)
+    cpu = cpu_reference("spec_prefix")
     if counts != cpu:
         fail(f"9e: counts {counts} differ from the reduced CPU run's {cpu}")
     want = (8 * SYSTEM_TOKENS, 8 * SYSTEM_TOKENS // 16)
@@ -3643,7 +3783,6 @@ def decode_window_costs(torch, engines, prompts, dev):
     card host syncs a step (CUDA sync debug mode, one window each) and
     device ms a step (torch.profiler, one window each). The requests are
     cancelled at the end."""
-    import warnings
     from repro_torch.serve.engine import Request
     for eng in engines.values():
         for p in prompts[:4]:
@@ -3670,15 +3809,8 @@ def decode_window_costs(torch, engines, prompts, dev):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         for k, eng in engines.items():
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    window(eng)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            out[k]["syncs_per_step"] = sum(
-                "synchroniz" in str(w.message) for w in caught) / STEP_WINDOW
+            syncs, _ = host_syncs(torch, lambda: window(eng))
+            out[k]["syncs_per_step"] = sum(syncs.values()) / STEP_WINDOW
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 window(eng)
@@ -4485,6 +4617,697 @@ def phase_generate_long(torch, card, params, cfg=None, dev="cuda",
     return out, errs
 
 
+# --------------------------------------------------------------------------
+# phase 12: the rest of the transformer registry; MoE and MLA training
+# --------------------------------------------------------------------------
+
+# 12a: the registry's other transformers, each served at its published widths
+REGISTRY_ARCHS = ("granite_8b", "chatglm3_6b", "nemotron_4_15b",
+                  "llava_next_mistral_7b", "deepseek_moe_16b")
+# 12a depth cuts, for the smoke's time limit only (widths are never cut):
+# every config serves 8 layers. At full depth (36, 28, 32 and 32 layers; 8
+# of deepseek-moe-16b's 28) 12a took about 160 s on an H100 host, and the
+# whole smoke ran past its 1,200 s on a host whose host-bound phases ran
+# about a third slower; deepseek-moe-16b's 28 layers fit (10.2 GiB
+# resident) but serve at 291 ms of host a decode step with 16 s of TTFT
+REGISTRY_LAYERS = dict.fromkeys(("granite_8b", "chatglm3_6b", "nemotron_4_15b",
+                                 "llava_next_mistral_7b", "deepseek_moe_16b"), 8)
+REGISTRY_NEW = 8            # new tokens a request (4 requests of 16-64 tokens)
+REGISTRY_PROFILE_STEPS = 4  # full-batch decode steps timed, then profiled
+PACK_CHUNK = 4              # matrices `init_packed` holds in f32 at once
+# 12b: (H, KV, layers of one decode step) of the registry's GQA group sizes
+GROUP_SIZES = {
+    "granite-8b H32 KV8": (32, 8, 36),      # H/KV 4, also llava
+    "nemotron-4-15b H48 KV8": (48, 8, 32),  # H/KV 6
+    "chatglm3-6b H32 KV2": (32, 2, 28),     # H/KV 16
+    "deepseek-moe-16b H16 KV16": (16, 16, 28),  # H/KV 1
+}
+LLAVA_PREFILL = (2, 64)     # 12c: rows x stub-embed positions
+LLAVA_DECODE = 4            # 12c: decode steps after the prefill
+# 12d: deepseek-moe-16b at its published widths, depth cut to 2 layers
+# (about 9 GB of f32 state a layer: parameters, gradients, two moments)
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_ARGS = ["--arch", "deepseek_moe_16b", "--scheme", "quartet2",
+                  "--steps", "4", "--seq", "256", "--batch", "4", "--lr", "2e-3",
+                  "--log-every", "1"]
+# 12e: one mla_apply forward + backward at deepseek-v3's widths, card against
+# CPU with injected tensor draws (the backward is seeded by half the mean
+# square distance of the output to a fixed target). The output within
+# MLA_TRAIN_REL_RMS relative RMS: only fp32 summation orders differ there.
+# Each gradient by the quartet2 noise rule: its card-CPU relative RMS
+# distance below Q2_NOISE_FRACTION of the quantization noise itself (the
+# CPU's quartet2 gradient against its bf16 one). The quantizers turn small
+# differences of their inputs into whole codes, so the gradients differ
+# more than the output does; the witness is the card against itself with
+# every element of x moved one bf16 ulp. On the H100 the card sits at
+# 0.013-0.18 of the noise a leaf and the witness at 0.41-0.76; the bar lies
+# between them: the card must differ from the CPU less than a one-ulp move
+# of the input makes the CPU differ from itself. The backward GEMM over
+# wkv_a's padded contraction (576 -> 640) on the card against its plain
+# composition on the same operands, within quartet2_backward_gemm's bar
+# (1e-3 max|C|).
+MLA_TRAIN_TOKENS = (2, 64)
+MLA_TRAIN_REL_RMS = 1e-2
+Q2_NOISE_FRACTION = 0.3
+BWD_GEMM_RTOL = 1e-3
+
+
+def packed_bytes(tree) -> int:
+    """Bytes of the PackedQWeight leaves of a parameter tree."""
+    from repro_torch.core.linear import PackedQWeight
+    if isinstance(tree, dict):
+        return sum(packed_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(packed_bytes(v) for v in tree)
+    if isinstance(tree, PackedQWeight):
+        return sum(t.numel() * t.element_size() for t in tree)
+    return 0
+
+
+class KernelShapes:
+    """The shapes at which the main path calls #1 (x's shape and dtype), #2
+    ((M, N, K)) and the backward GEMM (each operand's shape and
+    `ms_eden_requant.layout`) on the card, recorded while a run is inside
+    `with shapes:` by wrapping the wrappers in `kernels.ops` (the wrapped
+    calls launch and count as before). 12f holds each kernel against its
+    plain version at every shape recorded."""
+
+    def __init__(self):
+        self.quant, self.matmul, self.bwd = set(), set(), set()
+
+    def __enter__(self):
+        from repro_torch.kernels import ms_eden_requant as MR
+        from repro_torch.kernels import ops
+        self._real = quant, matmul, bwd = (
+            ops.nvfp4_fos_quant, ops.fp4_matmul, ops.quartet2_backward_gemm)
+
+        def rec_quant(x):
+            if x.is_cuda:
+                self.quant.add((tuple(x.shape), x.dtype))
+            return quant(x)
+
+        def rec_matmul(a, sa, b, *rest, **kw):
+            if a.is_cuda:
+                self.matmul.add((a.shape[0], b.shape[0], a.shape[1] * 2))
+            return matmul(a, sa, b, *rest, **kw)
+
+        def rec_bwd(a, b, *rest):
+            if a.is_cuda:
+                self.bwd.add((tuple(a.shape), MR.layout(a), tuple(b.shape),
+                              MR.layout(b)))
+            return bwd(a, b, *rest)
+
+        ops.nvfp4_fos_quant, ops.fp4_matmul = rec_quant, rec_matmul
+        ops.quartet2_backward_gemm = rec_bwd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        (ops.nvfp4_fos_quant, ops.fp4_matmul,
+         ops.quartet2_backward_gemm) = self._real
+
+
+def laid_out(torch, g, shape, layout):
+    """A random f32 (M, K) tensor on the card laid out as `layout` says
+    (`ms_eden_requant.layout`): rows at pitch ld, or the transpose of a
+    row-major (K, ld) tensor."""
+    (m, k), (kind, ld) = shape, layout
+    if kind == "rows":
+        return torch.randn((m, ld), generator=g, device="cuda")[:, :k]
+    return torch.randn((k, ld), generator=g, device="cuda")[:, :m].T
+
+
+def phase_registry_kernels(torch, shapes):
+    """12f: #1, #2 and #3/#4 against their plain versions at every shape the
+    main paths of 12a, 12c and 12d gave them (`KernelShapes`): #1 by
+    `check_quant` on each input shape and dtype; #2 by `check_matmul` on
+    each (M, N, K), 4/6-quantized operands; each backward GEMM's operands
+    as the backward laid them out, phase 1 bitwise (`check_phase1`), phase
+    2 over both in one launch bitwise (`check_phase2_pair`), and the GEMM
+    against its plain composition (`check_backward_gemm`). Returns the
+    largest error of each kernel."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import rht as R
+    from repro_torch.core import rng
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import ms_eden_requant as MR
+    from repro_torch.kernels import nvfp4_quant as NQ
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    log(f"phase 12f: #1 at {len(shapes.quant)} input shapes, #2 at "
+        f"{len(shapes.matmul)} (M, N, K), #3/#4 and the backward GEMM at "
+        f"{len(shapes.bwd)} operand pairs, as 12a, 12c and 12d gave them")
+    g = torch.Generator(device="cuda").manual_seed(1206)
+    draws = rng.HashDraws([12, 6])
+    errs = {"nvfp4_fos_quant": 0.0, "fp4_matmul": 0.0, "ms_eden_phase1": 0.0,
+            "ms_eden_phase2": 0.0}
+    for shape, dtype in sorted(shapes.quant, key=str):
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        errs["nvfp4_fos_quant"] = max(errs["nvfp4_fos_quant"],
+                                      check_quant(torch, F, NQ, ops, x))
+    regimes = {}
+    for n, k in sorted({(n, k) for _, n, k in shapes.matmul}):
+        w = ops.nvfp4_fos_quant(torch.randn((n, k), generator=g, device="cuda")
+                                * k ** -0.5)
+        for m in sorted(m for m, n2, k2 in shapes.matmul if (n2, k2) == (n, k)):
+            x = ops.nvfp4_fos_quant(torch.randn((m, k), generator=g,
+                                                device="cuda").bfloat16())
+            errs["fp4_matmul"] = max(errs["fp4_matmul"],
+                                     check_matmul(torch, FM, ops, x, w))
+            regime = FM.plan(m, n, k).regime
+            regimes[regime] = regimes.get(regime, 0) + 1
+        del w
+    for i, (sa, la, sb, lb) in enumerate(sorted(shapes.bwd, key=str)):
+        a, b = laid_out(torch, g, sa, la), laid_out(torch, g, sb, lb)
+        signs = draws.signs(i, R.block_size(sa[1]), "cuda")
+        pa, pb = (check_phase1(torch, MR, ops, x, signs) for x in (a, b))
+        check_phase2_pair(torch, MR, ops, pa, pb, draws, 2 * i + 100)
+        errs["fp4_matmul"] = max(errs["fp4_matmul"],
+                                 check_backward_gemm(torch, draws, a, b))
+        del a, b, pa, pb
+    torch.cuda.empty_cache()
+    log(f"  12f: every shape held (#2 regimes {regimes}); largest errors "
+        f"{errs}; {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def serve_registry_arch(torch, card, cfg, params, prompts, kv_quant, dev="cuda"):
+    """One 12a run: 4 requests through ServeEngine over packed weights;
+    in-vocabulary tokens, every block free, #1, #2 and the pool's GQA kernel
+    launched and no other attention kernel; its numbers, host syncs of one
+    full-batch decode step and a decode profile. dev="cpu" with a reduced
+    config rehearses its logic on the CPU (no syncs, profile or memory)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    kw = dict(kv_quant=kv_quant, prequant=False, device=dev)  # packed as drawn
+    serve_once(torch, cfg, params, EngineConfig, Request, ServeEngine,
+               prompts[:1], 2, **kw)  # warm-up, not measured
+    cuda = dev == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eng, results, setup_s, wall = serve_once(
+        torch, cfg, params, EngineConfig, Request, ServeEngine, prompts,
+        REGISTRY_NEW, **kw)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    attn = "paged_gqa_q" if kv_quant else "paged_gqa"
+    served(torch, cfg, eng, results, prompts, REGISTRY_NEW, launches,
+           ("nvfp4_fos_quant", "fp4_matmul", attn) if cuda else ())
+    others = {k for k in ("paged_gqa", "paged_gqa_q", "paged_mla", "paged_mla_q")
+              if k != attn and launches[k]}
+    if others:
+        fail(f"{cfg.name}: another attention kernel launched: {launches}")
+    r = serving_numbers(results, eng.stats, setup_s, wall, peak, launches)
+    r["streams"] = {res.req_id: res.tokens for res in results}
+    fill_decode(eng, Request, prompts, 6)
+    r["syncs_per_decode_step"], _ = host_syncs(torch, eng.step, dev)
+    eng.run()
+    pool = "NVFP4 pool" if kv_quant else "bf16 pool"
+    log(f"  [{card}] {cfg.name} ({cfg.n_layers} layers, {pool}): 4 requests x "
+        f"{REGISTRY_NEW} tokens: decode {r['decode_tok_s']:.2f} tok/s "
+        f"({r['decode_step_ms']:.1f} ms/step host), TTFT median "
+        f"{r['ttft_s_median']:.2f} s, peak memory {peak / 2**30:.2f} GiB, wall "
+        f"{wall:.1f} s; host syncs a decode step "
+        f"{sum(r['syncs_per_decode_step'].values())} "
+        f"({', '.join(f'{k} {v}' for k, v in sorted(r['syncs_per_decode_step'].items()))})")
+    log(f"  launches on the main path: {launches}")
+    r["profile"] = (profile_decode(torch, eng, Request, prompts,
+                                   REGISTRY_PROFILE_STEPS) if cuda else None)
+    return r
+
+
+def phase_llava_prefill(torch, card, cfg, params, dev="cuda"):
+    """12c: llava's prefill from stub embeds into dense caches
+    (`make_prefill_step`), then LLAVA_DECODE decode steps from tokens
+    (`make_serve_step`): finite, a second run bitwise; #1 / #2 launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    b, s = LLAVA_PREFILL
+    g = torch.Generator(device=dev).manual_seed(13)
+    emb = torch.randn((b, s, cfg.d_model), generator=g,
+                      device=dev).bfloat16() * 0.3
+    prefill = make_prefill_step(cfg, "quartet2")
+    step = make_serve_step(cfg, "quartet2")
+
+    def run():
+        ops.reset_launches()
+        cache = lm.init_cache(cfg, b, s + LLAVA_DECODE + 4, device=dev)
+        logits, cache = prefill(params, cache, {"embeds": emb})
+        counts = [dict(ops.LAUNCHES)]
+        outs = [logits]
+        for i in range(LLAVA_DECODE):
+            toks = outs[-1][:, -1].argmax(-1, keepdim=True)
+            lg, cache = step(params, cache, toks,
+                             torch.full((b,), s + i, dtype=torch.int32,
+                                        device=dev))
+            outs.append(lg)
+        cuda_sync(torch, dev)
+        counts.append(dict(ops.LAUNCHES))
+        return outs, counts
+
+    t0 = time.perf_counter()
+    first, counts = run()
+    wall = time.perf_counter() - t0
+    second, counts2 = run()
+    if not all(bool(torch.isfinite(x).all()) for x in first):
+        fail("12c: llava prefill from embeds gave non-finite logits")
+    if tuple(first[0].shape) != (b, s, cfg.vocab):
+        fail(f"12c: prefill logits of shape {tuple(first[0].shape)}")
+    if not all(torch.equal(x, y) for x, y in zip(first, second)) or counts != counts2:
+        fail("12c: a second prefill + decode run is not bitwise the first")
+    pf = {k: counts[0][k] for k in ("nvfp4_fos_quant", "fp4_matmul")}
+    total = {k: counts[1][k] for k in ("nvfp4_fos_quant", "fp4_matmul")}
+    log(f"  [{card}] 12c llava prefill from embeds ({b} x {s}) + {LLAVA_DECODE} "
+        f"decode steps from tokens: finite, second run bitwise; #1 / #2 launches "
+        f"prefill {pf['nvfp4_fos_quant']} / {pf['fp4_matmul']}, in all "
+        f"{total['nvfp4_fos_quant']} / {total['fp4_matmul']}; wall {wall:.2f} s")
+    return {"prefill_launches": pf, "launches": counts[1], "wall_s": wall}
+
+
+def phase_registry_serving(torch, card, shapes, dev="cuda"):
+    """12a (and 12c on llava's weights): each config of REGISTRY_ARCHS at its
+    published widths, weights packed as drawn, served over the bf16 pool;
+    chatglm3-6b also over the NVFP4 pool; the kernel shapes of every run
+    recorded into `shapes`. dev="cpu" rehearses it on the reduced
+    configs."""
+    from repro_torch.configs import registry
+    from repro_torch.serve.prequant import init_packed
+
+    cuda = dev == "cuda"
+    mem = (lambda: torch.cuda.memory_allocated()) if cuda else (lambda: 0)
+    out = {}
+    for i, arch in enumerate(REGISTRY_ARCHS):
+        cfg = registry.get(arch) if cuda else registry.get(arch).reduced()
+        if cuda and arch in REGISTRY_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=REGISTRY_LAYERS[arch])
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = mem()
+        t0 = time.perf_counter()
+        params = init_packed(cfg, torch.Generator(device=dev).manual_seed(120 + i),
+                             "quartet2", dev, chunk=PACK_CHUNK)
+        cuda_sync(torch, dev)
+        a = {"layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+             "init_peak_bytes": (torch.cuda.max_memory_allocated() if cuda else 0)
+             - base, "weight_bytes": mem() - base,
+             "packed_bytes": packed_bytes(params)}
+        log(f"phase 12a: {cfg.name} at its published widths, {cfg.n_layers} layers: "
+            f"drawn and packed in {a['init_s']:.1f} s, {a['weight_bytes'] / 2**30:.2f} "
+            f"GiB resident ({a['packed_bytes'] / 2**30:.2f} GiB packed), init peak "
+            f"{a['init_peak_bytes'] / 2**30:.2f} GiB")
+        g = torch.Generator().manual_seed(120 + i)
+        lens = torch.randint(16, 65, (4,), generator=g).tolist()
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+                   for n in lens]
+        a["prompt_lens"] = lens
+        with shapes:
+            a["bf16_pool"] = serve_registry_arch(torch, card, cfg, params,
+                                                 prompts, False, dev)
+            if arch == "chatglm3_6b":
+                a["nvfp4_pool"] = serve_registry_arch(torch, card, cfg, params,
+                                                      prompts, True, dev)
+            if cfg.input_mode == "embeds":
+                out["llava_prefill"] = phase_llava_prefill(torch, card, cfg,
+                                                           params, dev)
+        a["seconds"] = time.perf_counter() - t0
+        log(f"  {cfg.name} took {a['seconds']:.1f} s")
+        out[arch] = a
+        del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_group_kernels(torch):
+    """12b: #5 and #6 at the registry's group sizes (hd 128, Sq 1 and 16,
+    both pools) against their plain versions under the attention bar, two
+    calls bitwise equal; one decode step's calls of each config timed (4
+    rows mid-decode, one call a layer), with the bound and SDPA."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serve import kv_pool as KV
+
+    log("phase 12b: paged_gqa / paged_gqa_q at the registry's group sizes")
+    errs = {"paged_gqa": 0.0, "paged_gqa_q": 0.0}
+    groups = {"paged_gqa": {}, "paged_gqa_q": {}}
+    for i, (label, (h, kv, layers)) in enumerate(GROUP_SIZES.items()):
+        for sq, lens, dead in ((1, [47, 100, 131, 18], (3,)),
+                               (16, [16, 64, 100, 33], ())):
+            for packed in (False, True):
+                name = "paged_gqa_q" if packed else "paged_gqa"
+                kern = ops.paged_gqa_q if packed else ops.paged_gqa
+                plain = PA.paged_gqa_q_plain if packed else PA.paged_gqa_plain
+                # the bf16 pool at unit scale, as phase 3's bf16 cases
+                args = (gqa_q_case(torch, F, b=4, sq=sq, h=h, kv=kv, hd=128, bs=16,
+                                   maxb=16, lens=lens, dead=dead, seed=1200 + i)
+                        if packed else
+                        attn_case(torch, b=4, sq=sq, h=h, kv=kv, hd=128, bs=16,
+                                  maxb=16, lens=lens, seed=1200 + i))
+                out, again = kern(*args), kern(*args)
+                torch.cuda.synchronize()
+                errs[name] = max(errs[name], check_against_plain(
+                    torch, name, out, plain(*args), dead if packed else (),
+                    f"{label} Sq{sq} (H/KV {h // kv})"))
+                if not torch.equal(out, again):
+                    fail(f"{name} {label} Sq{sq}: two calls on the same inputs differ")
+        lens = [40, 57, 72, 25]  # 12a's prompts mid-decode
+        for packed in (False, True):
+            name = "paged_gqa_q" if packed else "paged_gqa"
+            calls, sd, nbytes, ops_n = [], [], 0, 0
+            for layer in range(layers):
+                if packed:
+                    c = gqa_q_case(torch, F, b=4, sq=1, h=h, kv=kv, hd=128, bs=16,
+                                   maxb=16, lens=lens, seed=1300 + layer)
+                    q, kc, ks, vc, vs, table, pos = c
+                    sd.append(gather_sdpa(torch, q, KV.gather_view(KV.PackedKV(kc, ks), table),
+                                          KV.gather_view(KV.PackedKV(vc, vs), table), pos))
+                    keys, pairs = keys_and_pairs(pos.tolist(), 1)
+                    nbytes += (q.numel() * 2 + keys * kv * 256 * 0.5625
+                               + table.numel() * 4 + pos.numel() * 4 + q.numel() * 4)
+                    ops_n += pairs * h * (2 * 128 + 2 * 128)
+                else:
+                    c = attn_case(torch, b=4, sq=1, h=h, kv=kv, hd=128, bs=16,
+                                  maxb=16, lens=lens, seed=1300 + layer)
+                    sd.append(sdpa_yardstick(torch, *c, KV))
+                    nb, no = attn_bytes_ops(*c)
+                    nbytes, ops_n = nbytes + nb, ops_n + no
+                calls.append(c)
+            kern = ops.paged_gqa_q if packed else ops.paged_gqa
+            plain = PA.paged_gqa_q_plain if packed else PA.paged_gqa_plain
+            fn = lambda calls=calls, kern=kern: [kern(*c) for c in calls]
+            sdpa_fn = lambda sd=sd: [f() for f in sd]
+            grp = dict(fn=fn, ms=time_ms(torch, fn, 20),
+                       plain_ms=time_ms(torch, lambda: [plain(*c) for c in calls], 3),
+                       library_ms=time_ms(torch, sdpa_fn, 20),
+                       library_profiler_ms=device_ms(torch, sdpa_fn, ""),
+                       bytes=nbytes, ops=ops_n, peak=F32_FLOPS, calls=layers)
+            p = PA.plan(4, 1, h, kv, 16, 16, 128)
+            log(f"  {name} {label}, one decode step ({layers} layers): plan "
+                f"{p.splits} splits, {p.grid} CTAs, row groups {p.row_groups}")
+            finish_results({name: grp}, errs)
+            groups[name][label] = grp
+            del calls, sd
+        torch.cuda.empty_cache()
+    return groups, errs
+
+
+def phase_moe_train(torch, card, shapes, dev="cuda"):
+    """12d: deepseek-moe-16b at its published widths, MOE_TRAIN_LAYERS layers,
+    through `repro_torch.launch.train`'s code path (the registry's config
+    cut here, as phase 6 cuts deepseek-v3's), its kernel shapes recorded
+    into `shapes`; then the same recipe under bf16 (no kernel of the port
+    runs), whose losses say whether quartet2's are the recipe's; and a
+    reduced deepseek-moe-16b quartet2 train step, card against CPU
+    (`phase_train_reference`). dev="cpu" rehearses the first two at the
+    reduced size (seq 32)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import rng
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import chunked_head_ce
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import step_seed
+
+    cuda = dev == "cuda"
+    args = MOE_TRAIN_ARGS if cuda else [*MOE_TRAIN_ARGS, "--device", "cpu",
+                                        "--reduced", "--seq", "32"]
+    steps = int(args[args.index("--steps") + 1])
+    real_get, real_uniform = registry.get, rng.HashDraws.uniform
+    cut = dataclasses.replace(real_get("deepseek_moe_16b"), n_layers=MOE_TRAIN_LAYERS)
+    cfg = cut if cuda else cut.reduced()
+    log(f"phase 12d: training deepseek-moe-16b at its published widths, "
+        f"{cfg.n_layers} layers (quartet2, AdamW, batch 4 x seq 256, {steps} steps)")
+    drawn = []
+
+    def counted_uniform(self, tag, shape, device):
+        drawn.append(tuple(shape))
+        return real_uniform(self, tag, shape, device)
+
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    registry.get = lambda name: cut if registry._norm(name) == "deepseek_moe_16b" \
+        else real_get(name)
+    rng.HashDraws.uniform = counted_uniform
+    ops.reset_launches()
+    try:
+        with shapes:
+            out, trainer, state = launch_train.run(args)
+            cuda_sync(torch, dev)
+    finally:
+        registry.get, rng.HashDraws.uniform = real_get, real_uniform
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    losses = out["losses"]
+    if out["arch"] != cfg.name or len(losses) != steps:
+        fail(f"12d: trained {out['arch']} for {len(losses)} steps")
+    if not all(h["finite"] for h in trainer.history):
+        fail(f"12d: non-finite training loss: {losses}")
+    if not all(bool(torch.isfinite(p).all()) for p in adamw.leaves(state.params)):
+        fail("12d: non-finite parameters after training")
+    path = ("nvfp4_fos_quant", "fp4_matmul", "ms_eden_phase1", "ms_eden_phase2")
+    if cuda and any(launches[k] <= 0 for k in path):
+        fail(f"12d: a kernel of the training path was not launched: {launches}")
+    if drawn:
+        fail(f"12d: {len(drawn)} SR uniform tensors drawn, e.g. {drawn[:3]}")
+    batch = {k: v.to(dev) for k, v in trainer.corpus.batch_at(state.step).items()}
+    seed = step_seed(0, state.step)
+    with torch.no_grad():  # the loss, and its CE and aux read on their own
+        loss = lm.lm_loss(state.params, cfg, batch, "quartet2", seed)
+        hidden, _, aux = lm._forward(
+            state.params, state.params["stages"], lm.layer_specs(cfg), cfg,
+            batch, "quartet2", seed, caches=None, mode="train", pos=None,
+            active=None, block_table=None, head=False)
+        ce = chunked_head_ce(hidden, lm.head_weight(state.params, cfg),
+                             batch["labels"], cfg.quantize_lm_head, "quartet2",
+                             seed)
+    if not (float(aux) > 0 and torch.equal(loss, ce + 0.01 * aux)):
+        fail(f"12d: loss {float(loss)} is not ce {float(ce)} + 0.01 x aux "
+             f"{float(aux)}")
+    syncs, _ = host_syncs(torch, lambda: trainer.train_step(state, batch), dev)
+    log(f"  [{card}] losses {[round(x, 4) for x in losses]}; {out['step_ms']:.1f} "
+        f"ms/step (host clock, steps 2-{steps}), peak memory {peak / 2**30:.2f} GiB; "
+        f"loss - ce = {float(loss - ce):.6g}, 0.01 x aux = {0.01 * float(aux):.6g}")
+    log(f"  launches on the training path: {launches}; SR uniform tensors drawn: 0; "
+        f"host syncs a step {sum(syncs.values())} "
+        f"({', '.join(f'{k} {v}' for k, v in sorted(syncs.items()))})")
+    prof = profile_train_step(torch, trainer, state, out["step_ms"]) if cuda else None
+    res = {"layers": cfg.n_layers, "losses": losses, "step_ms": out["step_ms"],
+           "tokens_per_s": out["tokens_per_s"], "peak_mem_bytes": peak,
+           "launches": launches, "aux": float(aux), "ce": float(ce),
+           "syncs_per_step": syncs, "profile": prof}
+    del trainer, state, batch, hidden
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # the recipe under bf16: the same weights, batches and steps
+    bf16_args = list(args)
+    bf16_args[bf16_args.index("--scheme") + 1] = "bf16"
+    registry.get = lambda name: cut if registry._norm(name) == "deepseek_moe_16b" \
+        else real_get(name)
+    try:
+        bf16, trainer, state = launch_train.run(bf16_args)
+    finally:
+        registry.get = real_get
+    res["bf16_losses"] = bf16["losses"]
+    log(f"  the same recipe under bf16: losses "
+        f"{[round(x, 4) for x in bf16['losses']]} (quartet2 "
+        f"{[round(x, 4) for x in losses]})")
+    del trainer, state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        res["reduced_vs_cpu"] = phase_train_reference(torch, "deepseek_moe_16b")
+    return res
+
+
+class TensorDraws:
+    """Draws as the reference's tests inject them: RHT signs and SR uniforms
+    as tensors, here from a CPU generator seeded by (site seed, tag), so the
+    CPU and the card get the same numbers (12e)."""
+
+    def __init__(self, seed):
+        import numpy as np
+        a, b = (int(v) for v in np.asarray(seed, np.uint32))
+        self.key = (a << 32) | b
+
+    def _gen(self, tag):
+        import torch
+        return torch.Generator().manual_seed((self.key * 131 + tag) % 2**63)
+
+    def signs(self, tag, n, device):
+        import torch
+        bits = torch.randint(0, 2, (n,), generator=self._gen(tag))
+        return (bits * 2 - 1).float().to(device)
+
+    def uniform(self, tag, shape, device):
+        import torch
+        return torch.rand(tuple(shape), generator=self._gen(tag)).to(device)
+
+
+def mla_inputs(torch, cfg):
+    """12e's inputs, drawn on the CPU from seed 14: one MLA layer's weights,
+    x (2 x 64 tokens, bf16), x moved one bf16 ulp away from 0, the target
+    of the loss that seeds the backward, and the site seed."""
+    import numpy as np
+    from repro_torch.models import mla
+    from repro_torch.models.blocks import weight_drawer
+    b, s = MLA_TRAIN_TOKENS
+    g = torch.Generator().manual_seed(14)
+    p = {k: v[0] for k, v in mla.mla_init(weight_drawer(g, "cpu"), 1, cfg,
+                                          "cpu").items()}
+    x = torch.randn((b, s, cfg.d_model), generator=g).bfloat16()
+    x_ulp = (x.view(torch.int16) + 1).view(torch.bfloat16)
+    target = torch.randn((b, s, cfg.d_model), generator=g)
+    return p, x, x_ulp, target, np.array([12, 5], np.uint32)
+
+
+def mla_pass(torch, cfg, p, xin, target, seed, d, scheme):
+    """One `mla_apply` forward + backward on device d under `scheme`, with
+    TensorDraws injected (`core.rng.draws` patched): (loss, output, the
+    gradients of x and of each weight, launches), all on the CPU."""
+    from repro_torch.core import rng
+    from repro_torch.kernels import ops
+    from repro_torch.models import mla
+    real_draws = rng.draws
+    rng.draws = lambda sd: sd if hasattr(sd, "signs") else TensorDraws(sd)
+    ops.reset_launches()
+    try:
+        pp = {k: v.to(d).requires_grad_(True) for k, v in p.items()}
+        xx = xin.to(d).requires_grad_(True)
+        out, _ = mla.mla_apply(pp, xx, cfg, scheme, seed, 0)
+        loss = 0.5 * (out.float() - target.to(d)).pow(2).mean()
+        grads = torch.autograd.grad(loss, [xx, *pp.values()])
+        cuda_sync(torch, d)
+    finally:
+        rng.draws = real_draws
+    return (float(loss.detach()), out.detach().float().cpu(),
+            [gr.float().cpu() for gr in grads], dict(ops.LAUNCHES))
+
+
+def phase_mla_backward(torch, card, dev="cuda"):
+    """12e: one `mla_apply` forward + backward at deepseek-v3's published
+    widths (H 128, q_lora 1536, kv_lora 512 + rope 64) over 2 x 64 tokens
+    under quartet2, card against CPU with TensorDraws injected (the CPU
+    pass from `cpu_references`); the quantization noise (quartet2 against
+    bf16) and the witness (x one ulp away) on the card. deepseek-v3 does
+    not train on one card at its widths (one MoE layer's f32 state,
+    parameters, gradients and two moments, is about 180 GB), so its MLA
+    backward is held here alone. dev="cpu" rehearses it on the reduced
+    config, the CPU against itself."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+
+    cuda = dev == "cuda"
+    cfg = registry.get("deepseek_v3_671b")
+    cfg = cfg if cuda else cfg.reduced()
+    m = cfg.mla
+    padded = -(-(m.kv_lora_rank + m.qk_rope_head_dim) // 128) * 128  # 640
+    b, s = MLA_TRAIN_TOKENS
+    log(f"phase 12e: mla_apply forward + backward at deepseek-v3's widths ({b} x "
+        f"{s} tokens, quartet2, injected draws), card against CPU")
+    t0 = time.perf_counter()
+    p, x, x_ulp, target, seed = mla_inputs(torch, cfg)
+    real_bwd = ops.quartet2_backward_gemm
+    widths, padded_calls = [], []
+
+    def recording_bwd(a, bb, *rest):
+        widths.append(int(a.shape[-1]))
+        out = real_bwd(a, bb, *rest)
+        if a.shape[-1] == padded and a.device.type != "cpu":
+            padded_calls.append(((a, bb, *rest), out))
+        return out
+
+    res = {"cpu": (cpu_reference("mla") if cuda else
+                   mla_pass(torch, cfg, p, x, target, seed, "cpu", "quartet2"))}
+    ops.quartet2_backward_gemm = recording_bwd
+    try:
+        res["card"] = mla_pass(torch, cfg, p, x, target, seed, dev, "quartet2")
+    finally:
+        ops.quartet2_backward_gemm = real_bwd
+    res["card bf16"] = mla_pass(torch, cfg, p, x, target, seed, dev, "bf16")
+    res["card x+ulp"] = mla_pass(torch, cfg, p, x_ulp, target, seed, dev, "quartet2")
+    wd = sorted(set(widths))
+    names = ["x", *p]
+    (lc, oc, gc_, _), (lg, og, gg, launches) = res["cpu"], res["card"]
+    (_, _, gb, _), (_, ou, gu, _) = res["card bf16"], res["card x+ulp"]
+    rel = lambda u, v: float(((u - v).pow(2).mean() / v.pow(2).mean().clamp_min(
+        1e-30)).sqrt())
+    rms = {n: rel(a, c) for n, a, c in zip(names, gg, gc_)}
+    noise = {n: rel(c, bb) for n, c, bb in zip(names, gg, gb)}
+    witness = {n: rel(u, c) for n, u, c in zip(names, gu, gg)}
+    out_rms, out_witness = rel(og, oc), rel(ou, og)
+    finite = all(bool(torch.isfinite(t).all()) for t in (og, *gg))
+    log(f"  [{card}] loss card {lg:.8g} / CPU {lc:.8g}; output relative RMS "
+        f"{out_rms:.3g} (bar {MLA_TRAIN_REL_RMS}); gradients, card-CPU relative "
+        "RMS / quartet2-bf16 noise (bar " + f"{Q2_NOISE_FRACTION}): " + ", ".join(
+            f"{n} {rms[n]:.3g} / {noise[n]:.3g}" for n in names))
+    log(f"  witness, the card with x one bf16 ulp away from 0 against the card: "
+        f"output relative RMS {out_witness:.3g}; gradients relative RMS / "
+        "quartet2-bf16 noise: " + ", ".join(
+            f"{n} {witness[n]:.3g} / {noise[n]:.3g} ({witness[n] / noise[n]:.3g})"
+            for n in names))
+    log("  card-CPU distance as a fraction of the noise: " + ", ".join(
+        f"{n} {rms[n] / noise[n]:.3g}" for n in names))
+    gemm_errs = []
+    for args, got in padded_calls:
+        want = real_bwd(*(t.cpu() if isinstance(t, torch.Tensor) else t
+                          for t in args))
+        gemm_errs.append(float((got.cpu() - want).abs().max() / want.abs().max()))
+    log(f"  backward GEMM contraction widths on the card: {wd}; the {padded}-wide "
+        f"one(s) against the plain composition: max|dC| / max|C| "
+        f"{[f'{e:.3g}' for e in gemm_errs]} (bar {BWD_GEMM_RTOL}); launches "
+        f"{launches}; {time.perf_counter() - t0:.1f} s")
+    if (not finite or out_rms > MLA_TRAIN_REL_RMS
+            or any(rms[n] > Q2_NOISE_FRACTION * noise[n] for n in names)):
+        fail("12e: mla_apply's forward + backward on the card disagrees with the CPU")
+    if padded not in wd:
+        fail(f"12e: no backward GEMM contracted over wkv_a's padded {padded} ({wd})")
+    if cuda and (not gemm_errs or max(gemm_errs) > BWD_GEMM_RTOL):
+        fail(f"12e: the {padded}-wide backward GEMM on the card disagrees with its "
+             "plain composition")
+    if cuda and any(launches[k] <= 0 for k in ("nvfp4_fos_quant", "fp4_matmul",
+                                               "ms_eden_phase1", "ms_eden_phase2")):
+        fail(f"12e: a kernel of the training path was not launched: {launches}")
+    return {"out_rel_rms": out_rms, "rel_rms": rms, "noise": noise,
+            "witness_out_rel_rms": out_witness, "witness_rel_rms": witness,
+            "widths": wd, "padded_gemm_err": gemm_errs, "launches": launches}
+
+
+def phase_registry(torch, card):
+    """Phase 12: 12a-12f. Returns its numbers (with "launches", the sum
+    over its main-path runs: 12a's serving, 12c and 12d's quartet2 run) and
+    its kernel groups and errors."""
+    t0 = time.perf_counter()
+    shapes = KernelShapes()
+    out = phase_registry_serving(torch, card, shapes)
+    groups, errs = phase_group_kernels(torch)
+    out["moe_train"] = phase_moe_train(torch, card, shapes)
+    out["mla_backward"] = phase_mla_backward(torch, card)
+    for k, err in phase_registry_kernels(torch, shapes).items():
+        errs[k] = max(errs.get(k, 0.0), err)
+    runs = [a[pool] for arch, a in out.items() if arch in REGISTRY_ARCHS
+            for pool in ("bf16_pool", "nvfp4_pool") if pool in a]
+    runs += [out["llava_prefill"], out["moe_train"]]
+    out["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in runs[-1]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 12 took {out['phase_s']:.1f} s; launches on its main paths: "
+        f"{out['launches']}")
+    return out, groups, errs
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -4536,6 +5359,8 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     log(f"  {name} (torch {torch.__version__}, CUDA {torch.version.cuda}); {card}")
 
+    # the reduced CPU runs of phases 8, 9 and 12 run beside the card's work
+    start_cpu_references()
     log("phase 2: build")
     t0 = time.perf_counter()
     build.library()
@@ -4604,9 +5429,15 @@ def main() -> None:
         kern[k].setdefault("groups", {})[f"prefill_M{m}"] = grp
     generate["phase_s"] = time.perf_counter() - t_gen
     log(f"  phase 11 took {generate['phase_s']:.1f} s")
+    registry_out, reg_groups, reg_errs = phase_registry(torch, card)
+    for k, err in reg_errs.items():
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
+    for k, grps in reg_groups.items():
+        kern[k].setdefault("groups", {}).update(grps)
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
                  deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec,
-                 http, generate["quartet2"], generate["deepseek"], generate["long"])
+                 http, generate["quartet2"], generate["deepseek"], generate["long"],
+                 registry_out)
 
     kernels = []
     for k, r in kern.items():
@@ -4637,7 +5468,7 @@ def main() -> None:
          "kernel_detail": kern, "serving": serving, "serving_kv_quant": serving_kvq,
          "deepseek": deepseek, "training": training, "resume": resume,
          "nanochat": nanochat, "prefix": prefix, "spec": spec, "http": http,
-         "generate": generate},
+         "generate": generate, "registry": registry_out},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """Architecture registry: `get("llama-200m")`, `names()`.
 
-The port carries the dense GQA configurations and deepseek-v3 (MLA + MoE,
-served in decode mode); the other families of the JAX registry come with the
-slices that port their mixers.
+The port carries every transformer of the JAX registry: the dense GQA
+configurations, llava's embeds-input backbone and both MoE models
+(deepseek-moe-16b on GQA, deepseek-v3 on MLA). Still to come, each with the
+slice that ports its mixer: rwkv6, recurrentgemma and whisper.
 """
 
 from __future__ import annotations
@@ -12,8 +13,13 @@ import importlib
 from repro_torch.configs.base import ArchConfig
 
 ARCH_IDS = [
+    "chatglm3_6b",
+    "nemotron_4_15b",
+    "granite_8b",
     "yi_9b",
+    "deepseek_moe_16b",
     "deepseek_v3_671b",
+    "llava_next_mistral_7b",
     "llama_200m",  # the paper's own ablation family (Table 3)
 ]
 

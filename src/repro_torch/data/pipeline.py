@@ -9,9 +9,12 @@ the two packages feed both the reference corpus's batches.
 
 `batch_at(step)` is a pure function of (seed, step): resuming at step k
 reproduces the exact stream with no iterator state. Batches are made on the
-CPU; the caller moves them to its device. Left out until a slice needs them:
-the reference's stub "embeds" (audio and vision families) and its
-per-host sharding of the batch (`dist/`).
+CPU; the caller moves them to its device. With `emit_embeds` a batch also
+carries stub "embeds" (the vision family's precomputed patch embeddings):
+bf16 normals times 0.3, drawn from the step's generator after the tokens.
+`byte_corpus_from_text` is the reference's tiny real-data corpus and gives
+its batches bitwise. Left out until `dist/` is ported: the reference's
+per-host sharding of the batch.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ class DataConfig:
     global_batch: int
     seed: int = 0
     zipf_a: float = 1.2
+    d_model: int = 0         # > 0 with emit_embeds: stub "embeds" (vlm)
+    emit_embeds: bool = False
 
 
 def _zipf_probs(vocab: int, a: float) -> np.ndarray:
@@ -61,5 +66,29 @@ class SyntheticCorpus:
         for t in range(1, n):
             toks[:, t] = torch.where(use_bigram[:, t], self._perm[toks[:, t - 1]],
                                      uni[:, t])
-        return {"tokens": toks[:, :-1].to(torch.int32),
-                "labels": toks[:, 1:].to(torch.int32)}
+        batch = {"tokens": toks[:, :-1].to(torch.int32),
+                 "labels": toks[:, 1:].to(torch.int32)}
+        if cfg.emit_embeds:
+            batch["embeds"] = torch.randn(
+                (b, cfg.seq_len, cfg.d_model), generator=g).to(
+                    torch.bfloat16) * 0.3
+        return batch
+
+
+def byte_corpus_from_text(text: str, cfg: DataConfig):
+    """Tiny real-data corpus: the UTF-8 bytes of `text`, windows of seq_len
+    + 1 bytes at offsets from a numpy RandomState seeded by hash((seed,
+    step, 0)) % 2**31, as the reference's shard 0 (a tuple of ints hashes
+    the same in every Python process). int32 tensors on the CPU."""
+    raw = np.frombuffer(text.encode("utf-8"), np.uint8).astype(np.int32)
+
+    class _ByteCorpus:
+        def batch_at(self, step: int) -> dict:
+            rng = np.random.RandomState(hash((cfg.seed, step, 0)) % 2**31)
+            idx = rng.randint(0, len(raw) - cfg.seq_len - 1,
+                              size=cfg.global_batch)
+            toks = np.stack([raw[i: i + cfg.seq_len + 1] for i in idx])
+            return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+                    "labels": torch.from_numpy(toks[:, 1:].copy())}
+
+    return _ByteCorpus()

@@ -7,11 +7,16 @@
         [--spec-k K --draft-layers L] [--temperature T] [--top-k K]
         [--obs] [--http PORT]
 
-Builds seeded random weights, prequantizes them (quartet2: NVFP4 4/6 packed
-weights), serves `--batch` requests through `ServeEngine` on the paged bf16
-pool (`--kv-quant`: the NVFP4 pool; `--dense`: dense per-slot caches), and
-prints prefill and decode tokens per second labelled with the device they
-ran on. `--legacy` runs the fixed-batch seed loop instead
+Builds seeded random weights, packed as they are drawn (quartet2: NVFP4 4/6;
+`serve.prequant.init_packed`, with one chunk of f32 matrices alive at a
+time, so every config of the registry fits one card at its published widths
+but deepseek-v3). On the CPU they are bitwise the prequantized `lm.init`; on
+the card only leaves of at most one chunk of matrices are, since the card's
+generator draws other numbers when a leaf is drawn in pieces. It serves
+`--batch` requests through `ServeEngine` on the paged bf16 pool
+(`--kv-quant`: the NVFP4 pool; `--dense`: dense per-slot caches), and prints
+prefill and decode tokens per second labelled with the device they ran on.
+`--legacy` runs the fixed-batch seed loop instead
 (`serve.decode.greedy_generate`: one prefill of the `--batch` prompts, then
 batched single-token steps over dense caches, every weight re-quantized at
 every step) and prints its tokens per second. `--shared-prefix N` serves
@@ -49,6 +54,7 @@ from repro_torch.obs import Instrumentation, MetricsRegistry
 from repro_torch.serve.decode import greedy_generate
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 from repro_torch.serve.frontend import FrontendConfig, serve_forever
+from repro_torch.serve.prequant import init_packed
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import FifoPolicy, LatencyPolicy
 
@@ -186,7 +192,10 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm.init(cfg, gen, device)
+    # the seed loop re-quantizes raw weights every step, as the reference's;
+    # the engine serves them packed as drawn
+    params = (lm.init(cfg, gen, device) if args.legacy else
+              init_packed(cfg, gen, args.scheme, device))
     block = 16
     extra = SHARED_SUFFIX if args.shared_prefix else 0
     max_len = -(-(args.prompt_len + extra + args.tokens + args.spec_k)
@@ -198,7 +207,7 @@ def main(argv=None) -> dict:
     econf = EngineConfig(
         n_slots=min(args.batch, args.shared_prefix or args.batch),
         max_len=max_len, block_size=block, scheme=args.scheme,
-        paged=not args.dense,
+        paged=not args.dense, prequant=False,  # packed as drawn
         base_seed=args.seed, kv_quant=args.kv_quant,
         prefix_cache=args.prefix_cache or args.prefix_spill,
         prefix_spill=args.prefix_spill,

@@ -85,8 +85,10 @@ def run(argv=None):
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, qk_norm=cfg.qk_norm or args.qk_norm,
                               mlp=args.mlp or cfg.mlp)
-    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                        global_batch=args.batch, seed=args.seed))
+    corpus = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+        seed=args.seed, d_model=cfg.d_model,
+        emit_embeds=cfg.input_mode == "embeds"))
     init_state, train_step = make_train_step(
         cfg, args.scheme, optimizer=args.optimizer, schedule=args.schedule,
         base_lr=args.lr, total_steps=args.steps, base_seed=args.seed,

@@ -246,7 +246,7 @@ def gqa_decode(p, x, cfg, scheme, seed, layer, cache_kv, pos, *, window=None,
             raise NotImplementedError(
                 "ring-buffer (cap == window) caches belong to sliding-window "
                 "lattn layers, which come with the griffin slice (ROADMAP.md "
-                "Queue 1 item 7)")
+                "Queue 1, the remaining families)")
         KV.scatter_dense(kc, positions, k, valid)
         KV.scatter_dense(vc, positions, v, valid)
         o = decode_sdpa(q, kc[:, :cap], vc[:, :cap], posb, window=window)

@@ -1,5 +1,8 @@
-"""The language model: the dense family (train, prefill and decode modes)
-and the MLA + MoE family (deepseek-v3, prefill and decode modes).
+"""The language model: every transformer family of the reference in train,
+prefill and decode modes. Dense GQA (llama, yi, granite, chatglm3 with its
+half-dim rope, nemotron with relu2), the vision backbone (llava: GQA fed
+precomputed embeddings), GQA + MoE (deepseek-moe-16b) and MLA + MoE
+(deepseek-v3).
 
 Counterpart of `repro/models/lm.py`. A model is a list of STAGES; each stage
 is `count` structurally identical layers whose parameters are stacked on a
@@ -11,11 +14,18 @@ pool's (`serve.kv_pool.init_cache`, addressed through a block table) or
 dense per-slot caches (`init_cache` here), which prefill fills and decode
 extends. The reference's REMAT is off, so training recomputes nothing.
 
-Ported: (gqa, mlp) layers in every mode but encode, (mla, moe) layers in
-prefill (the expanded form, `mla.mla_apply`) and decode. `forward_prefix`
-runs the first n layers of the same stack with the same head (the
-self-speculative draft). The other families, MLA/MoE training and the encode
-mode raise NotImplementedError and come with later slices.
+Layers are (gqa | mla, mlp | moe). MLA runs the expanded form
+(`mla.mla_apply`) in train and prefill mode and the absorbed form in decode
+mode. Train and prefill read `inputs["embeds"]` (cast to bf16) in place of
+the token embedding whenever the batch carries it; decode always embeds
+tokens, as the reference does. The MoE layers' load-balance aux losses are
+summed over the stack, as the reference's scan carry does; `lm_loss` adds
+`aux_weight` times that sum to the CE, and `forward` keeps returning
+(logits, caches), since serving reads no aux. `forward_prefix` runs the
+first n layers of the same stack with the same head (the self-speculative
+draft). The recurrent and encoder-decoder families (rwkv6, griffin,
+whisper) and the encode mode raise NotImplementedError and come with a
+later slice.
 """
 
 from __future__ import annotations
@@ -35,21 +45,20 @@ from repro_torch.models.blocks import (chunked_head_ce, embed_init,
                                        weight_drawer)
 
 
-def _check_family(cfg: ArchConfig, mode: str = "decode") -> None:
-    """Raise for what the port does not run yet: families other than dense
-    gqa and MLA + MoE, and MLA + MoE training."""
-    dense = cfg.family == "dense" and cfg.attn == "gqa" and not cfg.moe
-    mla_moe = (cfg.family == "moe" and cfg.attn == "mla"
-               and cfg.moe is not None and cfg.mla is not None)
-    if cfg.enc_dec or cfg.griffin or cfg.rwkv or not (dense or mla_moe):
+def _check_family(cfg: ArchConfig) -> None:
+    """Raise for the families the port does not run yet: the recurrent and
+    encoder-decoder ones (rwkv6, griffin, whisper: the remaining-families
+    slice)."""
+    dense = (cfg.family in ("dense", "vlm") and cfg.attn == "gqa"
+             and not cfg.moe)
+    moe = (cfg.family == "moe" and cfg.moe is not None
+           and (cfg.attn == "gqa" or (cfg.attn == "mla"
+                                      and cfg.mla is not None)))
+    if cfg.enc_dec or cfg.griffin or cfg.rwkv or not (dense or moe):
         raise NotImplementedError(
-            f"{cfg.name}: family '{cfg.family}' (attn '{cfg.attn}') is not "
-            "ported yet; the port runs the dense gqa family and serves MLA + "
-            "MoE")
-    if mla_moe and mode == "train":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA + MoE training comes with the MLA/MoE training "
-            "slice; the port runs it in prefill and decode mode")
+            f"{cfg.name}: family '{cfg.family}' (attn '{cfg.attn}') comes "
+            "with the slice of the recurrent and encoder-decoder families; "
+            "the port runs the dense, vlm and MoE transformers")
 
 
 def layer_specs(cfg: ArchConfig) -> list[tuple[tuple[tuple[str, str], ...], int]]:
@@ -111,10 +120,10 @@ def head_weight(params, cfg):
 
 def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
                  pos, positions, active, block_table):
-    """One (mixer, ff) layer. In prefill mode the layer's K/V (or latents)
-    fill positions [0, S) of its dense `cache`; in decode mode the cache
-    updates in place. The MoE aux loss is dropped (no ported path trains the
-    MoE family yet)."""
+    """One (mixer, ff) layer: (x, aux). In prefill mode the layer's K/V (or
+    latents) fill positions [0, S) of its dense `cache`; in decode mode the
+    cache updates in place. aux is the MoE layer's load-balance loss (f32
+    scalar), None for an MLP layer."""
     mixer, ff = spec
     h = norm(x, p["n1"], cfg.norm, cfg.norm_eps)
     if mode == "decode":
@@ -133,9 +142,9 @@ def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
     x = x + o
     h = norm(x, p["n2"], cfg.norm, cfg.norm_eps)
     if ff == "moe":
-        o, _aux = X.moe_apply(p["ff"], h, cfg, scheme, seed, layer_id)
-        return x + o
-    return x + mlp_apply(p["ff"], h, cfg.mlp, scheme, seed, layer_id)
+        o, aux = X.moe_apply(p["ff"], h, cfg, scheme, seed, layer_id)
+        return x + o, aux
+    return x + mlp_apply(p["ff"], h, cfg.mlp, scheme, seed, layer_id), None
 
 
 def _fill_cache(cache, new) -> None:
@@ -243,8 +252,12 @@ def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
     """The layers of `stages` ([(pattern, count)], aligned with
     `stage_params` and with `caches`, paged or dense, when given). A layer's
     id, hence its quantization site seeds, is its index in the full stack:
-    stages cut by `prefix_specs` start where the full model's do."""
+    stages cut by `prefix_specs` start where the full model's do. Returns
+    (x, aux): aux the f32 sum of the MoE layers' aux losses in layer order
+    (None without MoE layers; the reference's 0 + a_0 + a_1 + ... is the
+    same sum, since 0 + a_0 is exactly a_0)."""
     from repro_torch.serve.kv_pool import index_leaf  # kv_pool imports lm
+    aux_total = None
     off = 0
     for si, (pattern, count) in enumerate(stages):
         sp = stage_params[si]
@@ -256,43 +269,52 @@ def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
                     kind = "mla" if spec[0] == "mla" else "kv"
                     cache = tuple(index_leaf(leaf, idx)
                                   for leaf in caches[si][f"l{li}"][kind])
-                x = _apply_layer(spec, lp[f"l{li}"], x, cfg, scheme, seed,
-                                 off + idx * len(pattern) + li, mode=mode,
-                                 cache=cache, pos=pos, positions=positions,
-                                 active=active, block_table=block_table)
+                x, aux = _apply_layer(
+                    spec, lp[f"l{li}"], x, cfg, scheme, seed,
+                    off + idx * len(pattern) + li, mode=mode, cache=cache,
+                    pos=pos, positions=positions, active=active,
+                    block_table=block_table)
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
         off += count * len(pattern)
-    return x
+    return x, aux_total
 
 
 def _forward(params, stage_params, stages, cfg, inputs, scheme, seed, *,
              caches, mode, pos, active, block_table, head):
+    """The model's forward: (out, caches, aux), aux the summed MoE aux loss
+    (None without MoE layers; only `lm_loss` reads it)."""
     if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(
             f"mode '{mode}' comes with a later slice (train, prefill and "
             "decode are ported)")
-    _check_family(cfg, mode)
-    x = embed_lookup(params["embed"], inputs["tokens"])
+    _check_family(cfg)
+    if "embeds" in inputs and mode != "decode":
+        x = inputs["embeds"].to(torch.bfloat16)
+    else:
+        x = embed_lookup(params["embed"], inputs["tokens"])
     b, s = x.shape[:2]
     positions = None
     if mode == "decode":
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
     else:
         positions = torch.arange(s, device=x.device)[None, :]
-    x = _run_stages(stage_params, x, cfg, scheme, seed, stages=stages,
-                    mode=mode, caches=caches, pos=pos, positions=positions,
-                    active=active, block_table=block_table)
+    x, aux = _run_stages(stage_params, x, cfg, scheme, seed, stages=stages,
+                         mode=mode, caches=caches, pos=pos,
+                         positions=positions, active=active,
+                         block_table=block_table)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    if not head:
-        return x, caches
-    logits = lm_head(x, head_weight(params, cfg), cfg.quantize_lm_head, scheme,
-                     seed)
-    return logits, caches
+    if head:
+        x = lm_head(x, head_weight(params, cfg), cfg.quantize_lm_head, scheme,
+                    seed)
+    return x, caches, aux
 
 
 def forward(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
             caches=None, mode: str = "decode", pos=None, active=None,
             block_table=None, head: bool = True):
-    """Full model. inputs: {"tokens": (B, S)}.
+    """Full model. inputs: {"tokens": (B, S)}, or {"embeds": (B, S, D)}
+in train and prefill mode (llava's stubbed frontend; decode embeds tokens).
 
     mode="train": causal full-sequence forward from position 0 (no caches);
     with head=False the final normed hidden states are returned (`lm_loss`
@@ -306,11 +328,10 @@ def forward(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
     (`serve.kv_pool.init_cache`); without one the `caches` are dense
     (`init_cache`). They come back updated in place.
     Returns (logits_or_hidden, caches); the reference's third output, the MoE
-    aux loss, is dropped (serving does not use it; training of the MoE family
-    comes with a later slice)."""
+    aux loss, is left out (serving reads none; `lm_loss` adds it)."""
     return _forward(params, params["stages"], layer_specs(cfg), cfg, inputs,
                     scheme, seed, caches=caches, mode=mode, pos=pos,
-                    active=active, block_table=block_table, head=head)
+                    active=active, block_table=block_table, head=head)[:2]
 
 
 def forward_prefix(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
@@ -326,13 +347,20 @@ def forward_prefix(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
     return _forward(params, prefix_stage_params(params, cfg, n_prefix),
                     prefix_specs(cfg, n_prefix), cfg, inputs, scheme, seed,
                     caches=caches, mode=mode, pos=pos, active=active,
-                    block_table=block_table, head=True)
+                    block_table=block_table, head=True)[:2]
 
 
-def lm_loss(params, cfg: ArchConfig, batch, scheme: str, seed) -> torch.Tensor:
-    """Fused chunked head + CE (never materializes (tokens, vocab) logits).
-    The reference adds aux_weight * the MoE aux loss, 0 for the dense family."""
-    hidden, _ = forward(params, cfg, batch, scheme, seed, mode="train",
-                        head=False)
-    return chunked_head_ce(hidden, head_weight(params, cfg), batch["labels"],
-                           cfg.quantize_lm_head, scheme, seed)
+def lm_loss(params, cfg: ArchConfig, batch, scheme: str, seed,
+            aux_weight: float = 0.01):
+    """Fused chunked head + CE (never materializes (tokens, vocab) logits)
+    plus `aux_weight` times the summed MoE aux loss (0 for the dense
+    family): ce + aux_weight * aux, as the reference."""
+    hidden, _, aux = _forward(params, params["stages"], layer_specs(cfg), cfg,
+                              batch, scheme, seed, caches=None, mode="train",
+                              pos=None, active=None, block_table=None,
+                              head=False)
+    ce = chunked_head_ce(hidden, head_weight(params, cfg), batch["labels"],
+                         cfg.quantize_lm_head, scheme, seed)
+    if aux is None:  # no MoE layer: the reference adds aux_weight * 0 to ce
+        return ce
+    return ce + aux_weight * aux

@@ -12,8 +12,13 @@ over a dense per-slot latent cache (`latent_attend`), and W_uv maps the
 latent readout back to per-head values. The projections wq_a, wq_b, wkv_a
 and wo are quantized linears; in decode `wkv_b` enters the two absorbed
 einsums RAW, in full f32 (TF32 is off for the package,
-`repro_torch/__init__.py`). MLA training (the backward of `mla_apply`)
-comes with a later slice.
+`repro_torch/__init__.py`). Training runs `mla_apply` under autograd: the
+backward goes through `qlinear`'s autograd Function, so under quartet2 each
+projection's dX and dW GEMM is `ops.quartet2_backward_gemm`. wkv_a's output
+is kv_lora + rope wide (576 at deepseek-v3's widths), so its dX GEMM
+contracts over a width that is no multiple of 128; `core/linear.py` pads it
+with zeros to the next multiple (640) before the rotation, as the
+reference does.
 """
 
 from __future__ import annotations

@@ -14,6 +14,16 @@ JAX drops out-of-range scatter rows and fills out-of-range gathers; PyTorch
 indexing raises, so the dropped rows are masked explicitly here. An expert
 that received no row is not run: its buffer is all zeros and none of its
 output rows is ever gathered, so skipping it changes no value.
+
+`moe_apply` runs under autograd (training): the scatter into the buffers,
+each expert's slot of the output buffer and the accumulating combine carry
+gradients into the tokens, the router (through the top-k weights and the
+aux loss's mean scores) and every expert weight. A skipped expert's slice of
+the stacked (E, f, d) gradients comes out as exact zeros, which is what the
+reference's backward through a zero buffer whose outputs nobody reads gives.
+The live experts are read on the host (`torch.unique(...).tolist()`): with
+the boolean masks, `bincount` and `one_hot`, a layer syncs the host about 8
+times a forward.
 """
 
 from __future__ import annotations
@@ -46,9 +56,16 @@ def _capacity(n_tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8
 
 
-def _expert(w, e: int):
-    """Expert e of a layer's (E, N, K) stack: a raw slice or a PackedQWeight."""
-    return w.layer(e) if isinstance(w, PackedQWeight) else w[e]
+def _experts(w):
+    """e -> expert e of a layer's (E, N, K) stack: a PackedQWeight view, or a
+    raw slice. Under autograd the raw stack is unbound once, so the backward
+    stacks the experts' gradients in one node (zeros for a skipped expert)
+    instead of adding one stack-sized gradient per expert slice."""
+    if isinstance(w, PackedQWeight):
+        return w.layer
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.unbind(0).__getitem__
+    return w.__getitem__
 
 
 def route(p, xf: torch.Tensor, cfg):
@@ -80,7 +97,8 @@ def dispatch(top_e: torch.Tensor, cap: int, n_routed: int):
 
 def moe_apply(p, x, cfg, scheme, seed, layer):
     """x: (B, S, D) -> (y (B, S, D) in x.dtype, the Switch-style load-balance
-    aux loss f32). Serving drops the aux loss."""
+    aux loss f32: n_routed * sum(mean one-hot choices * mean scores), which
+    trains the router through the scores). Serving drops the aux loss."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -98,18 +116,21 @@ def moe_apply(p, x, cfg, scheme, seed, layer):
     # per-expert quantized swiglu FF; site seeds as the reference's vmap
     out_buf = torch.zeros_like(buf)
     base = site_seed(seed, layer, 20)
+    wi, wg, wo = (_experts(p[k]) for k in ("wi", "wg", "wo"))
     for e in torch.unique(e_k).tolist():
         sd = base + np.array([0, e], np.uint32)
-        h = qlinear(buf[e], _expert(p["wi"], e), sd, scheme)
-        g = qlinear(buf[e], _expert(p["wg"], e), sd + np.uint32(1), scheme)
+        h = qlinear(buf[e], wi(e), sd, scheme)
+        g = qlinear(buf[e], wg(e), sd + np.uint32(1), scheme)
         hf = h.float()
         a = (hf * torch.sigmoid(hf)).to(x.dtype) * g  # jax.nn.silu's form
-        out_buf[e] = qlinear(a, _expert(p["wo"], e), sd + np.uint32(2), scheme)
+        out_buf[e] = qlinear(a, wo(e), sd + np.uint32(2), scheme)
 
-    # combine: kept rows weighted, added into their tokens in sorted order
+    # combine: kept rows weighted, added into their tokens in sorted order;
+    # an accumulating index_put_ sums each token's rows in that order on the
+    # card too (index_add_ there adds by atomics, in no fixed order)
     weighted = out_buf[e_k, c_k].float() * fw_s[keep][:, None]
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    y.index_add_(0, t_k, weighted)
+    y.index_put_((t_k,), weighted, accumulate=True)
     y = y.to(x.dtype).reshape(b, s, d)
 
     if m.n_shared:

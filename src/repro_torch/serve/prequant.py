@@ -42,7 +42,8 @@ QUANT_KEYS = frozenset({
 
 def _pack_chunks(lead: tuple, chunks, kind: str) -> L.PackedQWeight:
     """Pack (c, N, K) chunks, matrix by matrix in order, into one (*lead, ...)
-    PackedQWeight whose tensors are allocated once."""
+    PackedQWeight whose tensors are allocated once. Each chunk is released
+    before the next is drawn, so one chunk of f32 is alive at a time."""
     out, i = None, 0
     for chunk in chunks:
         for w in chunk:
@@ -53,6 +54,7 @@ def _pack_chunks(lead: tuple, chunks, kind: str) -> L.PackedQWeight:
             for dst, a in zip(out, packed):
                 dst[i] = a
             i += 1
+        chunk = w = None  # w is a view: it would keep the chunk's storage
     return L.PackedQWeight(*(a.reshape(*lead, *a.shape[1:]) for a in out))
 
 

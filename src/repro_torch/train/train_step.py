@@ -47,10 +47,11 @@ def make_train_step(cfg, scheme: str, *, optimizer: str = "adamw",
                     base_lr: float = 3e-4, total_steps: int = 1000,
                     schedule: str = "cosine", weight_decay: float = 0.1,
                     grad_clip: float = 1.0, base_seed: int = 0,
-                    microbatches: int = 1):
+                    microbatches: int = 1, aux_weight: float = 0.01):
     """Returns (init_state_fn, train_step_fn); train_step(state, batch) ->
     (state, metrics) with metrics {"loss", "grad_norm"} as device scalars and
-    {"lr"} as a float."""
+    {"lr"} as a float. The loss is `lm.lm_loss`'s: the CE plus `aux_weight`
+    times the MoE aux loss."""
     opt_mod = {"adamw": adamw, "muon": muon}.get(optimizer)
     if opt_mod is None:
         raise ValueError(f"unknown optimizer {optimizer}")
@@ -62,8 +63,14 @@ def make_train_step(cfg, scheme: str, *, optimizer: str = "adamw",
         return TrainState(params, opt_mod.init(params), 0)
 
     def value_and_grad(params, batch, seed):
-        loss = lm.lm_loss(params, cfg, batch, scheme, seed)
-        return loss.detach(), torch.autograd.grad(loss, adamw.leaves(params))
+        loss = lm.lm_loss(params, cfg, batch, scheme, seed, aux_weight)
+        leaves = adamw.leaves(params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a leaf the loss never reads (the token table of a model fed
+        # embeds) gets zeros, as the reference's gradient: weight decay
+        # still moves it
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for g, p in zip(grads, leaves)]
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         if microbatches == 1:

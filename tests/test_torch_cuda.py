@@ -374,6 +374,18 @@ SPLIT_CASES = [
     dict(b=2, sq=16, h=8, kv=2, hd=64, bs=8, maxb=32, lens=[256, 70],
          window=50),
 ]
+# The registry's other group sizes at hd 128, decode and Sq 16 chunks:
+# nemotron-4-15b (H 48, KV 8: 6 rows a KV head, which no row-group count
+# divides) and chatglm3-6b (H 32, KV 2: 16 rows, 256 at Sq 16, spread over 4
+# warp groups of up to 4 rows a chunk).
+GROUP_CASES = [
+    dict(b=4, sq=1, h=48, kv=8, hd=128, bs=16, maxb=16, lens=[47, 100, 131, 18],
+         dead_rows=(3,)),
+    dict(b=4, sq=16, h=48, kv=8, hd=128, bs=16, maxb=16, lens=[16, 64, 100, 33]),
+    dict(b=4, sq=1, h=32, kv=2, hd=128, bs=16, maxb=16, lens=[47, 100, 131, 18]),
+    dict(b=4, sq=16, h=32, kv=2, hd=128, bs=16, maxb=16, lens=[16, 64, 100, 33],
+         dead_rows=(2,)),
+]
 
 
 @pytest.mark.parametrize("case", [
@@ -391,6 +403,7 @@ SPLIT_CASES = [
     dict(b=3, sq=1, h=4, kv=4, hd=64, bs=8, maxb=4, lens=[3, 32, 20],
          window=11, dead_rows=(0,)),
     *SPLIT_CASES,
+    *GROUP_CASES,
 ])
 def test_paged_gqa_matches_plain(dev, case):
     (q, kp, vp, table, pos), window = _pool_case(dev, **case)
@@ -418,6 +431,7 @@ def test_paged_gqa_matches_plain(dev, case):
     dict(b=4, sq=1, h=32, kv=4, hd=128, bs=16, maxb=16, lens=[5, 130, 77, 200]),
     dict(b=2, sq=16, h=32, kv=4, hd=128, bs=16, maxb=16, lens=[40, 200]),
     *SPLIT_CASES,
+    *GROUP_CASES,
 ])
 def test_paged_gqa_q_matches_plain(dev, case):
     (q, kp, vp, table, pos), window = _pool_case(dev, **case)

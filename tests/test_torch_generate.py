@@ -320,16 +320,13 @@ def test_prefill_logits_and_caches_match_eager_jax(scheme):
 
 def prefill_then_decode_matches_a_full_forward(arch):
     """The reference's test_decode_matches_full_forward on the port: prefill
-    16 tokens, decode 3, against one forward over all 19 (train mode for
-    llama; deepseek-v3 trains in a later slice, so its full forward is a
-    prefill without caches, the same function of the tokens)."""
+    16 tokens, decode 3, against one train-mode forward over all 19."""
     _, cfg, _, params = _weights(arch)
     b, s, extra = 2, 16, 3
     toks = torch.from_numpy(
         np.random.RandomState(3).randint(0, cfg.vocab, (b, s + extra)))
-    full_mode = "prefill" if cfg.mla else "train"
     full, _ = lm.forward(params, cfg, {"tokens": toks}, "bf16", SEED,
-                         mode=full_mode)
+                         mode="train")
     full = full.float()
     tol = FULL_FORWARD_FRACTION * float(full.abs().max())
     cache = lm.init_cache(cfg, b, s + 8, device="cpu")

@@ -5,8 +5,7 @@ expanded-form MLA prefill into dense latent caches, the dense branch of
 checks and their tolerances are tests/test_torch_generate.py's: prefill
 within one bf16 ulp of the tensor's largest value (bf16) or Q2_REL_RMS
 (quartet2) on the tokens no router near-tie reaches; prefill + decode
-within 5% of max|logit| of a full forward (a prefill without caches: MLA
-training comes with a later slice); the bf16 greedy streams equal up to
+within 5% of max|logit| of a full train-mode forward; the bf16 greedy streams equal up to
 the first eager-reference margin under EAGER_LOGIT_TOL; dense engine
 streams bitwise the paged pool's.
 """

@@ -169,7 +169,12 @@ def _split_merge(q, k_pool, v_pool, table, pos, window):
 
 @pytest.mark.parametrize("sq,window,bs,rep", [(1, None, 16, 1), (1, None, 4, 4),
                                               (16, None, 8, 2), (1, 20, 8, 4),
-                                              (3, 45, 16, 2), (4, 9, 32, 1)])
+                                              (3, 45, 16, 2), (4, 9, 32, 1),
+                                              # nemotron's 6 and chatglm3's 16
+                                              # heads a KV head, decode and
+                                              # Sq 16 chunks
+                                              (1, None, 16, 6), (16, None, 16, 6),
+                                              (1, None, 16, 16), (16, None, 16, 16)])
 def test_split_merge_model_matches_plain(sq, window, bs, rep):
     """The fixed-order split merge the kernels do, modelled in PyTorch over
     the gathered view with PA.plan's splits, equals PA.paged_gqa_plain
