@@ -107,8 +107,10 @@ Phases (any failure exits non-zero, before the result line):
                probe on the CPU; one step profiled, with Newton-Schulz's
                share of its device time.
   8. serving with shared prompts (the prefix cache, its host tier and the
-               latency-aware scheduler), on phase 4's llama weights and
-               phase 6's packed deepseek-v3 weights (nothing drawn twice):
+               latency-aware scheduler), on the first SHARED_LLAMA_LAYERS (5)
+               of phase 4's 10 llama layers (views: nothing drawn twice; a
+               depth cut for the time limit) and phase 6's packed
+               deepseek-v3 weights:
      8a. llama-200m, quartet2, both pools, 4 slots, max_len 512, block and
                chunk 16: 8 requests of a 384-token system prompt plus 32
                tokens of their own, 32 new tokens, cold (cache off) and hot
@@ -166,8 +168,9 @@ Phases (any failure exits non-zero, before the result line):
                to a reduced CPU run's.
      9f. cancel of an in-flight and a queued request, both pools freed,
                the resubmission a cache hit, the hook's tokens each result's.
- 10. serving over HTTP (phase 4's llama weights and requests, 4 slots, 32
-               new tokens each) through `serve/frontend.py`: the engine ticks
+ 10. serving over HTTP (the first 5 of phase 4's llama layers, as phase
+               8 cuts them, and phase 4's requests, 4 slots, 32 new tokens
+               each) through `serve/frontend.py`: the engine ticks
                on the bridge's thread, an asyncio loop serves HTTP on
                127.0.0.1 (an ephemeral port), obs on. #1, #2 (M 4 gemv, M 64
                wgmma), #5 and #6 launched on the bridge's thread: bitwise the
@@ -230,7 +233,7 @@ Phases (any failure exits non-zero, before the result line):
                drawn from its own seed; nothing of phases 4-11 is reused):
      12a. granite-8b, chatglm3-6b, nemotron-4-15b, llava-next-mistral-7b (text
                prompts, as the engine serves it) and deepseek-moe-16b at their
-               published widths, each cut to 8 layers for the time limit
+               published widths, each cut to 4 layers for the time limit
                (REGISTRY_LAYERS), quartet2, weights packed as drawn
                (`init_packed`, PACK_CHUNK matrices of f32 at a time),
                bf16 paged pool, 4 slots, 4 requests of 16-64 prompt tokens
@@ -280,8 +283,48 @@ Phases (any failure exits non-zero, before the result line):
                backward GEMM's operands as laid out, phase 1 and phase 2
                bitwise and the GEMM within 1e-3 max|C| of its plain
                composition; the errors go into the kernels line.
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 11, 12; the
-reduced CPU runs that 8b, 8d, 9e and 12e hold the card against run in a
+ 13. the recurrent families (rwkv6-7b: time-mix and channel-mix over the wkv
+               / tm_prev / cm_prev state kinds; recurrentgemma-9b: RG-LRU
+               blocks over the lru state kind and MQA lattn layers at hd 256
+               under a 2,048 window), each drawn from its own seed:
+     13a. both at their published widths, rwkv6-7b cut to 8 of 32 layers and
+               recurrentgemma-9b to 9 of 38 (three whole patterns;
+               RECURRENT_LAYERS), quartet2, weights drawn raw and packed
+               once, 4 slots, 4 requests of 16-64 prompt tokens and 8 new
+               tokens; recurrentgemma over the bf16 and the NVFP4 pool (#5,
+               #6 at hd 256 with the window), rwkv6 with no attention kernel;
+               each as 12a reports it. Then one recurrentgemma request of
+               2,304 prompt tokens + 32 new in a one-slot engine: blocks
+               held against the blocks its length needs (the window's
+               reclaim mid-sequence), every block free after it.
+     13b. scheme bf16 over the raw weights: rwkv6 at spec_k 3 over 2 draft
+               layers, its stream bitwise the non-speculative engine's (the
+               verify chunk of 4 stays on the per-token WKV path);
+               recurrentgemma at spec_k 3 over 3 draft layers, equal before
+               the first 2-ulp near-tie; every state restore after a
+               rejecting round bitwise its snapshot; acceptance, tokens a
+               slot a round.
+     13c. `greedy_generate` on recurrentgemma under bf16 with ring caches (2
+               prompts of 2,080 tokens, caches of the 2,048 window: the
+               prefill rolls, decode wraps), against the paged engine by the
+               tie rule.
+     13d. #5 and #6 at H 16 / KV 1, hd 256, block 16, Sq 1 and 16, windows
+               2,048 and 64 over 4 x 4,096-token tables against their plain
+               versions (the attention bar, unit-scale K/V), two calls
+               bitwise; at 3x K/V #5 within the bar of float64 attention
+               (the plain version's own distance beside it); one decode
+               step's 12 lattn calls timed under each window (5g/6f, 5h/6g)
+               with the bound (the keys inside the windows) and SDPA.
+     13e. training at published widths, rwkv6-7b at 2 layers and
+               recurrentgemma-9b at 3 (one pattern), quartet2, AdamW, batch 4
+               x 256, 3 steps through `launch.train`'s code path: finite,
+               #1-#4 launched and counted a step, no SR uniform tensor; ms
+               and device ms a step, busy share, peak memory; a reduced
+               quartet2 step x3 of each, card against CPU.
+     13f. #1-#4 against their plain versions at every shape 13a and 13e gave
+               them (12f's checks: the new K of 12,288 and 14,336).
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 11, 12, 13;
+the reduced CPU runs that 8b, 8d, 9e and 12e hold the card against run in a
 process of their own from the start (`cpu_references`). Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
 {"ok": true, "device": {...}}. Details also go to chiprun_out/chip_smoke.json.
@@ -611,31 +654,44 @@ def check_attn(torch, PA, ops, case, name):
     return err
 
 
-def attn_bytes_ops(q, kp, vp, table, pos):
+def attn_bytes_ops(q, kp, vp, table, pos, window=None, kv_row_bytes=None):
     """Least bytes and operations of one paged_gqa call on these inputs: q
-    and the output once, and the keys/values each query row needs."""
+    and the output once, and the keys/values each query row needs (under a
+    window, those inside the oldest query's window on). kv_row_bytes: the
+    bytes of one token's K and V rows (default the bf16 pools'; a packed
+    pool's, with vd = hd)."""
     b, sq, h, hd = q.shape
-    kv, vd = kp.shape[2], vp.shape[3]
-    keys = int((pos.long() + sq).clamp(min=0).sum())  # keys 0 .. newest query
-    pairs = int(sum(sum(int(p) + s + 1 for s in range(sq)) for p in pos))
-    nbytes = (q.numel() * q.element_size() + keys * kv * (hd + vd) * 2
+    vd = vp.shape[3] if kv_row_bytes is None else hd
+    if kv_row_bytes is None:
+        kv_row_bytes = kp.shape[2] * (hd + vd) * 2
+    keys = pairs = 0
+    for p in pos.tolist():
+        lo = 0 if window is None else max(0, p - window + 1)
+        keys += max(p + sq - lo, 0)  # keys lo .. newest query
+        pairs += sum(p + s + 1 if window is None else min(p + s + 1, window)
+                     for s in range(sq))
+    nbytes = (q.numel() * q.element_size() + keys * kv_row_bytes
               + table.numel() * 4 + pos.numel() * 4 + b * sq * h * vd * 4)
     ops = pairs * h * (2 * hd + 2 * vd)
     return nbytes, ops
 
 
-def sdpa_yardstick(torch, q, kp, vp, table, pos, KV):
-    """F.scaled_dot_product_attention over the gathered view (the yardstick
-    PyTorch call; never used by the port)."""
+def sdpa_yardstick(torch, q, kp, vp, table, pos, KV, window=None):
+    """F.scaled_dot_product_attention over the gathered view (bf16 or
+    PackedKV pools), under the causal and the optional window mask (the
+    yardstick PyTorch call; never used by the port)."""
     import torch.nn.functional as Fn
     kg = KV.gather_view(kp, table).transpose(1, 2)   # (B, KV, S, hd)
     vg = KV.gather_view(vp, table).transpose(1, 2)
     qt = q.transpose(1, 2)                           # (B, H, Sq, hd)
     sq, s = q.shape[1], kg.shape[2]
     qpos = pos[:, None].long() + torch.arange(sq, device=q.device)[None]
-    mask = (torch.arange(s, device=q.device)[None, None] <= qpos[..., None])[:, None]
+    kj = torch.arange(s, device=q.device)[None, None]
+    ok = kj <= qpos[..., None]
+    if window is not None:
+        ok &= kj > qpos[..., None] - window
     return lambda: Fn.scaled_dot_product_attention(
-        qt, kg, vg, attn_mask=mask, enable_gqa=True)
+        qt, kg, vg, attn_mask=ok[:, None], enable_gqa=True)
 
 
 def phase_kernels(torch):
@@ -1124,14 +1180,15 @@ def paged_table(torch, g, b, maxb, bs, lens, dead=()):
 
 
 def gqa_q_case(torch, F, b, sq, h, kv, hd, bs, maxb, lens, dead=(), seed=0,
-               packed=True):
+               packed=True, scale=3.0):
     """(q, k codes, k scales, v codes, v scales, table, pos) on the card, or
-    with packed=False (q, k, v, table, pos) over the same draws in bf16."""
+    with packed=False (q, k, v, table, pos) over the same draws in bf16; K
+    and V are `scale` x unit normals."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     table, n_blocks = paged_table(torch, g, b, maxb, bs, lens, dead)
     pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
     q = torch.randn((b, sq, h, hd), generator=g).bfloat16()
-    k, v = ((torch.randn((n_blocks, bs, kv, hd), generator=g) * 3).bfloat16()
+    k, v = ((torch.randn((n_blocks, bs, kv, hd), generator=g) * scale).bfloat16()
             for _ in range(2))
     pools = ((*F.nvfp4_cache_encode(k), *F.nvfp4_cache_encode(v)) if packed
              else (k, v))
@@ -2935,13 +2992,31 @@ def cpu_reference(key):
     return value[key]
 
 
-def phase_prefix(torch, card, llama_params, deepseek_cfg, deepseek_params):
-    """Phase 8: serving with shared prompts (8a-8e)."""
+# phases 8 and 10: llama-200m's first SHARED_LLAMA_LAYERS of its 10 layers
+# (views of phase 4's weights), a depth cut for the smoke's time limit: both
+# phases are host-bound (1-2 decode steps a layer-second), and none of their
+# checks depends on depth (8b, 8d and 9e hold engine counts, not logits)
+SHARED_LLAMA_LAYERS = 5
+
+
+def llama_cut(params, layers=SHARED_LLAMA_LAYERS):
+    """(config, parameters) of llama-200m's first `layers` layers: the
+    full model's norms, embedding and head over views of its stacked
+    layers (`lm.prefix_stage_params`)."""
     from repro_torch.configs import registry
+    from repro_torch.models import lm
+    full = registry.get("llama_200m")
+    return (dataclasses.replace(full, n_layers=layers),
+            {**params, "stages": lm.prefix_stage_params(params, full, layers)})
+
+
+def phase_prefix(torch, card, llama_params, deepseek_cfg, deepseek_params):
+    """Phase 8: serving with shared prompts (8a-8e), llama-200m cut to
+    SHARED_LLAMA_LAYERS layers."""
     t0 = time.perf_counter()
-    cfg = registry.get("llama_200m")
+    cfg, llama_params = llama_cut(llama_params)
     log("phase 8: serving with shared prompts (prefix cache, host tier, "
-        "latency-aware scheduler)")
+        f"latency-aware scheduler; llama-200m at {cfg.n_layers} of 10 layers)")
     out = {}
     out["shared_prompt"], launches_a = phase_shared_prompt(
         torch, card, cfg, llama_params)
@@ -4180,12 +4255,12 @@ def thread_kernel_holds(torch, bridge):
 def phase_http(torch, card, llama_params, prompts):
     """Phase 10: serving over HTTP through the frontend and its engine
     thread, with the obs layer (10a-10c), and the kernel holds from the
-    bridge's thread."""
-    from repro_torch.configs import registry
+    bridge's thread; llama-200m cut to SHARED_LLAMA_LAYERS layers."""
     from repro_torch.serve.frontend import EngineBridge
     t0 = time.perf_counter()
-    log("phase 10: serving over HTTP (SSE frontend, engine thread, obs)")
-    cfg = registry.get("llama_200m")
+    cfg, llama_params = llama_cut(llama_params)
+    log("phase 10: serving over HTTP (SSE frontend, engine thread, obs; "
+        f"llama-200m at {cfg.n_layers} of 10 layers)")
     bridge = EngineBridge(http_engine(cfg, llama_params, "cuda",
                                       scheme="bf16")).start()
     thread = bridge._thread
@@ -4625,13 +4700,15 @@ def phase_generate_long(torch, card, params, cfg=None, dev="cuda",
 REGISTRY_ARCHS = ("granite_8b", "chatglm3_6b", "nemotron_4_15b",
                   "llava_next_mistral_7b", "deepseek_moe_16b")
 # 12a depth cuts, for the smoke's time limit only (widths are never cut):
-# every config serves 8 layers. At full depth (36, 28, 32 and 32 layers; 8
+# every config serves 4 layers. At full depth (36, 28, 32 and 32 layers; 8
 # of deepseek-moe-16b's 28) 12a took about 160 s on an H100 host, and the
 # whole smoke ran past its 1,200 s on a host whose host-bound phases ran
 # about a third slower; deepseek-moe-16b's 28 layers fit (10.2 GiB
-# resident) but serve at 291 ms of host a decode step with 16 s of TTFT
+# resident) but serve at 291 ms of host a decode step with 16 s of TTFT.
+# At 8 layers 12a took 94 s on a host whose phases 8-12 ran 1.4-1.6x slower
+# than other H100 hosts, where the whole smoke with phase 13 took 1,316 s
 REGISTRY_LAYERS = dict.fromkeys(("granite_8b", "chatglm3_6b", "nemotron_4_15b",
-                                 "llava_next_mistral_7b", "deepseek_moe_16b"), 8)
+                                 "llava_next_mistral_7b", "deepseek_moe_16b"), 4)
 REGISTRY_NEW = 8            # new tokens a request (4 requests of 16-64 tokens)
 REGISTRY_PROFILE_STEPS = 4  # full-batch decode steps timed, then profiled
 PACK_CHUNK = 4              # matrices `init_packed` holds in f32 at once
@@ -4737,7 +4814,7 @@ def laid_out(torch, g, shape, layout):
     return torch.randn((k, ld), generator=g, device="cuda")[:, :m].T
 
 
-def phase_registry_kernels(torch, shapes):
+def phase_registry_kernels(torch, shapes, label="12f", runs="12a, 12c and 12d"):
     """12f: #1, #2 and #3/#4 against their plain versions at every shape the
     main paths of 12a, 12c and 12d gave them (`KernelShapes`): #1 by
     `check_quant` on each input shape and dtype; #2 by `check_matmul` on
@@ -4755,9 +4832,9 @@ def phase_registry_kernels(torch, shapes):
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    log(f"phase 12f: #1 at {len(shapes.quant)} input shapes, #2 at "
+    log(f"phase {label}: #1 at {len(shapes.quant)} input shapes, #2 at "
         f"{len(shapes.matmul)} (M, N, K), #3/#4 and the backward GEMM at "
-        f"{len(shapes.bwd)} operand pairs, as 12a, 12c and 12d gave them")
+        f"{len(shapes.bwd)} operand pairs, as {runs} gave them")
     g = torch.Generator(device="cuda").manual_seed(1206)
     draws = rng.HashDraws([12, 6])
     errs = {"nvfp4_fos_quant": 0.0, "fp4_matmul": 0.0, "ms_eden_phase1": 0.0,
@@ -4787,17 +4864,18 @@ def phase_registry_kernels(torch, shapes):
                                  check_backward_gemm(torch, draws, a, b))
         del a, b, pa, pb
     torch.cuda.empty_cache()
-    log(f"  12f: every shape held (#2 regimes {regimes}); largest errors "
+    log(f"  {label}: every shape held (#2 regimes {regimes}); largest errors "
         f"{errs}; {time.perf_counter() - t0:.1f} s")
     return errs
 
 
 def serve_registry_arch(torch, card, cfg, params, prompts, kv_quant, dev="cuda"):
-    """One 12a run: 4 requests through ServeEngine over packed weights;
-    in-vocabulary tokens, every block free, #1, #2 and the pool's GQA kernel
-    launched and no other attention kernel; its numbers, host syncs of one
-    full-batch decode step and a decode profile. dev="cpu" with a reduced
-    config rehearses its logic on the CPU (no syncs, profile or memory)."""
+    """One 12a (or 13a) run: 4 requests through ServeEngine over packed
+    weights; in-vocabulary tokens, every block free, #1, #2 and the pool's
+    GQA kernel launched (rwkv6 has no attention layer) and no other
+    attention kernel; its numbers, host syncs of one full-batch decode step
+    and a decode profile. dev="cpu" with a reduced config rehearses its
+    logic on the CPU (no syncs, profile or memory)."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 
@@ -4813,9 +4891,10 @@ def serve_registry_arch(torch, card, cfg, params, prompts, kv_quant, dev="cuda")
         REGISTRY_NEW, **kw)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    attn = "paged_gqa_q" if kv_quant else "paged_gqa"
+    attn = None if cfg.rwkv else ("paged_gqa_q" if kv_quant else "paged_gqa")
     served(torch, cfg, eng, results, prompts, REGISTRY_NEW, launches,
-           ("nvfp4_fos_quant", "fp4_matmul", attn) if cuda else ())
+           tuple(k for k in ("nvfp4_fos_quant", "fp4_matmul", attn) if k)
+           if cuda else ())
     others = {k for k in ("paged_gqa", "paged_gqa_q", "paged_mla", "paged_mla_q")
               if k != attn and launches[k]}
     if others:
@@ -5308,6 +5387,474 @@ def phase_registry(torch, card):
     return out, groups, errs
 
 
+# --------------------------------------------------------------------------
+# phase 13: the recurrent families (rwkv6-7b, recurrentgemma-9b)
+# --------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("rwkv6_7b", "recurrentgemma_9b")
+# 13a-13c depth cuts, for the smoke's time limit only (widths are never
+# cut): rwkv6-7b at 8 of its 32 layers, recurrentgemma-9b at 9 of 38 (three
+# whole rec, rec, lattn patterns)
+RECURRENT_LAYERS = {"rwkv6_7b": 8, "recurrentgemma_9b": 9}
+LONG_REQUEST = (2304, 32)    # 13a: recurrentgemma's window-reclaim request
+# 13b: (spec_k, draft layers): rwkv's verify chunk of 4 < its WKV chunk of 16
+RECURRENT_SPEC = {"rwkv6_7b": (3, 2), "recurrentgemma_9b": (3, 3)}
+RECURRENT_SPEC_NEW = 16
+RING_ROWS, RING_PROMPT, RING_NEW = 1, 2080, 16   # 13c: past the 2,048 window
+RING_MAX_LEN = 2560          # 13c: lattn caches of min(2560, 2048) = a ring
+# 13d: #5/#6 at recurrentgemma's lattn heads over 4 x 4,096-token tables
+HD256 = dict(h=16, kv=1, hd=256, bs=16)
+HD256_LENS = [4096, 4090, 3001, 2600]
+HD256_LATTN_LAYERS = 12      # lattn layers of one recurrentgemma-9b decode step
+HD256_WINDOWS = {"5g/6f recurrentgemma decode hd256 window 2048": 2048,
+                 "5h/6g 4 x 4,096 tokens hd256 window 64": 64}
+# 13e: full widths, depth cut to one pattern (3 layers) and 2 layers
+RECURRENT_TRAIN_LAYERS = {"rwkv6_7b": 2, "recurrentgemma_9b": 3}
+RECURRENT_TRAIN_ARGS = ["--scheme", "quartet2", "--steps", "3", "--seq", "256",
+                        "--batch", "4", "--lr", "2e-3", "--log-every", "1"]
+
+
+def recurrent_cfg(arch, dev, layers):
+    """The registry's config cut to `layers` on the card; the reduced config
+    (its own depth) for a CPU rehearsal."""
+    from repro_torch.configs import registry
+    cfg = registry.get(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if dev == "cuda" else cfg.reduced()
+
+
+def recurrent_prompts(torch, vocab, seed, n=4):
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(16, 65, (n,), generator=g).tolist()
+    return [torch.randint(0, vocab, (m,), generator=g).tolist() for m in lens]
+
+
+def long_window_request(torch, card, cfg, params, dev="cuda"):
+    """13a: one recurrentgemma request of LONG_REQUEST tokens through an
+    engine of one slot (bf16 pool, prequantized weights): its lattn window
+    (the pool's only token mixer) must return blocks to the free list while
+    the request still runs; every block free at the end."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    n_prompt, n_new = LONG_REQUEST if dev == "cuda" else (80, 8)
+    window = cfg.griffin.window
+    max_len = -(-(n_prompt + n_new) // 256) * 256
+    eng = ServeEngine(cfg, params, EngineConfig(
+        n_slots=1, max_len=max_len, block_size=16, prefill_chunk=16,
+        scheme="quartet2", prequant=False, device=dev))
+    if eng.pool.window != window:
+        fail(f"13a: the pool's reclaim window is {eng.pool.window}, not {window}")
+    g = torch.Generator().manual_seed(1310)
+    eng.submit(Request(torch.randint(0, cfg.vocab, (n_prompt,),
+                                     generator=g).tolist(), n_new))
+    ops.reset_launches()
+    held, t0 = [], time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        if eng.slots[0].req is not None:
+            held.append((eng.pool.length(0),
+                         eng.pool.n_blocks - eng.pool.free_block_count))
+    cuda_sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    most = max(b for _, b in held)
+    length, blocks = held[-1]
+    need = -(-length // 16)
+    if not blocks < need or most > -(-(window + 16) // 16) + 2:
+        fail(f"13a: no window reclaim: {blocks} blocks held at {length} tokens "
+             f"(most {most})")
+    if eng.pool.free_block_count != eng.pool.n_blocks:
+        fail("13a: blocks leaked after the long request")
+    if dev == "cuda" and launches["paged_gqa"] <= 0:
+        fail(f"13a: the long request launched no #5: {launches}")
+    log(f"  [{card}] {cfg.name} one request of {n_prompt} + {n_new} tokens "
+        f"(window {window}, pool of {eng.pool.n_blocks} blocks of 16): at "
+        f"{length} tokens it holds {blocks} blocks ({need} without reclaim), "
+        f"at most {most} held at once; every block free after it; "
+        f"{eng.stats['prefill_steps']} prefill + {eng.stats['decode_steps']} "
+        f"decode steps in {wall:.1f} s")
+    return {"prompt": n_prompt, "new": n_new, "blocks_at_end": blocks,
+            "blocks_without_reclaim": need, "most_blocks": most,
+            "wall_s": wall, "launches": launches}
+
+
+def recurrent_spec(torch, card, cfg, params, prompts, dev="cuda"):
+    """13b under bf16 over raw weights: the non-speculative engine with its
+    margins recorded, then the speculative one (RECURRENT_SPEC); rwkv6's
+    stream must be bitwise the non-speculative one (its verify chunk stays
+    on the per-token WKV path), recurrentgemma's equal by the tie rule; in
+    every round with a rejecting slot the rows `restore_states` writes back
+    must be the snapshot's, bitwise."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.kv_pool import KVPool, state_leaves
+
+    k, draft = RECURRENT_SPEC["rwkv6_7b" if cfg.rwkv else "recurrentgemma_9b"]
+    if dev != "cuda":
+        draft = 1
+    new = RECURRENT_SPEC_NEW
+    base_eng = spec_engine(cfg, params, dev, scheme="bf16", spec_k=0)
+    margins = margin_recorder(base_eng)
+    for p in prompts:
+        base_eng.submit(Request(p, new))
+    t0 = time.perf_counter()
+    base = {r.req_id: r.tokens for r in base_eng.run()}
+    cuda_sync(torch, dev)
+    base_wall = time.perf_counter() - t0
+    restored, real = [], KVPool.restore_states
+
+    def checked(pool, snapshot, slots):
+        real(pool, snapshot, slots)
+        if slots and snapshot is not None:
+            rows = list(slots)
+            same = all(torch.equal(leaf[:, rows], snap[:, rows]) for leaf, snap
+                       in zip(state_leaves(pool.caches), snapshot))
+            restored.append(same)
+
+    KVPool.restore_states = checked
+    ops.reset_launches()
+    try:
+        eng, spec, wall = spec_run(torch, cfg, params, prompts, new, dev,
+                                   scheme="bf16", spec_k=k, draft_layers=draft)
+    finally:
+        KVPool.restore_states = real
+    launches = dict(ops.LAUNCHES)
+    st = eng.stats
+    nums = spec_numbers(st, wall)
+    equal, compared = tie_rule(spec, base, margins, new)
+    agree, first = agreement(spec, base)
+    rwkv = cfg.rwkv is not None
+    log(f"  13b [{card}] {cfg.name} bf16, spec_k {k} over {draft} draft layers: "
+        f"acceptance {nums['acceptance']:.3f}, {nums['tokens_per_slot_round']:.2f} "
+        f"tokens a slot a round, decode {nums['decode_tok_s']:.2f} tok/s (non-spec "
+        f"wall {base_wall:.1f} s, spec {wall:.1f} s); spec against non-spec "
+        f"{'bitwise' if spec == base else 'not bitwise'} ({agree:.1%} before each "
+        f"row's first difference {first}); tie rule: {compared} of "
+        f"{len(prompts) * new} compared, {'all' if equal else 'not all'} equal; "
+        f"{len(restored)} state restores, "
+        f"{'all' if all(restored) else 'not all'} bitwise the snapshot")
+    if not restored or not all(restored):
+        fail(f"13b {cfg.name}: no rejected round, or a restore differs from "
+             "its snapshot")
+    if rwkv and spec != base:
+        fail(f"13b {cfg.name}: the bf16 spec stream is not the non-spec stream")
+    if not equal:
+        fail(f"13b {cfg.name}: the spec stream differs before a near-tie")
+    return {"spec_k": k, "draft_layers": draft, **nums, "bitwise": spec == base,
+            "compared": compared, "agreement": agree, "first_diff": first,
+            "restores": len(restored), "launches": launches}
+
+
+def recurrent_ring(torch, card, cfg, params, dev="cuda"):
+    """13c: `greedy_generate` on recurrentgemma under bf16 with ring caches
+    (RING_ROWS prompts of RING_PROMPT tokens, past the window: the prefill
+    rolls, decode wraps), against the paged engine over the same prompts
+    by the tie rule."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import greedy_generate
+    from repro_torch.serve.engine import Request
+
+    rows, n, new = (RING_ROWS, RING_PROMPT, RING_NEW) if dev == "cuda" else (2, 40, 6)
+    max_len = RING_MAX_LEN if dev == "cuda" else 64
+    cap = lm.init_cache(cfg, 1, max_len, device="meta")[0]["l2"]["kv"][0].shape[2] - 1
+    if cap != cfg.griffin.window:
+        fail(f"13c: the lattn cache holds {cap} positions, not a ring of "
+             f"{cfg.griffin.window}")
+    g = torch.Generator().manual_seed(1320)
+    toks = torch.randint(0, cfg.vocab, (rows, n), generator=g)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ring = greedy_generate(params, cfg, "bf16", toks.to(dev), new,
+                           max_len=max_len, device=dev).tolist()
+    cuda_sync(torch, dev)
+    ring_wall = time.perf_counter() - t0
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    eng = spec_engine(cfg, params, dev, scheme="bf16", spec_k=0, n_slots=rows,
+                      max_len=max_len)
+    margins = margin_recorder(eng)
+    for row in toks.tolist():
+        eng.submit(Request(row, new))
+    t0 = time.perf_counter()
+    paged = {r.req_id: r.tokens for r in eng.run()}
+    cuda_sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    got = dict(enumerate(ring))
+    equal, compared = tie_rule(got, paged, margins, new)
+    agree, first = agreement(got, paged)
+    log(f"  13c [{card}] greedy_generate over ring caches ({rows} x {n} tokens, "
+        f"window {cfg.griffin.window} = cache of {cap}) in {ring_wall:.1f} s "
+        f"against the paged engine ({wall:.1f} s): {agree:.1%} before each "
+        f"row's first difference {first}; tie rule: {compared} of {rows * new} "
+        f"compared, {'all' if equal else 'not all'} equal")
+    if not equal:
+        fail("13c: the ring loop's stream differs from the engine's before a "
+             "near-tie")
+    return {"rows": rows, "prompt": n, "new": new, "ring_wall_s": ring_wall,
+            "engine_wall_s": wall, "compared": compared, "agreement": agree,
+            "first_diff": first, "launches": launches}
+
+
+def phase_recurrent_serving(torch, card, shapes, dev="cuda"):
+    """13a-13c: each recurrent config at its published widths, depth cut to
+    RECURRENT_LAYERS, raw weights drawn once (13b and 13c run bf16 on them),
+    packed once for 13a's quartet2 runs; kernel shapes into `shapes`.
+    dev="cpu" rehearses it on the reduced configs."""
+    from repro_torch.models import lm
+    from repro_torch.serve.prequant import prequantize
+
+    cuda = dev == "cuda"
+    mem = (lambda: torch.cuda.memory_allocated()) if cuda else (lambda: 0)
+    out = {}
+    for i, arch in enumerate(RECURRENT_ARCHS):
+        cfg = recurrent_cfg(arch, dev, RECURRENT_LAYERS[arch])
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        base = mem()
+        t0 = time.perf_counter()
+        raw = lm.init(cfg, torch.Generator(device=dev).manual_seed(130 + i), dev)
+        packed = prequantize(raw, cfg, "quartet2")
+        cuda_sync(torch, dev)
+        a = {"layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+             "weight_bytes": mem() - base, "packed_bytes": packed_bytes(packed)}
+        log(f"phase 13a: {cfg.name} at its published widths, {cfg.n_layers} layers: "
+            f"drawn and packed in {a['init_s']:.1f} s, {a['weight_bytes'] / 2**30:.2f} "
+            f"GiB resident (raw f32 and packed), {a['packed_bytes'] / 2**30:.2f} GiB "
+            "packed")
+        prompts = recurrent_prompts(torch, cfg.vocab, 130 + i)
+        a["prompt_lens"] = [len(p) for p in prompts]
+        with shapes:
+            a["bf16_pool"] = serve_registry_arch(torch, card, cfg, packed,
+                                                 prompts, False, dev)
+            if cfg.griffin:
+                a["nvfp4_pool"] = serve_registry_arch(torch, card, cfg, packed,
+                                                      prompts, True, dev)
+                a["long"] = long_window_request(torch, card, cfg, packed, dev)
+        del packed
+        a["spec"] = recurrent_spec(torch, card, cfg, raw, prompts, dev)
+        if cfg.griffin:
+            a["ring"] = recurrent_ring(torch, card, cfg, raw, dev)
+        a["seconds"] = time.perf_counter() - t0
+        log(f"  {cfg.name} took {a['seconds']:.1f} s")
+        out[arch] = a
+        del raw
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_hd256_kernels(torch):
+    """13d: #5 and #6 at recurrentgemma-9b's lattn heads (H 16, KV 1, hd 256,
+    block 16) against their plain versions under the attention bar, Sq 1 and
+    16, windows 2,048 and 64 over 4 x 4,096-token tables (unit-scale K/V, as
+    the bf16 cases of phases 3 and 12b), two calls bitwise equal; at 3x K/V
+    (chip_smoke's packed cases) #5 within the same bar of float64 attention,
+    beside the plain version's own distance. One decode step's calls (12
+    lattn layers) timed for each window, with the bound and SDPA."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serve import kv_pool as KV
+
+    log("phase 13d: paged_gqa / paged_gqa_q at hd 256 (recurrentgemma-9b lattn)")
+    errs = {"paged_gqa": 0.0, "paged_gqa_q": 0.0}
+    groups = {"paged_gqa": {}, "paged_gqa_q": {}}
+    maxb = 4096 // 16
+    f64 = []
+    for w_i, window in enumerate((2048, 64)):
+        for sq in (1, 16):
+            for packed in (False, True):
+                name = "paged_gqa_q" if packed else "paged_gqa"
+                kern = ops.paged_gqa_q if packed else ops.paged_gqa
+                plain = PA.paged_gqa_q_plain if packed else PA.paged_gqa_plain
+                args = gqa_q_case(torch, F, b=4, sq=sq, maxb=maxb, lens=HD256_LENS,
+                                  seed=1330 + 2 * w_i + sq, packed=packed,
+                                  scale=1.0, **HD256)
+                out = kern(*args, window=window)
+                again = kern(*args, window=window)
+                torch.cuda.synchronize()
+                errs[name] = max(errs[name], check_against_plain(
+                    torch, name, out, plain(*args, window=window), (),
+                    f"hd256 Sq{sq} window {window}"))
+                if not torch.equal(out, again):
+                    fail(f"{name} hd256 Sq{sq} window {window}: two calls differ")
+            q, kp, vp, table, pos = gqa_q_case(
+                torch, F, b=4, sq=sq, maxb=maxb, lens=HD256_LENS,
+                seed=1340 + 2 * w_i + sq, packed=False, **HD256)
+            out = ops.paged_gqa(q, kp, vp, table, pos, window=window).double()
+            ref = PA.paged_gqa_plain(q, kp, vp, table, pos, window=window).double()
+            truth = f64_attention(torch, q, KV.gather_view(kp, table),
+                                  KV.gather_view(vp, table), pos, window)
+            bar = 5e-6 + 1e-5 * truth.abs()
+            row = {"sq": sq, "window": window,
+                   "kernel_vs_f64": (out - truth).abs().max().item(),
+                   "plain_vs_f64": (ref - truth).abs().max().item(),
+                   "kernel_outside": int(((out - truth).abs() > bar).sum()),
+                   "plain_outside": int(((ref - truth).abs() > bar).sum())}
+            f64.append(row)
+            log(f"  3x K/V, Sq{sq} window {window}: kernel {row['kernel_vs_f64']:.3g} "
+                f"from float64 ({row['kernel_outside']} outside the bar), plain "
+                f"{row['plain_vs_f64']:.3g} ({row['plain_outside']} outside)")
+            if row["kernel_outside"]:
+                fail(f"paged_gqa hd256 Sq{sq} window {window}: the kernel lies "
+                     "outside the bar around float64 attention")
+    for label, window in HD256_WINDOWS.items():
+        for packed in (False, True):
+            name = "paged_gqa_q" if packed else "paged_gqa"
+            calls, sd, nbytes, n_ops = [], [], 0, 0
+            for layer in range(HD256_LATTN_LAYERS):
+                c = gqa_q_case(torch, F, b=4, sq=1, maxb=maxb, lens=HD256_LENS,
+                               seed=1350 + layer, packed=packed, scale=1.0, **HD256)
+                q, table, pos = c[0], c[-2], c[-1]
+                pools = ((KV.PackedKV(c[1], c[2]), KV.PackedKV(c[3], c[4]))
+                         if packed else (c[1], c[2]))
+                sd.append(sdpa_yardstick(torch, q, *pools, table, pos, KV, window))
+                row_bytes = HD256["kv"] * HD256["hd"] * (0.5625 if packed else 2) * 2
+                nb, no = attn_bytes_ops(q, *pools, table, pos, window, row_bytes)
+                nbytes, n_ops = nbytes + nb, n_ops + no
+                calls.append(c)
+            kern = ops.paged_gqa_q if packed else ops.paged_gqa
+            plain = PA.paged_gqa_q_plain if packed else PA.paged_gqa_plain
+            fn = lambda calls=calls, kern=kern, w=window: [kern(*c, window=w)
+                                                           for c in calls]
+            sdpa_fn = lambda sd=sd: [f() for f in sd]
+            grp = dict(fn=fn, ms=time_ms(torch, fn, 20),
+                       plain_ms=time_ms(torch, lambda: [plain(*c, window=window)
+                                                        for c in calls], 2),
+                       library_ms=time_ms(torch, sdpa_fn, 10),
+                       library_profiler_ms=device_ms(torch, sdpa_fn, ""),
+                       bytes=nbytes, ops=n_ops, peak=F32_FLOPS,
+                       calls=HD256_LATTN_LAYERS)
+            p = PA.plan(4, 1, HD256["h"], HD256["kv"], maxb, 16, HD256["hd"])
+            log(f"  {name} {label}, one decode step ({HD256_LATTN_LAYERS} lattn "
+                f"layers): plan {p.splits} splits, {p.grid} CTAs, row groups "
+                f"{p.row_groups}")
+            finish_results({name: grp}, errs)
+            groups[name][label] = grp
+            del calls, sd
+        torch.cuda.empty_cache()
+    return groups, errs, f64
+
+
+def f64_attention(torch, q, k, v, pos, window=None):
+    """decode_sdpa's attention in float64 over gathered (B, T, KV, d) views:
+    causal per absolute position (and windowed), IEEE softmax."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qd = q.double().reshape(b, sq, kvh, h // kvh, hd)
+    s = torch.einsum("bqgrd,btgd->bgrqt", qd, k.double()) / hd ** 0.5
+    qpos = pos.long()[:, None] + torch.arange(sq, device=q.device)[None]
+    kj = torch.arange(k.shape[1], device=q.device)[None, None]
+    ok = kj <= qpos[..., None]
+    if window is not None:
+        ok &= kj > qpos[..., None] - window
+    p = torch.softmax(torch.where(ok[:, None, None], s, -1e30), -1)
+    return torch.einsum("bgrqt,btgv->bqgrv", p, v.double()).reshape(b, sq, h, -1)
+
+
+def phase_recurrent_train(torch, card, shapes, arch, dev="cuda"):
+    """13e: `arch` at its published widths, RECURRENT_TRAIN_LAYERS layers,
+    through `repro_torch.launch.train`'s code path (quartet2, AdamW, batch 4
+    x 256, 3 steps), its kernel shapes recorded into `shapes`: losses and
+    weights finite, #1-#4 launched, no SR uniform tensor drawn; ms and
+    device ms a step, busy share, #1-#4 a step, peak memory; then a reduced
+    quartet2 step x3, card against CPU (`phase_train_reference`). dev="cpu"
+    rehearses the first part at the reduced size (seq 32)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import rng
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+
+    cuda = dev == "cuda"
+    args = ["--arch", arch, *RECURRENT_TRAIN_ARGS]
+    if not cuda:
+        args += ["--device", "cpu", "--reduced", "--seq", "32"]
+    steps = int(args[args.index("--steps") + 1])
+    real_get, real_uniform = registry.get, rng.HashDraws.uniform
+    cut = dataclasses.replace(real_get(arch), n_layers=RECURRENT_TRAIN_LAYERS[arch])
+    cfg = cut if cuda else cut.reduced()
+    log(f"phase 13e: training {cut.name} at its published widths, {cfg.n_layers} "
+        f"layers (quartet2, AdamW, batch 4 x seq 256, {steps} steps)")
+    drawn = []
+
+    def counted_uniform(self, tag, shape, device):
+        drawn.append(tuple(shape))
+        return real_uniform(self, tag, shape, device)
+
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    registry.get = lambda name: cut if registry._norm(name) == arch else real_get(name)
+    rng.HashDraws.uniform = counted_uniform
+    ops.reset_launches()
+    try:
+        with shapes:
+            out, trainer, state = launch_train.run(args)
+            cuda_sync(torch, dev)
+    finally:
+        registry.get, rng.HashDraws.uniform = real_get, real_uniform
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    losses = out["losses"]
+    if out["arch"] != cfg.name or len(losses) != steps:
+        fail(f"13e: trained {out['arch']} for {len(losses)} steps")
+    if not all(h["finite"] for h in trainer.history):
+        fail(f"13e: non-finite training loss: {losses}")
+    if not all(bool(torch.isfinite(p).all()) for p in adamw.leaves(state.params)):
+        fail("13e: non-finite parameters after training")
+    path = ("nvfp4_fos_quant", "fp4_matmul", "ms_eden_phase1", "ms_eden_phase2")
+    if cuda and any(launches[k] <= 0 for k in path):
+        fail(f"13e: a kernel of the training path was not launched: {launches}")
+    if drawn:
+        fail(f"13e: {len(drawn)} SR uniform tensors drawn, e.g. {drawn[:3]}")
+    per_step = {k: launches[k] / steps for k in path}
+    log(f"  [{card}] losses {[round(x, 4) for x in losses]}; {out['step_ms']:.1f} "
+        f"ms/step (host clock, steps 2-{steps}), peak memory {peak / 2**30:.2f} GiB; "
+        f"#1-#4 a step {per_step}")
+    prof = profile_train_step(torch, trainer, state, out["step_ms"]) if cuda else None
+    res = {"layers": cfg.n_layers, "losses": losses, "step_ms": out["step_ms"],
+           "tokens_per_s": out["tokens_per_s"], "peak_mem_bytes": peak,
+           "launches": launches, "launches_per_step": per_step, "profile": prof}
+    del trainer, state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        res["reduced_vs_cpu"] = phase_train_reference(torch, arch)
+    return res
+
+
+def phase_recurrent(torch, card):
+    """Phase 13: 13a-13e, and 13f: #1-#4 held against their plain versions
+    at every shape 13a and 13e gave them (12f's checks). Returns its numbers
+    (with "launches", the sum over its main-path runs: 13a-13c's serving and
+    13e's quartet2 training), its kernel groups and errors."""
+    t0 = time.perf_counter()
+    shapes = KernelShapes()
+    out = phase_recurrent_serving(torch, card, shapes)
+    groups, errs, out["hd256_f64"] = phase_hd256_kernels(torch)
+    for arch in RECURRENT_ARCHS:
+        out[arch]["train"] = phase_recurrent_train(torch, card, shapes, arch)
+    for k, err in phase_registry_kernels(torch, shapes, "13f", "13a and 13e").items():
+        errs[k] = max(errs.get(k, 0.0), err)
+    runs = []
+    for arch in RECURRENT_ARCHS:
+        a = out[arch]
+        runs += [a[key] for key in ("bf16_pool", "nvfp4_pool", "long", "spec",
+                                    "ring", "train") if key in a]
+    out["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in runs[0]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {out['phase_s']:.1f} s; launches on its main paths: "
+        f"{out['launches']}")
+    return out, groups, errs
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -5434,10 +5981,15 @@ def main() -> None:
         kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
     for k, grps in reg_groups.items():
         kern[k].setdefault("groups", {}).update(grps)
+    recurrent_out, rec_groups, rec_errs = phase_recurrent(torch, card)
+    for k, err in rec_errs.items():
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
+    for k, grps in rec_groups.items():
+        kern[k].setdefault("groups", {}).update(grps)
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
                  deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec,
                  http, generate["quartet2"], generate["deepseek"], generate["long"],
-                 registry_out)
+                 registry_out, recurrent_out)
 
     kernels = []
     for k, r in kern.items():
@@ -5468,7 +6020,8 @@ def main() -> None:
          "kernel_detail": kern, "serving": serving, "serving_kv_quant": serving_kvq,
          "deepseek": deepseek, "training": training, "resume": resume,
          "nanochat": nanochat, "prefix": prefix, "spec": spec, "http": http,
-         "generate": generate, "registry": registry_out},
+         "generate": generate, "registry": registry_out,
+         "recurrent": recurrent_out},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

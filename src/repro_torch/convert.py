@@ -4,8 +4,13 @@
 leaves were turned into numpy arrays (`jax.tree.map(np.asarray, params)`)
 and returns the port's dict-of-tensors tree: stacked stage leaves keep their
 (count, ...) layout, MLA leaves (`wq_a` ... `wkv_b`, the two norms) and MoE
-leaves (`router`, the (count, E, f, d) expert stacks, the shared expert)
-keep their names and shapes, and a reference `PackedQWeight` (a NamedTuple
+leaves (`router`, the (count, E, f, d) expert stacks, the shared expert),
+rwkv6's (`mu`, the LoRAs `mix_w1`, `mix_w2` (count, 5, r, d), `ww1`,
+`ww2`, `w0`, `u`, the group-norm gain `gn`, `cm_mu` and the projections)
+and griffin's (`conv_w`, `conv_b`, `lam`, `wa`, `ba`, `wx`, `bx`, `w_in`,
+`w_gate`, `w_out`) keep their names and shapes (an rwkv layer has no `ff`
+subtree: its channel-mix lives under `mix`, as in the reference), and a
+reference `PackedQWeight` (a NamedTuple
 with `packed`, `scales8`, `gscale`; stacked expert weights pack to (count,
 E, f, d/2)) becomes the port's `PackedQWeight`, its float8 scales carried
 through their raw bits. Tests use it so both packages

@@ -83,6 +83,18 @@ def quant_rtn(x: torch.Tensor, s: float = S_NOCLIP,
     return QTensor(q, scales, gscale)
 
 
+def _sum_in_order(e: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in index order 0, 1, ...: the order of the
+    reference's reduction (XLA sums a group's 16 squared errors
+    sequentially) and of the 4/6 kernel. `Tensor.sum` adds in another order
+    on the CPU and on the card, which flips the 4/6 choice of a group whose
+    two errors tie to an ulp."""
+    acc = e[..., 0]
+    for i in range(1, e.shape[-1]):
+        acc = acc + e[..., i]
+    return acc
+
+
 def four_over_six_branch(xf: torch.Tensor, s: float = S_EDEN):
     """The 4/6 branch choice of f32 x: per 16-group, the absmax->s and
     absmax->s*4/6 grid placements, keeping the one with the lower squared
@@ -98,7 +110,7 @@ def four_over_six_branch(xf: torch.Tensor, s: float = S_EDEN):
         xs = _safe_div(xf, denom)
         g = (F.fp4_rtn(xs) * denom - xf).reshape(
             *xf.shape[:-1], xf.shape[-1] // F.GROUP, F.GROUP)
-        return scales, xs, (g * g).sum(dim=-1)
+        return scales, xs, _sum_in_order(g * g)
 
     s6, xs6, m6 = branch(s)
     s4, xs4, m4 = branch(s * 4.0 / 6.0)

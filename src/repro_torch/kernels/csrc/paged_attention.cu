@@ -46,6 +46,13 @@
 //     order.
 //   - GQA: the CTA serves all H/KV query heads of its KV head, so each K/V
 //     block is loaded, and decoded, once per KV head.
+//   - head dims: a lane owns kDpl consecutive dims, 4 up to hd 128 and 8 up
+//     to hd 256 (recurrentgemma's MQA lattn layers), one instance of the
+//     split kernel each; at kDpl 4 its arithmetic and shared memory are the
+//     hd <= 128 design's unchanged (the key groups' merge buffers double at
+//     kDpl 8, to 16.5 KB). q's dtype (f32 or bf16) is a runtime flag, read
+//     once a row chunk, so the build holds 16 instances of the split kernel,
+//     not 32. The merge kernel's threads stride over vd.
 //   - vector loads: a (token, head) row comes in as 16-byte cp.async chunks
 //     (8 bf16, or 32 NVFP4 codes); the packed pool is decoded once per
 //     16-group (one 8-byte code load, one scale byte decoded once, 16
@@ -181,7 +188,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxD = 128;                 // head dim / value dim cap
+constexpr int kMaxD = 256;                 // head dim / value dim cap
 constexpr int kMaxSq = 16;
 constexpr float kNegInf = -1e30f;
 
@@ -337,9 +344,12 @@ struct Chunks {
   int k, ks, v, vs;
 };
 
-template <typename TQ, int BS, bool kPacked>
+// kDpl: head dims a lane owns (4 up to hd 128, 8 up to hd 256); q is f32, or
+// bf16 with q_bf16 (read once a row chunk, so a runtime branch).
+template <int BS, bool kPacked, int kDpl>
 __global__ void __launch_bounds__(kThreads)
-paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
+paged_gqa_split_kernel(const void* __restrict__ q, int q_bf16,
+                       const uint8_t* __restrict__ kp,
                        const uint8_t* __restrict__ k_scales,
                        const uint8_t* __restrict__ vp,
                        const uint8_t* __restrict__ v_scales,
@@ -350,7 +360,7 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
                        int64_t n_blocks, int maxb, int window, float sqrt_hd,
                        int bps, int n_splits, int row_groups, Chunks chunks) {
   extern __shared__ __align__(16) uint8_t gqa_smem[];
-  __shared__ __align__(16) float red_acc[kWarps][kRowChunk][kMaxD];
+  __shared__ __align__(16) float red_acc[kWarps][kRowChunk][32 * kDpl];
   __shared__ float red_ml[kWarps][kRowChunk][2];
   __shared__ __align__(16) float pbuf[kWarps][kPairs];     // a group's p
   __shared__ __align__(16) float cbuf[kWarps][kRowChunk];  // its rows' corr
@@ -433,7 +443,7 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
   const int keys_per_warp = BS / key_groups;  // BS >= 4 >= key_groups
   const int per_group = (rows + row_groups - 1) / row_groups;
   const int n_chunks = (per_group + kRowChunk - 1) / kRowChunk;
-  const int d0 = lane * 4;  // a lane owns dims d0 .. d0 + 3
+  const int d0 = lane * kDpl;  // a lane owns dims d0 .. d0 + kDpl - 1
   const bool lane_k = d0 < hd, lane_v = d0 < vd;
   // the (row, key) pair of a group whose score this lane computes
   const int jl = (lane & 16 ? 8 : 0) | (lane & 8 ? 4 : 0) | (lane & 4 ? 2 : 0) |
@@ -445,16 +455,19 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
     const int r_first = rg + row_groups * c * kRowChunk;
     const bool any = r_first < rows;  // warp-uniform, as is nr
     const int nr = any ? min(kRowChunk, (rows - r_first + row_groups - 1) / row_groups) : 0;
-    float qr[kRowChunk][4], acc[kRowChunk][4];
+    float qr[kRowChunk][kDpl], acc[kRowChunk][kDpl];
     float m_l = kNegInf, l_l = 0.f;  // running max and sum of this lane's row il
 #pragma unroll
     for (int i = 0; i < kRowChunk; ++i) {
       const int r = r_first + row_groups * i;
       const int64_t qrow = i < nr ? out_row(r) : 0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < kDpl; ++e) {
         acc[i][e] = 0.f;
-        qr[i][e] = (i < nr && d0 + e < hd) ? to_f32<TQ>(q[qrow * hd + d0 + e]) : 0.f;
+        const int64_t qi = qrow * hd + d0 + e;
+        qr[i][e] = !(i < nr && d0 + e < hd) ? 0.f
+                   : q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[qi])
+                            : static_cast<const float*>(q)[qi];
       }
     }
 
@@ -483,15 +496,16 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
       const __nv_bfloat16* vt = vtile + k * BS * vd;
       for (int u0 = 0; u0 < keys_per_warp; u0 += kKeyGroup) {
         const int kn = min(kKeyGroup, keys_per_warp - u0);  // keys present
-        float x[kKeyGroup][4];
+        float x[kKeyGroup][kDpl];
 #pragma unroll
         for (int u = 0; u < kKeyGroup; ++u) {
           const int t = kg + key_groups * (u0 + u);
           if (u < kn && lane_k) {
-            load_bf16x4(kt + t * hd + d0, x[u]);
+#pragma unroll
+            for (int e = 0; e < kDpl; e += 4) load_bf16x4(kt + t * hd + d0 + e, &x[u][e]);
           } else {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) x[u][e] = 0.f;
+            for (int e = 0; e < kDpl; ++e) x[u][e] = 0.f;
           }
         }
         // the 16 (row i, key u) partial dots, pair j = 4 i + u, summed over
@@ -501,10 +515,18 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
 #pragma unroll
         for (int i = 0; i < kRowChunk; ++i)
 #pragma unroll
-          for (int u = 0; u < kKeyGroup; ++u)
-            v[i * kKeyGroup + u] = i < nr ? qr[i][0] * x[u][0] + qr[i][1] * x[u][1] +
-                                            qr[i][2] * x[u][2] + qr[i][3] * x[u][3]
-                                          : 0.f;
+          for (int u = 0; u < kKeyGroup; ++u) {
+            float dv = 0.f;
+            if (i < nr) {
+              dv = qr[i][0] * x[u][0] + qr[i][1] * x[u][1] +
+                   qr[i][2] * x[u][2] + qr[i][3] * x[u][3];
+#pragma unroll
+              for (int e = 4; e < kDpl; e += 4)
+                dv += qr[i][e] * x[u][e] + qr[i][e + 1] * x[u][e + 1] +
+                      qr[i][e + 2] * x[u][e + 2] + qr[i][e + 3] * x[u][e + 3];
+            }
+            v[i * kKeyGroup + u] = dv;
+          }
         fold<8>(v, lane, 16);
         fold<4>(v, lane, 8);
         fold<2>(v, lane, 4);
@@ -536,10 +558,11 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
         for (int u = 0; u < kKeyGroup; ++u) {
           const int t = kg + key_groups * (u0 + u);
           if (u < kn && lane_v) {
-            load_bf16x4(vt + t * vd + d0, x[u]);
+#pragma unroll
+            for (int e = 0; e < kDpl; e += 4) load_bf16x4(vt + t * vd + d0 + e, &x[u][e]);
           } else {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) x[u][e] = 0.f;
+            for (int e = 0; e < kDpl; ++e) x[u][e] = 0.f;
           }
         }
         const float4 c4 = *reinterpret_cast<const float4*>(cbuf[warp]);
@@ -549,13 +572,15 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
           if (i >= nr) break;
           const float4 p4 = *reinterpret_cast<const float4*>(&pbuf[warp][i * kKeyGroup]);
           const float pr[kKeyGroup] = {p4.x, p4.y, p4.z, p4.w};
-          float pv[4] = {0.f, 0.f, 0.f, 0.f};
+          float pv[kDpl];
+#pragma unroll
+          for (int e = 0; e < kDpl; ++e) pv[e] = 0.f;
 #pragma unroll
           for (int u = 0; u < kKeyGroup; ++u)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) pv[e] += pr[u] * x[u][e];
+            for (int e = 0; e < kDpl; ++e) pv[e] += pr[u] * x[u][e];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][e] = acc[i][e] * cr[i] + pv[e];
+          for (int e = 0; e < kDpl; ++e) acc[i][e] = acc[i][e] * cr[i] + pv[e];
         }
       }
     }
@@ -568,18 +593,17 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
     }
 
     // the chunk's rows: partial (m, l, acc) per split, or the output itself
-    auto emit = [&](int r, float mm, float ll, float4 acc4) {
-      const float a[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
+    auto emit = [&](int r, float mm, float ll, const float (&a)[kDpl]) {
       const int64_t o = out_row(r);
       if (n_splits == 1) {
         const float denom = fmaxf(ll, 1e-30f);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int e = 0; e < kDpl; ++e)
           if (d0 + e < vd) out[o * vd + d0 + e] = __fdiv_rn(a[e], denom);
       } else {
         float* pa = part_acc + (o * n_splits + split) * vd;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int e = 0; e < kDpl; ++e)
           if (d0 + e < vd) pa[d0 + e] = a[e];
         if (lane == 0) {
           part_ml[(o * n_splits + split) * 2] = mm;
@@ -590,9 +614,7 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
     if (key_groups == 1) {
 #pragma unroll
       for (int i = 0; i < kRowChunk; ++i)
-        if (i < nr)
-          emit(r_first + row_groups * i, m[i], l[i],
-               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+        if (i < nr) emit(r_first + row_groups * i, m[i], l[i], acc[i]);
       continue;
     }
     // key groups of one row group merge in fixed warp order (kg = 0, 1, ..)
@@ -601,7 +623,7 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
       for (int i = 0; i < kRowChunk; ++i) {
         if (lane_v)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) red_acc[warp][i][d0 + e] = acc[i][e];
+          for (int e = 0; e < kDpl; ++e) red_acc[warp][i][d0 + e] = acc[i][e];
         if (lane == 0) {
           red_ml[warp][i][0] = m[i];
           red_ml[warp][i][1] = l[i];
@@ -618,7 +640,9 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
           const int w = rg + row_groups * x;
           if (red_ml[w][i][1] > 0.f) mm = fmaxf(mm, red_ml[w][i][0]);
         }
-        float ll = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+        float ll = 0.f, a[kDpl];
+#pragma unroll
+        for (int e = 0; e < kDpl; ++e) a[e] = 0.f;
         for (int x = 0; x < key_groups; ++x) {
           const int w = rg + row_groups * x;
           const float lw = red_ml[w][i][1];
@@ -627,9 +651,9 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
           ll += lw * f;
           if (lane_v)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) a[e] += red_acc[w][i][d0 + e] * f;
+            for (int e = 0; e < kDpl; ++e) a[e] += red_acc[w][i][d0 + e] * f;
         }
-        emit(r_first + row_groups * i, mm, ll, make_float4(a[0], a[1], a[2], a[3]));
+        emit(r_first + row_groups * i, mm, ll, a);
       }
     }
     __syncthreads();
@@ -641,7 +665,7 @@ paged_gqa_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ kp,
 // L = sum l w, o = (sum acc w) / max(L, 1e-30). A split with l == 0 has no
 // live key and adds nothing; a row with none at all gets exact zeros. The
 // (m, l) pairs come in at once into shared memory and the weights are
-// computed once; thread d then sums value dim d (vd <= 128).
+// computed once; thread d then sums value dims d, d + 128 (vd <= 256).
 __global__ void __launch_bounds__(kThreads)
 paged_gqa_merge_kernel(const float* __restrict__ part_acc,
                        const float* __restrict__ part_ml, float* __restrict__ out,
@@ -674,14 +698,14 @@ paged_gqa_merge_kernel(const float* __restrict__ part_acc,
     }
   }
   __syncthreads();
-  const int d = threadIdx.x;
-  if (d >= vd) return;
-  const float* pa = part_acc + o * n_splits * vd + d;
-  float a = 0.f;
+  for (int d = threadIdx.x; d < vd; d += kThreads) {
+    const float* pa = part_acc + o * n_splits * vd + d;
+    float a = 0.f;
 #pragma unroll 4
-  for (int s = 0; s < n_splits; ++s)
-    if (w[s] > 0.f) a += pa[(int64_t)s * vd] * w[s];
-  out[o * vd + d] = __fdiv_rn(a, denom_s);
+    for (int s = 0; s < n_splits; ++s)
+      if (w[s] > 0.f) a += pa[(int64_t)s * vd] * w[s];
+    out[o * vd + d] = __fdiv_rn(a, denom_s);
+  }
 }
 
 // The largest of 16, 8, 4, 2, 1 bytes dividing a leaf's row and base address.
@@ -691,9 +715,10 @@ int chunk_for(const void* p, int64_t row_bytes) {
   return c;
 }
 
-template <typename TQ, bool kPacked>
-int launch_gqa(const void* q, const void* kp, const void* ks, const void* vp,
-               const void* vs, const void* table, const void* pos, void* out,
+template <bool kPacked>
+int launch_gqa(const void* q, int q_bf16, const void* kp, const void* ks,
+               const void* vp, const void* vs, const void* table,
+               const void* pos, void* out,
                void* part_acc, void* part_ml, int64_t b, int64_t sq, int64_t h,
                int64_t kv, int64_t hd, int64_t vd, int64_t n_blocks, int64_t bs,
                int64_t maxb, int64_t window, float sqrt_hd, int64_t bps,
@@ -706,14 +731,16 @@ int launch_gqa(const void* q, const void* kp, const void* ks, const void* vp,
       : Chunks{chunk_for(kp, hd * 2), 0, chunk_for(vp, vd * 2), 0};
 #define REPRO_GQA_CASE(BS_)                                                    \
   case BS_: {                                                                  \
-    auto kern = paged_gqa_split_kernel<TQ, BS_, kPacked>;                      \
-    if (smem > 32 * 1024) {                                                    \
+    auto kern = (hd > 128 || vd > 128)                                         \
+                    ? paged_gqa_split_kernel<BS_, kPacked, 8>                  \
+                    : paged_gqa_split_kernel<BS_, kPacked, 4>;                 \
+    if (smem > 24 * 1024) { /* + up to 17 KB static (red_acc at hd 256) */   \
       const cudaError_t err = cudaFuncSetAttribute(                            \
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);       \
       if (err != cudaSuccess) return (int)err;                                 \
     }                                                                          \
     kern<<<grid, kThreads, smem, st>>>(                                        \
-        (const TQ*)q, (const uint8_t*)kp, (const uint8_t*)ks,                  \
+        q, q_bf16, (const uint8_t*)kp, (const uint8_t*)ks,                     \
         (const uint8_t*)vp, (const uint8_t*)vs, (const int32_t*)table,         \
         (const int32_t*)pos, (float*)out, (float*)part_acc, (float*)part_ml,   \
         (int)sq, (int)h, (int)kv, (int)hd, (int)vd, n_blocks, (int)maxb,       \
@@ -1623,14 +1650,11 @@ extern "C" int paged_gqa_launch(const void* q, int q_is_bf16, int packed,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_GQA_ARGS                                                         \
-  q, k_pool, k_scales, v_pool, v_scales, table, pos, out, part_acc, part_ml,   \
-      b, sq, h, kv, hd, vd, n_blocks, bs, maxb, window, sqrt_hd, bps,          \
-      n_splits, row_groups, st
-  if (q_is_bf16)
-    return packed ? launch_gqa<__nv_bfloat16, true>(REPRO_GQA_ARGS)
-                  : launch_gqa<__nv_bfloat16, false>(REPRO_GQA_ARGS);
-  return packed ? launch_gqa<float, true>(REPRO_GQA_ARGS)
-                : launch_gqa<float, false>(REPRO_GQA_ARGS);
+  q, q_is_bf16, k_pool, k_scales, v_pool, v_scales, table, pos, out,           \
+      part_acc, part_ml, b, sq, h, kv, hd, vd, n_blocks, bs, maxb, window,     \
+      sqrt_hd, bps, n_splits, row_groups, st
+  return packed ? launch_gqa<true>(REPRO_GQA_ARGS)
+                : launch_gqa<false>(REPRO_GQA_ARGS);
 #undef REPRO_GQA_ARGS
 }
 

@@ -14,7 +14,8 @@ in f32.
 On the card #5 and #6 are one split-KV design (`csrc/paged_attention.cu`):
 `plan` cuts each row's logical blocks into fixed splits from the shapes
 alone, one CTA per (row, KV head, split) writes a partial softmax, and a
-second kernel merges the partials in split order. #7 and #8 are split-KV
+second kernel merges the partials in split order; head dims up to
+MAX_HEAD_DIM (256: recurrentgemma's lattn layers), with an optional window. #7 and #8 are split-KV
 designs over `plan_mla`'s geometry: one CTA per (row, tile of 16 (query,
 head) pairs, split) and the same merge kernel. #8 decodes the packed latent
 blocks once per 16-group to bf16 in shared memory and scores on the CUDA
@@ -35,7 +36,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30  # matches models.attention.NEG_INF
 BLOCK_SIZES = (4, 8, 16, 32)  # pool block sizes the kernels are built for
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # a lane of #5/#6 owns 4 dims up to 128, 8 up to 256
 MAX_SQ = 16
 MAX_LORA = 512   # MLA latent (value) width the kernel's lanes cover
 MAX_ROPE = 64

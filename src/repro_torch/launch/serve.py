@@ -10,7 +10,7 @@
 Builds seeded random weights, packed as they are drawn (quartet2: NVFP4 4/6;
 `serve.prequant.init_packed`, with one chunk of f32 matrices alive at a
 time, so every config of the registry fits one card at its published widths
-but deepseek-v3). On the CPU they are bitwise the prequantized `lm.init`; on
+but deepseek-v3; rwkv6_7b and recurrentgemma_9b included). On the CPU they are bitwise the prequantized `lm.init`; on
 the card only leaves of at most one chunk of matrices are, since the card's
 generator draws other numbers when a leaf is drawn in pieces. It serves
 `--batch` requests through `ServeEngine` on the paged bf16 pool

@@ -9,7 +9,9 @@ reference's online softmax over KV blocks. Attention over the paged pool
 goes through `kernels.ops.paged_gqa` (bf16 pool) or `kernels.ops.paged_gqa_q`
 (NVFP4 `PackedKV` pool): the CUDA kernel for tensors on the card, the
 gather_view + decode_sdpa plain version on the CPU. A dense cache (no block
-table) is attended by `decode_sdpa` itself, as in the reference.
+table) is attended by `decode_sdpa` itself, as in the reference; a
+sliding-window layer's dense cache may be a ring of `window` positions,
+addressed by position mod window and labelled by `ring_abs_pos`.
 """
 
 from __future__ import annotations
@@ -145,10 +147,12 @@ def attend(q, k, v, *, causal=True, window=None):
     return sdpa(q, k, v, causal=causal, window=window)
 
 
-def decode_sdpa(q, k_cache, v_cache, pos, window=None):
+def decode_sdpa(q, k_cache, v_cache, pos, window=None, abs_pos=None):
     """Decode attention over a cache. q: (B, Sq, H, hd); caches (B, Smax, KV,
     hd); pos (B,) is the absolute position of each row's FIRST query token.
-    Cache index is the absolute position. Scores and softmax are f32."""
+    Cache index is the absolute position, or with `abs_pos` (B, Smax) (a
+    ring buffer: `ring_abs_pos`) each slot's position, negative for a slot
+    never written. Scores and softmax are f32."""
     b, sq, h, hd = q.shape
     kv = k_cache.shape[2]
     rep = h // kv
@@ -157,15 +161,30 @@ def decode_sdpa(q, k_cache, v_cache, pos, window=None):
     s = torch.einsum("bqgrh,bkgh->bgrqk", qf, k_cache.float())
     s = s / torch.tensor(sqrt_hd(hd), dtype=torch.float32, device=s.device)
     qpos = pos.long()[:, None] + torch.arange(sq, device=q.device)[None, :]
-    kj = torch.arange(sk, device=q.device)
-    ok = kj[None, None, :] <= qpos[:, :, None]                      # (B,Sq,Sk)
+    kj = (torch.arange(sk, device=q.device)[None, :] if abs_pos is None
+          else abs_pos.long())                                        # (B|1,Sk)
+    ok = kj[:, None, :] <= qpos[:, :, None]                         # (B,Sq,Sk)
+    if abs_pos is not None:
+        ok &= kj[:, None, :] >= 0
     if window is not None:
-        ok &= kj[None, None, :] > qpos[:, :, None] - window
+        ok &= kj[:, None, :] > qpos[:, :, None] - window
     s = torch.where(ok[:, None, None], s, NEG_INF)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
     o = torch.einsum("bgrqk,bkgv->bqgrv", p, v_cache.float())
     return o.reshape(b, sq, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def ring_abs_pos(pos: torch.Tensor, sq: int, cap: int) -> torch.Tensor:
+    """Absolute position held by each ring-buffer slot after writing a chunk:
+    (B, cap) int64. With per-row last written position P = pos + sq - 1,
+    slot j holds the largest position <= P congruent to j mod cap; negative
+    values mark slots never written. Exact whenever cap == window (a slot's
+    previous occupant is at least one full window older, so masking by
+    query position is exact)."""
+    pmax = pos.long()[:, None] + (sq - 1)
+    j = torch.arange(cap, device=pos.device)[None, :]
+    return pmax - torch.remainder(pmax - j, cap)
 
 
 def gqa_init(draw, count: int, cfg, device) -> dict:
@@ -242,14 +261,21 @@ def gqa_decode(p, x, cfg, scheme, seed, layer, cache_kv, pos, *, window=None,
         valid &= active[:, None]
     if block_table is None:
         cap = kc.shape[1] - 1
-        if window is not None and cap == window:
+        ring = window is not None and cap == window
+        if ring and sq > 1:
+            # in-chunk ring writes evict keys still inside earlier queries'
+            # windows, and ring_abs_pos labels slots from the chunk's LAST
+            # position only: correct solely for sq == 1
             raise NotImplementedError(
-                "ring-buffer (cap == window) caches belong to sliding-window "
-                "lattn layers, which come with the griffin slice (ROADMAP.md "
-                "Queue 1, the remaining families)")
-        KV.scatter_dense(kc, positions, k, valid)
-        KV.scatter_dense(vc, positions, v, valid)
-        o = decode_sdpa(q, kc[:, :cap], vc[:, :cap], posb, window=window)
+                "ring-buffer (cap == window) caches decode one token at a "
+                "time; chunked prefill needs a full-capacity or paged cache")
+        # a ring slot is position mod cap (`valid` already drops negative
+        # positions, which would wrap into the ring)
+        idx = torch.remainder(positions, cap) if ring else positions
+        KV.scatter_dense(kc, idx, k, valid)
+        KV.scatter_dense(vc, idx, v, valid)
+        o = decode_sdpa(q, kc[:, :cap], vc[:, :cap], posb, window=window,
+                        abs_pos=ring_abs_pos(posb, sq, cap) if ring else None)
     else:
         rt, wt = KV.split_tables(block_table)
         KV.scatter_tokens(kc, wt, positions, k, valid)

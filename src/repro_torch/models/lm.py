@@ -1,31 +1,39 @@
-"""The language model: every transformer family of the reference in train,
+"""The language model: every decoder-only family of the reference in train,
 prefill and decode modes. Dense GQA (llama, yi, granite, chatglm3 with its
 half-dim rope, nemotron with relu2), the vision backbone (llava: GQA fed
-precomputed embeddings), GQA + MoE (deepseek-moe-16b) and MLA + MoE
-(deepseek-v3).
+precomputed embeddings), GQA + MoE (deepseek-moe-16b), MLA + MoE
+(deepseek-v3), RWKV-6 (rwkv6: time-mix + channel-mix, `models/rwkv6.py`)
+and Griffin (recurrentgemma: RG-LRU blocks and sliding-window local
+attention, `models/griffin.py`).
 
 Counterpart of `repro/models/lm.py`. A model is a list of STAGES; each stage
 is `count` structurally identical layers whose parameters are stacked on a
 leading axis, as in the reference, so converted parameters keep their
-layout. The reference's stacked-stage scan becomes a Python loop over layers
+layout. A layer is (mixer, ff): mixer gqa | lattn (sliding window) | mla |
+rwkv_tm | rec, ff mlp | moe | rwkv_cm; a hybrid pattern (rec, rec, attn)
+is one stage whose layer spec is the whole pattern, a remainder a trailing
+stage. The reference's stacked-stage scan becomes a Python loop over layers
 that takes each layer's slice as a view (gradients flow into the stacked
 leaves). Decode caches are stage-aligned leaves updated in place: the paged
 pool's (`serve.kv_pool.init_cache`, addressed through a block table) or
 dense per-slot caches (`init_cache` here), which prefill fills and decode
-extends. The reference's REMAT is off, so training recomputes nothing.
+extends. Token kinds ("kv", "mla") gate their writes per row; the recurrent
+state kinds ("wkv", "tm_prev", "cm_prev", "lru") update every row, so a
+decode step with an `active` mask restores the inactive rows
+(`_merge_state`). Sliding-window layers of dense caches may be ring
+buffers of `window` positions (`init_cache(lattn_ring=True)`). The
+reference's REMAT is off, so training recomputes nothing.
 
-Layers are (gqa | mla, mlp | moe). MLA runs the expanded form
-(`mla.mla_apply`) in train and prefill mode and the absorbed form in decode
-mode. Train and prefill read `inputs["embeds"]` (cast to bf16) in place of
-the token embedding whenever the batch carries it; decode always embeds
-tokens, as the reference does. The MoE layers' load-balance aux losses are
-summed over the stack, as the reference's scan carry does; `lm_loss` adds
-`aux_weight` times that sum to the CE, and `forward` keeps returning
-(logits, caches), since serving reads no aux. `forward_prefix` runs the
-first n layers of the same stack with the same head (the self-speculative
-draft). The recurrent and encoder-decoder families (rwkv6, griffin,
-whisper) and the encode mode raise NotImplementedError and come with a
-later slice.
+MLA runs the expanded form (`mla.mla_apply`) in train and prefill mode and
+the absorbed form in decode mode. Train and prefill read `inputs["embeds"]`
+(cast to bf16) in place of the token embedding whenever the batch carries
+it; decode always embeds tokens, as the reference does. The MoE layers'
+load-balance aux losses are summed over the stack, as the reference's scan
+carry does; `lm_loss` adds `aux_weight` times that sum to the CE, and
+`forward` keeps returning (logits, caches), since serving reads no aux.
+`forward_prefix` runs the first n layers of the same stack with the same
+head (the self-speculative draft). The encoder-decoder family (whisper) and
+the encode mode raise NotImplementedError and come with a later slice.
 """
 
 from __future__ import annotations
@@ -37,8 +45,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linear import PackedQWeight
 from repro_torch.models import attention as A
+from repro_torch.models import griffin as G
 from repro_torch.models import mla as M
 from repro_torch.models import moe as X
+from repro_torch.models import rwkv6 as W
 from repro_torch.models.blocks import (chunked_head_ce, embed_init,
                                        embed_lookup, lm_head, mlp_apply,
                                        mlp_init, norm, norm_init,
@@ -46,24 +56,36 @@ from repro_torch.models.blocks import (chunked_head_ce, embed_init,
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """Raise for the families the port does not run yet: the recurrent and
-    encoder-decoder ones (rwkv6, griffin, whisper: the remaining-families
-    slice)."""
+    """Raise for the family the port does not run yet: the encoder-decoder
+    one (whisper, the next slice)."""
     dense = (cfg.family in ("dense", "vlm") and cfg.attn == "gqa"
              and not cfg.moe)
     moe = (cfg.family == "moe" and cfg.moe is not None
            and (cfg.attn == "gqa" or (cfg.attn == "mla"
                                       and cfg.mla is not None)))
-    if cfg.enc_dec or cfg.griffin or cfg.rwkv or not (dense or moe):
+    ssm = cfg.family == "ssm" and cfg.rwkv is not None
+    hybrid = (cfg.family == "hybrid" and cfg.griffin is not None
+              and cfg.attn == "gqa")
+    if cfg.enc_dec or not (dense or moe or ssm or hybrid):
         raise NotImplementedError(
             f"{cfg.name}: family '{cfg.family}' (attn '{cfg.attn}') comes "
-            "with the slice of the recurrent and encoder-decoder families; "
-            "the port runs the dense, vlm and MoE transformers")
+            "with the encoder-decoder (whisper) slice; the port runs the "
+            "dense, vlm, MoE, ssm (rwkv6) and hybrid (griffin) families")
 
 
 def layer_specs(cfg: ArchConfig) -> list[tuple[tuple[tuple[str, str], ...], int]]:
     """[(pattern, repeats)] — pattern is a tuple of (mixer, ff) layer specs."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        return [((("rwkv_tm", "rwkv_cm"),), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        pat = tuple(("rec", "mlp") if t == "rec" else ("lattn", "mlp")
+                    for t in cfg.griffin.pattern)
+        reps, rem = divmod(cfg.n_layers, len(pat))
+        stages = [(pat, reps)] if reps else []
+        if rem:
+            stages.append((pat[:rem], 1))
+        return stages
     mixer = "mla" if cfg.attn == "mla" else "gqa"
     ff = "moe" if cfg.moe else "mlp"
     return [(((mixer, ff),), cfg.n_layers)]
@@ -84,13 +106,22 @@ def init(cfg: ArchConfig, gen: torch.Generator, device="cuda",
     for pattern, count in layer_specs(cfg):
         stage = {}
         for i, (mixer, ff) in enumerate(pattern):
-            mix = (M.mla_init(draw, count, cfg, device) if mixer == "mla"
-                   else A.gqa_init(draw, count, cfg, device))
-            n1 = _stacked_norm(cfg, count, device)
-            fp = (X.moe_init(draw, count, cfg) if ff == "moe"
-                  else mlp_init(draw, count, cfg.d_model, cfg.d_ff, cfg.mlp))
-            stage[f"l{i}"] = {"mix": mix, "n1": n1, "ff": fp,
-                              "n2": _stacked_norm(cfg, count, device)}
+            if mixer == "mla":
+                mix = M.mla_init(draw, count, cfg, device)
+            elif mixer == "rwkv_tm":  # carries the channel-mix's leaves too
+                mix = W.rwkv_init(draw, gen, count, cfg, device)
+            elif mixer == "rec":
+                mix = G.rglru_init(draw, count, cfg, device)
+            else:
+                mix = A.gqa_init(draw, count, cfg, device)
+            layer = {"mix": mix, "n1": _stacked_norm(cfg, count, device)}
+            if ff == "moe":
+                layer["ff"] = X.moe_init(draw, count, cfg)
+            elif ff == "mlp":
+                layer["ff"] = mlp_init(draw, count, cfg.d_model, cfg.d_ff,
+                                       cfg.mlp)
+            layer["n2"] = _stacked_norm(cfg, count, device)
+            stage[f"l{i}"] = layer
         stages.append(stage)
     params["stages"] = stages
     params["final_norm"] = norm_init(cfg.d_model, cfg.norm, device)
@@ -118,70 +149,164 @@ def head_weight(params, cfg):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
+def _merge_state(active, new: torch.Tensor, old: torch.Tensor) -> None:
+    """Write `new` into the state leaf `old` IN PLACE, keeping `old`'s rows
+    where `active` is False (every row with active None).
+
+    Token kinds gate their writes inside the mixer; the recurrent kinds
+    (wkv / tm_prev / cm_prev / lru) update every row of a step, so a
+    serving batch must restore its inactive rows here, or a slot mid-prefill
+    would be corrupted by the interleaved decode steps."""
+    if active is None:
+        old.copy_(new)
+        return
+    m = active.reshape(active.shape[0], *([1] * (new.dim() - 1)))
+    old.copy_(torch.where(m, new, old.to(new.dtype)))
+
+
 def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
                  pos, positions, active, block_table):
-    """One (mixer, ff) layer: (x, aux). In prefill mode the layer's K/V (or
-    latents) fill positions [0, S) of its dense `cache`; in decode mode the
-    cache updates in place. aux is the MoE layer's load-balance loss (f32
-    scalar), None for an MLP layer."""
+    """One (mixer, ff) layer: (x, aux). `cache` is the layer's {kind: leaf or
+    leaf pair} (views of the stacked cache leaves), or None. In prefill
+    mode the layer's K/V (or latents) fill positions [0, S) of its dense
+    cache and the recurrent state kinds take the prefill's final state; in
+    decode mode every kind updates in place (state kinds of active rows
+    only). aux is the MoE layer's load-balance loss (f32 scalar), None for
+    every other layer."""
     mixer, ff = spec
+    window = cfg.griffin.window if (cfg.griffin and mixer == "lattn") else None
+    decode = mode == "decode"
+    gate = active if decode else None
     h = norm(x, p["n1"], cfg.norm, cfg.norm_eps)
-    if mode == "decode":
-        step = M.mla_decode if mixer == "mla" else A.gqa_decode
-        o, _ = step(p["mix"], h, cfg, scheme, seed, layer_id, cache, pos,
-                    active=active, block_table=block_table)
-    else:
-        if mixer == "mla":
-            o, new = M.mla_apply(p["mix"], h, cfg, scheme, seed, layer_id,
-                                 positions=positions)
+    if mixer in ("gqa", "lattn", "mla"):
+        kind = "mla" if mixer == "mla" else "kv"
+        if decode:
+            if mixer == "mla":
+                o, _ = M.mla_decode(p["mix"], h, cfg, scheme, seed, layer_id,
+                                    cache[kind], pos, active=active,
+                                    block_table=block_table)
+            else:
+                o, _ = A.gqa_decode(p["mix"], h, cfg, scheme, seed, layer_id,
+                                    cache[kind], pos, window=window,
+                                    active=active, block_table=block_table)
         else:
-            o, new = A.gqa_apply(p["mix"], h, cfg, scheme, seed, layer_id,
-                                 causal=True, positions=positions)
+            if mixer == "mla":
+                o, new = M.mla_apply(p["mix"], h, cfg, scheme, seed, layer_id,
+                                     positions=positions)
+            else:
+                o, new = A.gqa_apply(p["mix"], h, cfg, scheme, seed, layer_id,
+                                     causal=True, window=window,
+                                     positions=positions)
+            if cache is not None:
+                _fill_cache(cache[kind], new, window)
+    elif mixer == "rwkv_tm":
+        st = cache["wkv"] if cache is not None else None
+        pv = cache["tm_prev"] if cache is not None else None
+        o, st, last = W.timemix_apply(p["mix"], h, cfg, scheme, seed,
+                                      layer_id, state=st, prev=pv)
         if cache is not None:
-            _fill_cache(cache, new)
+            _merge_state(gate, st, cache["wkv"])
+            _merge_state(gate, last, cache["tm_prev"])
+    elif mixer == "rec":
+        st = cache["lru"] if cache is not None else None
+        o, st = G.recurrent_block_apply(p["mix"], h, cfg, scheme, seed,
+                                        layer_id, state=st)
+        if cache is not None:
+            for new, old in zip(st, cache["lru"]):
+                _merge_state(gate, new, old)
+    else:
+        raise ValueError(mixer)
     x = x + o
     h = norm(x, p["n2"], cfg.norm, cfg.norm_eps)
     if ff == "moe":
         o, aux = X.moe_apply(p["ff"], h, cfg, scheme, seed, layer_id)
         return x + o, aux
+    if ff == "rwkv_cm":
+        pv = cache["cm_prev"] if cache is not None else None
+        o, last = W.channelmix_apply(p["mix"], h, cfg, scheme, seed, layer_id,
+                                     prev=pv)
+        if cache is not None:
+            _merge_state(gate, last, cache["cm_prev"])
+        return x + o, None
     return x + mlp_apply(p["ff"], h, cfg.mlp, scheme, seed, layer_id), None
 
 
-def _fill_cache(cache, new) -> None:
-    """Write prefill K/V (or latents) (B, S, ...) into positions [0, S) of
-    the dense cache leaves (B, max_len + 1, ...), IN PLACE."""
+def _fill_cache(cache, new, window) -> None:
+    """Write prefill K/V (or latents) (B, S, ...) into the dense cache
+    leaves (B, cap + 1, ...), IN PLACE: positions [0, S), or for a ring
+    (a sliding-window layer whose cap < S) the last cap positions rolled so
+    that position p sits at slot p % cap, where decode (`attention.
+    ring_abs_pos`) expects it."""
     for leaf, n in zip(cache, new):
+        s, cap = n.shape[1], leaf.shape[1] - 1
+        if window is not None and s > cap:
+            n = torch.roll(n[:, -cap:], s % cap, dims=1)
         leaf[:, : n.shape[1]] = n.to(leaf.dtype)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
-               specs=None) -> list:
+               specs=None, lattn_ring: bool = True) -> list:
     """Dense per-slot decode caches aligned with layer_specs(cfg) (or
-    `specs`, e.g. a draft stack's `prefix_specs`), zero-initialized: per
-    stage {"l<i>": {"kv": (k, v)}} with leaves (count, batch, max_len + 1,
-    KV, hd), or {"l<i>": {"mla": (c, k_rope)}} with leaves (count, batch,
-    max_len + 1, kv_lora | rope), all bf16. Position max_len of each row is
-    a write-only scratch position that takes every dropped write (PyTorch
-    indexing raises where the reference's scatter drops); readers see
-    [:, :max_len]. Prefill fills [0, S) and decode mode extends it when the
-    forward gets no block table."""
-    def leaf(*feat):
-        return torch.zeros((count, batch, max_len + 1, *feat),
+    `specs`, e.g. a draft stack's `prefix_specs`), zero-initialized, per
+    stage {"l<i>": {kind: leaf or leaf pair}}, each leaf stacked (count,
+    batch, ...):
+      - "kv" (gqa, lattn): (k, v), each (count, batch, cap + 1, KV, hd)
+        bf16; cap = max_len, or for lattn with `lattn_ring` a ring of
+        min(max_len, window) positions;
+      - "mla": (c, k_rope), (count, batch, max_len + 1, kv_lora | rope)
+        bf16;
+      - "wkv" (rwkv_tm): (count, batch, H, d, d) f32 and "tm_prev" (count,
+        batch, 1, D) bf16; "cm_prev" (rwkv_cm) the same;
+      - "lru" (rec): (h (count, batch, W) f32, conv tail (count, batch,
+        K - 1, W) bf16).
+    Position cap of each token leaf's row is a write-only scratch position
+    that takes every dropped write (PyTorch indexing raises where the
+    reference's scatter drops); readers see [:, :cap]. Prefill fills [0, S)
+    and decode mode extends it when the forward gets no block table.
+    Ragged batches need lattn_ring=False: the ring roll assumes one shared
+    prompt length."""
+    def leaf(cap, *feat):
+        return torch.zeros((count, batch, cap + 1, *feat),
                            dtype=torch.bfloat16, device=device)
 
     stages = []
     for pattern, count in (specs if specs is not None else layer_specs(cfg)):
         one = {}
-        for i, (mixer, _ff) in enumerate(pattern):
+        for i, (mixer, ff) in enumerate(pattern):
+            c: dict[str, Any] = {}
             if mixer == "mla":
                 m = cfg.mla
-                one[f"l{i}"] = {"mla": (leaf(m.kv_lora_rank),
-                                        leaf(m.qk_rope_head_dim))}
-            else:
-                one[f"l{i}"] = {"kv": (leaf(cfg.n_kv_heads, cfg.hd),
-                                       leaf(cfg.n_kv_heads, cfg.hd))}
+                c["mla"] = (leaf(max_len, m.kv_lora_rank),
+                            leaf(max_len, m.qk_rope_head_dim))
+            elif mixer in ("gqa", "lattn"):
+                cap = max_len
+                if mixer == "lattn" and cfg.griffin and lattn_ring:
+                    cap = min(max_len, cfg.griffin.window)
+                c["kv"] = (leaf(cap, cfg.n_kv_heads, cfg.hd),
+                           leaf(cap, cfg.n_kv_heads, cfg.hd))
+            c.update(state_cache(mixer, ff, cfg, batch, device, (count,)))
+            one[f"l{i}"] = c
         stages.append(one)
     return stages
+
+
+def state_cache(mixer: str, ff: str, cfg: ArchConfig, batch: int, device,
+                lead=()) -> dict:
+    """The zero recurrent state kinds of one (mixer, ff) layer, leaves
+    (*lead, batch, ...): {} for the attention-only layers."""
+    c: dict[str, Any] = {}
+    if mixer == "rwkv_tm":
+        hd = cfg.rwkv.head_dim
+        c["wkv"] = torch.zeros((*lead, batch, cfg.d_model // hd, hd, hd),
+                               dtype=torch.float32, device=device)
+        c["tm_prev"] = torch.zeros((*lead, batch, 1, cfg.d_model),
+                                   dtype=torch.bfloat16, device=device)
+    elif mixer == "rec":
+        c["lru"] = G.recurrent_state_init(cfg, batch, device, lead)
+    if ff == "rwkv_cm":
+        c["cm_prev"] = torch.zeros((*lead, batch, 1, cfg.d_model),
+                                   dtype=torch.bfloat16, device=device)
+    return c
 
 
 def total_layers(cfg: ArchConfig) -> int:
@@ -266,9 +391,9 @@ def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
             for li, spec in enumerate(pattern):
                 cache = None
                 if caches is not None and mode != "train":
-                    kind = "mla" if spec[0] == "mla" else "kv"
-                    cache = tuple(index_leaf(leaf, idx)
-                                  for leaf in caches[si][f"l{li}"][kind])
+                    cache = {kind: (tuple(index_leaf(t, idx) for t in v)
+                                    if isinstance(v, tuple) else v[idx])
+                             for kind, v in caches[si][f"l{li}"].items()}
                 x, aux = _apply_layer(
                     spec, lp[f"l{li}"], x, cfg, scheme, seed,
                     off + idx * len(pattern) + li, mode=mode, cache=cache,

@@ -68,9 +68,12 @@ def greedy_generate(params, cfg, scheme, prompt_tokens, max_new: int,
     `serve.prequant` is taken too). Tokens stay on the device between steps.
     Returns the generated tokens (B, max_new) int64 on `device`.
 
-    Refused, as in the reference: enc-dec models, and ragged prompts on
-    recurrent-state families (the full-width prefill would feed pad tokens
-    into their state)."""
+    Sliding-window layers decode over ring caches of `window` positions
+    when all prompts share one length (`lm.init_cache(lattn_ring=True)`),
+    over full-capacity caches for ragged prompts. Refused, as in the
+    reference: enc-dec models, and ragged prompts on recurrent-state
+    families (the full-width prefill would feed pad tokens into their
+    state)."""
     device = torch.device(device)
     tokens = torch.as_tensor(prompt_tokens, device=device)
     b, s = tokens.shape
@@ -87,7 +90,11 @@ def greedy_generate(params, cfg, scheme, prompt_tokens, max_new: int,
     lens = (torch.full((b,), s, dtype=torch.int32, device=device)
             if prompt_lens is None else
             torch.as_tensor(prompt_lens, dtype=torch.int32, device=device))
-    cache = lm.init_cache(cfg, b, max_len, device=device)
+    # ragged batches need full-capacity sliding-window caches: the ring
+    # prefill roll keeps the last `window` positions of the SHARED padded
+    # width, which for a short row would evict real keys for pads
+    cache = lm.init_cache(cfg, b, max_len, device=device,
+                          lattn_ring=prompt_lens is None)
     prefill = make_prefill_step(cfg, scheme)
     step = make_serve_step(cfg, scheme)
     with torch.no_grad():

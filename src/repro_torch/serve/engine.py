@@ -14,7 +14,8 @@ tick:
   2. PREFILL — one chunk of ONE prefilling slot (the policy picks which): a
                full `prefill_chunk`, or a single token for the prompt's
                trailing remainder, through the same decode-mode forward as
-               decoding; other slots are masked inactive.
+               decoding; other slots are masked inactive (so no pad token
+               ever enters a recurrent state: rwkv6, griffin).
   3. DECODE  — one batched step over all slots in DECODE state; new requests
                join as finished ones retire, never restarting the batch.
                With `spec_k > 0` the step is a self-speculative round
@@ -233,6 +234,14 @@ class ServeEngine:
             if e.draft_layers <= 0:
                 raise ValueError("spec_k > 0 requires draft_layers >= 1")
             lm.prefix_specs(cfg, e.draft_layers)  # 0 < n < total_layers
+            if cfg.rwkv is not None and e.spec_k + 1 >= cfg.rwkv.chunk:
+                # the (n_slots, spec_k + 1) verify chunk must stay on the
+                # per-token WKV path: the chunk-parallel form sums in
+                # another order than S = 1 steps, which would break exact
+                # verification against the non-speculative engine
+                raise ValueError(
+                    f"spec_k={e.spec_k} needs spec_k + 1 < rwkv.chunk "
+                    f"({cfg.rwkv.chunk}) for exact verification")
         self.clock = e.clock if e.clock is not None else time.perf_counter
         self.device = torch.device(e.device)
         # resolved first, so prequantization can report the raw weights'
@@ -460,6 +469,7 @@ class ServeEngine:
             except OutOfBlocks:
                 self.cache.release(pinned)
                 plan = pinned = None
+        self.pool.reset_slot(i)  # a new sequence's recurrent state is zero
         self.pool.commit(i, total, self._max_growth)
         prefix_len = 0
         nodes: list = []
@@ -479,6 +489,7 @@ class ServeEngine:
         if self.draft is not None:
             # the draft pool never aliases the cache: _prefill_tick catches
             # the draft up over a skipped prefix
+            self.draft.pool.reset_slot(i)
             self.draft.pool.commit(i, total, self._max_growth)
         self.slots[i] = _Slot(state=PREFILL, req=req, cursor=prefix_len,
                               cache_nodes=nodes)

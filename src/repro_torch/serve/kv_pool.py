@@ -5,8 +5,13 @@ is carved into fixed-size blocks of `block_size` token positions handed to
 sequences on demand; a per-slot block table (n_slots, max_blocks) maps
 logical block -> physical block, and unallocated entries hold the OOB-HIGH
 sentinel `n_blocks` (docs/CONVENTIONS.md §2 — never -1). Token kinds are
-"kv" (gqa: a (k, v) pair of (P, BS, KV, hd) leaves) and "mla" (the shared
-latent pools (cc, kc) of shapes (P, BS, kv_lora) and (P, BS, rope)).
+"kv" (gqa, lattn: a (k, v) pair of (P, BS, KV, hd) leaves) and "mla" (the
+shared latent pools (cc, kc) of shapes (P, BS, kv_lora) and (P, BS, rope)).
+The recurrent STATE kinds ("wkv", "tm_prev", "cm_prev", "lru": rwkv6 and
+griffin) are slot leaves (layers, n_slots, ...), O(1) per sequence: one
+implicit block per slot, zeroed at admission (`reset_slot`), and for a
+speculative rollback copied and restored (`snapshot_states`,
+`restore_states`), since they integrate every token irreversibly.
 
 With `quantized=True` every token leaf is a `PackedKV`: NVFP4 e2m1 code
 pairs plus e4m3 scale bits (0.28125x the bf16 bytes), quantized per token at
@@ -64,6 +69,8 @@ from repro_torch.core import formats as F
 from repro_torch.models import lm
 
 TOKEN_MIXERS = ("gqa", "lattn", "mla")
+TOKEN_KINDS = ("kv", "mla")
+STATE_KINDS = ("wkv", "tm_prev", "cm_prev", "lru")
 
 
 class PackedKV(NamedTuple):
@@ -179,13 +186,16 @@ def scatter_dense(cache: torch.Tensor, positions: torch.Tensor,
 
 
 def init_cache(cfg: ArchConfig, *, n_blocks: int, block_size: int,
-               device="cuda", specs=None, quantized: bool = False):
+               n_slots: int, device="cuda", specs=None,
+               quantized: bool = False):
     """Stage-aligned paged pool, zero-initialized: per stage {"l<i>": {"kv":
     (k, v)}} for gqa/lattn layers, each leaf (count, n_blocks + 1,
     block_size, KV, hd), or {"l<i>": {"mla": (cc, kc)}} for MLA layers,
-    leaves (count, n_blocks + 1, block_size, kv_lora | rope). Leaves are
-    bf16, or PackedKV with `quantized` (zero codes and zero scale bits
-    decode to exactly 0, as the bf16 pool's zeros)."""
+    leaves (count, n_blocks + 1, block_size, kv_lora | rope). Token leaves
+    are bf16, or PackedKV with `quantized` (zero codes and zero scale bits
+    decode to exactly 0, as the bf16 pool's zeros). The recurrent layers
+    hold their state kinds as slot leaves (count, n_slots, ...), laid out
+    as `lm.state_cache` makes them."""
     def tok(count, mixer, *feat):
         lead = (count, n_blocks + 1, block_size, *feat[:-1])
         d = feat[-1]
@@ -204,18 +214,17 @@ def init_cache(cfg: ArchConfig, *, n_blocks: int, block_size: int,
     stages = []
     for pattern, count in (specs if specs is not None else lm.layer_specs(cfg)):
         one = {}
-        for i, (mixer, _ff) in enumerate(pattern):
+        for i, (mixer, ff) in enumerate(pattern):
+            c = {}
             if mixer in ("gqa", "lattn"):
-                one[f"l{i}"] = {"kv": tuple(
-                    tok(count, mixer, cfg.n_kv_heads, cfg.hd)
-                    for _ in range(2))}
+                c["kv"] = tuple(tok(count, mixer, cfg.n_kv_heads, cfg.hd)
+                                for _ in range(2))
             elif mixer == "mla":
                 m = cfg.mla
-                one[f"l{i}"] = {"mla": (tok(count, mixer, m.kv_lora_rank),
-                                        tok(count, mixer, m.qk_rope_head_dim))}
-            else:
-                raise NotImplementedError(
-                    f"{mixer} caches come with a later slice")
+                c["mla"] = (tok(count, mixer, m.kv_lora_rank),
+                            tok(count, mixer, m.qk_rope_head_dim))
+            c.update(lm.state_cache(mixer, ff, cfg, n_slots, device, (count,)))
+            one[f"l{i}"] = c
         stages.append(one)
     return stages
 
@@ -226,9 +235,23 @@ def token_leaves(caches):
     out = []
     for stage in caches:
         for kinds in stage.values():
-            for pair in kinds.values():
+            for kind, pair in kinds.items():
+                if kind not in TOKEN_KINDS:
+                    continue
                 for leaf in pair:
                     out.extend(leaf if isinstance(leaf, PackedKV) else (leaf,))
+    return out
+
+
+def state_leaves(caches):
+    """Every state-kind tensor of a cache tree, in a fixed order (stage,
+    layer, kind, leaf)."""
+    out = []
+    for stage in caches:
+        for kinds in stage.values():
+            for kind, v in kinds.items():
+                if kind in STATE_KINDS:
+                    out.extend(v if isinstance(v, tuple) else (v,))
     return out
 
 
@@ -241,7 +264,8 @@ def _like_tree(caches, leaves):
         for lk, kinds in stage.items():
             one[lk] = {kind: tuple(
                 PackedKV(next(it), next(it)) if isinstance(leaf, PackedKV)
-                else next(it) for leaf in pair) for kind, pair in kinds.items()}
+                else next(it) for leaf in pair)
+                for kind, pair in kinds.items() if kind in TOKEN_KINDS}
         out.append(one)
     return out
 
@@ -279,7 +303,8 @@ class SlotError(RuntimeError):
 class KVPool:
     """Host-side block allocator + owner of the device pool leaves.
 
-    Slot lifecycle: `commit(slot, total)` (bind + reserve growth) ->
+    Slot lifecycle: `reset_slot(slot)` (zero the recurrent state of an
+    UNBOUND slot) -> `commit(slot, total)` (bind + reserve growth) ->
     `ensure(slot, n)` before each forward so every position < n has a
     backing block -> `release(slot)` (unbind; each block loses this slot's
     reference). Misuse raises SlotError. Token blocks are
@@ -330,16 +355,18 @@ class KVPool:
         # `specs`: the layer specs the pool backs (a draft stack passes
         # lm.prefix_specs); default the full model's
         self.specs = specs if specs is not None else lm.layer_specs(cfg)
-        # recurrent state kinds (rwkv, griffin) come with their families:
-        # every ported stack holds token kinds only, which a speculative
-        # rollback truncates for free
-        self.has_state_kinds = False
+        # a dense pool's sliding-window layers keep full capacity (no ring):
+        # chunked prefill writes several positions a step
         self.caches = (init_cache(cfg, n_blocks=self.n_blocks,
-                                  block_size=block_size, device=device,
-                                  specs=self.specs, quantized=quantized)
+                                  block_size=block_size, n_slots=n_slots,
+                                  device=device, specs=self.specs,
+                                  quantized=quantized)
                        if paged else
                        lm.init_cache(cfg, n_slots, max_len, device=device,
-                                     specs=self.specs))
+                                     specs=self.specs, lattn_ring=False))
+        # recurrent state kinds (rwkv, griffin): a speculative rollback
+        # snapshots and restores them; token kinds truncate for free
+        self.has_state_kinds = bool(state_leaves(self.caches))
         self._table = np.full((n_slots, self.max_blocks), self.sentinel,
                               np.int32)
         # pop() -> the lowest free block id first
@@ -688,6 +715,39 @@ class KVPool:
         if self.obs is not None:
             self.obs.on_pool_alloc(1)
         return blk
+
+    # ---- recurrent slot state ----
+
+    def reset_slot(self, slot: int) -> None:
+        """Zero the recurrent state of `slot` (a new sequence is admitted).
+        Only on an UNBOUND slot: resetting a live sequence's state would
+        silently corrupt it, so that is a SlotError."""
+        if self._bound[slot]:
+            raise SlotError(f"slot {slot}: reset_slot on a bound slot")
+        for leaf in state_leaves(self.caches):
+            leaf[:, slot] = 0
+
+    # Token kinds truncate for free (position-masked); the recurrent kinds
+    # integrate every token irreversibly, so a speculative rollback is
+    # snapshot -> verify chunk -> restore the rejected slots -> replay.
+
+    def snapshot_states(self):
+        """Copies of every state-kind leaf in `state_leaves` order (None
+        when the stack has none): real copies, since the steps update the
+        leaves in place."""
+        if not self.has_state_kinds:
+            return None
+        return [leaf.clone() for leaf in state_leaves(self.caches)]
+
+    def restore_states(self, snapshot, slots) -> None:
+        """Write `slots`' rows of every state-kind leaf back from
+        `snapshot`, IN PLACE."""
+        if snapshot is None or not slots:
+            return
+        idx = torch.as_tensor(list(slots), dtype=torch.long,
+                              device=self.device)
+        for leaf, snap in zip(state_leaves(self.caches), snapshot):
+            leaf[:, idx] = snap[:, idx]
 
     # ---- host spill tier ----
     #

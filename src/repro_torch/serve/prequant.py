@@ -8,8 +8,10 @@ and reuses the packed tensors. Unpacking round-trips exactly, so prequant
 logits are IDENTICAL to per-step quantization.
 
 Selection is by leaf name. Deliberately excluded: `wkv_b` (MLA), which the
-absorbed decode consumes as a raw matrix, and `router` (MoE), an f32
-unquantized matmul; embeddings and norms are no GEMM weights. Stacked leaves,
+absorbed decode consumes as a raw matrix, `router` (MoE), and the f32
+matmuls of rwkv6's LoRAs (`mix_w1`, `mix_w2`, `ww1`, `ww2`) and griffin's
+gates (`wa`, `wx`), which never pass through qlinear; embeddings and norms
+are no GEMM weights. Stacked leaves,
 (layers, N, K) and (layers, E, f, d) expert stacks, pack per matrix, matching
 the per-layer / per-expert scale granularity of the per-step path. The LM
 head is packed only when cfg.quantize_lm_head (the paper keeps it bf16).
@@ -34,9 +36,12 @@ from repro_torch.models.blocks import linear_init
 
 # leaf names that flow through qlinear on the decode path
 QUANT_KEYS = frozenset({
-    "wq", "wk", "wv", "wo",            # gqa projections, MLA output
-    "wi", "wg",                        # mlp / moe experts / shared expert
+    "wq", "wk", "wv", "wo",            # gqa / lattn projections, rwkv r/k/v/o
+    "wi", "wg",                        # mlp / moe experts, rwkv gate
+    "wr",                              # rwkv receptance
     "wq_a", "wq_b", "wkv_a",           # MLA down/up projections (not wkv_b!)
+    "w_in", "w_gate", "w_out",         # griffin recurrent block
+    "cm_wr", "cm_wk", "cm_wv",         # rwkv channel-mix
 })
 
 

@@ -26,9 +26,14 @@ A round over the slots in DECODE state (`spec_round`):
                 sampling law exactly.
   5. ROLLBACK — rejected positions are truncated logically
                 (`KVPool.truncate`): stale K/V sits behind the position
-                mask until overwritten. Every ported family holds token
-                caches only; recurrent state, which would need a snapshot
-                and a replay, comes with the rwkv and griffin families.
+                mask until overwritten. Recurrent state (rwkv6's wkv and
+                token shifts, griffin's RG-LRU and conv tail) integrates
+                every input irreversibly, so both pools snapshot it
+                (`KVPool.snapshot_states`) before propose and verify; a
+                rejecting slot gets its snapshot back and replays the
+                accepted tokens through single-token steps, and the draft
+                of a slot that rejected early restores and replays them in
+                the next round's catch-up.
 
 Inactive rows carry token 0 at position 0 (their proposals feed back as
 for active rows), as in the reference: under quartet2 their rows enter the
@@ -142,6 +147,7 @@ def spec_round(eng, dec: list[int]) -> int:
             slots[i].draft_len += 1
 
     # ---- 2. propose: K draft tokens, one host read ----------------------
+    dsnap = draft.pool.snapshot_states()
     tok0 = np.zeros((e.n_slots,), np.int32)
     pos = np.zeros((e.n_slots,), np.int32)
     active = np.zeros((e.n_slots,), bool)
@@ -154,6 +160,7 @@ def spec_round(eng, dec: list[int]) -> int:
     proposals = {i: [int(toks[t, i]) for t in range(k)] for i in dec}
 
     # ---- 3. verify: one (n_slots, K + 1) full-model chunk ---------------
+    snap = pool.snapshot_states()
     tokens, pos, active = _blank(e.n_slots, k + 1)
     for i in dec:
         s = slots[i]
@@ -166,6 +173,8 @@ def spec_round(eng, dec: list[int]) -> int:
 
     # ---- 4. accept (greedy or rejection-sampled), commit, roll back -----
     emitted = 0
+    replay: dict[int, list[int]] = {}   # rejecting slots' accepted inputs
+    draft_reject: list[int] = []
     for i in dec:
         s = slots[i]
         length0 = s.length
@@ -197,15 +206,37 @@ def spec_round(eng, dec: list[int]) -> int:
         s.length = length0 + nacc
         s.last_tok = emit[-1]
         pool.truncate(i, s.length)
+        if pool.has_state_kinds and nacc < k + 1:
+            # the chunk integrated rejected inputs into the recurrent state
+            replay[i] = [int(t) for t in tokens[i, :nacc]]
         if len(s.generated) >= s.req.max_new:
             continue  # retires next tick, releasing its draft slot there
         if a >= k - 1:
             # every input the draft consumed (t0, d_1 .. d_{K-1}) committed
             s.draft_len = length0 + k
+        elif draft.pool.has_state_kinds:
+            # the draft's state integrated rejected inputs: back to the
+            # snapshot, and next round's catch-up replays the stream
+            draft_reject.append(i)
+            s.draft_len = length0
+            draft.pool.truncate(i, length0)
         else:
             # the draft keeps the committed prefix (inputs t0, d_1 .. d_a
             # are the emitted stream): next round needs no catch-up
             s.draft_len = length0 + a + 1
             draft.pool.truncate(i, s.draft_len)
+    draft.pool.restore_states(dsnap, draft_reject)
+
+    # ---- 5. restore and replay the recurrent state of rejecting slots ---
+    if replay:
+        pool.restore_states(snap, list(replay))
+        for t in range(max(len(r) for r in replay.values())):
+            tokens, pos, active = _blank(e.n_slots)
+            for i, r in replay.items():
+                if t < len(r):
+                    tokens[i, 0] = r[t]
+                    pos[i] = slots[i].length - len(r) + t
+                    active[i] = True
+            eng._forward(tokens, pos, active)
     eng.stats["spec_rounds"] += 1
     return emitted

@@ -19,7 +19,10 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     <= 5e-6 + 1e-5 |o_plain|, the bar of tests/test_paged_attention.py and
     tests/test_kv_quant.py (the packed kernels decode exactly, so only the
     online softmax's fp32 order differs, and the split-KV merges only
-    re-order those sums). paged_mla runs both of its products on the tensor
+    re-order those sums); #5 and #6 also at head dim 256 (recurrentgemma's
+    MQA lattn, windows 2,048 and 64 over 4,096-token tables, unit-scale
+    K/V) and 136, refusing 272; at hd 256 with 3x K/V, #5 within the same
+    bar of float64 attention. paged_mla runs both of its products on the tensor
     cores with its f32 operands (q_abs, an f32 q_rope, the probabilities)
     split into three bf16 terms each, hi + mid + lo == x exactly, and a
     bf16 x bf16 product is exact in f32: every product equals the plain
@@ -341,7 +344,7 @@ def test_fp4_matmul_zero_and_extreme_operands(dev, m):
 
 
 def _pool_case(dev, b, sq, h, kv, hd, bs, maxb, lens, window=None,
-               dead_rows=(), q_dtype=torch.bfloat16, seed=0):
+               dead_rows=(), q_dtype=torch.bfloat16, seed=0, scale=3.0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     n_blocks = b * maxb + 3
     perm = torch.randperm(n_blocks, generator=g).tolist()
@@ -353,8 +356,8 @@ def _pool_case(dev, b, sq, h, kv, hd, bs, maxb, lens, window=None,
             table[i, j] = perm.pop()
     pos = torch.tensor([max(n - sq, 0) for n in lens], dtype=torch.int32)
     q = torch.randn((b, sq, h, hd), generator=g).to(q_dtype)
-    kp = (torch.randn((n_blocks, bs, kv, hd), generator=g) * 3).bfloat16()
-    vp = (torch.randn((n_blocks, bs, kv, hd), generator=g) * 3).bfloat16()
+    kp = (torch.randn((n_blocks, bs, kv, hd), generator=g) * scale).bfloat16()
+    vp = (torch.randn((n_blocks, bs, kv, hd), generator=g) * scale).bfloat16()
     return [t.to(dev) for t in (q, kp, vp, table, pos)], window
 
 
@@ -387,6 +390,29 @@ GROUP_CASES = [
          dead_rows=(2,)),
 ]
 
+# Head dims above 128 (a lane owns 8 dims): recurrentgemma-9b's lattn
+# layers (H 16, KV 1, hd 256, window 2,048) at decode and Sq 16, a dead row;
+# 4,096-token tables under windows of 2,048 and 64 (whole splits dead); BS 32
+# (32 KB of bf16 tiles a CTA); and hd 136, above 128 but no power of two.
+# K/V at unit scale, as chip_smoke.py's bf16 cases: at 3x data the plain
+# version itself lies up to 9.5e-6 from float64 at hd 256 Sq 16 (the
+# kernel 2.8e-6; tools/gqa_split_probe.py), past the bar around either, so
+# there the kernel is held to float64 (test_paged_gqa_hd256_against_float64).
+HD256_CASES = [
+    dict(b=4, sq=1, h=16, kv=1, hd=256, bs=16, maxb=16, lens=[47, 100, 131, 18],
+         dead_rows=(3,), window=2048),
+    dict(b=4, sq=16, h=16, kv=1, hd=256, bs=16, maxb=16, lens=[16, 64, 100, 33],
+         window=2048),
+    dict(b=2, sq=1, h=16, kv=1, hd=256, bs=16, maxb=256, lens=[4096, 3000],
+         window=2048),
+    dict(b=2, sq=16, h=16, kv=1, hd=256, bs=16, maxb=256, lens=[4096, 2100],
+         window=64),
+    dict(b=3, sq=4, h=16, kv=1, hd=256, bs=32, maxb=8, lens=[100, 256, 33],
+         window=64),
+    dict(b=2, sq=1, h=4, kv=2, hd=136, bs=8, maxb=8, lens=[20, 64]),
+]
+HD256_CASES = [dict(c, scale=1.0) for c in HD256_CASES]
+
 
 @pytest.mark.parametrize("case", [
     # llama-200m decode and prefill chunk: H 10, KV 10, hd 128, BS 16
@@ -404,6 +430,7 @@ GROUP_CASES = [
          window=11, dead_rows=(0,)),
     *SPLIT_CASES,
     *GROUP_CASES,
+    *HD256_CASES,
 ])
 def test_paged_gqa_matches_plain(dev, case):
     (q, kp, vp, table, pos), window = _pool_case(dev, **case)
@@ -432,6 +459,7 @@ def test_paged_gqa_matches_plain(dev, case):
     dict(b=2, sq=16, h=32, kv=4, hd=128, bs=16, maxb=16, lens=[40, 200]),
     *SPLIT_CASES,
     *GROUP_CASES,
+    *HD256_CASES[:5],
 ])
 def test_paged_gqa_q_matches_plain(dev, case):
     (q, kp, vp, table, pos), window = _pool_case(dev, **case)
@@ -447,6 +475,45 @@ def test_paged_gqa_q_matches_plain(dev, case):
     assert torch.equal(out, again)  # fixed-order split merge: same bits
     for r in case.get("dead_rows", ()):
         assert int((out[r] != 0).sum()) == 0
+
+
+def _f64_attention(q, k, v, pos, window):
+    """decode_sdpa's attention in float64 over gathered (B, T, KV, d) views."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qd = q.double().reshape(b, sq, kvh, h // kvh, hd)
+    s = torch.einsum("bqgrd,btgd->bgrqt", qd, k.double()) / hd ** 0.5
+    qpos = pos.long()[:, None] + torch.arange(sq, device=q.device)[None]
+    kj = torch.arange(k.shape[1], device=q.device)[None, None]
+    ok = kj <= qpos[..., None]
+    if window is not None:
+        ok &= kj > qpos[..., None] - window
+    p = torch.softmax(torch.where(ok[:, None, None], s, -1e30), -1)
+    return torch.einsum("bgrqt,btgv->bqgrv", p, v.double()).reshape(b, sq, h, -1)
+
+
+@pytest.mark.parametrize("case", [dict(c, scale=3.0) for c in HD256_CASES[:5]])
+def test_paged_gqa_hd256_against_float64(dev, case):
+    """At 3x data the kernel at hd 256 lies within the attention bar of the
+    same attention in float64 (the plain f32 version need not)."""
+    (q, kp, vp, table, pos), window = _pool_case(dev, **case)
+    out = ops.paged_gqa(q, kp, vp, table, pos, window=window)
+    truth = _f64_attention(q, KV.gather_view(kp, table),
+                           KV.gather_view(vp, table), pos, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.double(), truth, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["bf16", "nvfp4"])
+def test_paged_gqa_refuses_head_dims_above_256(dev, packed):
+    (q, kp, vp, table, pos), _ = _pool_case(dev, b=2, sq=1, h=4, kv=2, hd=272,
+                                            bs=16, maxb=4, lens=[20, 64])
+    with pytest.raises(ValueError, match="head dims above 256"):
+        if packed:
+            (kc, ks), (vc, vs) = F.nvfp4_cache_encode(kp), F.nvfp4_cache_encode(vp)
+            ops.paged_gqa_q(q, kc, ks, vc, vs, table, pos)
+        else:
+            ops.paged_gqa(q, kp, vp, table, pos)
 
 
 def _mla_case(dev, b, sq, h, lora, rope, bs, maxb, lens, dead_rows=(),

@@ -9,7 +9,9 @@ CUDA kernel and MS-EDEN phase 1's rely on, mirrored here in PyTorch.
 - `ops.nvfp4_fos_quant` on the CPU (the plain version) against the
   reference kernel in interpret mode on bf16 inputs: codes, scales and
   gscale BITWISE (the reference's absmax, taken outside its pallas_call, is
-  the same max).
+  the same max); against the reference's `quant_four_over_six` (eager) on
+  inputs with 4/6 near-ties, BITWISE: both sum a group's errors in index
+  order.
 - The E2M1 rounding of the kernels, (m + c) - c then min(., 6) with c =
   2^22 scaled by m's binade, and the 3-bit index read from its f32 bits:
   EQUAL to `formats.fp4_rtn` / `fp4_code` on every threshold, grid point and
@@ -82,6 +84,33 @@ def test_plain_matches_jax_kernel(m, k):
     assert np.array_equal(F.unpack_fp4(packed).numpy(), np.asarray(codes))
     assert np.array_equal(F.bits_to_e4m3(bits).numpy(), np.asarray(scales))
     assert float(gs) == float(gscale)
+
+
+@pytest.mark.parametrize("seed", [5, 32])
+def test_four_over_six_near_ties_take_the_references_sum_order(seed):
+    """A group whose /4 and /6 squared errors tie to an ulp keeps the branch
+    the reference keeps: the plain version sums a group's 16 errors in
+    index order, as XLA and the CUDA kernel do (`Tensor.sum`'s order would
+    pick the other branch for 2 groups of seed 5's input and 1 of seed
+    32's, both (1024, 4096) normals in bf16). The reference runs EAGERLY
+    (under jax.jit its gscale divide becomes a reciprocal multiply)."""
+    import jax
+    from repro.core import quant as JQ
+    from repro_torch.core import quant as Q
+
+    x = np.random.RandomState(seed).randn(1024, 4096).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    with jax.disable_jit():
+        want = JQ.quant_four_over_six(xb)
+    got = Q.quant_four_over_six(torch.from_numpy(x).bfloat16())
+    assert float(got.gscale) == float(want.gscale)
+    assert np.array_equal(got.scales.numpy(), np.asarray(want.scales))
+    assert np.array_equal(got.vals.numpy(), np.asarray(want.vals))
+    e = torch.from_numpy(np.random.RandomState(seed).rand(4096, 16).astype(
+        np.float32))
+    with jax.disable_jit():
+        jsum = np.asarray(jnp.sum(jnp.asarray(e.numpy()), axis=-1))
+    assert np.array_equal(Q._sum_in_order(e).numpy(), jsum)
 
 
 def rtn_mag(m: torch.Tensor, near: bool = False):

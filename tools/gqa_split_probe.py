@@ -13,9 +13,11 @@ the attention bar first. Times: CUDA events over the calls, and the
 kernels' own device time from torch.profiler (both kernels, and the split
 and merge kernels apart); SDPA over the gathered view beside them. Then, for yi-9b's heads at a 16-token chunk over the bf16
 pool with K/V drawn at 3x unit scale (two of chip_smoke.py's split cases,
-which it runs over the NVFP4 pool), how far the kernel and the plain
-version each are from the same attention in float64, and how many elements
-of each lie outside the attention bar around the other. Prints one line per (shape, pool, split) and the card's name and
+which it runs over the NVFP4 pool) and recurrentgemma-9b's heads at hd
+256 and 128 (`ACCURACY_CASES`), how far the kernel and the plain version
+each are from the same attention in float64, and how many elements of each
+lie outside the attention bar around the other (`--accuracy-only` runs only
+these). Prints one line per (shape, pool, split) and the card's name and
 power limit; writes chiprun_out/gqa_split_probe.json.
 """
 
@@ -61,33 +63,30 @@ def device_split(torch, fn, reps: int = 3) -> dict:
             "merge_kernel_ms": us["merge"] / 1e3 / reps}
 
 
-def f64_attention(torch, q, k, v, pos, window=None):
-    """The plain version's attention in float64 over gathered (B, T, KV, d)
-    views: causal per absolute position (and windowed), IEEE softmax."""
-    b, sq, h, hd = q.shape
-    kvh = k.shape[2]
-    qd = q.double().reshape(b, sq, kvh, h // kvh, hd)
-    s = torch.einsum("bqgrd,btgd->bgrqt", qd, k.double()) / hd ** 0.5
-    qpos = pos.long()[:, None] + torch.arange(sq, device=q.device)[None]
-    kj = torch.arange(k.shape[1], device=q.device)[None, None]
-    ok = kj <= qpos[..., None]
-    if window is not None:
-        ok &= kj > qpos[..., None] - window
-    p = torch.softmax(torch.where(ok[:, None, None], s, -1e30), -1)
-    return torch.einsum("bgrqt,btgv->bqgrv", p, v.double()).reshape(b, sq, h, -1)
-
-
-# chip_smoke.py's yi-9b split cases (phase_gqa_splits), over the bf16 pool
+# chip_smoke.py's yi-9b split cases (phase_gqa_splits), over the bf16 pool,
+# then recurrentgemma-9b's lattn heads (H 16, KV 1, hd 256) at a 16-token
+# chunk under its window, and the same heads at hd 128
+YI = dict(h=32, kv=4, hd=128)
 ACCURACY_CASES = {
-    "yi-9b chunk B4 Sq16 H32 KV4": (301, dict(b=4, sq=16, lens=[16, 64, 100, 33])),
+    "yi-9b chunk B4 Sq16 H32 KV4": (301, dict(b=4, sq=16, lens=[16, 64, 100, 33],
+                                              **YI)),
     "window 50, Sq 16, yi-9b heads": (306, dict(b=2, sq=16, lens=[256, 70],
-                                                window=50)),
+                                                window=50, **YI)),
+    "recurrentgemma chunk B4 Sq16 H16 KV1 hd256 window 2048": (
+        1301, dict(b=4, sq=16, lens=[16, 64, 100, 33], window=2048, h=16, kv=1,
+                   hd=256)),
+    "the same heads at hd 128": (
+        1301, dict(b=4, sq=16, lens=[16, 64, 100, 33], window=2048, h=16, kv=1,
+                   hd=128)),
+    "recurrentgemma decode B2 4,096 tokens window 2048 hd256": (
+        1302, dict(b=2, sq=1, lens=[4096, 3000], window=2048, h=16, kv=1,
+                   hd=256, maxb=256)),
 }
 
 
 def accuracy(torch, cs, F, ops, PA, KV):
-    """Kernel and plain version against float64 over the bf16 pool with
-    yi-9b's heads at the 3x data of chip_smoke.py's split cases."""
+    """Kernel and plain version against float64 over the bf16 pool at the
+    3x data of chip_smoke.py's split cases, each case's heads."""
     def outside(a, b):
         return int(((a.double() - b.double()).abs()
                     > 5e-6 + 1e-5 * b.double().abs()).sum())
@@ -95,12 +94,12 @@ def accuracy(torch, cs, F, ops, PA, KV):
     for label, (seed, c) in ACCURACY_CASES.items():
         c = dict(c)
         window = c.pop("window", None)
+        c.setdefault("maxb", 16)
         q, k, v, table, pos = cs.gqa_q_case(
-            torch, F, h=32, kv=4, hd=128, bs=16, maxb=16, seed=seed,
-            packed=False, **c)
+            torch, F, bs=16, seed=seed, packed=False, **c)
         out = ops.paged_gqa(q, k, v, table, pos, window=window)
         ref = PA.paged_gqa_plain(q, k, v, table, pos, window=window)
-        truth = f64_attention(torch, q, KV.gather_view(k, table),
+        truth = cs.f64_attention(torch, q, KV.gather_view(k, table),
                               KV.gather_view(v, table), pos, window)
         row = dict(case=label + ", bf16 pool, 3x data",
                    kernel_vs_plain=(out - ref).abs().max().item(),
@@ -119,6 +118,8 @@ def accuracy(torch, cs, F, ops, PA, KV):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--split-keys", type=int, nargs="+", default=[16, 32, 64])
+    ap.add_argument("--accuracy-only", action="store_true",
+                    help="only the float64 accuracy cases")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -134,7 +135,8 @@ def main() -> None:
                           text=True).stdout.strip()
     rows = []
     default_keys = PA.SPLIT_KEYS
-    for shape, (b, sq, h, kv, lens) in SHAPES.items():
+    for shape, (b, sq, h, kv, lens) in ({} if args.accuracy_only
+                                        else SHAPES).items():
         for packed in (False, True):
             name = "paged_gqa_q" if packed else "paged_gqa"
             kern = ops.paged_gqa_q if packed else ops.paged_gqa
