@@ -147,14 +147,17 @@ Phases (any failure exits non-zero, before the result line):
                48-token prefix, the first alone: 2 x 48 tokens skipped, the
                MLA kernel launched over adopted blocks, finite logits, the
                pool conserved.
-  9. self-speculative decoding, cancel and the token hook (phase 4's and
-               phase 6's weights, bf16 pools): the kernels at a verify
-               chunk's shapes against their plain versions and timed (#2 at
-               M = 16 and 20, #5 and #7 at Sq 4 from mid-sequence positions);
+  9. self-speculative decoding, cancel and the token hook (the first
+               SHARED_LLAMA_LAYERS (5) of phase 4's 10 llama layers, as
+               phases 8 and 10 cut them, and phase 6's weights, bf16 pools):
+               the kernels at a verify chunk's shapes against their plain
+               versions and timed (#2 at M = 16 and 20, #5 and #7 at Sq 4
+               from mid-sequence positions);
      9a. llama-200m quartet2, phase 4's traffic, spec_k 3 over 2 draft
                layers: acceptance, tokens a slot a round, decode tok/s
-               against phase 4's, a second run bitwise, the streams'
-               agreement with phase 4's (reported); a full-batch round's
+               against the non-speculative engine on the same traffic and
+               layers, a second run bitwise, the streams' agreement with
+               it (reported); a full-batch round's
                host ms, device ms of the draft, catch-up and verify (the
                kernels inside each range's card-side span), launches by
                kernel and regime, host syncs by source (sync debug mode).
@@ -323,7 +326,49 @@ Phases (any failure exits non-zero, before the result line):
                quartet2 step x3 of each, card against CPU.
      13f. #1-#4 against their plain versions at every shape 13a and 13e gave
                them (12f's checks: the new K of 12,288 and 14,336).
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 11, 12, 13;
+ 14. whisper's encoder-decoder path (`lm.forward`'s encode, prefill and
+               decode modes; seeded raw weights, every weight quantized
+               where it is used, as the reference's whisper path has no
+               engine):
+     14a. whisper-tiny at its published widths and depth (4 + 4 layers, d
+               384, vocab 51,865), 4 rows of 1,500 stub frames (30 s of
+               audio) and a 4-token decoder prompt: encode + prefill into
+               `lm.init_encdec_cache` (448 positions), then 60 greedy decode
+               steps (the cross K/V projected anew each step, as the
+               reference does), under quartet2 and bf16. Held: #1/#2 launches
+               exact (encode + prefill 128 + 64, a decode step 80 + 40),
+               tokens in the vocabulary, finite logits, the bf16 decode
+               logits within 5% of max|logit| of one train-mode forward over
+               the same tokens; decoder tok/s, host and device ms a decode
+               step and the busy share (4 profiled steps); a reduced encode +
+               prefill + 3 decode steps and a reduced quartet2 train step x3,
+               card against CPU.
+     14b. training at published widths through `make_train_step`
+               (quartet2, AdamW), batch 8 x (1,500 frames, 448 tokens), 3
+               steps: finite, #1-#4 a step exact (128 / 192 / 256 / 128); ms
+               and device ms a step, busy share, peak memory.
+     14f. #1-#4 against their plain versions at every shape 14a and 14b gave
+               them (12f's checks), and #2 over one decode step's 40 GEMMs
+               timed (row 2g).
+ 15. disaggregated prefill/decode (`serve.frontend.make_disagg_pair`: a
+               prefill worker hands each finished prompt's blocks to a decode
+               worker through pinned host buffers; one set of packed weights)
+               on the first SHARED_LLAMA_LAYERS (5) of phase 4's llama
+               layers, 4 slots a worker:
+     15a. 8 requests of 16-64 tokens, 32 new, through the single engine and
+               the pair, under bf16 over the bf16 and the NVFP4 pool and under
+               quartet2: the bf16 streams bitwise the single engine's (or by
+               the tie rule, printed), both pools free and every payload
+               buffer back, a handoff each, no prefill forward on the decode
+               worker; handoff bytes, host ms an export and an import, TTFT
+               and inter-token gap p50/p99 against the single engine,
+               resident bytes.
+     15b. cancel one request in transit and one queued on the decode
+               worker, then drain: both pools conserved.
+     15c. SSE over the pair through `CompletionFrontend`, bitwise the
+               pair's run() under bf16.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 15, 11, 12,
+13, 14 (15 while phase 4's weights are resident);
 the reduced CPU runs that 8b, 8d, 9e and 12e hold the card against run in a
 process of their own from the start (`cpu_references`). Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
@@ -1438,7 +1483,9 @@ def phase_train_reference(torch, arch="llama_200m"):
 
     cfg = registry.get(arch).reduced()
     params = lm.init(cfg, torch.Generator().manual_seed(4), "cpu")
-    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
+    corpus = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=4, d_model=cfg.d_model,
+        emit_embeds=cfg.input_mode == "embeds"))
     losses = {}
     for d in ("cpu", "cuda"):
         init, step = make_train_step(cfg, "quartet2", base_lr=2e-3, total_steps=3)
@@ -3037,7 +3084,7 @@ def phase_prefix(torch, card, llama_params, deepseek_cfg, deepseek_params):
 # phase 9: self-speculative decoding, cancel and the token hook
 # --------------------------------------------------------------------------
 
-SPEC_K, SPEC_DRAFT = 3, 2     # 9a/9b/9e/9f: llama-200m's first 2 of 10 layers
+SPEC_K, SPEC_DRAFT = 3, 2     # 9a/9b/9e/9f: llama-200m's first 2 of the 5 served
 SPEC_K_WIDE = 4               # 9c: the verify's GEMMs at M = 4 x 5 = 20 (wgmma)
 SPEC_DS_DRAFT = 1             # 9d: deepseek-v3's first of 2 layers
 SPEC_ROUNDS = 8               # rounds in each measured window
@@ -3223,8 +3270,9 @@ def phase_spec_llama(torch, card, cfg, params, base, dev="cuda"):
         f"{r['draft_tokens']}), {r['tokens_per_slot_round']:.3f} tokens a slot a "
         f"round, {r['rounds']} rounds; decode {r['decode_tok_s']:.1f} tok/s "
         f"({r['round_ms_host']:.2f} ms a round, host)"
-        + (f" against phase 4's {base['decode_tok_s']:.1f} non-spec; streams "
-           f"agree with phase 4's on {r['agreement_with_nonspec']:.1%} of tokens "
+        + (f" against {base['decode_tok_s']:.1f} non-spec (phase 4's traffic, "
+           f"the same layers); streams agree with non-spec on "
+           f"{r['agreement_with_nonspec']:.1%} of tokens "
            "(quartet2: reported, not held)" if base is not None else "")
         + "; a second run bitwise equal")
     if dev == "cuda":
@@ -3610,15 +3658,25 @@ def phase_spec_kernels(torch):
     return results, errs
 
 
-def phase_spec(torch, card, llama_params, ds_cfg, ds_params, serving, deepseek):
-    """Phase 9: self-speculative decoding (9a-9f) and its kernels' holds."""
-    from repro_torch.configs import registry
+def phase_spec(torch, card, llama_params, ds_cfg, ds_params, deepseek):
+    """Phase 9: self-speculative decoding (9a-9f) and its kernels' holds,
+    llama-200m cut to SHARED_LLAMA_LAYERS layers (views of phase 4's
+    weights, as phases 8 and 10; a depth cut for the time limit). 9a's
+    non-speculative baseline is phase 4's traffic on the same cut model."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
     t0 = time.perf_counter()
-    log("phase 9: self-speculative decoding, cancel and the token hook")
+    cfg, llama_params = llama_cut(llama_params)
+    log("phase 9: self-speculative decoding, cancel and the token hook "
+        f"(llama-200m at {cfg.n_layers} of 10 layers)")
     out = {}
     out["kernels"], errs = phase_spec_kernels(torch)
-    cfg = registry.get("llama_200m")
-    out["llama"] = phase_spec_llama(torch, card, cfg, llama_params, serving)
+    prompts = llama_prompts(torch, cfg.vocab)
+    eng, results, _, _ = serve_once(torch, cfg, llama_params, EngineConfig,
+                                    Request, ServeEngine, prompts, 32)
+    base = {"decode_tok_s": eng.stats["decode_tokens"] / eng.stats["decode_s"],
+            "streams": {r.req_id: r.tokens for r in results}}
+    del eng
+    out["llama"] = phase_spec_llama(torch, card, cfg, llama_params, base)
     out["bf16"] = phase_spec_bf16(torch, card, cfg, llama_params)
     out["deepseek"] = phase_spec_deepseek(torch, card, ds_cfg, ds_params,
                                           deepseek["bf16_pool"])
@@ -5855,6 +5913,696 @@ def phase_recurrent(torch, card):
     return out, groups, errs
 
 
+# --------------------------------------------------------------------------
+# phase 14: whisper's encoder-decoder path
+# --------------------------------------------------------------------------
+
+# whisper's 30-second window: 1,500 encoder frames, 448 decoder positions
+# (arXiv:2212.04356; openai/whisper ModelDimensions n_audio_ctx, n_text_ctx)
+WHISPER_FRAMES = 1500
+WHISPER_CTX = 448
+WHISPER_BATCH = 4          # 14a: rows
+WHISPER_PROMPT = 4         # 14a: decoder prompt tokens a row
+WHISPER_STEPS = 60         # 14a: greedy decode steps
+WHISPER_PROFILE_STEPS = 4  # 14a: decode steps timed, then profiled
+WHISPER_TRAIN_BATCH = 8    # 14b: rows of (1,500 frames, 448 tokens)
+WHISPER_TRAIN_STEPS = 3
+WHISPER_SEED = (14, 1)     # the quantization seed of 14a's forwards
+
+
+def whisper_launches(layers: int) -> dict:
+    """#1-#4 a forward or step of whisper on raw weights (every weight
+    quantized where it is used): a decode step runs 10 linears a decoder
+    layer (self-attention 4, cross-attention 4 with K/V projected from the
+    encoder output anew, MLP 2), the encode + prefill forward 6 an encoder
+    layer more; a quantized linear quantizes its activation and its weight
+    (#1 x 2) and runs one GEMM; a training step also runs the dX and dW
+    GEMMs (#2 x 3), each backward GEMM's two operands through phase 1 and
+    both in one phase-2 launch (#3 x 4, #4 x 2)."""
+    dec, fwd = 10 * layers, 16 * layers
+    return {"decode": {"nvfp4_fos_quant": 2 * dec, "fp4_matmul": dec},
+            "prefill": {"nvfp4_fos_quant": 2 * fwd, "fp4_matmul": fwd},
+            "train": {"nvfp4_fos_quant": 2 * fwd, "fp4_matmul": 3 * fwd,
+                      "ms_eden_phase1": 4 * fwd, "ms_eden_phase2": 2 * fwd}}
+
+
+class MatmulCalls:
+    """Every fp4_matmul call's (M, N, K, out dtype) on the card, in order,
+    while a run is inside `with calls:` (the wrapped calls launch and count
+    as before): a decode step's 40 GEMMs for row 2g."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls, self._real = [], ops.fp4_matmul
+
+        def rec(a, sa, b, sb, ga, gb, out_dtype=None, **kw):
+            if a.is_cuda:
+                self.calls.append((a.shape[0], b.shape[0], a.shape[1] * 2,
+                                   out_dtype))
+            return self._real(a, sa, b, sb, ga, gb,
+                              *(() if out_dtype is None else (out_dtype,)), **kw)
+
+        ops.fp4_matmul = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.fp4_matmul = self._real
+
+
+def profile_steps(torch, fn, steps, label):
+    """Host ms a call of fn over `steps` calls (synchronized at the end),
+    then the same number under torch.profiler: device ms a call and the
+    busy share (device over the unprofiled host time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(getattr(ev, "self_device_time_total", 0.0), ev.key, ev.count)
+            for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    total_us = sum(us for us, _, _ in rows)
+    if total_us == 0:
+        log(f"  {label}: no device time in key_averages() (not measured)")
+        return {"host_ms_per_step": host_ms, "device_ms_per_step": None,
+                "busy_share": None}
+    dev_ms = total_us / 1e3 / steps
+    by_kernel = {name: sum(us for us, key, _ in rows if of_kernel(key, sym))
+                 / 1e3 / steps for name, sym in KERNEL_SYMBOLS.items()}
+    log(f"  {label}: host {host_ms:.2f} ms a step (unprofiled), device "
+        f"{dev_ms:.3f} ms: busy {dev_ms / host_ms:.1%}; by kernel: " + "; ".join(
+            f"{us / 1e3 / steps:.4f} ms {n // steps}x {key[:60]}"
+            for us, key, n in rows[:6]))
+    return {"host_ms_per_step": host_ms, "device_ms_per_step": dev_ms,
+            "busy_share": dev_ms / host_ms,
+            "kernel_ms": {k: v for k, v in by_kernel.items() if v > 0},
+            "top": [(key, us / 1e3 / steps, n // steps) for us, key, n in rows[:10]]}
+
+
+def whisper_inputs(torch, cfg, batch, frames, tokens, dev, seed):
+    """Seeded stub frame embeddings (bf16 normals x 0.3, the reference
+    pipeline's `emit_embeds`) and decoder tokens."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb = (torch.randn((batch, frames, cfg.d_model), generator=g, device=dev)
+           * 0.3).bfloat16()
+    toks = torch.randint(0, cfg.vocab, (batch, tokens), generator=g, device=dev,
+                         dtype=torch.int32)
+    return emb, toks
+
+
+def whisper_generate(torch, cfg, params, emb, prompt, scheme, steps, max_len,
+                     dev, shapes=None, matmuls=None):
+    """Encode + prefill `prompt` into `init_encdec_cache`, then `steps`
+    greedy decode steps through `lm.forward`, each token the argmax of the
+    last logits (no host read): the tokens (B, P + steps), each sampling
+    step's logits (f32), host s of the prefill and of the decode steps, #1/#2
+    launches of each, and a `step()` that runs one more decode step."""
+    import contextlib
+
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    seed = np.array(WHISPER_SEED, np.uint32)
+    b, p = prompt.shape
+    cache = lm.init_encdec_cache(cfg, b, max_len, emb.shape[1], device=dev)
+    rec = shapes if shapes is not None else contextlib.nullcontext()
+    with torch.no_grad(), rec:
+        cuda_sync(torch, dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = lm.forward(params, cfg, {"embeds": emb, "tokens": prompt},
+                                   scheme, seed, caches=cache, mode="prefill")
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        cuda_sync(torch, dev)
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = dict(ops.LAUNCHES)
+        toks, outs = [prompt, tok[:, None]], [logits[:, -1].float()]
+        state = {"tok": tok, "pos": p, "cache": cache}
+
+        def step(keep=None):
+            lg, state["cache"] = lm.forward(
+                params, cfg, {"tokens": state["tok"][:, None]}, scheme, seed,
+                caches=state["cache"], mode="decode", pos=state["pos"])
+            state["tok"] = lg[:, -1].argmax(-1).to(torch.int32)
+            state["pos"] += 1
+            if keep is not None:
+                keep[0].append(state["tok"][:, None])
+                keep[1].append(lg[:, -1].float())
+
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with (matmuls if matmuls is not None else contextlib.nullcontext()):
+            step((toks, outs))
+        for _ in range(steps - 1):
+            step((toks, outs))
+        cuda_sync(torch, dev)
+        decode_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    return {"tokens": torch.cat(toks, 1), "logits": outs,
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "prefill_launches": prefill_launches, "launches": launches,
+            "step": step}
+
+
+def phase_whisper_serve(torch, card, shapes, dev="cuda"):
+    """14a: whisper-tiny at its published widths and depth, seeded raw
+    weights, 4 rows of 1,500 stub frames and a 4-token decoder prompt:
+    encode + prefill, then 60 greedy decode steps over the cached encoder
+    output, under quartet2 and bf16. Held: #1/#2 launches of the encode +
+    prefill forward and of each decode step exact (quartet2), tokens in the
+    vocabulary, finite logits; the bf16 decode logits within
+    FULL_FORWARD_FRACTION of max|logit| of one train-mode forward over the
+    same tokens. Reported: decoder tok/s, host and device ms a decode step,
+    busy share; then a reduced step and a reduced quartet2 train step x3,
+    card against CPU. dev="cpu" rehearses the logic at the reduced size
+    (30 frames, 6 steps)."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cuda = dev == "cuda"
+    cfg = registry.get("whisper_tiny") if cuda else registry.get("whisper_tiny").reduced()
+    frames, steps = (WHISPER_FRAMES, WHISPER_STEPS) if cuda else (30, 6)
+    log(f"phase 14a: {cfg.name} ({cfg.n_layers} + {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab}), {WHISPER_BATCH} x {frames} frames, "
+        f"a {WHISPER_PROMPT}-token prompt, {steps} greedy decode steps")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(14), dev)
+    emb, prompt = whisper_inputs(torch, cfg, WHISPER_BATCH, frames,
+                                 WHISPER_PROMPT, dev, 141)
+    want = whisper_launches(cfg.n_layers)
+    out = {}
+    for scheme in ("quartet2", "bf16"):
+        whisper_generate(torch, cfg, params, emb, prompt, scheme, 2,
+                         WHISPER_CTX, dev)  # warm-up
+        matmuls = MatmulCalls() if scheme == "quartet2" and cuda else None
+        r = whisper_generate(torch, cfg, params, emb, prompt, scheme, steps,
+                             WHISPER_CTX, dev,
+                             shapes if scheme == "quartet2" else None, matmuls)
+        toks = r["tokens"]
+        if toks.shape != (WHISPER_BATCH, WHISPER_PROMPT + steps + 1) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            fail(f"14a ({scheme}): tokens of shape {tuple(toks.shape)} or "
+                 "outside the vocabulary")
+        if not all(bool(torch.isfinite(x).all()) for x in r["logits"]):
+            fail(f"14a ({scheme}): non-finite logits")
+        per_step = {k: r["launches"][k] / steps for k in ("nvfp4_fos_quant",
+                                                          "fp4_matmul")}
+        res = {"prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
+               "decode_tok_s": WHISPER_BATCH * steps / r["decode_s"],
+               "decode_step_ms": r["decode_s"] / steps * 1e3,
+               "launches": r["launches"], "prefill_launches": r["prefill_launches"],
+               "launches_per_step": per_step}
+        if cuda and scheme == "quartet2":
+            pre = {k: r["prefill_launches"][k] for k in want["prefill"]}
+            if pre != want["prefill"] or per_step != want["decode"]:
+                fail(f"14a: #1/#2 launches: encode + prefill {pre}, a decode "
+                     f"step {per_step}; predicted {want['prefill']} and "
+                     f"{want['decode']}")
+            res["decode_matmuls"] = matmuls.calls[:want["decode"]["fp4_matmul"]]
+        if cuda:
+            res["profile"] = profile_steps(
+                torch, r["step"], WHISPER_PROFILE_STEPS,
+                f"14a {scheme} decode step")
+        if scheme == "bf16":
+            with torch.no_grad():
+                full = lm.forward(params, cfg, {"embeds": emb,
+                                                "tokens": toks[:, :-1]},
+                                  "bf16", np.array(WHISPER_SEED, np.uint32),
+                                  mode="train")[0].float()
+            tol = FULL_FORWARD_FRACTION * float(full.abs().max())
+            err = max(float((lg - full[:, WHISPER_PROMPT - 1 + i]).abs().max())
+                      for i, lg in enumerate(r["logits"]))
+            res.update(vs_full_forward=err, vs_full_forward_tol=tol)
+            if not err <= tol:
+                fail(f"14a: bf16 decode logits {err:.4g} from the train-mode "
+                     f"forward's (bar {tol:.4g})")
+        log(f"  14a [{card}] {scheme}: encode + prefill {r['prefill_s'] * 1e3:.1f} ms "
+            f"(host, launches {r['prefill_launches']['nvfp4_fos_quant']} / "
+            f"{r['prefill_launches']['fp4_matmul']}), decode {res['decode_tok_s']:.1f} "
+            f"tok/s ({res['decode_step_ms']:.2f} ms a step, host); #1/#2 a step "
+            f"{per_step}" + (f"; decode logits {res['vs_full_forward']:.4g} from "
+                             f"the train forward's (bar {tol:.4g})"
+                             if scheme == "bf16" else ""))
+        out[scheme] = res
+        del r
+    del params, emb
+    if cuda:
+        torch.cuda.empty_cache()
+        out["reduced_vs_cpu"] = whisper_reduced_vs_cpu(torch)
+        out["train_reduced_vs_cpu"] = phase_train_reference(torch, "whisper_tiny")
+    return out
+
+
+def whisper_reduced_vs_cpu(torch):
+    """Reduced whisper, encode + prefill of 8 tokens and 3 decode steps,
+    the card against the CPU (same weights, frames and tokens), with
+    phase 3's bars for a reduced step: bf16 within 2e-2 of max|dlogit|
+    (summation order only), quartet2 below 0.3 relative RMS."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.get("whisper_tiny").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(15), "cpu")
+    emb, toks = whisper_inputs(torch, cfg, 2, 30, 11, "cpu", 151)
+    res = {}
+    for scheme in ("bf16", "quartet2"):
+        outs = {}
+        for d in ("cpu", "cuda"):
+            p = to_device(params, d)
+            r = whisper_generate(torch, cfg, p, emb.to(d), toks[:, :8].to(d),
+                                 scheme, 3, 32, d)
+            outs[d] = [x.cpu() for x in r["logits"]]
+        worst_abs = max((a - b).abs().max().item()
+                        for a, b in zip(outs["cuda"], outs["cpu"]))
+        worst_rel = max(((a - b).pow(2).mean() / b.pow(2).mean()).sqrt().item()
+                        for a, b in zip(outs["cuda"], outs["cpu"]))
+        log(f"  reduced {cfg.name} encode + prefill + 3 decode steps, {scheme}: "
+            f"card vs CPU max|dlogit| {worst_abs:.3g}, rel RMS {worst_rel:.3g}")
+        if (not all(torch.isfinite(a).all() for a in outs["cuda"])
+                or (scheme == "bf16" and worst_abs > 2e-2) or worst_rel > 0.3):
+            fail(f"reduced whisper ({scheme}): card disagrees with the CPU")
+        res[scheme] = {"max_abs": worst_abs, "rel_rms": worst_rel}
+    return res
+
+
+class FixedBatch:
+    """A corpus whose every batch is the one given (profile_train_step's
+    `trainer.corpus`)."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def batch_at(self, step):
+        return self.batch
+
+
+def phase_whisper_train(torch, card, shapes, dev="cuda"):
+    """14b: whisper-tiny training at its published widths through
+    `make_train_step` (quartet2, AdamW, warmup-cosine at base lr 2e-3),
+    batch 8 x (1,500 stub frames into the encoder, 448 tokens into the
+    decoder), 3 steps, kernel shapes recorded into `shapes`: losses and
+    weights finite, #1-#4 a step exactly as `whisper_launches` predicts;
+    ms and device ms a step, busy share, peak memory. dev="cpu" rehearses
+    it at the reduced size (batch 2 x (30 frames, 16 tokens))."""
+    import types
+
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    cuda = dev == "cuda"
+    cfg = registry.get("whisper_tiny") if cuda else registry.get("whisper_tiny").reduced()
+    b, frames, seq = ((WHISPER_TRAIN_BATCH, WHISPER_FRAMES, WHISPER_CTX) if cuda
+                      else (2, 30, 16))
+    log(f"phase 14b: training {cfg.name}, quartet2, AdamW, batch {b} x ({frames} "
+        f"frames, {seq} tokens), {WHISPER_TRAIN_STEPS} steps")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    init, step = make_train_step(cfg, "quartet2", base_lr=2e-3,
+                                 total_steps=WHISPER_TRAIN_STEPS)
+    state = init(lm.init(cfg, torch.Generator(device=dev).manual_seed(142), dev))
+    emb, toks = whisper_inputs(torch, cfg, b, frames, seq + 1, dev, 143)
+    batch = {"embeds": emb, "tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    losses, dts = [], []
+    ops.reset_launches()
+    with shapes:
+        for _ in range(WHISPER_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))  # the step's host sync
+            dts.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if not all(np.isfinite(losses)):
+        fail(f"14b: non-finite training loss: {losses}")
+    if not all(bool(torch.isfinite(p).all()) for p in adamw.leaves(state.params)):
+        fail("14b: non-finite parameters after training")
+    want = whisper_launches(cfg.n_layers)["train"]
+    per_step = {k: launches[k] / WHISPER_TRAIN_STEPS for k in want}
+    if cuda and per_step != want:
+        fail(f"14b: #1-#4 a step {per_step}, predicted {want}")
+    step_ms = sum(dts[1:]) / len(dts[1:]) * 1e3
+    log(f"  14b [{card}] losses {[round(x, 4) for x in losses]}; {step_ms:.1f} ms "
+        f"a step (host clock, steps 2-{WHISPER_TRAIN_STEPS}), "
+        f"{b * seq / step_ms * 1e3:.0f} decoder tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; #1-#4 a step {per_step}")
+    prof = None
+    if cuda:
+        trainer = types.SimpleNamespace(corpus=FixedBatch(batch), train_step=step)
+        prof = profile_train_step(torch, trainer, state, step_ms)
+    res = {"losses": losses, "step_ms": step_ms, "peak_mem_bytes": peak,
+           "launches": launches, "launches_per_step": per_step, "profile": prof,
+           "tokens_per_s": b * seq / step_ms * 1e3}
+    del state, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def whisper_decode_group(torch, calls):
+    """Row 2g: one 14a quartet2 decode step's 40 GEMMs ((M, N, K) as the
+    step gave them: M = 4 a row, the cross K/V at M = 4 x 1,500) timed on
+    seeded 4/6-quantized operands, with the plain version, `torch.matmul`
+    on the same bf16 block values and the bound."""
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(144)
+    ops_calls = []
+    for m, n, k, dt in calls:
+        a = ops.nvfp4_fos_quant(torch.randn((m, k), generator=g,
+                                            device="cuda").bfloat16())
+        w = ops.nvfp4_fos_quant(torch.randn((n, k), generator=g, device="cuda")
+                                * k ** -0.5)
+        ops_calls.append((a, w, dt if dt is not None else torch.float32))
+    log(f"  2g: fp4_matmul over one whisper decode step's {len(calls)} GEMMs "
+        f"(M = {sorted({c[0] for c in calls})}):")
+    return matmul_group(torch, FM, ops, ops_calls, 5)
+
+
+def phase_whisper(torch, card):
+    """Phase 14: 14a, 14b, and 14f: #1-#4 held against their plain versions
+    at every shape 14a and 14b gave them (12f's checks), and row 2g. Returns
+    its numbers (with "launches", the sum over its main-path runs: 14a's
+    quartet2 and bf16 decoding and 14b's training), its kernel groups and
+    errors."""
+    t0 = time.perf_counter()
+    shapes = KernelShapes()
+    out = {"serve": phase_whisper_serve(torch, card, shapes)}
+    out["train"] = phase_whisper_train(torch, card, shapes)
+    errs = phase_registry_kernels(torch, shapes, "14f", "14a and 14b")
+    groups = {"fp4_matmul": {"whisper_decode_step": whisper_decode_group(
+        torch, out["serve"]["quartet2"].pop("decode_matmuls"))}}
+    runs = [out["serve"]["quartet2"], out["serve"]["bf16"], out["train"]]
+    out["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in runs[0]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 14 took {out['phase_s']:.1f} s; launches on its main paths: "
+        f"{out['launches']}")
+    return out, groups, errs
+
+
+# --------------------------------------------------------------------------
+# phase 15: disaggregated prefill/decode serving
+# --------------------------------------------------------------------------
+
+DISAGG_NEW = 32         # 15a: new tokens a request
+DISAGG_MAX_LEN = 128    # 15a: prompts of 16-64 tokens + 32 new
+DISAGG_RUNS = (("bf16", False), ("bf16", True), ("quartet2", False))
+
+
+def disagg_prompts(torch, vocab, n=8):
+    """15a's traffic: 8 prompts of 16-64 tokens from seed 15."""
+    g = torch.Generator().manual_seed(15)
+    lens = torch.randint(16, 65, (n,), generator=g).tolist()
+    return [torch.randint(0, vocab, (k,), generator=g).tolist() for k in lens]
+
+
+def disagg_econf(dev, **kw):
+    from repro_torch.serve.engine import EngineConfig
+    return EngineConfig(**{**dict(n_slots=4, max_len=DISAGG_MAX_LEN,
+                                  block_size=16, prefill_chunk=16,
+                                  scheme="quartet2", device=dev), **kw})
+
+
+def timed_serve(torch, eng, prompts, max_new, dev):
+    """`prompts` through `eng` (a ServeEngine or an EnginePair), each
+    token's host time taken at the token hook: ({id: tokens}, TTFT s of
+    each request, inter-token gaps s, wall s)."""
+    from repro_torch.serve.engine import Request
+    times = {}
+
+    def hook(req, new, result):
+        now = time.perf_counter()
+        times.setdefault(req.req_id, []).extend([now] * len(new))
+
+    eng.token_hook = hook
+    reqs = [Request(list(p), max_new) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    res = {r.req_id: r.tokens for r in eng.run()}
+    cuda_sync(torch, dev)
+    wall = time.perf_counter() - t0
+    eng.token_hook = None
+    if sorted(res) != [r.req_id for r in reqs] or any(
+            len(t) != max_new for t in res.values()):
+        fail("15: a request was not served whole")
+    ttft = [times[r.req_id][0] - r.arrival_s for r in reqs]
+    gaps = [b - a for r in reqs for a, b in zip(times[r.req_id],
+                                                  times[r.req_id][1:])]
+    return res, ttft, gaps, wall
+
+
+def instrument_pair(pair):
+    """Host s of each export (the prefill worker's handoff tick over the
+    handoffs it made) and each import (`_try_admit_handoff`), and the
+    payload bytes the exports read."""
+    st = {"export_s": [], "import_s": [], "bytes": 0}
+    pe, de = pair.prefill, pair.decode
+    tick, admit, read = pe._handoff_tick, de._try_admit_handoff, pe.pool.read_block_host
+
+    def timed_tick():
+        n0, t0 = pe.stats["handoffs"], time.perf_counter()
+        out = tick()
+        n = pe.stats["handoffs"] - n0
+        if n:
+            st["export_s"] += [(time.perf_counter() - t0) / n] * n
+        return out
+
+    def timed_admit(h):
+        t0 = time.perf_counter()
+        ok = admit(h)
+        if ok:
+            st["import_s"].append(time.perf_counter() - t0)
+        return ok
+
+    def counted_read(block, non_blocking=False):
+        payload, nbytes = read(block, non_blocking)
+        st["bytes"] += nbytes
+        return payload, nbytes
+
+    pe._handoff_tick, de._try_admit_handoff = timed_tick, timed_admit
+    pe.pool.read_block_host = counted_read
+    return st
+
+
+def pair_conserved(torch, pair, dev, label):
+    """Both pools hold no block and every payload buffer is back on the
+    prefill pool's host free list once its copies have run."""
+    cuda_sync(torch, dev)
+    pe, de = pair.prefill, pair.decode
+    pe.pool.poll_host()
+    if pair.has_work():
+        fail(f"{label}: the pair still has work")
+    if (pe.pool.free_block_count != pe.pool.n_blocks
+            or de.pool.free_block_count != de.pool.n_blocks):
+        fail(f"{label}: blocks held: prefill {pe.pool.n_blocks - pe.pool.free_block_count}"
+             f", decode {de.pool.n_blocks - de.pool.free_block_count}")
+    if len(pe.pool._host_free) != pe.pool.host_allocs or de.pool.host_allocs:
+        fail(f"{label}: {pe.pool.host_allocs - len(pe.pool._host_free)} payload "
+             "buffers not returned")
+
+
+def resident(torch, build, dev):
+    """(build(), device bytes it left allocated)."""
+    gc.collect()
+    cuda_sync(torch, dev)
+    base = torch.cuda.memory_allocated() if dev == "cuda" else 0
+    obj = build()
+    cuda_sync(torch, dev)
+    return obj, (torch.cuda.memory_allocated() - base if dev == "cuda" else 0)
+
+
+def phase_disagg_streams(torch, card, cfg, params, prompts, dev="cuda"):
+    """15a: phase 15's traffic (8 requests of 16-64 tokens, 32 new, 4
+    slots) through the single engine and through `make_disagg_pair`, under
+    bf16 over the bf16 and the NVFP4 pool and under quartet2 over the bf16
+    pool. Held: the pair's bf16 streams equal the single engine's bitwise
+    (or, should cuBLAS pick other algorithms, by the tie rule; which one is
+    printed); every block of both pools free and every payload buffer back
+    at the end; a handoff for each request; no prefill forward on the
+    decode worker and no decode step on the prefill worker; the pool's
+    attention kernel launched (and #1/#2 under quartet2). Reported:
+    handoff bytes a request, host ms an export and an import, TTFT and
+    the inter-token gap (p50/p99), pair against single, resident device
+    bytes of each and the pair's pinned payload bytes; quartet2's
+    agreement with the single engine (the per-tensor activation absmax
+    couples a decode step's rows, and a handed-off request joins the
+    decode batch a tick later, so it is not held)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.frontend import make_disagg_pair
+    out, launch_runs = {}, []
+    for scheme, kv_quant in DISAGG_RUNS:
+        pool = "NVFP4 pool" if kv_quant else "bf16 pool"
+        econf = disagg_econf(dev, scheme=scheme, kv_quant=kv_quant)
+        for build in (lambda: ServeEngine(cfg, params, econf),
+                      lambda: make_disagg_pair(cfg, params, econf)):
+            timed_serve(torch, build(), prompts[:2], 2, dev)  # warm-up
+        mono, mono_bytes = resident(torch, lambda: ServeEngine(cfg, params, econf),
+                                    dev)
+        margins = margin_recorder(mono)
+        m_res, m_ttft, m_gaps, m_wall = timed_serve(torch, mono, prompts,
+                                                    DISAGG_NEW, dev)
+        mono_st = dict(mono.stats)
+        del mono
+        pair, pair_bytes = resident(
+            torch, lambda: make_disagg_pair(cfg, params, econf), dev)
+        hst = instrument_pair(pair)
+        ops.reset_launches()
+        p_res, p_ttft, p_gaps, p_wall = timed_serve(torch, pair, prompts,
+                                                    DISAGG_NEW, dev)
+        launches = dict(ops.LAUNCHES)
+        launch_runs.append(launches)
+        label = f"15a ({scheme}, {pool})"
+        pair_conserved(torch, pair, dev, label)
+        pe, de = pair.prefill, pair.decode
+        if (pe.stats["handoffs"] != len(prompts) or de.stats["prefill_steps"]
+                or pe.stats["decode_steps"]):
+            fail(f"{label}: handoffs {pe.stats['handoffs']} of {len(prompts)}, "
+                 f"decode-worker prefill forwards {de.stats['prefill_steps']}, "
+                 f"prefill-worker decode steps {pe.stats['decode_steps']}")
+        kernel = "paged_gqa_q" if kv_quant else "paged_gqa"
+        need = [kernel] + (["nvfp4_fos_quant", "fp4_matmul"]
+                           if scheme == "quartet2" else [])
+        if dev == "cuda" and any(launches[k] <= 0 for k in need):
+            fail(f"{label}: a kernel of the path was not launched: {launches}")
+        bitwise = p_res == m_res
+        agree, first = agreement(p_res, m_res)
+        equal, compared = tie_rule(p_res, m_res, margins, DISAGG_NEW)
+        tie_met = equal and compared >= len(prompts) * DISAGG_NEW // 2
+        if scheme == "bf16" and not (bitwise or tie_met):
+            fail(f"{label}: the pair's streams differ from the single engine's "
+                 f"past the tie rule (first differing token by request {first})")
+        exported = sum(-(-len(p) // 16) for p in prompts)
+        r = {"bitwise": bitwise, "tie_rule_met": tie_met, "agreement": agree,
+             "first_diff": first, "handoff_bytes_per_request": hst["bytes"] / len(prompts),
+             "export_ms": median(hst["export_s"]) * 1e3,
+             "import_ms": median(hst["import_s"]) * 1e3,
+             "ttft_s": dict(zip(("p50", "p99"), quantiles(p_ttft))),
+             "gap_s": dict(zip(("p50", "p99"), quantiles(p_gaps))),
+             "single_ttft_s": dict(zip(("p50", "p99"), quantiles(m_ttft))),
+             "single_gap_s": dict(zip(("p50", "p99"), quantiles(m_gaps))),
+             "decode_tok_s": de.stats["decode_tokens"] / de.stats["decode_s"],
+             "wall_s": p_wall, "single_wall_s": m_wall,
+             "single_decode_tok_s": mono_st["decode_tokens"] / mono_st["decode_s"],
+             "resident_bytes": pair_bytes, "single_resident_bytes": mono_bytes,
+             "pinned_payload_bytes": pe.pool.host_allocs * pe.pool.host_block_bytes,
+             "payload_buffers": pe.pool.host_allocs, "blocks_exported": exported,
+             "launches": launches}
+        log(f"  {label} [{card}]: streams "
+            + ("bitwise the single engine's" if bitwise else
+               f"{'meet' if tie_met else 'miss'} the tie rule ({agree:.1%} before "
+               "each row's first difference)")
+            + f"; {r['handoff_bytes_per_request'] / 1e3:.1f} kB a handoff, export "
+            f"{r['export_ms']:.3f} ms / import {r['import_ms']:.3f} ms (host, "
+            f"median); TTFT p50/p99 {r['ttft_s']['p50']:.3f}/{r['ttft_s']['p99']:.3f} s "
+            f"(single {r['single_ttft_s']['p50']:.3f}/{r['single_ttft_s']['p99']:.3f}), "
+            f"gap p50/p99 {r['gap_s']['p50'] * 1e3:.1f}/{r['gap_s']['p99'] * 1e3:.1f} ms "
+            f"(single {r['single_gap_s']['p50'] * 1e3:.1f}/"
+            f"{r['single_gap_s']['p99'] * 1e3:.1f}); decode {r['decode_tok_s']:.1f} "
+            f"tok/s (single {r['single_decode_tok_s']:.1f}); resident "
+            f"{pair_bytes / 2**20:.1f} MiB (single {mono_bytes / 2**20:.1f}), "
+            f"{pe.pool.host_allocs} pinned payload buffers for {exported} "
+            f"blocks exported ({r['pinned_payload_bytes'] / 2**10:.0f} KiB)")
+        out[f"{scheme}_{'nvfp4' if kv_quant else 'bf16'}_pool"] = r
+        del pair
+    return out, launch_runs
+
+
+def phase_disagg_cancel(torch, card, cfg, params, prompts, dev="cuda"):
+    """15b: bf16 pair, the first 16 tokens of 15a's prompts (one prefill
+    chunk each, so prefills outpace decoding and the decode slots fill):
+    cancel one request while its handoff is in transit (exported by the
+    prefill worker, not yet shipped) and one whose handoff waits on the
+    decode worker for a slot, then drain: the other 6 served whole, both
+    pools conserved, every payload buffer returned."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.frontend import make_disagg_pair
+    pair = make_disagg_pair(cfg, params, disagg_econf(dev, scheme="bf16"))
+    ids = [pair.submit(Request(list(p[:16]), DISAGG_NEW)) for p in prompts]
+    while not pair.prefill.handoffs:
+        pair.prefill.step()
+    in_transit = pair.prefill.handoffs[0].req.req_id
+    if not pair.cancel(in_transit):
+        fail("15b: the in-transit handoff could not be cancelled")
+    for _ in range(10_000):
+        if pair.decode.handoff_queue:
+            break
+        pair.step()
+    else:
+        fail("15b: no handoff ever waited for a decode slot")
+    queued = pair.decode.handoff_queue[-1].req.req_id
+    if not pair.cancel(queued):
+        fail("15b: the queued handoff could not be cancelled")
+    res = {r.req_id: r.tokens for r in pair.run()}
+    left = sorted(set(ids) - {in_transit, queued})
+    if sorted(res) != left or any(len(t) != DISAGG_NEW for t in res.values()):
+        fail(f"15b: served {sorted(res)}, expected {left}")
+    if pair.stats["cancelled"] != 2:
+        fail(f"15b: {pair.stats['cancelled']} cancellations counted")
+    pair_conserved(torch, pair, dev, "15b")
+    log(f"  15b [{card}]: cancelled request {in_transit} in transit and {queued} "
+        f"queued on the decode worker; the other {len(left)} served whole; both "
+        "pools conserved, every payload buffer returned")
+    return {"cancelled": [in_transit, queued], "served": len(left)}
+
+
+def phase_disagg_http(torch, card, cfg, params, prompts, dev="cuda"):
+    """15c: bf16, the first 4 of 15a's requests as concurrent SSE clients of
+    `CompletionFrontend` over a pair on the bridge's thread: the streams
+    bitwise the pair's own `run()`, both pools conserved."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.frontend import make_disagg_pair
+    prompts = prompts[:4]
+    econf = disagg_econf(dev, scheme="bf16")
+    ref_pair = make_disagg_pair(cfg, params, econf)
+    ids = [ref_pair.submit(Request(list(p), DISAGG_NEW)) for p in prompts]
+    res = {r.req_id: r.tokens for r in ref_pair.run()}
+    want = [res[i] for i in ids]
+    pair = make_disagg_pair(cfg, params, econf)
+    got, wall, _, launches = streamed(torch, pair, prompts, DISAGG_NEW, dev)
+    if [r["tokens"] for r in got] != want:
+        fail("15c: SSE streams over the pair differ from its run()")
+    pair_conserved(torch, pair, dev, "15c")
+    log(f"  15c [{card}]: {len(prompts)} SSE streams over the pair bitwise its "
+        f"run(); wall {wall:.2f} s; launches {launches}")
+    return {"wall_s": wall, "launches": launches}
+
+
+def phase_disagg(torch, card, llama_params):
+    """Phase 15: disaggregated prefill/decode (15a-15c) on llama-200m's
+    first SHARED_LLAMA_LAYERS layers (views of phase 4's weights). Returns
+    its numbers, with "launches" the sum over its main-path runs (15a's
+    three pairs and 15c's)."""
+    t0 = time.perf_counter()
+    cfg, params = llama_cut(llama_params)
+    log(f"phase 15: disaggregated prefill/decode (llama-200m at {cfg.n_layers} of "
+        "10 layers, 4 slots a worker)")
+    prompts = disagg_prompts(torch, cfg.vocab)
+    out, runs = phase_disagg_streams(torch, card, cfg, params, prompts)
+    out["cancel"] = phase_disagg_cancel(torch, card, cfg, params, prompts)
+    out["http"] = phase_disagg_http(torch, card, cfg, params, prompts)
+    runs.append(out["http"]["launches"])
+    out["launches"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 15 took {out['phase_s']:.1f} s; launches on its main paths: "
+        f"{out['launches']}")
+    return out
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -5950,13 +6698,13 @@ def main() -> None:
     llama, ds_params = to_device(held, "cuda")
     del held
     prefix = phase_prefix(torch, card, llama, ds_cfg, ds_params)
-    spec, spec_errs = phase_spec(torch, card, llama, ds_cfg, ds_params, serving,
-                                 deepseek)
+    spec, spec_errs = phase_spec(torch, card, llama, ds_cfg, ds_params, deepseek)
     for k, err in spec_errs.items():
         kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
     http, http_errs = phase_http(torch, card, llama, serving["prompts"])
     for k, err in http_errs.items():
         kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
+    disagg = phase_disagg(torch, card, llama)
     t_gen = time.perf_counter()
     generate, gen_errs = phase_generate_llama(torch, card, llama,
                                               serving["prompts"],
@@ -5982,14 +6730,17 @@ def main() -> None:
     for k, grps in reg_groups.items():
         kern[k].setdefault("groups", {}).update(grps)
     recurrent_out, rec_groups, rec_errs = phase_recurrent(torch, card)
-    for k, err in rec_errs.items():
-        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
-    for k, grps in rec_groups.items():
-        kern[k].setdefault("groups", {}).update(grps)
+    whisper_out, wh_groups, wh_errs = phase_whisper(torch, card)
+    for errs in (rec_errs, wh_errs):
+        for k, err in errs.items():
+            kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
+    for grps_of in (rec_groups, wh_groups):
+        for k, grps in grps_of.items():
+            kern[k].setdefault("groups", {}).update(grps)
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
                  deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec,
                  http, generate["quartet2"], generate["deepseek"], generate["long"],
-                 registry_out, recurrent_out)
+                 registry_out, recurrent_out, whisper_out, disagg)
 
     kernels = []
     for k, r in kern.items():
@@ -6021,7 +6772,7 @@ def main() -> None:
          "deepseek": deepseek, "training": training, "resume": resume,
          "nanochat": nanochat, "prefix": prefix, "spec": spec, "http": http,
          "generate": generate, "registry": registry_out,
-         "recurrent": recurrent_out},
+         "recurrent": recurrent_out, "whisper": whisper_out, "disagg": disagg},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

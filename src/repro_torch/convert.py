@@ -8,7 +8,10 @@ leaves (`router`, the (count, E, f, d) expert stacks, the shared expert),
 rwkv6's (`mu`, the LoRAs `mix_w1`, `mix_w2` (count, 5, r, d), `ww1`,
 `ww2`, `w0`, `u`, the group-norm gain `gn`, `cm_mu` and the projections)
 and griffin's (`conv_w`, `conv_b`, `lam`, `wa`, `ba`, `wx`, `bx`, `w_in`,
-`w_gate`, `w_out`) keep their names and shapes (an rwkv layer has no `ff`
+`w_gate`, `w_out`) and whisper's (the layernorm gains and biases `g`, `b`;
+the encoder under `stages`, the decoder's `dec_embed`, `dec_stages` with
+each layer's cross-attention `xattn` and its norm `nx`, `dec_final_norm`,
+`dec_head`) keep their names and shapes (an rwkv layer has no `ff`
 subtree: its channel-mix lives under `mix`, as in the reference), and a
 reference `PackedQWeight` (a NamedTuple
 with `packed`, `scales8`, `gscale`; stacked expert weights pack to (count,

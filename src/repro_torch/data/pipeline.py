@@ -10,8 +10,10 @@ the two packages feed both the reference corpus's batches.
 `batch_at(step)` is a pure function of (seed, step): resuming at step k
 reproduces the exact stream with no iterator state. Batches are made on the
 CPU; the caller moves them to its device. With `emit_embeds` a batch also
-carries stub "embeds" (the vision family's precomputed patch embeddings):
-bf16 normals times 0.3, drawn from the step's generator after the tokens.
+carries stub "embeds" (the vision family's precomputed patch embeddings,
+or whisper's frame embeddings for its encoder, whose decoder reads the
+tokens): bf16 normals times 0.3, drawn from the step's generator after the
+tokens.
 `byte_corpus_from_text` is the reference's tiny real-data corpus and gives
 its batches bitwise. Left out until `dist/` is ported: the reference's
 per-host sharding of the batch.
@@ -32,7 +34,7 @@ class DataConfig:
     global_batch: int
     seed: int = 0
     zipf_a: float = 1.2
-    d_model: int = 0         # > 0 with emit_embeds: stub "embeds" (vlm)
+    d_model: int = 0         # > 0 with emit_embeds: stub "embeds" (vlm, audio)
     emit_embeds: bool = False
 
 

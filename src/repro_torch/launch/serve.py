@@ -5,7 +5,7 @@
         [--prefix-cache [--prefix-spill] [--host-budget-bytes N]]
         [--scheduler fifo|latency] [--shared-prefix N]
         [--spec-k K --draft-layers L] [--temperature T] [--top-k K]
-        [--obs] [--http PORT]
+        [--disagg] [--obs] [--http PORT]
 
 Builds seeded random weights, packed as they are drawn (quartet2: NVFP4 4/6;
 `serve.prequant.init_packed`, with one chunk of f32 matrices alive at a
@@ -27,16 +27,21 @@ engine skipped and its cache hit rate. `--spec-k K --draft-layers L`
 decodes self-speculatively (the first L layers draft K tokens a round, the
 full model verifies them in one chunk) and prints the acceptance rate and
 the tokens each slot emits a round; `--temperature` and `--top-k` set every
-request's sampling (greedy by default). `--obs` attaches an
-`obs.Instrumentation` (registry counters, request traces) and prints the
-traces' TTFT, queue-wait and per-token decode percentiles. `--http PORT`
+request's sampling (greedy by default). `--disagg` serves through a disaggregated pair instead
+(`serve.frontend.make_disagg_pair`: a prefill worker hands each finished
+prompt's KV to a decode worker through pinned host buffers; one set of
+weights) and prints the handoffs and both pools' free blocks. `--obs`
+attaches an `obs.Instrumentation` (registry counters, request traces) and
+prints the traces' TTFT, queue-wait and per-token decode percentiles. `--http PORT`
 serves the engine the other flags build over HTTP instead
 (`serve/frontend.py`: POST /v1/completions with SSE streaming, /metrics,
 /healthz, /v1/stats, /admin/drain) on 127.0.0.1:PORT until interrupted; 0
 binds an ephemeral port, and the bound port is printed. Requests over
 `--prompt-len` + `--tokens` positions are refused as unservable. Runs on the
 card unless `--device cpu` is given (`--reduced` shrinks the model to its
-CPU smoke size).
+CPU smoke size). Enc-dec models (whisper_tiny) are not served, as in the
+reference: the command exits naming the explicit encoder path
+(`lm.forward`).
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ from repro_torch.models import lm
 from repro_torch.obs import Instrumentation, MetricsRegistry
 from repro_torch.serve.decode import greedy_generate
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
-from repro_torch.serve.frontend import FrontendConfig, serve_forever
+from repro_torch.serve.frontend import (FrontendConfig, make_disagg_pair,
+                                        serve_forever)
 from repro_torch.serve.prequant import init_packed
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import FifoPolicy, LatencyPolicy
@@ -68,9 +74,16 @@ def device_label(device: torch.device) -> str:
     return "cpu"
 
 
-def _serve(cfg, params, econf, prompts, max_new, sampling=SamplingParams()):
+def _engine(cfg, params, econf, disagg: bool = False):
+    if disagg:
+        return make_disagg_pair(cfg, params, econf)
+    return ServeEngine(cfg, params, econf)
+
+
+def _serve(cfg, params, econf, prompts, max_new, sampling=SamplingParams(),
+           disagg=False):
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, params, econf)
+    eng = _engine(cfg, params, econf, disagg)
     setup_s = time.perf_counter() - t0
     for p in prompts:
         eng.submit(Request(p, max_new, sampling))
@@ -172,6 +185,8 @@ def main(argv=None) -> dict:
                     help="sampling temperature (0: greedy)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="keep the k highest logits (0: all)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated prefill/decode (EnginePair)")
     ap.add_argument("--obs", action="store_true",
                     help="attach an obs.Instrumentation (metrics, traces)")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
@@ -184,6 +199,11 @@ def main(argv=None) -> dict:
                        or args.prefix_spill):
         ap.error("the prefix cache shares pool blocks: it needs the paged "
                  "pool (drop --dense)")
+    if args.disagg and (args.dense or args.legacy or args.shared_prefix
+                        or args.spec_k):
+        ap.error("--disagg hands paged blocks from a prefill worker to a "
+                 "decode worker: drop --dense, --legacy, --shared-prefix "
+                 "and --spec-k")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -191,6 +211,9 @@ def main(argv=None) -> dict:
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.enc_dec:  # the reference's ServeEngine refuses enc-dec alike
+        raise SystemExit(f"{cfg.name}: enc-dec serving: use the explicit "
+                         "encoder path (examples)")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     # the seed loop re-quantizes raw weights every step, as the reference's;
     # the engine serves them packed as drawn
@@ -223,7 +246,7 @@ def main(argv=None) -> dict:
                   flush=True)
 
         try:
-            serve_forever(ServeEngine(cfg, params, econf),
+            serve_forever(_engine(cfg, params, econf, args.disagg),
                           FrontendConfig(port=args.http), on_ready=ready)
         except KeyboardInterrupt:
             pass  # Ctrl-C: the bridge and the socket are closed on the way
@@ -234,16 +257,24 @@ def main(argv=None) -> dict:
                for _ in range(args.batch)]
     eng, results, setup_s, wall = _serve(
         cfg, params, econf, prompts, args.tokens,
-        SamplingParams(args.temperature, args.top_k))
+        SamplingParams(args.temperature, args.top_k), args.disagg)
     st = eng.stats
+    pools = [eng.prefill.pool, eng.decode.pool] if args.disagg else [eng.pool]
     out = {
         "device": label, "arch": cfg.name, "scheme": args.scheme,
         "requests": len(results), "setup_s": setup_s, "wall_s": wall,
         "prefill_tok_s": st["prefill_tokens"] / max(st["prefill_s"], 1e-9),
         "decode_tok_s": st["decode_tokens"] / max(st["decode_s"], 1e-9),
-        "free_blocks": eng.pool.free_block_count,
-        "n_blocks": eng.pool.n_blocks,
+        "free_blocks": sum(p.free_block_count for p in pools),
+        "n_blocks": sum(p.n_blocks for p in pools),
     }
+    disagg = ""
+    if args.disagg:
+        out.update(disagg=True, handoffs=st["handoffs"],
+                   decode_prefill_steps=eng.decode.stats["prefill_steps"])
+        disagg = (f", disaggregated: handoffs {out['handoffs']}, prefill "
+                  f"forwards on the decode worker "
+                  f"{out['decode_prefill_steps']}")
     spec = ""
     if args.spec_k:
         out["acceptance_rate"] = (st["accepted_tokens"]
@@ -256,8 +287,8 @@ def main(argv=None) -> dict:
                 f"{out['tokens_per_round']:.2f} tokens a slot a round")
     print(f"[{out['device']}] {cfg.name} {args.scheme}: {len(results)} "
           f"requests, prefill {out['prefill_tok_s']:.1f} tok/s, decode "
-          f"{out['decode_tok_s']:.1f} tok/s{spec}, wall {wall:.2f} s, pool "
-          f"blocks free {out['free_blocks']}/{out['n_blocks']}")
+          f"{out['decode_tok_s']:.1f} tok/s{spec}{disagg}, wall {wall:.2f} s, "
+          f"pool blocks free {out['free_blocks']}/{out['n_blocks']}")
     if eng.obs.enabled:
         out["traces"] = agg = eng.obs.trace_sink.aggregates()
         print(f"[{out['device']}] traces of {agg['retired']} requests: "

@@ -3,8 +3,12 @@ and the losses.
 
 Counterpart of `repro/models/blocks.py`. bf16 rounding happens where the
 reference rounds: `embed_lookup` returns bf16, norms compute in f32 and
-return the input dtype, the swiglu gate is silu in f32 cast to bf16, and the
-relu2 activation is relu(h)^2 in f32 cast to bf16.
+return the input dtype, the swiglu gate is silu in f32 cast to bf16, the
+relu2 activation is relu(h)^2 in f32 cast to bf16, and the gelu activation
+is `jax.nn.gelu`'s default tanh form in f32 cast to bf16. Where PyTorch's
+own function computes another form or sums in another order, the
+reference's arithmetic is written out (`layernorm`'s two-pass variance,
+`gelu_tanh`).
 """
 
 from __future__ import annotations
@@ -35,16 +39,30 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (n * g.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """The reference's layernorm in f32: the mean, then `jnp.var`'s second
+    pass, the mean of the squared deviations (not `torch.var`, which may
+    sum in another order)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    c = xf - mu
+    var = (c * c).mean(dim=-1, keepdim=True)
+    return (c * torch.rsqrt(var + eps) * g + b).to(x.dtype)
+
+
 def norm(x, p, kind: str, eps: float):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm '{kind}' comes with the whisper slice")
+    if kind == "layernorm":
+        return layernorm(x, p["g"], p["b"], eps)
     return rmsnorm(x, p["g"], eps)
 
 
 def norm_init(d: int, kind: str, device) -> dict:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm '{kind}' comes with the whisper slice")
-    return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
+    g = torch.ones((d,), dtype=torch.float32, device=device)
+    if kind == "layernorm":
+        return {"g": g, "b": torch.zeros((d,), dtype=torch.float32,
+                                          device=device)}
+    return {"g": g}
 
 
 def linear_init(gen: torch.Generator, shape: tuple, n_in: int,
@@ -66,23 +84,32 @@ def weight_drawer(gen: torch.Generator, device):
     return draw
 
 
+SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu` (approximate=True, its default) in the reference's
+    order: x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))), x^3 as
+    x * x * x (`lax.integer_pow`). `F.gelu` defaults to the erf form."""
+    cube = x * x * x
+    return x * (0.5 * (1.0 + torch.tanh(SQRT_2_OVER_PI * (x + 0.044715 * cube))))
+
+
 def mlp_apply(p, x, kind: str, scheme: str, seed, layer):
-    """swiglu | relu2 feed-forward, all matmuls quantized per scheme."""
-    if kind not in ("swiglu", "relu2"):
-        raise NotImplementedError(f"mlp '{kind}' comes with the whisper slice")
+    """swiglu | relu2 | gelu feed-forward, all matmuls quantized per scheme."""
     h = qlinear(x, p["wi"], site_seed(seed, layer, 10), scheme)
     hf = h.float()
     if kind == "swiglu":
         g = qlinear(x, p["wg"], site_seed(seed, layer, 11), scheme)
         a = (hf * torch.sigmoid(hf)).to(x.dtype) * g  # jax.nn.silu's form
-    else:
+    elif kind == "relu2":
         a = (torch.relu(hf) ** 2).to(x.dtype)
+    else:  # gelu
+        a = gelu_tanh(hf).to(x.dtype)
     return qlinear(a, p["wo"], site_seed(seed, layer, 12), scheme)
 
 
 def mlp_init(draw, count: int, d_model: int, d_ff: int, kind: str):
-    if kind not in ("swiglu", "relu2"):
-        raise NotImplementedError(f"mlp '{kind}' comes with the whisper slice")
     p = {"wi": draw("wi", (count, d_ff, d_model), d_model),
          "wo": draw("wo", (count, d_model, d_ff), d_ff)}
     if kind == "swiglu":

@@ -1,10 +1,11 @@
-"""The language model: every decoder-only family of the reference in train,
-prefill and decode modes. Dense GQA (llama, yi, granite, chatglm3 with its
-half-dim rope, nemotron with relu2), the vision backbone (llava: GQA fed
-precomputed embeddings), GQA + MoE (deepseek-moe-16b), MLA + MoE
-(deepseek-v3), RWKV-6 (rwkv6: time-mix + channel-mix, `models/rwkv6.py`)
-and Griffin (recurrentgemma: RG-LRU blocks and sliding-window local
-attention, `models/griffin.py`).
+"""The language model: every family of the reference in train, prefill and
+decode modes (and the encode mode). Dense GQA (llama, yi, granite, chatglm3
+with its half-dim rope, nemotron with relu2), the vision backbone (llava:
+GQA fed precomputed embeddings), GQA + MoE (deepseek-moe-16b), MLA + MoE
+(deepseek-v3), RWKV-6 (rwkv6: time-mix + channel-mix, `models/rwkv6.py`),
+Griffin (recurrentgemma: RG-LRU blocks and sliding-window local attention,
+`models/griffin.py`) and whisper's encoder-decoder (layernorm, gelu MLP,
+cross-attention).
 
 Counterpart of `repro/models/lm.py`. A model is a list of STAGES; each stage
 is `count` structurally identical layers whose parameters are stacked on a
@@ -32,8 +33,21 @@ load-balance aux losses are summed over the stack, as the reference's scan
 carry does; `lm_loss` adds `aux_weight` times that sum to the CE, and
 `forward` keeps returning (logits, caches), since serving reads no aux.
 `forward_prefix` runs the first n layers of the same stack with the same
-head (the self-speculative draft). The encoder-decoder family (whisper) and
-the encode mode raise NotImplementedError and come with a later slice.
+head (the self-speculative draft).
+
+Whisper (`cfg.enc_dec`): `stages` hold the encoder (n_layers x (gqa, mlp),
+bidirectional: the "encode" mode), `dec_stages` the decoder, whose layers
+put a cross-attention over the encoder's output between the mixer and the
+ff (`_cross_attend`, norm `nx`). The encoder reads stub frame embeddings
+(`inputs["embeds"]`), the decoder tokens (`dec_embed`); `dec_head` is the
+LM head, and the reference's `head` leaf is drawn but never read. Three
+reference behaviours are kept as they are: the encoder's and the decoder's
+layer ids both start at 0 (encoder layer i and decoder layer i share their
+site seeds, hence the backward's RHT signs and SR draws); decode recomputes
+the cross K/V from `enc_out` at every step; and the decoder has no position
+signal (`rope_fraction` 0, no position table). Prefill fills the dense
+caches of `init_encdec_cache`; the engine and `greedy_generate` do not
+serve enc-dec, as the reference's do not.
 """
 
 from __future__ import annotations
@@ -43,7 +57,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.linear import PackedQWeight
+from repro_torch.core.linear import PackedQWeight, qlinear
 from repro_torch.models import attention as A
 from repro_torch.models import griffin as G
 from repro_torch.models import mla as M
@@ -51,13 +65,12 @@ from repro_torch.models import moe as X
 from repro_torch.models import rwkv6 as W
 from repro_torch.models.blocks import (chunked_head_ce, embed_init,
                                        embed_lookup, lm_head, mlp_apply,
-                                       mlp_init, norm, norm_init,
+                                       mlp_init, norm, norm_init, site_seed,
                                        weight_drawer)
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """Raise for the family the port does not run yet: the encoder-decoder
-    one (whisper, the next slice)."""
+    """Raise for a configuration none of the reference's families covers."""
     dense = (cfg.family in ("dense", "vlm") and cfg.attn == "gqa"
              and not cfg.moe)
     moe = (cfg.family == "moe" and cfg.moe is not None
@@ -66,11 +79,13 @@ def _check_family(cfg: ArchConfig) -> None:
     ssm = cfg.family == "ssm" and cfg.rwkv is not None
     hybrid = (cfg.family == "hybrid" and cfg.griffin is not None
               and cfg.attn == "gqa")
-    if cfg.enc_dec or not (dense or moe or ssm or hybrid):
+    encdec = cfg.family == "audio" and cfg.attn == "gqa" and not cfg.moe
+    if not (encdec if cfg.enc_dec else (dense or moe or ssm or hybrid)):
         raise NotImplementedError(
-            f"{cfg.name}: family '{cfg.family}' (attn '{cfg.attn}') comes "
-            "with the encoder-decoder (whisper) slice; the port runs the "
-            "dense, vlm, MoE, ssm (rwkv6) and hybrid (griffin) families")
+            f"{cfg.name}: family '{cfg.family}' (attn '{cfg.attn}', enc_dec "
+            f"{cfg.enc_dec}) is none of the reference's: dense, vlm, MoE, "
+            "ssm (rwkv6), hybrid (griffin) and the audio encoder-decoder "
+            "(whisper)")
 
 
 def layer_specs(cfg: ArchConfig) -> list[tuple[tuple[tuple[str, str], ...], int]]:
@@ -101,7 +116,9 @@ def init(cfg: ArchConfig, gen: torch.Generator, device="cuda",
     makes each weight leaf (default `blocks.weight_drawer(gen, device)`;
     `serve.prequant.init_packed` packs as it draws)."""
     draw = draw or weight_drawer(gen, device)
-    params: dict[str, Any] = {"embed": embed_init(draw, cfg.vocab, cfg.d_model)}
+    params: dict[str, Any] = {}
+    if cfg.input_mode == "tokens" or not cfg.enc_dec:
+        params["embed"] = embed_init(draw, cfg.vocab, cfg.d_model)
     stages = []
     for pattern, count in layer_specs(cfg):
         stage = {}
@@ -128,6 +145,8 @@ def init(cfg: ArchConfig, gen: torch.Generator, device="cuda",
     if not cfg.tie_embeddings:
         params["head"] = draw("head", (cfg.vocab, cfg.d_model), cfg.d_model,
                               0.02)
+    if cfg.enc_dec:
+        params.update(_encdec_extra_init(cfg, draw, device))
     return params
 
 
@@ -146,6 +165,8 @@ def layer_params(tree, i: int):
 
 
 def head_weight(params, cfg):
+    if cfg.enc_dec:
+        return params["dec_head"]
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
@@ -165,14 +186,16 @@ def _merge_state(active, new: torch.Tensor, old: torch.Tensor) -> None:
 
 
 def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
-                 pos, positions, active, block_table):
+                 pos, positions, active, block_table, enc_out=None):
     """One (mixer, ff) layer: (x, aux). `cache` is the layer's {kind: leaf or
     leaf pair} (views of the stacked cache leaves), or None. In prefill
     mode the layer's K/V (or latents) fill positions [0, S) of its dense
     cache and the recurrent state kinds take the prefill's final state; in
     decode mode every kind updates in place (state kinds of active rows
-    only). aux is the MoE layer's load-balance loss (f32 scalar), None for
-    every other layer."""
+    only); encode mode attends without the causal mask. A layer with an
+    `xattn` subtree (whisper's decoder) attends over `enc_out` between the
+    mixer and the ff. aux is the MoE layer's load-balance loss (f32
+    scalar), None for every other layer."""
     mixer, ff = spec
     window = cfg.griffin.window if (cfg.griffin and mixer == "lattn") else None
     decode = mode == "decode"
@@ -195,7 +218,7 @@ def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
                                      positions=positions)
             else:
                 o, new = A.gqa_apply(p["mix"], h, cfg, scheme, seed, layer_id,
-                                     causal=True, window=window,
+                                     causal=mode != "encode", window=window,
                                      positions=positions)
             if cache is not None:
                 _fill_cache(cache[kind], new, window)
@@ -217,6 +240,10 @@ def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
     else:
         raise ValueError(mixer)
     x = x + o
+    if enc_out is not None and "xattn" in p:
+        h = norm(x, p["nx"], cfg.norm, cfg.norm_eps)
+        x = x + _cross_attend(p["xattn"], h, enc_out, cfg, scheme, seed,
+                              layer_id)
     h = norm(x, p["n2"], cfg.norm, cfg.norm_eps)
     if ff == "moe":
         o, aux = X.moe_apply(p["ff"], h, cfg, scheme, seed, layer_id)
@@ -229,6 +256,26 @@ def _apply_layer(spec, p, x, cfg, scheme, seed, layer_id, *, mode, cache,
             _merge_state(gate, last, cache["cm_prev"])
         return x + o, None
     return x + mlp_apply(p["ff"], h, cfg.mlp, scheme, seed, layer_id), None
+
+
+def _cross_attend(p, h, enc_out, cfg, scheme, seed, layer_id):
+    """Whisper's cross-attention (sites 30-33): queries from the decoder's
+    `h`, keys and values projected from `enc_out` (B, S_enc, D), or taken
+    from a precomputed `(k, v)` pair; no mask."""
+    b, s, _ = h.shape
+    hd = cfg.hd
+    q = qlinear(h, p["wq"], site_seed(seed, layer_id, 30),
+                scheme).reshape(b, s, cfg.n_heads, hd)
+    if isinstance(enc_out, tuple):  # precomputed cross K/V
+        k, v = enc_out
+    else:
+        k = qlinear(enc_out, p["wk"], site_seed(seed, layer_id, 31), scheme)
+        v = qlinear(enc_out, p["wv"], site_seed(seed, layer_id, 32), scheme)
+        k = k.reshape(b, -1, cfg.n_kv_heads, hd)
+        v = v.reshape(b, -1, cfg.n_kv_heads, hd)
+    o = A.attend(q, k, v, causal=False)
+    return qlinear(o.reshape(b, s, -1), p["wo"], site_seed(seed, layer_id, 33),
+                   scheme)
 
 
 def _fill_cache(cache, new, window) -> None:
@@ -373,11 +420,12 @@ def prefix_stage_params(params, cfg: ArchConfig, n_prefix: int):
 
 
 def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
-                pos, positions, active, block_table):
+                pos, positions, active, block_table, enc_out=None):
     """The layers of `stages` ([(pattern, count)], aligned with
     `stage_params` and with `caches`, paged or dense, when given). A layer's
     id, hence its quantization site seeds, is its index in the full stack:
-    stages cut by `prefix_specs` start where the full model's do. Returns
+    stages cut by `prefix_specs` start where the full model's do, and
+    whisper's encoder and decoder stacks both start at 0. Returns
     (x, aux): aux the f32 sum of the MoE layers' aux losses in layer order
     (None without MoE layers; the reference's 0 + a_0 + a_1 + ... is the
     same sum, since 0 + a_0 is exactly a_0)."""
@@ -398,7 +446,7 @@ def _run_stages(stage_params, x, cfg, scheme, seed, *, stages, mode, caches,
                     spec, lp[f"l{li}"], x, cfg, scheme, seed,
                     off + idx * len(pattern) + li, mode=mode, cache=cache,
                     pos=pos, positions=positions, active=active,
-                    block_table=block_table)
+                    block_table=block_table, enc_out=enc_out)
                 if aux is not None:
                     aux_total = aux if aux_total is None else aux_total + aux
         off += count * len(pattern)
@@ -409,11 +457,12 @@ def _forward(params, stage_params, stages, cfg, inputs, scheme, seed, *,
              caches, mode, pos, active, block_table, head):
     """The model's forward: (out, caches, aux), aux the summed MoE aux loss
     (None without MoE layers; only `lm_loss` reads it)."""
-    if mode not in ("train", "prefill", "decode"):
-        raise NotImplementedError(
-            f"mode '{mode}' comes with a later slice (train, prefill and "
-            "decode are ported)")
+    if mode not in ("train", "prefill", "decode", "encode"):
+        raise ValueError(f"mode '{mode}': train, prefill, decode or encode")
     _check_family(cfg)
+    if cfg.enc_dec:
+        return _encdec_forward(params, cfg, inputs, scheme, seed,
+                               caches=caches, mode=mode, pos=pos, head=head)
     if "embeds" in inputs and mode != "decode":
         x = inputs["embeds"].to(torch.bfloat16)
     else:
@@ -439,19 +488,25 @@ def forward(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
             caches=None, mode: str = "decode", pos=None, active=None,
             block_table=None, head: bool = True):
     """Full model. inputs: {"tokens": (B, S)}, or {"embeds": (B, S, D)}
-in train and prefill mode (llava's stubbed frontend; decode embeds tokens).
+in train and prefill mode (llava's stubbed frontend; decode embeds tokens);
+whisper takes both in train and prefill mode (the encoder's frames and the
+decoder's tokens) and tokens in decode mode, its `caches` those of
+`init_encdec_cache`.
 
     mode="train": causal full-sequence forward from position 0 (no caches);
     with head=False the final normed hidden states are returned (`lm_loss`
     fuses the head with a chunked CE).
     mode="prefill": the same forward from position 0, writing each layer's
     K/V (or MLA latents) into positions [0, S) of the dense `caches`
-    (`init_cache`) when given.
+    (`init_cache`) when given; whisper also writes the encoder's output
+    into `caches["enc_out"]`.
+    mode="encode": the train-mode forward without the causal mask.
     mode="decode": `pos` (B,) int32 per-row start positions (S > 1 is a
     chunked-prefill step); `active` (B,) bool gates cache writes per row;
     `block_table` (B, MAXB) int32 indexes the paged pool `caches`
     (`serve.kv_pool.init_cache`); without one the `caches` are dense
-    (`init_cache`). They come back updated in place.
+    (`init_cache`). They come back updated in place. Whisper's decode step
+    attends over `caches["enc_out"]`, its cross K/V projected anew.
     Returns (logits_or_hidden, caches); the reference's third output, the MoE
     aux loss, is left out (serving reads none; `lm_loss` adds it)."""
     return _forward(params, params["stages"], layer_specs(cfg), cfg, inputs,
@@ -469,6 +524,8 @@ def forward_prefix(params, cfg: ArchConfig, inputs, scheme: str, seed, *,
     layer computes inside the full stack at the same step shape. `caches`
     must be prefix-shaped (`kv_pool.init_cache(specs=prefix_specs(cfg,
     n_prefix))`). Returns (logits, caches), as `forward`."""
+    if cfg.enc_dec:
+        raise NotImplementedError("enc-dec draft stacks are not supported")
     return _forward(params, prefix_stage_params(params, cfg, n_prefix),
                     prefix_specs(cfg, n_prefix), cfg, inputs, scheme, seed,
                     caches=caches, mode=mode, pos=pos, active=active,
@@ -489,3 +546,92 @@ def lm_loss(params, cfg: ArchConfig, batch, scheme: str, seed,
     if aux is None:  # no MoE layer: the reference adds aux_weight * 0 to ce
         return ce
     return ce + aux_weight * aux
+
+
+# --------------------------------------------------------------------------
+# whisper-style encoder-decoder
+# --------------------------------------------------------------------------
+
+def _encdec_extra_init(cfg: ArchConfig, draw, device) -> dict:
+    """The decoder stack and its cross-attention; `stages` hold the
+    encoder. Paths and shapes are the reference's: `dec_embed`,
+    `dec_stages` [{"l0": {mix, n1, ff, n2, xattn, nx}}] stacked over
+    n_layers, `dec_final_norm`, `dec_head`."""
+    count = cfg.n_layers
+    layer = {"mix": A.gqa_init(draw, count, cfg, device),
+             "n1": _stacked_norm(cfg, count, device),
+             "ff": mlp_init(draw, count, cfg.d_model, cfg.d_ff, cfg.mlp),
+             "n2": _stacked_norm(cfg, count, device),
+             "xattn": A.gqa_init(draw, count, cfg, device),
+             "nx": _stacked_norm(cfg, count, device)}
+    return {
+        "dec_embed": draw("dec_embed", (cfg.vocab, cfg.d_model), cfg.d_model,
+                          0.02),
+        "dec_stages": [{"l0": layer}],
+        "dec_final_norm": norm_init(cfg.d_model, cfg.norm, device),
+        "dec_head": draw("dec_head", (cfg.vocab, cfg.d_model), cfg.d_model,
+                         0.02),
+    }
+
+
+def DEC_STAGES(cfg: ArchConfig):  # the reference's name
+    """The decoder's layer specs: n_layers x (gqa, mlp), each layer with its
+    cross-attention."""
+    return [((("gqa", "mlp"),), cfg.n_layers)]
+
+
+def _encdec_forward(params, cfg, inputs, scheme, seed, *, caches, mode, pos,
+                    head):
+    """Whisper's forward: (out, caches, None). Decode mode runs the decoder
+    alone over `caches["enc_out"]`; every other mode runs the encoder
+    (bidirectional) over `inputs["embeds"]`, its final norm, then the
+    decoder over `inputs["tokens"]` in `mode` (prefill fills
+    `caches["dec"]` and copies the encoder's output into
+    `caches["enc_out"]`)."""
+    dec = DEC_STAGES(cfg)
+    if mode == "decode":
+        enc_out = caches["enc_out"]
+        x = embed_lookup(params["dec_embed"], inputs["tokens"])
+        b, s = x.shape[:2]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
+        positions = pos[:, None] + torch.arange(s, dtype=torch.int32,
+                                                device=x.device)[None, :]
+        x, _ = _run_stages(params["dec_stages"], x, cfg, scheme, seed,
+                           stages=dec, mode="decode", caches=caches["dec"],
+                           pos=pos, positions=positions, active=None,
+                           block_table=None, enc_out=enc_out)
+        x = norm(x, params["dec_final_norm"], cfg.norm, cfg.norm_eps)
+        return (lm_head(x, params["dec_head"], cfg.quantize_lm_head, scheme,
+                        seed), caches, None)
+    xe = inputs["embeds"].to(torch.bfloat16)
+    enc_x, _ = _run_stages(
+        params["stages"], xe, cfg, scheme, seed, stages=layer_specs(cfg),
+        mode="encode", caches=None, pos=None,
+        positions=torch.arange(xe.shape[1], device=xe.device)[None, :],
+        active=None, block_table=None)
+    enc_out = norm(enc_x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    x = embed_lookup(params["dec_embed"], inputs["tokens"])
+    x, _ = _run_stages(
+        params["dec_stages"], x, cfg, scheme, seed, stages=dec, mode=mode,
+        caches=caches["dec"] if caches else None, pos=None,
+        positions=torch.arange(x.shape[1], device=x.device)[None, :],
+        active=None, block_table=None, enc_out=enc_out)
+    x = norm(x, params["dec_final_norm"], cfg.norm, cfg.norm_eps)
+    if caches:
+        caches["enc_out"].copy_(enc_out)
+    if head:
+        x = lm_head(x, params["dec_head"], cfg.quantize_lm_head, scheme, seed)
+    return x, caches, None
+
+
+def init_encdec_cache(cfg: ArchConfig, batch: int, max_len: int,
+                      enc_len: int, *, device="cuda") -> dict:
+    """Whisper's decode caches: {"enc_out": (batch, enc_len, D) bf16 zeros,
+    which prefill overwrites with the encoder's output, "dec": the
+    decoder's dense caches (`init_cache` over `DEC_STAGES`: (n_layers,
+    batch, max_len + 1, KV, hd) K and V, position max_len the write-only
+    scratch position)}."""
+    return {"enc_out": torch.zeros((batch, enc_len, cfg.d_model),
+                                   dtype=torch.bfloat16, device=device),
+            "dec": init_cache(cfg, batch, max_len, device=device,
+                              specs=DEC_STAGES(cfg))}

@@ -40,8 +40,8 @@ from repro_torch.obs.metrics import MetricsRegistry, default_registry
 
 #: `engine.stats` keys, in their dict order (the stats view iterates in
 #: this order): the reference's, then the port's draft catch-up counts
-#: (speculative decoding over a prefix-cache hit). "handoffs" stays 0 until
-#: disaggregated roles are ported.
+#: (speculative decoding over a prefix-cache hit). "handoffs" counts a
+#: prefill-role engine's exports (`serve.engine.Handoff`).
 STAT_FLOAT_KEYS = ("prefill_s", "decode_s")
 STAT_INT_KEYS = ("prefill_tokens", "decode_tokens", "decode_steps", "ticks",
                  "admitted", "rejected", "finished", "spec_rounds",

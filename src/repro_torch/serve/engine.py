@@ -43,8 +43,26 @@ With `kv_quant=True` the pool stores every token leaf as NVFP4 `PackedKV`
 bytes (0.28125x the bf16 bytes) and decode attention runs the packed-operand
 kernels. With `paged=False` the pool holds dense per-slot caches and the
 step runs without a block table (the reference's dense layout; no prefix
-cache). Later slices bring mesh sharding and disaggregated roles; asking
-for either raises NotImplementedError.
+cache). The distribution slice brings mesh sharding and cross-shard
+replication; asking for either raises NotImplementedError. Enc-dec models
+(whisper) are not served, as in the reference.
+
+Disaggregated prefill/decode (`EngineConfig.role`, driven as a pair by
+`serve/frontend.py`'s `EnginePair`): a "prefill" worker admits prompts and
+runs prefill chunks only; each prompt that finishes (its first token
+sampled) leaves as a `Handoff`, its blocks copied to pinned host buffers
+and released here. A "decode" worker takes Handoffs (`submit_handoff`),
+imports the payloads into blocks of its own pool and decodes; it never
+runs a prefill forward and refuses plain prompts (`Unservable`, reason
+"wrong_role"). Every copy of a handoff runs on the current CUDA stream of
+the one thread that ticks both engines, so the stream orders them: the
+export's device-to-host copies come after the prefill forwards that wrote
+the blocks and before any later step that reuses the released blocks; the
+import's host-to-device copies come after the export's and before the
+decode step that reads them. The host never reads a payload; a payload's
+buffer goes back to the prefill pool's free list only once the event
+recorded behind the last copy that touched it has completed
+(`KVPool.release_host`, `poll_host`).
 """
 
 from __future__ import annotations
@@ -142,6 +160,39 @@ class RequestResult:
         return self.latency_s <= self.deadline_s
 
 
+@dataclass
+class Handoff:
+    """A finished prefill leaving a prefill-role engine for a decode-role one.
+
+    Carries the ORIGINAL Request (req_id intact: the frontend bridge keeps
+    routing streamed tokens by id across the role boundary), the tokens
+    generated so far (the first sampled token, from the prompt's last
+    position on the prefill worker) and the prompt's KV as host payloads:
+    `(logical_block, HostBlock)` pairs in `KVPool.read_block_host` format,
+    never modified after the export. A partial tail block travels whole:
+    bytes past `length` sit behind the position mask. bf16 payloads import
+    bit for bit, so a disaggregated greedy stream equals the single
+    engine's. Two fields are the port's own: `first_token_s`, the prefill
+    worker's first-token stamp (the decode worker's result carries the TTFT
+    with obs off too), and `pool`, the prefill worker's pool, whose host free
+    list the payloads' pinned buffers return to once imported or dropped
+    (`release_payloads`)."""
+
+    req: Request
+    generated: list[int]
+    length: int                   # prompt tokens backed by the payloads
+    blocks: list                  # [(logical_idx, HostBlock), ...]
+    first_token_s: float | None = None
+    pool: Any = None
+
+    def release_payloads(self) -> None:
+        """Give the payloads' buffers back to the exporting pool; each is
+        reused only after the event behind its last copy has completed."""
+        for _, payload in self.blocks:
+            self.pool.release_host(payload)
+        self.blocks = []
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     n_slots: int = 4
@@ -182,17 +233,22 @@ class EngineConfig:
     # False: dense per-slot caches (n_slots, max_len + 1, ...) instead of
     # the paged pool; requires kv_quant=False
     paged: bool = True
-    # options of the reference engine that later slices port
-    mesh: Any = None
+    # disaggregated prefill/decode (serve/frontend.py EnginePair): "both" is
+    # the single engine; a "prefill" worker admits prompts, prefills them
+    # and exports each finished prompt as a Handoff; a "decode" worker
+    # admits Handoffs straight into decode slots and never prefills. Split
+    # roles need a paged pool without window reclamation or recurrent state
+    # (whole resident blocks travel) and spec_k == 0 (the draft pool does
+    # not travel)
     role: str = "both"
+    # options of the reference engine that the distribution slice ports
+    mesh: Any = None
     replicate_hits: int | None = None
 
 
 # (field, set?, what, the later slice of ROADMAP.md's Queue 1 that ports it)
 _LATER = (
     ("mesh", lambda e: e.mesh is not None, "mesh-sharded serving",
-     "distribution"),
-    ("role", lambda e: e.role != "both", "disaggregated prefill/decode roles",
      "distribution"),
     ("replicate_hits", lambda e: e.replicate_hits is not None,
      "cross-shard replication of hot prefix blocks", "distribution"),
@@ -215,6 +271,9 @@ class _Slot:
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, econf: EngineConfig | None = None):
+        if cfg.enc_dec:
+            raise NotImplementedError("enc-dec serving: use the explicit "
+                                      "encoder path (examples)")
         self.cfg = cfg
         self.econf = e = econf or EngineConfig()
         for name, bad, what, later in _LATER:
@@ -254,6 +313,23 @@ class ServeEngine:
         self.pool = KVPool(cfg, e.n_slots, e.max_len, paged=e.paged,
                            block_size=e.block_size, n_blocks=e.n_blocks,
                            device=self.device, quantized=e.kv_quant)
+        if e.role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'both', 'prefill' or 'decode', got {e.role!r}")
+        if e.role != "both":
+            if (not e.paged or self.pool.window is not None
+                    or self.pool.has_state_kinds):
+                raise ValueError(
+                    "disaggregated roles require a paged pool without "
+                    "sliding-window reclamation or recurrent state kinds: "
+                    "the KV handoff moves whole resident blocks")
+            if e.spec_k > 0:
+                raise ValueError(
+                    "disaggregated roles are incompatible with spec_k > 0 "
+                    "(the draft pool does not travel with the handoff)")
+        self.role = e.role
+        self.handoffs: deque[Handoff] = deque()       # prefill: exported
+        self.handoff_queue: deque[Handoff] = deque()  # decode: awaiting slot
         self.draft = (spec_decode.DraftStack(cfg, self.params, e, self.device)
                       if e.spec_k > 0 else None)
         # a verify chunk writes up to spec_k positions past a sequence's
@@ -296,11 +372,19 @@ class ServeEngine:
 
     def submit(self, request: Request) -> int:
         """Queue a request; raises Unservable (a QueueFull and a ValueError)
-        when no pool state can ever back it, QueueFull (with queue depth
-        and a suggested retry_after_s) at capacity."""
+        when no pool state can ever back it or this is a decode-role engine
+        (reason "wrong_role": its work arrives as Handoffs), QueueFull (with
+        queue depth and a suggested retry_after_s) at capacity."""
         total = len(request.prompt) + request.max_new + self._margin
         exc = None
-        if not request.prompt or request.max_new < 1:
+        if self.role == "decode":
+            # a decode worker never prefills: a prompt would wait in PREFILL
+            # forever (EnginePair routes submits to the prefill worker)
+            exc = Unservable("decode-role engine takes Handoffs, not "
+                             "prompts (submit to the prefill worker)",
+                             reason="wrong_role",
+                             queue_depth=len(self.handoff_queue))
+        elif not request.prompt or request.max_new < 1:
             exc = Unservable("a request needs a prompt and max_new >= 1",
                              queue_depth=len(self.queue))
         elif not self.pool.can_ever_admit(total, self._max_growth):
@@ -343,6 +427,17 @@ class ServeEngine:
                 if self.obs.enabled:
                     self.obs.on_cancel(r, t, reason=reason)
                 return True
+        for h in self.handoff_queue:
+            if h.req.req_id == req_id:
+                # received, not admitted: the prefill worker released its
+                # blocks at export and this engine allocated none, so
+                # returning the payloads' buffers reclaims everything
+                self.handoff_queue.remove(h)
+                h.release_payloads()
+                self.stats["cancelled"] += 1
+                if self.obs.enabled:
+                    self.obs.on_cancel(h.req, t, reason=reason)
+                return True
         for i, s in enumerate(self.slots):
             if s.req is not None and s.req.req_id == req_id:
                 self._release_slot(i)
@@ -351,6 +446,14 @@ class ServeEngine:
                     self.obs.on_cancel(s.req, t, reason=reason)
                 return True
         return False
+
+    def submit_handoff(self, handoff: Handoff) -> None:
+        """Hand a finished prefill to this decode-role engine. Nothing is
+        allocated until `_admit` finds it a slot, so a queued Handoff
+        cancels by dropping it."""
+        if self.role != "decode":
+            raise ValueError("submit_handoff on a non-decode-role engine")
+        self.handoff_queue.append(handoff)
 
     def suggested_retry_after_s(self) -> float:
         """Backpressure hint for rejected clients: seconds until the engine
@@ -367,7 +470,8 @@ class ServeEngine:
         return float(min(max(backlog / max(rate, 1e-9), 0.5), 60.0))
 
     def has_work(self) -> bool:
-        return bool(self.queue) or any(s.state != FREE for s in self.slots)
+        return (bool(self.queue) or bool(self.handoff_queue)
+                or any(s.state != FREE for s in self.slots))
 
     @property
     def free_slots(self) -> int:
@@ -385,11 +489,17 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def step(self) -> list[RequestResult]:
-        """One scheduler tick: admit, one prefill chunk, one decode step."""
+        """One scheduler tick: admit, one prefill chunk, one decode step.
+
+        Role-split engines run half a tick each: a prefill worker never
+        decodes (finished prompts leave as Handoffs), a decode worker never
+        prefills (Handoffs admit straight into DECODE)."""
         self.stats["ticks"] += 1
         self._admit()
-        self._prefill_tick()
-        finished = self._decode_tick()
+        if self.role != "decode":
+            self._prefill_tick()
+        finished = (self._handoff_tick() if self.role == "prefill"
+                    else self._decode_tick())
         if self.cache is not None and self.cache.spill:
             # this tick's swap-ins become plain cached blocks: the stream
             # orders their writes before any later read, nothing waits
@@ -404,6 +514,15 @@ class ServeEngine:
         if self.obs.enabled:
             # queue depth / aging / slack: the policy knows its urgency model
             self.sched.observe(self.obs, self.queue, self.clock())
+        if self.role == "decode":
+            # Handoffs admit FIFO straight into DECODE: their KV is computed,
+            # so admission is commit + allocate + import the payloads
+            while (self.handoff_queue
+                   and any(s.state == FREE for s in self.slots)):
+                if not self._try_admit_handoff(self.handoff_queue[0]):
+                    return
+                self.handoff_queue.popleft()
+            return
         if not self.queue:
             return
         now = self.clock()
@@ -649,6 +768,72 @@ class ServeEngine:
         if self.draft is not None:
             self.draft.pool.release(i)
         self.slots[i] = _Slot()
+
+    def _handoff_tick(self) -> list[RequestResult]:
+        """Prefill-role half-tick: every slot whose prompt just finished
+        (DECODE state: prompt cached, first token sampled) leaves as a
+        Handoff. Its blocks are copied to pinned host payloads by
+        non-blocking device-to-host copies on the current stream (each
+        payload's `done` event recorded behind them), its prompt alone is
+        inserted into this worker's prefix cache (the first token's K/V was
+        never written here), and its slot is released; the stream runs the
+        copies before any later kernel that writes the released blocks. A
+        request its first token completed (max_new 1) retires here."""
+        out: list[RequestResult] = []
+        for i, s in enumerate(self.slots):
+            if s.state != DECODE:
+                continue
+            if len(s.generated) >= s.req.max_new:
+                out.append(self._retire_slot(i))
+                continue
+            blocks = []
+            for j in range(self.pool._alloc_upto[i]):
+                blk = int(self.pool._table[i, j])
+                if blk == self.pool.sentinel:
+                    continue
+                payload, _ = self.pool.read_block_host(blk, non_blocking=True)
+                blocks.append((j, payload))
+            self.handoffs.append(Handoff(
+                req=s.req, generated=list(s.generated), length=s.length,
+                blocks=blocks, first_token_s=s.first_token_s, pool=self.pool))
+            # the pool holds exactly the prompt's K/V, so this caches the
+            # prompt, as the reference's export does
+            self._release_slot(i)
+            self.stats["handoffs"] += 1
+        return out
+
+    def _try_admit_handoff(self, h: Handoff) -> bool:
+        """Import a Handoff into a FREE slot, straight into DECODE state:
+        commit, allocate the prompt's blocks, dispatch the payloads'
+        host-to-device copies on the current stream (the next step's reads
+        come after them on it; no host wait), then give the buffers back to
+        the exporting pool behind the copies' events. The emitted counter
+        starts past the handed-off tokens: the prefill worker has already
+        passed them to the token hook."""
+        req = h.req
+        total = len(req.prompt) + req.max_new + self._margin
+        i = self._place(total, None)
+        if i is None:
+            return False
+        self.pool.reset_slot(i)
+        self.pool.commit(i, total, self._max_growth)
+        try:
+            self.pool.ensure(i, h.length)
+        except OutOfBlocks:
+            self.pool.release(i)
+            return False
+        for j, payload in h.blocks:
+            self.pool.write_block_host(int(self.pool._table[i, j]), payload)
+        h.release_payloads()
+        self.slots[i] = _Slot(state=DECODE, req=req, cursor=len(req.prompt),
+                              length=h.length, last_tok=h.generated[-1],
+                              generated=list(h.generated),
+                              emitted=len(h.generated),
+                              first_token_s=h.first_token_s)
+        self.stats["admitted"] += 1
+        if self.obs.enabled:
+            self.obs.on_admit(req, i, 0, self.clock())
+        return True
 
     def _decode_tick(self) -> list[RequestResult]:
         e = self.econf

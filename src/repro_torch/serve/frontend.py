@@ -55,9 +55,10 @@ body's `user` field): a token bucket on request admission and a lifetime
 prompt + max_new token budget, both charged at admission, so a rejected
 request costs nothing.
 
-The disaggregated prefill/decode pair of the reference (`EnginePair`,
-`make_disagg_pair`) needs engine roles, which come with the distribution
-slice; asking for it raises NotImplementedError.
+`EnginePair` (built by `make_disagg_pair`) is the disaggregated
+prefill/decode deployment: two role-split ServeEngines behind the engine
+surface the bridge drives, so the whole stack above serves a pair
+unchanged.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ import concurrent.futures
 import json
 import queue as queue_mod
 import threading
-from dataclasses import dataclass, field
+from collections.abc import MutableMapping
+from dataclasses import dataclass, field, replace
 
 import torch
 
@@ -481,23 +483,186 @@ class EngineBridge:
 
 
 # ---------------------------------------------------------------------------
-# disaggregated prefill/decode (not ported yet)
+# disaggregated prefill/decode
 # ---------------------------------------------------------------------------
 
-_DISAGG = ("disaggregated prefill/decode (EnginePair, make_disagg_pair) needs "
-           "EngineConfig.role, which is not ported yet; it comes with the "
-           "'distribution' slice (ROADMAP.md, Queue 1)")
+
+class _PairStats(MutableMapping):
+    """Merged `engine.stats` over a (prefill, decode) pair: a read SUMS the
+    two engines' counters (ticks and prefill_* live on the prefill worker,
+    decode_* and finished on the decode worker: the sum is what a
+    single-engine caller expects); a write puts the value on the prefill
+    view and zero on the decode one, so reset loops (`stats[k] = 0`) and
+    absolute assignments read back unchanged."""
+
+    __slots__ = ("_p", "_d")
+
+    def __init__(self, p, d):
+        self._p = p
+        self._d = d
+
+    def __getitem__(self, k):
+        return self._p[k] + self._d[k]
+
+    def __setitem__(self, k, v):
+        self._p[k] = v
+        self._d[k] = v * 0  # 0 or 0.0, the key's type
+
+    def __delitem__(self, k):
+        raise TypeError("engine.stats has a fixed key set")
+
+    def __iter__(self):
+        return iter(self._p)
+
+    def __len__(self):
+        return len(self._p)
+
+    def __repr__(self):
+        return repr(dict(self))
 
 
 class EnginePair:
-    """Placeholder for the reference's role-split engine pair."""
+    """Disaggregated prefill/decode: two role-split ServeEngines behind the
+    engine surface EngineBridge drives (submit / cancel / step / has_work /
+    run / stats / queue / pool / cache / free_slots / token_hook / clock /
+    obs / suggested_retry_after_s), so the bridge, SSE streaming, the
+    visibility timeout and drain work over a split deployment unchanged.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_DISAGG)
+    One pair `step()` is one tick of EACH worker: finished prefills cross
+    the role boundary first (`prefill.handoffs` -> `decode.submit_handoff`;
+    the KV travels as host payloads), then the decode worker ticks, then
+    the prefill worker. The decode worker never runs a prefill chunk, so
+    its per-token gap does not grow with the prompts arriving at the
+    prefill worker. Both engines tick serially on one thread (the bridge's,
+    or the caller's), which is what orders every copy of a handoff on that
+    thread's current CUDA stream (`serve/engine.py`).
+
+    Cancel finds a request wherever it lives (the prefill queue or slots,
+    the in-transit handoffs, the decode worker's handoff queue or slots) and
+    reclaims that side's pool state and payloads, so both pools are
+    conserved; `has_work` covers both workers and the in-transit handoffs,
+    so a drain completes every leg."""
+
+    def __init__(self, prefill: ServeEngine, decode: ServeEngine):
+        if prefill.role != "prefill" or decode.role != "decode":
+            raise ValueError(
+                f"EnginePair wants roles ('prefill', 'decode'), got "
+                f"({prefill.role!r}, {decode.role!r})")
+        if prefill.clock is not decode.clock:
+            raise ValueError(
+                "role-split engines must share one clock: arrival stamps "
+                "taken on the prefill worker are compared against deadlines "
+                "and visibility timeouts on the decode side")
+        self.prefill = prefill
+        self.decode = decode
+        self.clock = prefill.clock
+        self.obs = prefill.obs
+        self._stats = _PairStats(prefill.stats, decode.stats)
+
+    # ---- the engine surface the bridge drives ----
+
+    @property
+    def stats(self):
+        return self._stats
+
+    @property
+    def queue(self):
+        """The admission queue: the prefill worker's (submits land there)."""
+        return self.prefill.queue
+
+    @property
+    def pool(self):
+        """The decode worker's pool, where live sequences sit (the bridge's
+        snapshot reports its occupancy)."""
+        return self.decode.pool
+
+    @property
+    def cache(self):
+        """The prefill worker's prefix cache (matching happens at prompt
+        admission; the decode worker imports KV and never matches)."""
+        return self.prefill.cache
+
+    @property
+    def free_slots(self) -> int:
+        return min(self.prefill.free_slots, self.decode.free_slots)
+
+    @property
+    def token_hook(self):
+        return self.prefill.token_hook
+
+    @token_hook.setter
+    def token_hook(self, fn) -> None:
+        # the prefill worker emits each request's first token, the decode
+        # worker the rest; req_id survives the handoff, so the bridge's
+        # routing by id sees one stream
+        self.prefill.token_hook = fn
+        self.decode.token_hook = fn
+
+    def submit(self, request: Request) -> int:
+        return self.prefill.submit(request)
+
+    def cancel(self, req_id: int, reason: str = "cancelled") -> bool:
+        """Cancel wherever the request lives. A handoff caught in transit is
+        dropped and its payloads' buffers returned: the prefill worker
+        released its blocks at export and the decode worker allocated
+        none."""
+        if self.prefill.cancel(req_id, reason=reason):
+            return True
+        for h in self.prefill.handoffs:
+            if h.req.req_id == req_id:
+                self.prefill.handoffs.remove(h)
+                h.release_payloads()
+                self.prefill.stats["cancelled"] += 1
+                if self.obs.enabled:
+                    self.obs.on_cancel(h.req, self.clock(), reason=reason)
+                return True
+        return self.decode.cancel(req_id, reason=reason)
+
+    def has_work(self) -> bool:
+        return (self.prefill.has_work() or bool(self.prefill.handoffs)
+                or self.decode.has_work())
+
+    def suggested_retry_after_s(self) -> float:
+        # the decode worker owns the generated-token backlog estimate; the
+        # prefill worker's is the 1.0 floor (it never decodes)
+        return max(self.prefill.suggested_retry_after_s(),
+                   self.decode.suggested_retry_after_s())
+
+    def step(self):
+        # ship last tick's exports first, so they admit into decode slots
+        # this tick
+        while self.prefill.handoffs:
+            self.decode.submit_handoff(self.prefill.handoffs.popleft())
+        finished = []
+        if self.decode.has_work():
+            finished.extend(self.decode.step())
+        if self.prefill.has_work():
+            finished.extend(self.prefill.step())
+        return finished
+
+    def run(self):
+        """Drain both workers; results in completion order."""
+        out = []
+        while self.has_work():
+            out.extend(self.step())
+        return out
 
 
-def make_disagg_pair(cfg, params, econf: EngineConfig):
-    raise NotImplementedError(_DISAGG)
+def make_disagg_pair(cfg, params, econf: EngineConfig) -> EnginePair:
+    """A prefill/decode EnginePair from one EngineConfig.
+
+    The prefill worker takes `econf` with role "prefill" (admission, the
+    prefix cache, the caller's obs); the decode worker reuses the prefill
+    worker's (packed) `params`, so one set of weights serves both, with
+    role "decode", no prefix cache (it admits Handoffs, never prompts) and
+    no obs. Both share the prefill worker's clock. Raises what a role-split
+    ServeEngine raises (a paged pool, no window reclamation, recurrent state
+    or spec_k)."""
+    pe = ServeEngine(cfg, params, replace(econf, role="prefill"))
+    de = ServeEngine(cfg, pe.params, replace(
+        econf, role="decode", prequant=False, obs=None,
+        prefix_cache=False, prefix_spill=False, replicate_hits=None))
+    return EnginePair(pe, de)
 
 
 # ---------------------------------------------------------------------------

@@ -279,9 +279,10 @@ class HostBlock:
     the pool leaf's dtype; a PackedKV stays a PackedKV of uint8 codes and
     scale bits, never dequantized. Every leaf is a view of `buf`, one flat
     uint8 buffer, pinned when the pool lies on a card. `done` is the CUDA
-    event recorded on the stream after the last copy out of `buf` was
-    dispatched (None on the CPU, where copies are synchronous); the pool
-    reuses `buf` only once that event has completed."""
+    event recorded on the stream after the last copy into or out of `buf`
+    was dispatched (None on the CPU, where copies are synchronous, and
+    after a synchronous read); the pool reuses `buf` only once that event
+    has completed."""
 
     stages: list
     buf: torch.Tensor
@@ -763,15 +764,22 @@ class KVPool:
         return torch.empty(self.host_block_bytes, dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
 
-    def read_block_host(self, block: int):
+    def read_block_host(self, block: int, non_blocking: bool = False):
         """Snapshot block `block` of every token leaf into host memory.
 
         Returns `(payload, nbytes)`: a `HostBlock` and its leaves' bytes.
-        Synchronous (the copies complete before it returns). On a card the
-        buffer is pinned, taken from the pool's free list when one is
-        there, so a spill allocates pinned memory (through PyTorch's
-        caching host allocator, which calls `cudaHostAlloc` when it holds
-        no freed block) only when the tier grows past its high-water mark."""
+        Synchronous by default (the copies complete before it returns: the
+        prefix cache's spill). With `non_blocking` on a card (a
+        disaggregated handoff's export) the device-to-host copies are only
+        dispatched on the current stream and `payload.done` is the event
+        recorded behind them: the host must not read the bytes before it
+        has completed, and later kernels on the stream (a write into the
+        released block, the decode pool's import from the buffer) run after
+        the copies. On a card the buffer is pinned, taken from the pool's
+        free list when one is there, so a spill allocates pinned memory
+        (through PyTorch's caching host allocator, which calls
+        `cudaHostAlloc` when it holds no freed block) only when the tier
+        grows past its high-water mark."""
         if not self.paged:
             raise SlotError("read_block_host on a dense pool: no blocks")
         buf = self._host_buffer()
@@ -781,10 +789,14 @@ class KVPool:
                                               self._host_shapes):
             n = math.prod(shape) * leaf.element_size()
             v = buf[off:off + n].view(dtype).view(shape)
-            v.copy_(leaf[:, block])
+            v.copy_(leaf[:, block], non_blocking=non_blocking)
             views.append(v)
         nbytes = sum(v.numel() * v.element_size() for v in views)
-        return HostBlock(_like_tree(self.caches, views), buf), nbytes
+        payload = HostBlock(_like_tree(self.caches, views), buf)
+        if non_blocking and self.device.type == "cuda":
+            payload.done = torch.cuda.Event()
+            payload.done.record()
+        return payload, nbytes
 
     def write_block_host(self, block: int, payload: HostBlock) -> None:
         """Write a `read_block_host` payload into block `block`.

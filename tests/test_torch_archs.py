@@ -1,9 +1,10 @@
 """Every model of the port's registry against the JAX reference: the
-counterpart of tests/test_archs.py over the port's 10 ids.
+counterpart of tests/test_archs.py over the registry's 11 ids.
 
 Same weights (the reference's init at the reduced size, converted with
 `repro_torch.convert`), same numpy inputs; llava is fed stub embeds in
-place of tokens. Tolerances, each where it is used:
+place of tokens, whisper stub frame embeds (24 frames) for its encoder and
+tokens for its decoder. Tolerances, each where it is used:
   - configs: every field equal to the reference's (`dataclasses.asdict`);
   - the train-mode forward and `lm_loss` against the reference run EAGERLY
     (`jax.disable_jit`: under `jax.jit` XLA turns a division by a constant
@@ -14,15 +15,19 @@ place of tokens. Tolerances, each where it is used:
     bf16 logits, relative RMS), and the quartet2 loss within the
     reference's own quartet2-bf16 loss shift and within Q2_LOSS_RTOL = 1e-5
     relative (measured: the quartet2 losses equal, or one f32 ulp apart;
-    rwkv6 and recurrentgemma 1.5e-7);
+    rwkv6 and recurrentgemma 1.5e-7; whisper's logits and loss bitwise);
   - prefill + 3 decode steps against one train-mode forward over the same
     tokens: within FULL_FORWARD_FRACTION (5%) of max|logit|, the reference's
     bar (tests/test_archs.py). MoE configs use capacity_factor 8.0 (nothing
     drops, so prefill and the full forward route alike); llava checks its
-    prefill from embeds only, as the reference skips its decode;
+    prefill from embeds only, as the reference skips its decode; whisper
+    encodes its frames, prefills 16 decoder tokens into
+    `lm.init_encdec_cache` and decodes 3 over the cached encoder output;
 The recurrent families (rwkv6, recurrentgemma) run every check above, and
-their stage structure and parameter tree equal the reference's; whisper,
-still to come, raises NotImplementedError naming its slice. The serving
+their stage structure and parameter tree equal the reference's; whisper's
+modules, tree, gradients and training are in tests/test_torch_whisper.py,
+and it stays out of the engine files (the reference's engine refuses
+enc-dec). The serving
 steps of the new configs are in tests/test_torch_archs_serve.py (another
 file, so the eager-JAX halves run on two workers); the recurrent families'
 modules, serving and training in tests/test_torch_{rwkv,griffin,
@@ -41,7 +46,7 @@ import torch
 from repro.configs import registry as jregistry
 from repro.models import blocks as jblocks
 from repro.models import lm as jlm
-from repro_torch.configs import base, registry
+from repro_torch.configs import registry
 from repro_torch.convert import params_from_jax
 from repro_torch.models import lm
 
@@ -58,8 +63,8 @@ def _one_thread():
 
 
 def test_registry_is_the_references_transformers():
-    want = [a for a in jregistry.names() if a != "whisper_tiny"]
-    assert registry.names() == want and len(want) == 10
+    assert registry.names() == jregistry.names()
+    assert len(registry.names()) == 11
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -87,15 +92,20 @@ def _weights(arch, capacity8=False):
         jax.tree.map(np.asarray, jparams), cfg, "cpu")
 
 
+ENC_FRAMES = 24  # whisper's stub frames a row (its decoder reads 16 tokens)
+
+
 def _batch(cfg, b=2, s=16, seed=0):
     """(reference batch, port batch) of the same values: tokens or stub
-    embeds (bf16 normals x 0.3) and labels."""
+    embeds (bf16 normals x 0.3) and labels; whisper both (ENC_FRAMES
+    frames for the encoder, s tokens for the decoder)."""
     rs = np.random.RandomState(seed)
     j = {"labels": rs.randint(0, cfg.vocab, (b, s)).astype(np.int32)}
     if cfg.input_mode == "embeds":
-        emb = jnp.asarray(rs.randn(b, s, cfg.d_model) * 0.3, jnp.bfloat16)
+        frames = ENC_FRAMES if cfg.enc_dec else s
+        emb = jnp.asarray(rs.randn(b, frames, cfg.d_model) * 0.3, jnp.bfloat16)
         j["embeds"] = emb
-    else:
+    if cfg.input_mode == "tokens" or cfg.enc_dec:
         j["tokens"] = rs.randint(0, cfg.vocab, (b, s)).astype(np.int32)
     t = {k: (torch.from_numpy(np.asarray(v, np.float32)).bfloat16()
              if k == "embeds" else torch.from_numpy(v)) for k, v in j.items()}
@@ -145,6 +155,9 @@ def test_prefill_then_decode_matches_a_full_forward(arch):
     _, cfg, _, params = _weights(arch, capacity8=True)
     b, s, extra = 2, 16, 3
     rs = np.random.RandomState(3)
+    if cfg.enc_dec:
+        _encdec_prefill_then_decode(cfg, params, b, s, extra, rs)
+        return
     if cfg.input_mode == "embeds":
         emb = torch.from_numpy(
             rs.randn(b, s, cfg.d_model).astype(np.float32) * 0.3).bfloat16()
@@ -170,23 +183,29 @@ def test_prefill_then_decode_matches_a_full_forward(arch):
             assert err < tol, (arch, step, err)
 
 
-def _port_config(jcfg):
-    """The port's ArchConfig with a reference config's fields."""
-    kw = dataclasses.asdict(jcfg)
-    for key, cls in (("moe", base.MoEConfig), ("mla", base.MLAConfig),
-                     ("rwkv", base.RWKVConfig), ("griffin", base.GriffinConfig)):
-        if kw[key] is not None:
-            kw[key] = cls(**kw[key])
-    return base.ArchConfig(**kw)
-
-
-@pytest.mark.parametrize("arch", ["whisper_tiny"])
-def test_remaining_families_raise_naming_their_slice(arch):
-    cfg = _port_config(jregistry.get(arch).reduced())
-    with pytest.raises(NotImplementedError, match="encoder-decoder \\(whisper\\) slice"):
-        lm.layer_specs(cfg)
-    with pytest.raises(NotImplementedError, match="whisper slice"):
-        registry.get(arch)
+def _encdec_prefill_then_decode(cfg, params, b, s, extra, rs):
+    """Whisper: ENC_FRAMES frames encoded and s tokens prefilled into
+    `init_encdec_cache`, then `extra` decode steps over the cached encoder
+    output, each against one train-mode forward over all s + extra tokens."""
+    emb = torch.from_numpy(rs.randn(b, ENC_FRAMES, cfg.d_model).astype(
+        np.float32) * 0.3).bfloat16()
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab, (b, s + extra)))
+    with torch.no_grad():
+        full = lm.forward(params, cfg, {"embeds": emb, "tokens": toks}, "bf16",
+                          SEED, mode="train")[0].float()
+        tol = FULL_FORWARD_FRACTION * float(full.abs().max())
+        cache = lm.init_encdec_cache(cfg, b, s + 8, ENC_FRAMES, device="cpu")
+        pf, cache = lm.forward(params, cfg, {"embeds": emb,
+                                             "tokens": toks[:, :s]},
+                               "bf16", SEED, caches=cache, mode="prefill")
+        assert float((pf.float() - full[:, :s]).abs().max()) < tol
+        assert float(cache["enc_out"].float().abs().max()) > 0
+        for step in range(extra):
+            dl, cache = lm.forward(
+                params, cfg, {"tokens": toks[:, s + step: s + step + 1]},
+                "bf16", SEED, caches=cache, mode="decode", pos=s + step)
+            err = float((dl[:, 0].float() - full[:, s + step]).abs().max())
+            assert err < tol, (step, err)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6_7b", "recurrentgemma_9b"])

@@ -1388,3 +1388,113 @@ def test_chunked_sdpa_on_card_against_sdpa(dev, window):
     torch.cuda.synchronize()
     assert torch.equal(out, again)
     assert (out - ref).abs().max().item() <= 2e-3
+
+
+# --------------------------------------------------------------------------
+# whisper's shapes and the disaggregated pair on the card
+# --------------------------------------------------------------------------
+
+# whisper-tiny (d 384, d_ff 1,536): a decode step of 4 rows (the cross K/V
+# projected from 4 x 1,500 encoder frames) and a training step of 8 x
+# (1,500 frames, 448 tokens): T 3,584 decoder and 12,000 encoder tokens
+WHISPER_MK = [(4, 384), (4, 1536), (6000, 384), (3584, 384), (3584, 1536),
+              (12000, 384), (12000, 1536)]
+WHISPER_MNK = [(4, 384, 384), (4, 1536, 384), (4, 384, 1536), (6000, 384, 384),
+               (3584, 1536, 384), (3584, 384, 1536), (12000, 384, 384),
+               (3584, 384, 3584), (1536, 384, 12000), (12000, 384, 1536)]
+WHISPER_REQUANT = [(3584, 384), (3584, 1536), (384, 3584), (1536, 12000),
+                   (12000, 384), (384, 1536)]
+
+
+@pytest.mark.parametrize("m,k", WHISPER_MK)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nvfp4_fos_quant_at_whisper_shapes(dev, m, k, dtype):
+    g = torch.Generator(device=dev).manual_seed(m * 7 + k)
+    x = (torch.randn((m, k), generator=g, device=dev)
+         * torch.exp(torch.randn((m, k), generator=g, device=dev))).to(dtype)
+    kern = ops.nvfp4_fos_quant(x)
+    torch.cuda.synchronize()
+    assert_quant_close(kern, NQ.nvfp4_fos_quant_plain(x))
+
+
+@pytest.mark.parametrize("m,n,k", WHISPER_MNK)
+def test_fp4_matmul_at_whisper_shapes(dev, m, n, k):
+    args = _fp4_operands(dev, m, n, k, m + 3 * n + k)
+    c = ops.fp4_matmul(*args)
+    torch.cuda.synchronize()
+    ref = FM.fp4_matmul_plain(*args)
+    assert (c - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("m,k", WHISPER_REQUANT)
+def test_ms_eden_phases_at_whisper_shapes(dev, m, k):
+    """Phase 1 on the operand and on its transposed view (as the backward
+    hands E^T and X^T), phase 2 with hashed uniforms: bitwise the plain
+    versions (k 12,000 takes RHT blocks of 32)."""
+    x, signs, _ = _requant_inputs(dev, m, k, 11 * m + k)
+    xv = x.T.contiguous().T
+    p1, p1v = ops.ms_eden_phase1(x, signs), ops.ms_eden_phase1(xv, signs)
+    torch.cuda.synchronize()
+    plain = MR.phase1_plain(x, signs)
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(p1, plain, p1v))
+    draws = rng.HashDraws([m, k])
+    keys = draws.keys(3)
+    kern = ops.ms_eden_phase2(plain[4], plain[1], plain[2], plain[3], keys)
+    torch.cuda.synchronize()
+    ref = MR.phase2_plain(plain[4], plain[1], plain[2], plain[3],
+                          draws.uniform(3, plain[1].shape, dev))
+    assert torch.equal(kern[0], ref[0]) and torch.equal(kern[1], ref[1])
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "nvfp4"])
+def test_disagg_pair_round_trip_on_card(dev, kv_quant):
+    """A handoff's payload bytes equal the prefill pool's blocks, and the
+    decode pool's blocks after the import equal the payload (bitwise); the
+    pair's bf16 streams equal the single engine's; at the end both pools
+    hold no block and every pinned payload buffer is back on the prefill
+    pool's free list."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.frontend import make_disagg_pair
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng_ = np.random.RandomState(5)
+    prompts = [rng_.randint(0, cfg.vocab, n).tolist() for n in (40, 9, 23, 17)]
+    econf = EngineConfig(n_slots=2, max_len=64, prefill_chunk=8, scheme="bf16",
+                         kv_quant=kv_quant, device="cuda")
+    eng = ServeEngine(cfg, params, econf)
+    ids = [eng.submit(Request(p, 10)) for p in prompts]
+    ref = {r.req_id: r.tokens for r in eng.run()}
+    pair = make_disagg_pair(cfg, params, econf)
+    pe, de = pair.prefill, pair.decode
+    assert [pair.submit(Request(p, 10)) for p in prompts] == ids
+    while not pe.handoffs:
+        pe.step()
+    h = pe.handoffs[0]
+    torch.cuda.synchronize()
+    assert all(p.buf.is_pinned() for _, p in h.blocks)
+    leaves = KV.token_leaves(pe.pool.caches)
+    exported = {}
+    for j, p in h.blocks:
+        exported[j] = [t.clone() for t in KV.token_leaves(p.stages)]
+        # the prefill worker released the blocks; nothing has reused them
+        blk = [b for b in range(pe.pool.n_blocks)
+               if all(torch.equal(x[:, b].cpu(), y)
+                      for x, y in zip(leaves, exported[j]))]
+        assert blk, j
+    pair.decode.submit_handoff(pe.handoffs.popleft())
+    de._admit()
+    torch.cuda.synchronize()
+    i = next(i for i, s in enumerate(de.slots) if s.req is h.req)
+    for j, want in exported.items():
+        b = int(de.pool._table[i, j])
+        assert all(torch.equal(x[:, b].cpu(), y) for x, y in
+                   zip(KV.token_leaves(de.pool.caches), want))
+    got = {r.req_id: r.tokens for r in pair.run()}
+    assert got == ref
+    torch.cuda.synchronize()
+    pe.pool.poll_host()
+    assert pe.pool.free_block_count == pe.pool.n_blocks
+    assert de.pool.free_block_count == de.pool.n_blocks
+    assert len(pe.pool._host_free) == pe.pool.host_allocs > 0
+    assert pe.stats["handoffs"] == len(prompts) and de.stats["prefill_steps"] == 0

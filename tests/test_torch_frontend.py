@@ -15,8 +15,8 @@ bf16 unless a test says otherwise):
     clock; drain under load (in-flight finish, new ones 503, `drained`);
   - visibility-timeout requeue and exact resume on a fake clock, with the
     bridge driven unstarted; a caught-up consumer is never requeued;
-  - the token hook's order; EnginePair / make_disagg_pair raise, naming
-    the slice that brings them;
+  - the token hook's order (the disaggregated pair's SSE, disconnect and
+    drain are in tests/test_torch_disagg.py);
   - `launch/serve.py --http 0 --obs` in a subprocess, and the kernel
     library built and loaded once by threads that reach it together.
 Against the reference (one JAX engine): one scripted HTTP exchange (a
@@ -56,9 +56,8 @@ from repro_torch.serve import frontend as pfrontend
 from repro_torch.serve.engine import (EngineConfig, QueueFull, Request,
                                       ServeEngine)
 from repro_torch.serve.frontend import (H_REQUEUED, H_RETIRED, EngineBridge,
-                                        EnginePair, FrontendConfig,
-                                        TenantQuota, _TokenBucket,
-                                        make_disagg_pair)
+                                        FrontendConfig, TenantQuota,
+                                        _TokenBucket)
 
 TEST_TIMEOUT_S = 60
 WAIT_S = 30.0       # any single await / join
@@ -535,13 +534,6 @@ def test_token_hook_streams_every_token_in_order():
             run_res[rid].tokens
         assert mine[-1][1] is run_res[rid]
         assert all(res is None for _, res in mine[:-1])
-
-
-def test_disaggregated_pair_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="distribution"):
-        make_disagg_pair(_CFG, {}, EngineConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="distribution"):
-        EnginePair(None, None)
 
 
 def test_engine_thread_fault_fails_handles_and_commands():
