@@ -291,7 +291,7 @@ Phases (any failure exits non-zero, before the result line):
                blocks over the lru state kind and MQA lattn layers at hd 256
                under a 2,048 window), each drawn from its own seed:
      13a. both at their published widths, rwkv6-7b cut to 8 of 32 layers and
-               recurrentgemma-9b to 9 of 38 (three whole patterns;
+               recurrentgemma-9b to 6 of 38 (two whole patterns;
                RECURRENT_LAYERS), quartet2, weights drawn raw and packed
                once, 4 slots, 4 requests of 16-64 prompt tokens and 8 new
                tokens; recurrentgemma over the bf16 and the NVFP4 pool (#5,
@@ -367,8 +367,43 @@ Phases (any failure exits non-zero, before the result line):
                worker, then drain: both pools conserved.
      15c. SSE over the pair through `CompletionFrontend`, bitwise the
                pair's run() under bf16.
+ 16. the distribution layer (`repro_torch.dist`): DP_RANKS (2) ranks
+               spawned by `dist.spawn`, sharing the one card over a gloo
+               group (NCCL refuses two ranks on one device); each loads the
+               built kernel library and runs, in one group:
+     16a. data-parallel Quartet II training of full-width llama-200m
+               through the entry point (`launch.train.run` with `--dp 2
+               --backend gloo` on each rank, as `--dp` spawns it), phase
+               5's recipe (quartet2, AdamW, warmup-cosine at lr 2e-3,
+               a global batch of 8 x 256, 4 rows a rank: `batch_at(step,
+               rank, 2)`), DP_STEPS (3) steps: #1-#4 launched 140 / 210 /
+               280 / 140 a rank a step, exactly; the ranks' params bitwise
+               equal after every step (`dist.checksum`); held against this
+               process's own run of 2 microbatches over the two shards laid
+               end to end: losses, grad norms and every param bitwise
+               (DP_HEAD_REL_RMS only if cuBLAS's f32 head differed between
+               processes, said so). Seconds a step, the all-reduce's host
+               ms, one more step profiled a rank (#1-#4 against every other
+               kernel), peak memory a rank.
+     16b. the same with `--compress` (`compressed_grad_mean`: NVFP4 SR
+               round trip, f32 sum, in place of the exact mean): finite
+               losses, rank-identical params; on step 0's grads every leaf's
+               compressed mean against the exact mean: the median leaf's
+               relative error above COMPRESS_MEDIAN_FLOOR (0.05: the round
+               trip ran) and under COMPRESS_MEDIAN_BAR (0.2), the largest
+               reported.
+     16c. GPipe (`dist.pipeline.gpipe`): two stages of tanh(qlinear(x, w))
+               at d 2,048 under quartet2, 4 microbatches of 256 rows, #1
+               and #2 launched on every tick: equal to the stages applied
+               in order (bitwise, or within 1e-5), with NVFP4 boundaries
+               within 0.30 relative; the bubble fraction.
+     16d. NCCL at world size 1 in this process: a DP step equal to the
+               plain step bitwise (2 steps), `compressed_psum_mean` equal to
+               `_sr_roundtrip` bitwise for the same uniforms.
+     16f. #1-#4 against their plain versions at every shape 16a and 16c
+               gave them (12f's checks).
 Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 15, 11, 12,
-13, 14 (15 while phase 4's weights are resident);
+13, 14, 16 (15 while phase 4's weights are resident);
 the reduced CPU runs that 8b, 8d, 9e and 12e hold the card against run in a
 process of their own from the start (`cpu_references`). Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
@@ -382,6 +417,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -543,13 +579,15 @@ def device_ms(torch, fn, symbols, reps: int = 3):
     return us / 1e3 / reps if us > 0 else None
 
 
-def call_device_ms(torch, fn, reps: int = 3):
+def call_device_ms(torch, fn, reps: int = 3, warmup: bool = True):
     """The device time of everything fn launches, per call of fn (the sum of
     every CUDA kernel in the profiler's window), and the launches per call;
-    (None, 0) when the profiler shows no device time."""
+    (None, 0) when the profiler shows no device time. One unprofiled call
+    first unless `warmup` is False."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -1908,19 +1946,24 @@ def phase_training(torch, card):
             "launches": launches, "profile": prof}
 
 
-def profile_train_step(torch, trainer, state, step_ms):
-    """Device time by kernel of one training step (torch.profiler), and the
-    device's busy share against the unprofiled host-clock step time."""
+def profile_train_step(torch, trainer, state, step_ms, say=log, batch=None):
+    """Device time by kernel of one training step (torch.profiler) on
+    `batch` (by default the corpus's batch of the state's step), and the
+    device's busy share against the unprofiled host-clock step time; `say`
+    logs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    batch = {k: v.cuda() for k, v in trainer.corpus.batch_at(state.step).items()}
+    if batch is None:
+        batch = {k: v.cuda() for k, v in trainer.corpus.batch_at(state.step).items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
     rows, total_us = [], 0.0
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # gloo's "gloo:all_reduce" range of a CUDA tensor reads as a device
+        # row holding its own host-to-device copy's time, which has its row
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("gloo:"):
             continue
         dev_us = getattr(ev, "self_device_time_total", 0.0)
         if dev_us > 0:
@@ -1928,23 +1971,23 @@ def profile_train_step(torch, trainer, state, step_ms):
             total_us += dev_us
     rows.sort(reverse=True)
     if total_us == 0:
-        log("  profile: no device time in key_averages() (not measured)")
+        say("  profile: no device time in key_averages() (not measured)")
         return None
     dev_ms = total_us / 1e3
     n_launches = sum(n for _, _, n in rows)
     busy = dev_ms / step_ms
-    log(f"  profile of one training step: device time {dev_ms:.2f} ms against a "
+    say(f"  profile of one training step: device time {dev_ms:.2f} ms against a "
         f"{step_ms:.1f} ms step: busy {busy:.1%}, idle {1 - busy:.1%}; by kernel:")
     for us, key, n in rows[:12]:
-        log(f"    {us / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
+        say(f"    {us / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
     by_kernel = {}
     for name in ("fp4_matmul", "nvfp4_fos_quant", "ms_eden_phase1", "ms_eden_phase2"):
         by_kernel[name] = sum(us for us, key, _ in rows
                               if of_kernel(key, KERNEL_SYMBOLS[name])) / 1e3
-    log("  device ms per training step by ported kernel: " + ", ".join(
+    say("  device ms per training step by ported kernel: " + ", ".join(
         f"{k} {v:.3f}" for k, v in by_kernel.items()))
     torch_ops = launches_by_pattern(rows, 1)
-    log(f"  kernel launches per training step: {n_launches} in all; PyTorch: " + ", ".join(
+    say(f"  kernel launches per training step: {n_launches} in all; PyTorch: " + ", ".join(
         f"{p} {n:g} ({ms:.3f} ms)" for p, (n, ms) in torch_ops.items()))
     return {"device_ms_per_step": dev_ms, "busy_share": busy, "launches": n_launches,
             "kernel_ms": by_kernel, "torch_launches": torch_ops,
@@ -3087,6 +3130,7 @@ def phase_prefix(torch, card, llama_params, deepseek_cfg, deepseek_params):
 SPEC_K, SPEC_DRAFT = 3, 2     # 9a/9b/9e/9f: llama-200m's first 2 of the 5 served
 SPEC_K_WIDE = 4               # 9c: the verify's GEMMs at M = 4 x 5 = 20 (wgmma)
 SPEC_DS_DRAFT = 1             # 9d: deepseek-v3's first of 2 layers
+SPEC_DS_NEW = 8               # 9d: new tokens a request (16 until phase 16 came)
 SPEC_ROUNDS = 8               # rounds in each measured window
 SPEC_PARTS = ("spec_draft", "spec_catchup", "spec_verify")
 
@@ -3451,9 +3495,9 @@ def phase_spec_deepseek(torch, card, cfg, params, base, dev="cuda"):
     kw = dict(prequant=False, draft_layers=SPEC_DS_DRAFT)  # packed already
     spec_run(torch, cfg, params, prompts[:1], 2, dev, **kw)   # warm-up
     ops.reset_launches()
-    eng, a, wall = spec_run(torch, cfg, params, prompts, 16, dev, **kw)
+    eng, a, wall = spec_run(torch, cfg, params, prompts, SPEC_DS_NEW, dev, **kw)
     launches = dict(ops.LAUNCHES)
-    _, b, _ = spec_run(torch, cfg, params, prompts, 16, dev, **kw)
+    _, b, _ = spec_run(torch, cfg, params, prompts, SPEC_DS_NEW, dev, **kw)
     if a != b:
         fail(f"9d: two spec runs differ: {agreement(a, b)[1]}")
     if dev == "cuda" and (launches["paged_mla"] <= 0 or launches["paged_mla_q"]
@@ -5451,9 +5495,12 @@ def phase_registry(torch, card):
 
 RECURRENT_ARCHS = ("rwkv6_7b", "recurrentgemma_9b")
 # 13a-13c depth cuts, for the smoke's time limit only (widths are never
-# cut): rwkv6-7b at 8 of its 32 layers, recurrentgemma-9b at 9 of 38 (three
-# whole rec, rec, lattn patterns)
-RECURRENT_LAYERS = {"rwkv6_7b": 8, "recurrentgemma_9b": 9}
+# cut): rwkv6-7b at 8 of its 32 layers, recurrentgemma-9b at 6 of 38 (two
+# whole rec, rec, lattn patterns; 9 until phase 16 came). rwkv6 stays at 8:
+# at 4 layers its bf16 spec stream left the non-spec one at a near-tie
+# (13b holds rwkv6 bitwise, and that holds only where cuBLAS's bf16 GEMMs
+# give the verify chunk's rows what single-token steps give them)
+RECURRENT_LAYERS = {"rwkv6_7b": 8, "recurrentgemma_9b": 6}
 LONG_REQUEST = (2304, 32)    # 13a: recurrentgemma's window-reclaim request
 # 13b: (spec_k, draft layers): rwkv's verify chunk of 4 < its WKV chunk of 16
 RECURRENT_SPEC = {"rwkv6_7b": (3, 2), "recurrentgemma_9b": (3, 3)}
@@ -6603,6 +6650,473 @@ def phase_disagg(torch, card, llama_params):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: the distribution layer
+# --------------------------------------------------------------------------
+
+DP_RANKS = 2                 # ranks sharing the one card over a gloo group
+DP_STEPS = 3                 # 16a and 16b: steps of phase 5's recipe
+DP_SEQ, DP_BATCH = 256, 8    # the global batch: 4 rows of 256 a rank
+# 16a's bar if the ranks are not bitwise the one process: only the f32 head's
+# cuBLAS algorithm may differ between processes (relative RMS a leaf)
+DP_HEAD_REL_RMS = 1e-5
+COMPRESS_MEDIAN_BAR = 0.2    # 16b: tests/test_substrate.py's one-draw bar
+# 16b's floor: an SR round trip that were skipped or exact would read 0; an
+# H100 measured 0.119-0.129 a leaf, SR's MSE predicts about 0.15
+COMPRESS_MEDIAN_FLOOR = 0.05
+GPIPE_D, GPIPE_ROWS, GPIPE_MICRO = 2048, 256, 4   # 16c
+GPIPE_ATOL = 1e-5            # 16c: tests/test_pipeline.py's bars
+GPIPE_COMPRESS_BAR = 0.30
+
+
+def dp_args(dev, compress):
+    """`launch.train`'s command line of 16a (16b with `compress`): phase 5's
+    recipe for DP_STEPS steps on DP_RANKS ranks sharing the card over gloo
+    (the reduced llama at 16 tokens a row on the CPU)."""
+    args = list(TRAIN_ARGS)
+    args[args.index("--steps") + 1] = str(DP_STEPS)
+    args[args.index("--seq") + 1] = str(DP_SEQ if dev == "cuda" else 16)
+    args[args.index("--batch") + 1] = str(DP_BATCH)
+    args += ["--device", dev, "--dp", str(DP_RANKS), "--backend", "gloo"]
+    return args + (["--reduced"] if dev != "cuda" else []) + (
+        ["--compress"] if compress else [])
+
+
+def dp_setup(torch, dev, device, group, microbatches=1):
+    """(train_step, fresh state, corpus) of `dp_args`' recipe built here, as
+    `launch.train` builds it on every rank (for the one-process run and the
+    group of one)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import make_train_step
+    cfg = registry.get("llama_200m")
+    cfg = cfg if dev == "cuda" else cfg.reduced()
+    init, step = make_train_step(cfg, "quartet2", base_lr=2e-3,
+                                 total_steps=DP_STEPS, group=group,
+                                 microbatches=microbatches)
+    state = init(lm.init(cfg, torch.Generator(device=device).manual_seed(0),
+                         device))
+    corpus = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=DP_SEQ if dev == "cuda" else 16,
+        global_batch=DP_BATCH))
+    return step, state, corpus
+
+
+def dp_train_run(torch, dev, rank, world, compress, want=None):
+    """16a (16b with `compress`) on this rank, through the entry point:
+    `launch.train.run(dp_args(...), rank, world)`, what `--dp` runs on each
+    spawned rank. Observed from outside (the entry point unchanged): the
+    train step it builds is wrapped to read losses, grad norms, host ms and
+    the params checksum after each step; `dist.all_reduce_sum_` is timed;
+    16b's `compressed_grad_mean` also gives every leaf's error against the
+    exact mean on step 0. Then launches, peak memory; 16a: one more step
+    profiled by kernel, and rank 0's final params when its checksums are
+    not `want` (the one process's)."""
+    from repro_torch import dist as D
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.dist import compression as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import adamw
+
+    rec = {"loss": [], "grad_norm": [], "step_ms": [], "checksums": []}
+    errs, ar_ms, real = [], [], {}
+    exact_sum, real_mean, real_make = (D.all_reduce_sum_, C.compressed_grad_mean,
+                                       LT.make_train_step)
+
+    def timed_sum(tensors, grp=None):
+        cuda_sync(torch, dev)
+        t0 = time.perf_counter()
+        exact_sum(tensors, grp)
+        cuda_sync(torch, dev)
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+        return tensors
+
+    def measured_mean(grads, group, seed):
+        got = real_mean(grads, group, seed)
+        if not errs:  # step 0: each leaf against the exact mean
+            exact = exact_sum([g.float().clone() for g in flatten(grads)], group)
+            for c, e in zip(flatten(got), exact):
+                if e.numel() >= 16:
+                    e /= world
+                    errs.append(float((c - e).norm() / e.norm().clamp_min(1e-30)))
+        return got
+
+    def make(*a, **kw):
+        if dev == "cuda":  # run() has set the rank's device; no params yet
+            torch.cuda.reset_peak_memory_stats()
+        init, step = real_make(*a, **kw)
+        real["step"] = step
+
+        def observed(state, batch):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            rec["loss"].append(float(m["loss"]))
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            rec["checksums"].append(D.checksum(adamw.leaves(state.params)))
+            return state, m
+        return init, observed
+
+    ops.reset_launches()
+    D.all_reduce_sum_, C.compressed_grad_mean, LT.make_train_step = (
+        timed_sum, measured_mean, make)
+    try:
+        summary, trainer, state = LT.run(dp_args(dev, compress), rank=rank,
+                                         world=world)
+    finally:
+        D.all_reduce_sum_, C.compressed_grad_mean, LT.make_train_step = (
+            exact_sum, real_mean, real_make)
+    device = trainer.device
+    rec.update(launches=dict(ops.LAUNCHES), all_reduce_ms=ar_ms,
+               leaf_rel_err=errs, history_losses=summary["losses"],
+               grad_bytes=sum(4 * p.numel() for p in adamw.leaves(state.params)),
+               current_device=(torch.cuda.current_device() if dev == "cuda"
+                               else None),
+               device=str(device),
+               peak_mem_bytes=(torch.cuda.max_memory_allocated(device)
+                               if dev == "cuda" else 0))
+    if not compress:
+        if rank == 0 and rec["checksums"] != want:
+            rec["params"] = [p.detach().cpu() for p in adamw.leaves(state.params)]
+        if dev == "cuda":  # one more step (each rank), profiled by kernel
+            trainer.train_step = real["step"]
+            rec["profile"] = profile_train_step(
+                torch, trainer, state, median(rec["step_ms"][1:]),
+                say=log if rank == 0 else (lambda msg: None),
+                batch={k: v.to(device) for k, v in trainer.corpus.batch_at(
+                    state.step, rank, world).items()})
+    return rec
+
+
+def gpipe_stage(torch):
+    from repro_torch.core.linear import qlinear
+    return lambda w, x: torch.tanh(qlinear(x, w, None, "quartet2"))
+
+
+def gpipe_inputs(torch, dev, device, world):
+    d, rows = (GPIPE_D, GPIPE_ROWS) if dev == "cuda" else (64, 8)
+    g = torch.Generator(device=device).manual_seed(16)
+    ws = torch.randn((world, d, d), generator=g, device=device) * d ** -0.5
+    return ws, torch.randn((GPIPE_MICRO, rows, d), generator=g, device=device)
+
+
+def gpipe_run(torch, dev, device, rank, world):
+    """16c on this rank: the pipe plain and with NVFP4 boundaries (launches
+    and host ms each), against the stages applied in order to each
+    microbatch on this rank's device."""
+    from repro_torch.dist import pipeline as PP
+    from repro_torch.kernels import ops
+    stage = gpipe_stage(torch)
+    ws, xs = gpipe_inputs(torch, dev, device, world)
+    out, ys = {}, {}
+    with torch.no_grad():
+        for compress in (False, True):
+            run = PP.gpipe(stage, world, GPIPE_MICRO, compress=compress)
+            ops.reset_launches()
+            cuda_sync(torch, dev)
+            t0 = time.perf_counter()
+            ys[compress] = run(ws[rank: rank + 1], xs)
+            cuda_sync(torch, dev)
+            out[f"ms_{compress}"] = (time.perf_counter() - t0) * 1e3
+            out[f"launches_{compress}"] = dict(ops.LAUNCHES)
+        want = []
+        for x in xs:
+            for s in range(world):
+                x = stage(ws[s], x)
+            want.append(x)
+        want = torch.stack(want)
+    out["bitwise"] = torch.equal(ys[False], want)
+    out["max_abs_err"] = float((ys[False] - want).abs().max())
+    out["compressed_rel"] = float((ys[True] - want).norm() / want.norm())
+    out["bubble"] = PP.bubble_fraction(world, GPIPE_MICRO)
+    out["ticks"] = GPIPE_MICRO + world - 1
+    return out
+
+
+def dp_rank_body(rank, world, dev, want):
+    """One spawned rank of phase 16: 16a, 16b (both through `launch.train.
+    run`, which sets the rank's current device) and 16c in one gloo group. A
+    rank on the card loads the library phase 2 built (no rebuild). `want`:
+    the one process's params checksums after each step. "marks": seconds
+    since the group formed at the end of each part."""
+    import torch
+    from repro_torch import dist as D
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        build.library()
+    else:
+        torch.set_num_threads(1)
+    out, marks = {}, {"library": time.perf_counter() - t0}
+    out["exact"] = dp_train_run(torch, dev, rank, world, False, want)
+    marks["16a"] = time.perf_counter() - t0
+    out["compressed"] = dp_train_run(torch, dev, rank, world, True)
+    marks["16b"] = time.perf_counter() - t0
+    out["gpipe"] = gpipe_run(torch, dev, D.rank_device(dev, rank), rank, world)
+    marks["16c"] = time.perf_counter() - t0
+    out["marks"] = marks
+    return out
+
+
+def rel_rms(torch, a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def dp_one_process(torch, dev, shapes):
+    """16a's comparison run in this process: 2 microbatches over the two
+    ranks' shards laid end to end; its kernel shapes into `shapes`."""
+    from repro_torch import dist as D
+    from repro_torch.optim import adamw
+    device = torch.device(dev)
+    step, state, corpus = dp_setup(torch, dev, device, None, microbatches=2)
+    rec = {"loss": [], "grad_norm": [], "checksums": []}
+    with shapes:
+        for i in range(DP_STEPS):
+            parts = [corpus.batch_at(i, r, DP_RANKS) for r in range(DP_RANKS)]
+            batch = {k: torch.cat([p[k] for p in parts]).to(device)
+                     for k in parts[0]}
+            state, m = step(state, batch)
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            rec["checksums"].append(D.checksum(adamw.leaves(state.params)))
+    rec["params"] = [p.detach().cpu() for p in adamw.leaves(state.params)]
+    return rec
+
+
+def phase_dp_exact(torch, card, ranks, dev, one):
+    """16a's checks on the ranks' results against the one process's run
+    (`dp_one_process`)."""
+    runs = [r["exact"] for r in ranks]
+    want_launches = {k: v * DP_STEPS for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    for r, run in enumerate(runs):
+        got = {k: run["launches"][k] for k in want_launches}
+        if dev == "cuda" and got != want_launches:
+            fail(f"16a: rank {r} launched {got}, expected {want_launches}")
+        if not all(math.isfinite(x) for x in run["loss"]):
+            fail(f"16a: non-finite losses on rank {r}: {run['loss']}")
+        if run["history_losses"] != run["loss"]:
+            fail(f"16a: rank {r}'s trainer logged {run['history_losses']}, its "
+                 f"steps returned {run['loss']}")
+        if dev == "cuda" and run["device"] != f"cuda:{run['current_device']}":
+            fail(f"16a: rank {r} trained on {run['device']} with current "
+                 f"device {run['current_device']}")
+    if runs[0]["checksums"] != runs[1]["checksums"] or \
+            runs[0]["loss"] != runs[1]["loss"]:
+        fail("16a: the ranks' params or losses differ after a step")
+    bitwise = (one["checksums"] == runs[0]["checksums"]
+               and one["loss"] == runs[0]["loss"]
+               and one["grad_norm"] == runs[0]["grad_norm"])
+    worst = 0.0 if bitwise else max(
+        rel_rms(torch, a, b) for a, b in zip(runs[0]["params"], one["params"]))
+    if not bitwise and worst > DP_HEAD_REL_RMS:
+        fail(f"16a: 2 ranks against one process of 2 microbatches: params "
+             f"{worst:.3g} relative RMS apart (bar {DP_HEAD_REL_RMS}); losses "
+             f"{runs[0]['loss']} against {one['loss']}")
+    ar = [x for run in runs for x in run["all_reduce_ms"]]
+    steady = [x for run in runs for x in run["step_ms"][1:]]
+    profs = [run.get("profile") for run in runs]
+    split = [None if p is None else {
+        "kernels_ms": sum(p["kernel_ms"].values()),
+        "other_ms": p["device_ms_per_step"] - sum(p["kernel_ms"].values()),
+        "torch_ms": {k: ms for k, (_, ms) in p["torch_launches"].items() if ms},
+        "other_top": [(key[:60], ms, n) for key, ms, n in p["top"]
+                      if not any(of_kernel(key, KERNEL_SYMBOLS[k])
+                                 for k in TRAIN_LAUNCHES_PER_STEP)][:6]}
+        for p in profs]
+    out = {"bitwise": bitwise, "worst_rel_rms": worst,
+           "losses": runs[0]["loss"], "grad_norms": runs[0]["grad_norm"],
+           "step_ms": [run["step_ms"] for run in runs],
+           "all_reduce_ms": [run["all_reduce_ms"] for run in runs],
+           "grad_bytes": runs[0]["grad_bytes"],
+           "device_ms": [None if p is None else p["device_ms_per_step"]
+                         for p in profs],
+           "device_launches": [None if p is None else p["launches"]
+                               for p in profs],
+           "device_split": split, "profile": profs,
+           "peak_mem_bytes": [run["peak_mem_bytes"] for run in runs]}
+    log(f"  16a [{card}] 2 ranks x 4 rows against one process of 2 "
+        f"microbatches: {'bitwise' if bitwise else f'{worst:.3g} rel RMS'} "
+        f"(losses {[round(x, 4) for x in out['losses']]}, grad norms "
+        f"{[round(x, 4) for x in out['grad_norms']]}); ranks bitwise equal "
+        f"after each of {DP_STEPS} steps; #1-#4 a rank a step "
+        f"{ {k: v // DP_STEPS for k, v in runs[0]['launches'].items() if v} }")
+    log(f"  16a [{card}] through launch.train.run on each rank (devices "
+        f"{[run['device'] for run in runs]}); host ms a step after the first "
+        f"{median(steady):.1f} "
+        f"(each {[[round(x, 1) for x in run['step_ms']] for run in runs]}); "
+        f"the all-reduce (loss + {out['grad_bytes'] / 1e9:.3f} GB of f32 "
+        f"grads, gloo on the card's tensor) median {median(ar):.1f} ms; "
+        f"device ms of one profiled step a rank "
+        f"{[None if x is None else round(x, 2) for x in out['device_ms']]}; "
+        f"peak memory a rank "
+        f"{[round(x / 2**30, 2) for x in out['peak_mem_bytes']]} GiB")
+    for r, sp in enumerate(split):
+        if sp is not None:
+            log(f"  16a [{card}] rank {r}'s profiled step: #1-#4 "
+                f"{sp['kernels_ms']:.2f} ms, every other kernel "
+                f"{sp['other_ms']:.2f} ms; PyTorch's by pattern "
+                f"{ {k: round(v, 2) for k, v in sp['torch_ms'].items()} }; the "
+                f"largest others (name, ms, launches) "
+                f"{[(k, round(ms, 2), n) for k, ms, n in sp['other_top']]}")
+    return out
+
+
+def phase_dp_compressed(torch, card, ranks):
+    """16b's checks: finite, rank-identical, the step-0 leaf errors."""
+    runs = [r["compressed"] for r in ranks]
+    if not all(math.isfinite(x) for run in runs for x in run["loss"]):
+        fail(f"16b: non-finite losses {[run['loss'] for run in runs]}")
+    if runs[0]["checksums"] != runs[1]["checksums"]:
+        fail("16b: the ranks' params differ after a compressed step")
+    errs = sorted(runs[0]["leaf_rel_err"])
+    med = median(errs)
+    if not COMPRESS_MEDIAN_FLOOR < med < COMPRESS_MEDIAN_BAR:
+        fail(f"16b: the median leaf's compressed mean is {med:.3f} from the "
+             f"exact mean (floor {COMPRESS_MEDIAN_FLOOR}, bar "
+             f"{COMPRESS_MEDIAN_BAR})")
+    steady = [x for run in runs for x in run["step_ms"][1:]]
+    log(f"  16b [{card}] compressed DP: losses "
+        f"{[round(x, 4) for x in runs[0]['loss']]}, ranks bitwise equal after "
+        f"each step; step 0's {len(errs)} leaves of >= 16 elements: compressed "
+        f"mean vs exact mean relative error median {med:.4f} (floor "
+        f"{COMPRESS_MEDIAN_FLOOR}, bar {COMPRESS_MEDIAN_BAR}), largest {errs[-1]:.4f}, smallest "
+        f"{errs[0]:.4f}; host ms a step after the first {median(steady):.1f}")
+    return {"losses": runs[0]["loss"], "median_rel_err": med,
+            "max_rel_err": errs[-1], "min_rel_err": errs[0],
+            "step_ms": [run["step_ms"] for run in runs],
+            "all_reduce_ms": [run["all_reduce_ms"] for run in runs]}
+
+
+def phase_dp_gpipe(torch, card, ranks, dev):
+    """16c's checks."""
+    runs = [r["gpipe"] for r in ranks]
+    ticks = runs[0]["ticks"]
+    for r, run in enumerate(runs):
+        if not (run["bitwise"] or run["max_abs_err"] < GPIPE_ATOL):
+            fail(f"16c: rank {r}'s pipe is {run['max_abs_err']:.3g} from the "
+                 f"stages in order (bar {GPIPE_ATOL})")
+        if not 0 < run["compressed_rel"] < GPIPE_COMPRESS_BAR:
+            fail(f"16c: compressed boundaries {run['compressed_rel']:.3f} "
+                 f"relative (bar {GPIPE_COMPRESS_BAR})")
+        for c in (False, True):
+            got = run[f"launches_{c}"]
+            if dev == "cuda" and (got["nvfp4_fos_quant"], got["fp4_matmul"]) \
+                    != (2 * ticks, ticks):
+                fail(f"16c: rank {r} launched {got} over {ticks} ticks")
+    log(f"  16c [{card}] GPipe, 2 stages of tanh(qlinear) at d "
+        f"{GPIPE_D if dev == 'cuda' else 64}, {GPIPE_MICRO} microbatches, "
+        f"{ticks} ticks (bubble {runs[0]['bubble']:.2f}): "
+        f"{'bitwise' if all(r['bitwise'] for r in runs) else 'max err %.3g' % max(r['max_abs_err'] for r in runs)} "
+        f"the stages in order; NVFP4 boundaries "
+        f"{runs[0]['compressed_rel']:.4f} relative (bar {GPIPE_COMPRESS_BAR}); "
+        f"#1/#2 a rank {runs[0]['launches_False']['nvfp4_fos_quant']}/"
+        f"{runs[0]['launches_False']['fp4_matmul']}; host ms plain "
+        f"{[round(r['ms_False'], 1) for r in runs]}, compressed "
+        f"{[round(r['ms_True'], 1) for r in runs]}")
+    return {"bubble": runs[0]["bubble"], "ticks": ticks,
+            "bitwise": all(r["bitwise"] for r in runs),
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "compressed_rel": runs[0]["compressed_rel"],
+            "ms": [[r["ms_False"], r["ms_True"]] for r in runs]}
+
+
+def phase_dp_world1(torch, card, dev, shapes):
+    """16d in this process, a group of one: NCCL on the card (gloo on the
+    CPU). A DP step equals the plain step bitwise over 2 steps (step 0's lr
+    is 0); compressed_psum_mean equals _sr_roundtrip for the same uniforms;
+    the pipe's stage shapes recorded for 16f."""
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch import dist as D
+    from repro_torch.dist import compression as C
+    from repro_torch.optim import adamw
+    backend = "nccl" if dev == "cuda" else "gloo"
+    device = torch.device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        D.init(backend, 0, 1, f"file://{tmp}/store", timeout_s=120)
+        try:
+            runs = []
+            for group in (tdist.group.WORLD, None):
+                step, state, corpus = dp_setup(torch, dev, device, group)
+                for i in range(2):
+                    batch = {k: v.to(device) for k, v in corpus.batch_at(i).items()}
+                    state, m = step(state, batch)
+                runs.append((float(m["loss"]), float(m["grad_norm"]),
+                             [p.detach().clone() for p in adamw.leaves(state.params)]))
+                del state
+            same = runs[0][:2] == runs[1][:2] and all(
+                torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+            if not same:
+                fail(f"16d: the {backend} DP step at world size 1 is not the "
+                     "plain step")
+            del runs
+            g = torch.Generator(device=device).manual_seed(164)
+            x = torch.randn((2048, 2053), generator=g, device=device)
+            seed = [16, 4]
+            got = C.compressed_psum_mean(x, None, seed, tag=3)
+            u = C.rank_draws(seed, 0).uniform(3, (1, C._padded(x.numel())), device)
+            want = C._sr_roundtrip(x, u)
+            if not torch.equal(got, want):
+                fail("16d: compressed_psum_mean at world size 1 is not "
+                     "_sr_roundtrip")
+        finally:
+            D.shutdown()
+    ws, xs = gpipe_inputs(torch, dev, device, DP_RANKS)
+    with shapes, torch.no_grad():
+        gpipe_stage(torch)(ws[0], xs[0])
+    log(f"  16d [{card}] {backend} at world size 1: the DP step bitwise the "
+        f"plain step (2 steps); compressed_psum_mean bitwise _sr_roundtrip "
+        f"(a 2048 x 2053 f32 leaf, padded)")
+    return {"backend": backend, "dp_step_bitwise": True,
+            "compressed_bitwise": True}
+
+
+def phase_dp(torch, card, dev="cuda"):
+    """Phase 16: 16a-16c on DP_RANKS spawned ranks, checked here; 16d; 16f
+    (on the card). Returns its numbers (with "launches", the sum over the
+    ranks' runs of 16a, 16b and 16c) and the errors of #1-#4 in 16f."""
+    from repro_torch import dist as D
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    log(f"phase 16: the distribution layer, {DP_RANKS} ranks sharing the card "
+        f"over gloo (16a DP training, 16b compressed DP, 16c GPipe), 16d NCCL "
+        f"at world size 1")
+    shapes = KernelShapes()
+    one = dp_one_process(torch, dev, shapes)
+    if dev == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = D.spawn(dp_rank_body, DP_RANKS, (dev, one["checksums"]),
+                    backend="gloo", timeout_s=900)
+    spawn_s = time.perf_counter() - t1
+    out = {"launches": {k: sum(r[part][f"launches{suffix}"][k]
+                               for r in ranks
+                               for part, suffix in (("exact", ""),
+                                                    ("compressed", ""),
+                                                    ("gpipe", "_False"),
+                                                    ("gpipe", "_True")))
+                        for k in ops.LAUNCHES},
+           "ranks_s": spawn_s, "one_process_s": t1 - t0,
+           "rank_marks": [r["marks"] for r in ranks]}
+    out["16a"] = phase_dp_exact(torch, card, ranks, dev, one)
+    out["16b"] = phase_dp_compressed(torch, card, ranks)
+    out["16c"] = phase_dp_gpipe(torch, card, ranks, dev)
+    del ranks
+    gc.collect()
+    out["16d"] = phase_dp_world1(torch, card, dev, shapes)
+    errs = (phase_registry_kernels(torch, shapes, "16f", "16a and 16c")
+            if dev == "cuda" else {})
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 16 took {out['phase_s']:.1f} s (the one process "
+        f"{t1 - t0:.1f} s, the ranks {spawn_s:.1f} s, their seconds from the "
+        f"group's start {out['rank_marks']}); launches on its main paths: "
+        f"{out['launches']}")
+    return out, errs
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -6737,10 +7251,13 @@ def main() -> None:
     for grps_of in (rec_groups, wh_groups):
         for k, grps in grps_of.items():
             kern[k].setdefault("groups", {}).update(grps)
+    dp, dp_errs = phase_dp(torch, card)
+    for k, err in dp_errs.items():
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
                  deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec,
                  http, generate["quartet2"], generate["deepseek"], generate["long"],
-                 registry_out, recurrent_out, whisper_out, disagg)
+                 registry_out, recurrent_out, whisper_out, disagg, dp)
 
     kernels = []
     for k, r in kern.items():
@@ -6772,7 +7289,8 @@ def main() -> None:
          "deepseek": deepseek, "training": training, "resume": resume,
          "nanochat": nanochat, "prefix": prefix, "spec": spec, "http": http,
          "generate": generate, "registry": registry_out,
-         "recurrent": recurrent_out, "whisper": whisper_out, "disagg": disagg},
+         "recurrent": recurrent_out, "whisper": whisper_out, "disagg": disagg,
+         "dp": dp},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

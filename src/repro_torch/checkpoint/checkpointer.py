@@ -121,6 +121,11 @@ def _rebuild(like, it):
     return next(it)
 
 
+def unflatten(like, leaves):
+    """`like`'s structure holding `leaves`, given in `flatten` order."""
+    return _rebuild(like, iter(leaves))
+
+
 def _host_copy(x):
     """A host copy of one leaf, made now (never a view of the live leaf)."""
     if isinstance(x, torch.Tensor):

@@ -43,8 +43,9 @@ With `kv_quant=True` the pool stores every token leaf as NVFP4 `PackedKV`
 bytes (0.28125x the bf16 bytes) and decode attention runs the packed-operand
 kernels. With `paged=False` the pool holds dense per-slot caches and the
 step runs without a block table (the reference's dense layout; no prefix
-cache). The distribution slice brings mesh sharding and cross-shard
-replication; asking for either raises NotImplementedError. Enc-dec models
+cache). The sharded-serving slice brings mesh sharding and cross-shard
+replication (on `dist/`, ported for training); asking for either raises
+NotImplementedError. Enc-dec models
 (whisper) are not served, as in the reference.
 
 Disaggregated prefill/decode (`EngineConfig.role`, driven as a pair by
@@ -241,7 +242,7 @@ class EngineConfig:
     # (whole resident blocks travel) and spec_k == 0 (the draft pool does
     # not travel)
     role: str = "both"
-    # options of the reference engine that the distribution slice ports
+    # options of the reference engine that the sharded-serving slice ports
     mesh: Any = None
     replicate_hits: int | None = None
 
@@ -249,9 +250,9 @@ class EngineConfig:
 # (field, set?, what, the later slice of ROADMAP.md's Queue 1 that ports it)
 _LATER = (
     ("mesh", lambda e: e.mesh is not None, "mesh-sharded serving",
-     "distribution"),
+     "sharded-serving"),
     ("replicate_hits", lambda e: e.replicate_hits is not None,
-     "cross-shard replication of hot prefix blocks", "distribution"),
+     "cross-shard replication of hot prefix blocks", "sharded-serving"),
 )
 
 
@@ -280,7 +281,8 @@ class ServeEngine:
             if bad(e):
                 raise NotImplementedError(
                     f"EngineConfig.{name}: {what} is not ported yet; it comes "
-                    f"with the '{later}' slice (ROADMAP.md, Queue 1)")
+                    f"with the '{later}' slice of the distribution item "
+                    "(ROADMAP.md, Queue 1 item 4)")
         if e.prefix_spill and not e.prefix_cache:
             raise ValueError("prefix_spill=True requires prefix_cache=True "
                              "(the host tier is a property of the cache)")

@@ -15,6 +15,13 @@ Counterpart of `repro/train/trainer.py`:
   - the optional quantization-health tap (`obs/quant_probe.py`), called at
     the host step boundary after the step's own host sync.
 
+Data parallelism: with `world` > 1 the trainer is one rank of a group whose
+train step reduces over the ranks (`train_step.make_train_step(group=)`);
+it reads its shard of each batch (`batch_at(step, rank, world)`), only rank
+0 writes checkpoints (emergency saves included) and logs, and `resume`
+loads the same checkpoint on every rank, so every rank holds the same
+params after every step.
+
 Per step the host synchronizes once, to read the loss (the probe, when it
 samples, adds its own one). A checkpoint is labelled with the number of
 steps its state has taken (`state.step`), and a resumed run starts there.
@@ -59,6 +66,8 @@ class Trainer:
     # consulted at the host step boundary only; None costs one `is None`
     # test per step
     probe: object = None
+    rank: int = 0               # this rank of `world` data-parallel ranks
+    world: int = 1
     _stop: bool = field(default=False, repr=False)
 
     def __post_init__(self):
@@ -76,31 +85,40 @@ class Trainer:
                 pass  # not on the main thread
         return old
 
+    def _log(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg)
+
+    def _batch(self, step: int) -> dict:
+        batch = (self.corpus.batch_at(step) if self.world == 1 else
+                 self.corpus.batch_at(step, self.rank, self.world))
+        return {k: v.to(self.device) for k, v in batch.items()}
+
     def _save(self, state: TrainState, blocking: bool) -> None:
-        if self.ckpt is not None:
+        if self.ckpt is not None and self.rank == 0:
             self.ckpt.save(state.step, state, blocking=blocking)
 
     def _emergency(self, state: TrainState, extra: dict) -> None:
-        if self.ckpt is None:
+        if self.ckpt is None or self.rank != 0:
             return
         ok = self.ckpt.emergency_save(state.step, state, extra)
-        print(f"[trainer] emergency checkpoint "
-              f"{'written' if ok else 'FAILED'} at step {state.step}: {extra}")
+        self._log(f"[trainer] emergency checkpoint "
+                  f"{'written' if ok else 'FAILED'} at step {state.step}: "
+                  f"{extra}")
 
     def run(self, state: TrainState, resume: bool = True) -> TrainState:
         self._stop = False
         old_handlers = self._install_signal_handlers()
         if resume and self.ckpt is not None and self.ckpt.latest_step() is not None:
             state, _ = self.ckpt.restore(state)
-            print(f"[trainer] resumed from step {state.step}")
+            self._log(f"[trainer] resumed from step {state.step}")
         start = state.step
         ewma = None
         try:
             for step in range(start, self.cfg.total_steps):
                 if self._stop:
                     raise KeyboardInterrupt("preemption signal")
-                batch = {k: v.to(self.device)
-                         for k, v in self.corpus.batch_at(step).items()}
+                batch = self._batch(step)
                 t0 = time.perf_counter()
                 state, metrics = self.train_step(state, batch)
                 loss = float(metrics["loss"])  # the step's one host sync
@@ -115,21 +133,21 @@ class Trainer:
                 ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
                 straggler = dt > self.cfg.straggler_factor * ewma and step > start + 3
                 if straggler:
-                    print(f"[watchdog] step {step} took {dt:.2f}s "
-                          f"(ewma {ewma:.2f}s) — straggler suspected")
+                    self._log(f"[watchdog] step {step} took {dt:.2f}s "
+                              f"(ewma {ewma:.2f}s) — straggler suspected")
                 # NaN circuit breaker
                 finite = math.isfinite(loss)
                 if not finite:
-                    print(f"[trainer] non-finite loss at step {step}; "
-                          f"checkpointing and continuing")
+                    self._log(f"[trainer] non-finite loss at step {step}; "
+                              f"checkpointing and continuing")
                     self._emergency(state, {"nan_at": step})
 
                 self.history.append({"step": step, "loss": loss, "dt": dt,
                                      "straggler": straggler, "finite": finite})
                 if step % self.cfg.log_every == 0:
-                    print(f"[trainer] step {step} loss {loss:.4f} "
-                          f"gnorm {float(metrics['grad_norm']):.3f} "
-                          f"{dt * 1e3:.0f}ms")
+                    self._log(f"[trainer] step {step} loss {loss:.4f} "
+                              f"gnorm {float(metrics['grad_norm']):.3f} "
+                              f"{dt * 1e3:.0f}ms")
                 if step and step % self.cfg.ckpt_every == 0:
                     self._save(state, blocking=not self.cfg.async_ckpt)
         except BaseException as e:  # noqa: BLE001 — the preemption path

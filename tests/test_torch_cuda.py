@@ -76,7 +76,12 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     off 2-ulp near-ties (the tie rule), the caches within one bf16 ulp;
     `chunked_sdpa` at its own 1,024 blocks over 2,048 f32 tokens against
     plain sdpa on the card within 2e-3 (the reference's bar), two calls
-    bitwise.
+    bitwise;
+  - the distribution layer on one card: the compression's SR round trip
+    (plain PyTorch) bitwise the CPU's for the same hashed uniforms; at
+    world size 1 over NCCL, `gpipe` bitwise its stage (quartet2 qlinear:
+    #1 twice and #2 once a tick), `compressed_psum_mean` bitwise
+    `_sr_roundtrip`, and the DP train step bitwise the plain step.
 """
 
 import asyncio
@@ -1498,3 +1503,73 @@ def test_disagg_pair_round_trip_on_card(dev, kv_quant):
     assert de.pool.free_block_count == de.pool.n_blocks
     assert len(pe.pool._host_free) == pe.pool.host_allocs > 0
     assert pe.stats["handoffs"] == len(prompts) and de.stats["prefill_steps"] == 0
+
+
+# --------------------------------------------------------------------------
+# the distribution layer (dist/): what one card can hold
+# --------------------------------------------------------------------------
+
+def test_sr_roundtrip_on_the_card_equals_the_cpu(dev):
+    """The compression's SR round trip is plain PyTorch: the card's equals
+    the CPU's bitwise for the same uniforms (the hashed draws are the same
+    on both devices)."""
+    from repro_torch.dist import compression as C
+    x = torch.randn(3001, 37) * 5
+    draws = C.rank_draws(np.array([4, 2], np.uint32), 1)
+    shape = (1, C._padded(x.numel()))
+    u = draws.uniform(7, shape, "cpu")
+    assert torch.equal(draws.uniform(7, shape, dev).cpu(), u)
+    want = C._sr_roundtrip(x, u)
+    assert torch.equal(C._sr_roundtrip(x.to(dev), u.to(dev)).cpu(), want)
+
+
+@pytest.fixture
+def nccl_world1(dev, tmp_path):
+    from repro_torch import dist as D
+    D.init("nccl", 0, 1, f"file://{tmp_path}/store", timeout_s=60)
+    yield
+    D.shutdown()
+
+
+def test_gpipe_and_compression_at_world_size_1_over_nccl(dev, nccl_world1):
+    """One stage over NCCL: the pipe is its stage applied to each
+    microbatch (quartet2 qlinear: #1 and #2 each tick), bitwise; the
+    compressed mean of one rank is its round trip, bitwise."""
+    from repro_torch.dist import compression as C
+    from repro_torch.dist import pipeline as PP
+    stage = lambda w, x: torch.tanh(L.qlinear(x, w, None, "quartet2"))  # noqa
+    ws = torch.randn(1, 256, 256, device=dev) / 16
+    xs = torch.randn(3, 32, 256, device=dev)
+    ops.reset_launches()
+    with torch.no_grad():
+        got = PP.gpipe(stage, 1, 3)(ws, xs)
+        assert (ops.LAUNCHES["nvfp4_fos_quant"], ops.LAUNCHES["fp4_matmul"]) == (6, 3)
+        want = torch.stack([stage(ws[0], x) for x in xs])
+    assert torch.equal(got, want)
+    x = torch.randn(1000, 7, device=dev)
+    seed = np.array([3, 9], np.uint32)
+    u = C.rank_draws(seed, 0).uniform(2, (1, C._padded(x.numel())), dev)
+    assert torch.equal(C.compressed_psum_mean(x, None, seed, tag=2),
+                       C._sr_roundtrip(x, u))
+
+
+def test_dp_step_at_world_size_1_over_nccl_is_the_plain_step(dev, nccl_world1):
+    import torch.distributed as tdist
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    cfg = registry.get("llama_200m").reduced()
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                        global_batch=4))
+    runs = []
+    for group in (tdist.group.WORLD, None):
+        init, step = make_train_step(cfg, "quartet2", base_lr=2e-3,
+                                     total_steps=2, group=group)
+        state = init(lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev))
+        for i in range(2):
+            state, m = step(state, {k: v.to(dev) for k, v in
+                                    corpus.batch_at(i).items()})
+        runs.append((float(m["loss"]), adamw.leaves(state.params)))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
