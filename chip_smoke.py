@@ -153,11 +153,12 @@ Phases (any failure exits non-zero, before the result line):
                the kernels at a verify chunk's shapes against their plain
                versions and timed (#2 at M = 16 and 20, #5 and #7 at Sq 4
                from mid-sequence positions);
-     9a. llama-200m quartet2, phase 4's traffic, spec_k 3 over 2 draft
-               layers: acceptance, tokens a slot a round, decode tok/s
+     9a. llama-200m quartet2, phase 4's prompts with 16 new tokens, spec_k
+               3 over 2 draft layers: acceptance, tokens a slot a round,
+               decode tok/s
                against the non-speculative engine on the same traffic and
                layers, a second run bitwise, the streams' agreement with
-               it (reported); a full-batch round's
+               it (reported); over SPEC_ROUNDS (4) full-batch rounds a round's
                host ms, device ms of the draft, catch-up and verify (the
                kernels inside each range's card-side span), launches by
                kernel and regime, host syncs by source (sync debug mode).
@@ -244,7 +245,7 @@ Phases (any failure exits non-zero, before the result line):
                Each run: tokens in the vocabulary, every block free, #1, #2
                and #5 (#6 over the NVFP4 pool) launched and no other
                attention kernel; decode tok/s, host and device ms of a
-               decode step and the busy share (4 profiled steps), host
+               decode step and the busy share (2 profiled steps), host
                syncs of one decode step by source,
                peak memory, resident and packed weight bytes.
      12b. #5 and #6 at the registry's group sizes, H/KV 4 (granite, llava),
@@ -258,7 +259,7 @@ Phases (any failure exits non-zero, before the result line):
                launches reported.
      12d. deepseek-moe-16b at its published widths, depth cut to 2 layers
                (about 9 GB of f32 state a layer: 28 do not fit one card),
-               quartet2, AdamW, batch 4 x 256, 4 steps through
+               quartet2, AdamW, batch 4 x 256, 2 steps through
                `repro_torch.launch.train`'s code path: losses and weights
                finite, the loss equal to its CE and aux read on their own
                (ce + 0.01 x aux) with aux > 0, #1-#4 launched, no SR uniform
@@ -385,8 +386,9 @@ Phases (any failure exits non-zero, before the result line):
                processes, said so). Seconds a step, the all-reduce's host
                ms, one more step profiled a rank (#1-#4 against every other
                kernel), peak memory a rank.
-     16b. the same with `--compress` (`compressed_grad_mean`: NVFP4 SR
-               round trip, f32 sum, in place of the exact mean): finite
+     16b. the same with `--compress` for DP_COMPRESSED_STEPS (2) steps
+               (`compressed_grad_mean`: NVFP4 SR round trip, f32 sum, in
+               place of the exact mean): finite
                losses, rank-identical params; on step 0's grads every leaf's
                compressed mean against the exact mean: the median leaf's
                relative error above COMPRESS_MEDIAN_FLOOR (0.05: the round
@@ -402,8 +404,37 @@ Phases (any failure exits non-zero, before the result line):
                `_sr_roundtrip` bitwise for the same uniforms.
      16f. #1-#4 against their plain versions at every shape 16a and 16c
                gave them (12f's checks).
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 15, 11, 12,
-13, 14, 16 (15 while phase 4's weights are resident);
+  17. mesh-sharded serving: llama-200m's first 4 layers (phase 4's
+               weights) through `ServeEngine(EngineConfig(mesh=
+               make_serve_mesh(2, 1, devices=["cuda:0"] * 2)))`, 4 slots, 2
+               a shard, both shards on the one card; 4 requests of 17-49
+               tokens, 12 new.
+     17a. bf16: every step of each shard bitwise the unsharded step over
+               the shard's slice; the teacher-forced sharded step within 4
+               bf16 ulps of the whole-batch unsharded step over the bf16
+               pool (held, 9b's bar; the NVFP4 pool's distance reported);
+               the served
+               streams against the unsharded engine's over both pools,
+               greedy, and sampled (temperature 0.8, top-k 8) over the bf16
+               pool: bitwise, or by the tie rule, reported.
+     17b. quartet2 with prequant: two sharded runs bitwise; every step of
+               each shard bitwise the unsharded step over that shard's
+               slice (a copy of its tree, its rows, its tables).
+     17c. 2 slots (one a shard), prefix cache with its host tier and
+               replicate_hits 1: a prompt cached and hit on shard 0 is
+               copied into shard 1 at tick boundaries; the same prompt
+               placed on shard 1 admits hot with no swap-in, bitwise the
+               cold stream.
+     17d. bf16 spec_k 3 over 2 draft layers, sharded: against the sharded
+               non-spec streams, bitwise or by 9b's tie rule (reported).
+     17e. #5-#8 against their plain versions on shard-local tables and
+               shard leaves of blocks_per_shard + 1 blocks (a random scratch
+               block, an all-sentinel row).
+     17f. readings: #1/#2/#5/#6 launches a decode step, host and device ms
+               and busy share, unsharded against sharded; then `launch.serve
+               --data-shards 2 --shard-devices cuda:0,cuda:0` once.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 15, 17, 11,
+12, 13, 14, 16 (15 and 17 while phase 4's weights are resident);
 the reduced CPU runs that 8b, 8d, 9e and 12e hold the card against run in a
 process of their own from the start (`cpu_references`). Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
@@ -3131,7 +3162,8 @@ SPEC_K, SPEC_DRAFT = 3, 2     # 9a/9b/9e/9f: llama-200m's first 2 of the 5 serve
 SPEC_K_WIDE = 4               # 9c: the verify's GEMMs at M = 4 x 5 = 20 (wgmma)
 SPEC_DS_DRAFT = 1             # 9d: deepseek-v3's first of 2 layers
 SPEC_DS_NEW = 8               # 9d: new tokens a request (16 until phase 16 came)
-SPEC_ROUNDS = 8               # rounds in each measured window
+SPEC_ROUNDS = 4               # rounds in each measured window (8 until phase 17)
+SPEC_NEW = 16                 # 9a's two runs: new tokens a request (32 until phase 17)
 SPEC_PARTS = ("spec_draft", "spec_catchup", "spec_verify")
 
 
@@ -3296,9 +3328,9 @@ def phase_spec_llama(torch, card, cfg, params, base, dev="cuda"):
     prompts = llama_prompts(torch, cfg.vocab)
     spec_run(torch, cfg, params, prompts[:2], 4, dev)      # warm-up
     ops.reset_launches()
-    eng, a, wall = spec_run(torch, cfg, params, prompts, 32, dev)
+    eng, a, wall = spec_run(torch, cfg, params, prompts, SPEC_NEW, dev)
     launches = dict(ops.LAUNCHES)
-    _, b, _ = spec_run(torch, cfg, params, prompts, 32, dev)
+    _, b, _ = spec_run(torch, cfg, params, prompts, SPEC_NEW, dev)
     if a != b:
         fail(f"9a: two spec runs differ: first differing {agreement(a, b)[1]}")
     r = spec_numbers(eng.stats, wall)
@@ -3706,7 +3738,8 @@ def phase_spec(torch, card, llama_params, ds_cfg, ds_params, deepseek):
     """Phase 9: self-speculative decoding (9a-9f) and its kernels' holds,
     llama-200m cut to SHARED_LLAMA_LAYERS layers (views of phase 4's
     weights, as phases 8 and 10; a depth cut for the time limit). 9a's
-    non-speculative baseline is phase 4's traffic on the same cut model."""
+    non-speculative baseline is phase 4's prompts on the same cut model,
+    SPEC_NEW new tokens a request as 9a's."""
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
     t0 = time.perf_counter()
     cfg, llama_params = llama_cut(llama_params)
@@ -3716,7 +3749,7 @@ def phase_spec(torch, card, llama_params, ds_cfg, ds_params, deepseek):
     out["kernels"], errs = phase_spec_kernels(torch)
     prompts = llama_prompts(torch, cfg.vocab)
     eng, results, _, _ = serve_once(torch, cfg, llama_params, EngineConfig,
-                                    Request, ServeEngine, prompts, 32)
+                                    Request, ServeEngine, prompts, SPEC_NEW)
     base = {"decode_tok_s": eng.stats["decode_tokens"] / eng.stats["decode_s"],
             "streams": {r.req_id: r.tokens for r in results}}
     del eng
@@ -4812,7 +4845,8 @@ REGISTRY_ARCHS = ("granite_8b", "chatglm3_6b", "nemotron_4_15b",
 REGISTRY_LAYERS = dict.fromkeys(("granite_8b", "chatglm3_6b", "nemotron_4_15b",
                                  "llava_next_mistral_7b", "deepseek_moe_16b"), 4)
 REGISTRY_NEW = 8            # new tokens a request (4 requests of 16-64 tokens)
-REGISTRY_PROFILE_STEPS = 4  # full-batch decode steps timed, then profiled
+REGISTRY_PROFILE_STEPS = 4  # full-batch decode steps timed, then profiled (13a)
+REGISTRY_12A_PROFILE_STEPS = 2  # 12a's (4 until phase 17 came)
 PACK_CHUNK = 4              # matrices `init_packed` holds in f32 at once
 # 12b: (H, KV, layers of one decode step) of the registry's GQA group sizes
 GROUP_SIZES = {
@@ -4826,8 +4860,9 @@ LLAVA_DECODE = 4            # 12c: decode steps after the prefill
 # 12d: deepseek-moe-16b at its published widths, depth cut to 2 layers
 # (about 9 GB of f32 state a layer: parameters, gradients, two moments)
 MOE_TRAIN_LAYERS = 2
+# 2 steps (4 until phase 17 came): the second is the steady step timed
 MOE_TRAIN_ARGS = ["--arch", "deepseek_moe_16b", "--scheme", "quartet2",
-                  "--steps", "4", "--seq", "256", "--batch", "4", "--lr", "2e-3",
+                  "--steps", "2", "--seq", "256", "--batch", "4", "--lr", "2e-3",
                   "--log-every", "1"]
 # 12e: one mla_apply forward + backward at deepseek-v3's widths, card against
 # CPU with injected tensor draws (the backward is seeded by half the mean
@@ -4971,7 +5006,8 @@ def phase_registry_kernels(torch, shapes, label="12f", runs="12a, 12c and 12d"):
     return errs
 
 
-def serve_registry_arch(torch, card, cfg, params, prompts, kv_quant, dev="cuda"):
+def serve_registry_arch(torch, card, cfg, params, prompts, kv_quant, dev="cuda",
+                        profile_steps=REGISTRY_PROFILE_STEPS):
     """One 12a (or 13a) run: 4 requests through ServeEngine over packed
     weights; in-vocabulary tokens, every block free, #1, #2 and the pool's
     GQA kernel launched (rwkv6 has no attention layer) and no other
@@ -5016,7 +5052,7 @@ def serve_registry_arch(torch, card, cfg, params, prompts, kv_quant, dev="cuda")
         f"({', '.join(f'{k} {v}' for k, v in sorted(r['syncs_per_decode_step'].items()))})")
     log(f"  launches on the main path: {launches}")
     r["profile"] = (profile_decode(torch, eng, Request, prompts,
-                                   REGISTRY_PROFILE_STEPS) if cuda else None)
+                                   profile_steps) if cuda else None)
     return r
 
 
@@ -5109,11 +5145,13 @@ def phase_registry_serving(torch, card, shapes, dev="cuda"):
                    for n in lens]
         a["prompt_lens"] = lens
         with shapes:
-            a["bf16_pool"] = serve_registry_arch(torch, card, cfg, params,
-                                                 prompts, False, dev)
+            a["bf16_pool"] = serve_registry_arch(
+                torch, card, cfg, params, prompts, False, dev,
+                REGISTRY_12A_PROFILE_STEPS)
             if arch == "chatglm3_6b":
-                a["nvfp4_pool"] = serve_registry_arch(torch, card, cfg, params,
-                                                      prompts, True, dev)
+                a["nvfp4_pool"] = serve_registry_arch(
+                    torch, card, cfg, params, prompts, True, dev,
+                    REGISTRY_12A_PROFILE_STEPS)
             if cfg.input_mode == "embeds":
                 out["llava_prefill"] = phase_llava_prefill(torch, card, cfg,
                                                            params, dev)
@@ -6655,7 +6693,9 @@ def phase_disagg(torch, card, llama_params):
 # --------------------------------------------------------------------------
 
 DP_RANKS = 2                 # ranks sharing the one card over a gloo group
-DP_STEPS = 3                 # 16a and 16b: steps of phase 5's recipe
+DP_STEPS = 3                 # 16a: steps of phase 5's recipe
+DP_COMPRESSED_STEPS = 2      # 16b (3 until phase 17 came): the first step's
+                             # leaf errors and the steady step need two
 DP_SEQ, DP_BATCH = 256, 8    # the global batch: 4 rows of 256 a rank
 # 16a's bar if the ranks are not bitwise the one process: only the f32 head's
 # cuBLAS algorithm may differ between processes (relative RMS a leaf)
@@ -6674,7 +6714,8 @@ def dp_args(dev, compress):
     recipe for DP_STEPS steps on DP_RANKS ranks sharing the card over gloo
     (the reduced llama at 16 tokens a row on the CPU)."""
     args = list(TRAIN_ARGS)
-    args[args.index("--steps") + 1] = str(DP_STEPS)
+    args[args.index("--steps") + 1] = str(DP_COMPRESSED_STEPS if compress
+                                          else DP_STEPS)
     args[args.index("--seq") + 1] = str(DP_SEQ if dev == "cuda" else 16)
     args[args.index("--batch") + 1] = str(DP_BATCH)
     args += ["--device", dev, "--dp", str(DP_RANKS), "--backend", "gloo"]
@@ -7117,6 +7158,635 @@ def phase_dp(torch, card, dev="cuda"):
     return out, errs
 
 
+# --------------------------------------------------------------------------
+# phase 17: mesh-sharded serving
+# --------------------------------------------------------------------------
+
+SHARDED_LAYERS = 4         # llama-200m's first 4 of 10 layers (phase 4's weights)
+SHARDED_NEW = 12           # new tokens a request (17a, 17b, 17d)
+SHARDED_MAX_LEN = 80       # prompts of 17-49 tokens + 12 new + spec_k 3
+SHARDED_LENS = (33, 17, 49, 33)  # a prompt: whole prefill chunks and one token
+SHARDED_SPEC = (3, 2)      # 17d: spec_k, draft layers
+SHARDED_PROFILE_STEPS = 8  # 17f: full-batch decode steps timed, then profiled
+SHARDED_SAMPLING = (0.8, 8)  # 17a's sampled run: temperature, top-k
+
+
+def sharded_prompts(torch, vocab):
+    """Phase 17's traffic: prompts of SHARDED_LENS tokens from seed 17."""
+    g = torch.Generator().manual_seed(17)
+    return [torch.randint(0, vocab, (k,), generator=g).tolist()
+            for k in SHARDED_LENS]
+
+
+def sharded_engine(cfg, params, dev, **kw):
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    return ServeEngine(cfg, params, EngineConfig(**{**dict(
+        n_slots=4, max_len=SHARDED_MAX_LEN, block_size=16, prefill_chunk=16,
+        scheme="bf16", prequant=True, device=dev), **kw}))
+
+
+def sharded_run(torch, eng, prompts, max_new, dev, label, sampling=None,
+                placed=None):
+    """`prompts` through `eng`: the streams in submission order. Held: every
+    request served whole with in-vocabulary tokens; every block of each
+    pool (the draft's too) back on its own shard's free list, or held by
+    the prefix cache alone. With `placed` (a list) the first tick's slot of
+    each request (submission index, or None for a free slot) is appended
+    to it."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.sampling import SamplingParams
+    sp = SamplingParams(*sampling) if sampling else SamplingParams()
+    ids = [eng.submit(Request(list(p), max_new, sp)) for p in prompts]
+    if placed is not None:
+        eng.step()
+        placed += [None if s.req is None else ids.index(s.req.req_id)
+                   for s in eng.slots]
+    res = {r.req_id: r.tokens for r in eng.run()}
+    cuda_sync(torch, dev)
+    if sorted(res) != sorted(ids) or any(
+            len(t) != max_new or not all(0 <= x < eng.cfg.vocab for x in t)
+            for t in res.values()):
+        fail(f"{label}: a request was not served whole")
+    held = eng.cache.cached_blocks() if eng.cache is not None else 0
+    pools = [eng.pool] + ([eng.draft.pool] if eng.draft is not None else [])
+    for i, pool in enumerate(pools):
+        if pool.free_block_count + (held if i == 0 else 0) != pool.n_blocks:
+            fail(f"{label}: pool blocks leaked ({pool.free_block_count} free of "
+                 f"{pool.n_blocks}, {held} cached)")
+    return [res[i] for i in ids]
+
+
+def decision_margins(torch, eng):
+    """margin_recorder for greedy and sampled rows alike: the margin of the
+    sampler's own decision, argmax of z = top-k-masked logits / t + Gumbel
+    noise (the logits themselves at temperature 0), with the noise drawn
+    again from the generator's state before the call, times t, so that it
+    reads in logit units beside the row's top logit. Returns the dict the
+    tie rule reads, {(request, token index): (margin, top logit)}."""
+    from repro_torch.serve.sampling import _topk_mask
+    margins, phase = {}, [None]
+    for name in ("_prefill_tick", "_decode_tick"):
+        def tick(_orig=getattr(eng, name), _name=name):
+            phase[0] = _name
+            return _orig()
+        setattr(eng, name, tick)
+    sample = eng._sample
+
+    def rec(last_logits):
+        state = eng._gen.get_state()
+        out = sample(last_logits)
+        gen = torch.Generator(device=last_logits.device)
+        gen.set_state(state)
+        temps = torch.tensor([s.req.sampling.temperature if s.req else 0.0
+                              for s in eng.slots], device=last_logits.device)
+        topks = torch.tensor([s.req.sampling.top_k if s.req else 0
+                              for s in eng.slots], device=last_logits.device)
+        lf = last_logits.float()
+        u = torch.rand(lf.shape, generator=gen, device=lf.device)
+        tiny = torch.finfo(torch.float32).tiny
+        noise = -torch.log(-torch.log(u.clamp_min(tiny)))
+        t = temps.clamp_min(1e-6)[:, None]
+        z = torch.where(temps[:, None] > 0, _topk_mask(lf, topks) / t + noise, lf)
+        if z.argmax(dim=-1).tolist() != list(out):
+            fail("17: the decision-margin recorder does not redraw the "
+                 "sampler's noise")
+        top2 = z.topk(2, dim=-1).values
+        gap = ((top2[:, 0] - top2[:, 1]) * torch.where(temps > 0, temps, 1.0)).cpu()
+        top = lf.max(dim=-1).values.cpu()
+        if phase[0] == "_prefill_tick":
+            rows = [min(i for i, s in enumerate(eng.slots)
+                        if s.state == "prefill")]
+        else:
+            rows = [i for i, s in enumerate(eng.slots) if s.state == "decode"]
+        for i in rows:
+            s = eng.slots[i]
+            margins[(s.req.req_id, len(s.generated))] = (float(gap[i]),
+                                                          float(top[i]))
+        return out
+
+    eng._sample = rec
+    return margins
+
+
+def same_or_tie_rule(got, want, margins, max_new, n):
+    """(bitwise, tie rule met, share of tokens before each row's first
+    difference, first differing index by request): 9b's and 15a's rule for
+    bf16 streams whose steps run at other row counts."""
+    g, w = dict(enumerate(got)), dict(enumerate(want))   # ids in order
+    agree, first = agreement(g, w)
+    equal, compared = tie_rule(g, w, margins, max_new)
+    return got == want, equal and compared >= n * max_new // 2, agree, first
+
+
+def phase_sharded_streams(torch, card, cfg, params, prompts, mesh, dev="cuda"):
+    """17a: bf16, the sharded engine (2 data shards of 2 slots) against the
+    unsharded one over the bf16 and the NVFP4 pool. Held: every step of
+    each shard bitwise the unsharded step over that shard's slice (a copy of
+    its tree, its rows, its tables: what the reference runs on a shard),
+    in every served run; the teacher-forced
+    sharded step within VERIFY_STEP_ULPS of the unsharded step over the bf16
+    pool (a shard's step runs its f32 GEMMs and reductions over 2 rows
+    where the unsharded step has 4, and the card may sum them in another
+    order: 9b's bar for two step shapes); over the NVFP4 pool the distance
+    is reported (the cache codec rounds each token's K/V to NVFP4, so an
+    ulp of its input can move a code). Reported, as 9b reports its
+    streams: the served streams, greedy over both pools and sampled
+    (temperature 0.8, top-k 8, the same base seed) over the bf16 pool,
+    bitwise or not, and the tie rule on the unsharded engine's decision
+    margins (`decision_margins`); on the CPU they are bitwise
+    (tests/test_torch_serve_sharded.py). The sampler draws its noise per
+    slot row and the sharded engine places requests by shard occupancy, so
+    the unsharded engine gets the requests in the order of the sharded
+    engine's slots: both then run one schedule in the same rows. Returns its
+    numbers, the launches of its sharded runs and the sharded greedy
+    bf16-pool streams with their margins (17d)."""
+    from repro_torch.kernels import ops
+    out, runs = {}, []
+    for kv_quant in (False, True):
+        ulps = sharded_step_ulps(torch, cfg, params, prompts, mesh, dev, kv_quant)
+        pool = "NVFP4" if kv_quant else "bf16"
+        log(f"  17a [{card}] bf16 teacher-forced, {pool} pool: the sharded "
+            f"step's logits within {ulps:.3g} bf16 ulps of the unsharded "
+            f"step's ({'reported' if kv_quant else f'bar {VERIFY_STEP_ULPS}'})")
+        if not kv_quant and not ulps <= VERIFY_STEP_ULPS:
+            fail(f"17a: the sharded step is {ulps} ulps from the unsharded step "
+                 f"({pool} pool)")
+        out[f"step_ulps_{pool}_pool"] = ulps
+    for kv_quant, sampling in ((False, None), (True, None),
+                               (False, SHARDED_SAMPLING)):
+        label = (f"17a ({'NVFP4' if kv_quant else 'bf16'} pool, "
+                 f"{'sampled' if sampling else 'greedy'})")
+        eng = sharded_engine(cfg, params, dev, kv_quant=kv_quant, mesh=mesh)
+        margins = decision_margins(torch, eng)
+        counts = {}
+        checked_shard_steps(torch, eng, counts, label)
+        ops.reset_launches()
+        placed = []
+        got = sharded_run(torch, eng, prompts, SHARDED_NEW, dev, label,
+                          sampling, placed)
+        launches = dict(ops.LAUNCHES)
+        order = [i for i in placed if i is not None]
+        ref = sharded_engine(cfg, params, dev, kv_quant=kv_quant)
+        ref_margins = decision_margins(torch, ref)
+        single = sharded_run(torch, ref, [prompts[i] for i in order],
+                             SHARDED_NEW, dev, label, sampling)
+        # back to submission order: request i went k-th into the reference
+        single = [single[order.index(i)] for i in range(len(prompts))]
+        ref_margins = {(order[rid], j): m
+                       for (rid, j), m in ref_margins.items()}
+        runs.append(launches)
+        attn = "paged_gqa_q" if kv_quant else "paged_gqa"
+        other = "paged_gqa" if kv_quant else "paged_gqa_q"
+        if dev == "cuda" and (launches[attn] <= 0 or launches[other]):
+            fail(f"{label}: the pool's attention kernel was not the one "
+                 f"launched: {launches}")
+        bitwise, met, agree, first = same_or_tie_rule(
+            got, single, ref_margins, SHARDED_NEW, len(prompts))
+        log(f"  {label} [{card}] (reported): sharded streams "
+            + ("bitwise the unsharded engine's" if bitwise else
+               f"not bitwise, the tie rule {'met' if met else 'not met'} "
+               f"({agree:.1%} of tokens before each row's first difference, "
+               f"first by request {first})"))
+        log(f"  {label} [{card}]: {counts['steps']} steps, each shard's logits "
+            "bitwise the unsharded step over its slice")
+        out[label] = {"bitwise": bitwise, "tie_rule_met": met,
+                      "agreement": agree, "first_diff": first,
+                      "shard_steps_bitwise": counts["steps"],
+                      "slot_order": placed, "launches": launches}
+        if not kv_quant and sampling is None:
+            base = (got, margins)
+    return out, runs, base
+
+
+def sharded_step_ulps(torch, cfg, params, prompts, mesh, dev, kv_quant):
+    """17a's teacher-forced check: the bf16 sharded step against the
+    unsharded step on the same slots, inputs and pool contents (a 16-token
+    chunk, then one token; the 4 prompts' first 17 tokens), in bf16 ulps
+    of each row's largest logit: held within VERIFY_STEP_ULPS (9b's bar for
+    one token's logits computed at two step shapes)."""
+    from repro_torch.serve import decode as serve_decode
+    from repro_torch.serve.kv_pool import KVPool
+    from repro_torch.serve.prequant import prequantize
+    p = prequantize(params, cfg, "bf16")
+    sharded = serve_decode.make_sharded_serve_step(cfg, "bf16", mesh)
+    plain = serve_decode.make_paged_serve_step(cfg, "bf16")
+    pools = [KVPool(cfg, 4, SHARDED_MAX_LEN, block_size=16, device=dev,
+                    quantized=kv_quant, **kw)
+             for kw in ({}, {"n_shards": 2, "devices": mesh.devices})]
+    for pool in pools:
+        for slot in range(4):
+            pool.commit(slot, 17)
+            pool.ensure(slot, 17)
+    toks = torch.tensor([q[:17] for q in prompts], dtype=torch.int32)
+    active = torch.ones(4, dtype=torch.bool)
+    worst = 0.0
+    for start, size in ((0, 16), (16, 1)):
+        t, pos = toks[:, start:start + size], torch.full((4,), start,
+                                                         dtype=torch.int32)
+        want, _ = plain(p, pools[0].caches, pools[0].tables_device(), t.to(dev),
+                        pos.to(dev), active.to(dev))
+        got, _ = sharded([p, p], pools[1].shard_caches, pools[1].tables_device(),
+                         t, pos, active)
+        w, g = want[:, -1].float().cpu(), got[:, -1].float().cpu()
+        for r in range(4):
+            ulp = bf16_ulp(float(w[r].abs().max()))
+            worst = max(worst, float((g[r] - w[r]).abs().max()) / ulp)
+    return worst
+
+
+def checked_shard_steps(torch, eng, counts, label):
+    """Wrap `eng`'s sharded step: every call, each shard's logits against
+    the unsharded step (`make_paged_serve_step`) run on a copy of that
+    shard's cache tree with its rows of the inputs and its tables, what the
+    reference's `shard_map` runs on a shard. Held bitwise; the checking
+    steps' launches are taken back out of `ops.LAUNCHES` (comparisons, not
+    the main path); `counts` gets a count of the steps checked."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import decode as serve_decode
+    plain = serve_decode.make_paged_serve_step(eng.cfg, eng.econf.scheme)
+    inner = eng._step
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            vals = [clone(v) for v in tree]
+            return type(tree)(*vals) if hasattr(tree, "_fields") else \
+                type(tree)(vals)
+        return tree.clone()
+
+    def step(params, caches, tables, tokens, pos, active):
+        n = tokens.shape[0] // len(caches)
+        want, before = [], dict(ops.LAUNCHES)
+        for s, dev in enumerate(eng.mesh.devices):
+            r = slice(s * n, (s + 1) * n)
+            want.append(plain(params[s], clone(caches[s]),
+                              None if tables is None else tables[s],
+                              tokens[r].to(dev), pos[r].to(dev),
+                              active[r].to(dev))[0].to(eng.device))
+        ops.LAUNCHES.update(before)
+        logits, out = inner(params, caches, tables, tokens, pos, active)
+        if not torch.equal(logits, torch.cat(want)):
+            fail(f"{label}: a shard's step differs from the unsharded step "
+                 "over its slice")
+        counts["steps"] = counts.get("steps", 0) + 1
+        return logits, out
+    eng._step = step
+
+
+def phase_sharded_quartet2(torch, card, cfg, params, prompts, mesh, dev="cuda"):
+    """17b: quartet2 with prequant, sharded. Held: two runs bitwise each
+    other; in the second every step of each shard bitwise the unsharded
+    step over that shard's slice (each shard's activation absmax spans its
+    own slots, the reference's semantics). Returns its numbers and the
+    first run's launches."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    a = sharded_run(torch, sharded_engine(cfg, params, dev, scheme="quartet2",
+                                          mesh=mesh),
+                    prompts, SHARDED_NEW, dev, "17b")
+    launches = dict(ops.LAUNCHES)
+    if dev == "cuda" and any(launches[k] <= 0 for k in SERVING_KERNELS):
+        fail(f"17b: a kernel of the path was not launched: {launches}")
+    eng = sharded_engine(cfg, params, dev, scheme="quartet2", mesh=mesh)
+    counts = {}
+    checked_shard_steps(torch, eng, counts, "17b")
+    b = sharded_run(torch, eng, prompts, SHARDED_NEW, dev, "17b")
+    if a != b:
+        fail(f"17b: two sharded quartet2 runs differ: "
+             f"{agreement(dict(enumerate(a)), dict(enumerate(b)))[1]}")
+    log(f"  17b [{card}] quartet2: two sharded runs bitwise; {counts['steps']} "
+        "steps, each shard's logits bitwise the unsharded step over its slice")
+    return {"bitwise_runs": True, "steps_checked": counts["steps"],
+            "launches": launches}
+
+
+def phase_sharded_prefix(torch, card, cfg, params, prompts, mesh, dev="cuda"):
+    """17c: 2 slots (one a shard), the prefix cache with its host tier and
+    replicate_hits 1, bf16. A prompt is cached from shard 0 and hit once;
+    idle ticks copy its blocks into shard 1 (one a tick, free blocks only);
+    a blocker takes shard 0 and the same prompt is placed on shard 1. Held:
+    it admits hot there with no swap-in (the replicas), replicated blocks
+    > 0, its stream bitwise the cold stream."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request
+    # 40 tokens: 2 blocks adopted and a third copied on write
+    prompt = torch.randint(0, cfg.vocab, (40,),
+                           generator=torch.Generator().manual_seed(173)).tolist()
+    kw = dict(n_slots=2, mesh=mesh)
+    cold = sharded_run(torch, sharded_engine(cfg, params, dev, **kw), [prompt],
+                       SHARDED_NEW, dev, "17c cold")[0]
+    ops.reset_launches()
+    eng = sharded_engine(cfg, params, dev, prefix_cache=True, prefix_spill=True,
+                         replicate_hits=1, **kw)
+    for _ in range(2):    # cached from slot 0 (shard 0), then one hit there
+        sharded_run(torch, eng, [prompt], SHARDED_NEW, dev, "17c")
+    cs = eng.cache.stats
+    for _ in range(2 * eng.pool.max_blocks):    # a block a tick
+        before = cs["replicated_blocks"]
+        eng.step()
+        if cs["replicated_blocks"] == before:
+            break
+    replicated, swapped = cs["replicated_blocks"], cs["swapped_in_blocks"]
+    skipped0 = eng.stats["prefill_skipped_tokens"]
+    eng.submit(Request(list(prompt), 2 * SHARDED_NEW))      # the blocker
+    shared = eng.submit(Request(list(prompt), SHARDED_NEW))
+    eng.step()
+    slot = next(i for i, s in enumerate(eng.slots)
+                if s.req is not None and s.req.req_id == shared)
+    res = {r.req_id: r.tokens for r in eng.run()}
+    cuda_sync(torch, dev)
+    launches = dict(ops.LAUNCHES)
+    hot = eng.stats["prefill_skipped_tokens"] - skipped0
+    ok = (replicated > 0 and eng.pool.shard_of_slot(slot) == 1
+          and hot == 2 * (len(prompt) - 1)
+          and cs["swapped_in_blocks"] == swapped and res[shared] == cold)
+    log(f"  17c [{card}] prefix cache + host tier, replicate_hits 1: "
+        f"{replicated} blocks replicated into shard 1; the request placed on "
+        f"shard {eng.pool.shard_of_slot(slot)} skipped {hot // 2} of "
+        f"{len(prompt)} prompt tokens with {cs['swapped_in_blocks'] - swapped} "
+        f"swap-ins; stream {'bitwise' if res[shared] == cold else 'NOT equal to'}"
+        " the cold one")
+    if not ok:
+        fail("17c: the replicated prefix did not admit hot on shard 1 bitwise cold")
+    return {"replicated_blocks": replicated, "skipped_tokens": hot // 2,
+            "bitwise": True, "launches": launches}
+
+
+def phase_sharded_spec(torch, card, cfg, params, prompts, mesh, base, dev="cuda"):
+    """17d: bf16, spec_k 3 over 2 draft layers, sharded (the draft pool
+    sharded, its steps and its propose loop a shard at a time). Held: served
+    whole, both pools conserved, speculative rounds run. Reported, as 9b
+    reports the unsharded engine's: its streams against 17a's sharded
+    non-speculative greedy streams, bitwise or by the tie rule (the verify
+    runs 2 x 4 rows a shard where a step runs 2)."""
+    from repro_torch.kernels import ops
+    k, layers = SHARDED_SPEC
+    layers = min(layers, cfg.n_layers - 1)   # the reduced rehearsal has 2
+    ops.reset_launches()
+    eng = sharded_engine(cfg, params, dev, mesh=mesh, spec_k=k,
+                         draft_layers=layers)
+    got = sharded_run(torch, eng, prompts, SHARDED_NEW, dev, "17d")
+    launches = dict(ops.LAUNCHES)
+    want, margins = base
+    bitwise, met, agree, first = same_or_tie_rule(got, want, margins,
+                                                  SHARDED_NEW, len(prompts))
+    st = eng.stats
+    log(f"  17d [{card}] bf16 spec_k {k} / {layers} draft layers, sharded: "
+        f"{st['spec_rounds']} rounds, acceptance "
+        f"{st['accepted_tokens'] / max(st['draft_tokens'], 1):.3f}; streams "
+        "(reported) "
+        + ("bitwise the sharded non-spec engine's" if bitwise else
+           f"not bitwise, the tie rule {'met' if met else 'not met'} "
+           f"({agree:.1%} of tokens before each row's first difference, first "
+           f"by request {first})"))
+    if st["spec_rounds"] <= 0:
+        fail("17d: the sharded spec engine ran no speculative round")
+    return {"bitwise": bitwise, "tie_rule_met": met, "agreement": agree,
+            "rounds": st["spec_rounds"], "launches": launches}
+
+
+def phase_sharded_kernels(torch, card):
+    """17e: #5, #6, #7 and #8 on shard-local tables: a two-shard pool of 4
+    slots (lengths 47, 100, 131 and an unbound slot whose row is all
+    sentinel) gives each shard's (2, max_blocks) tables over local ids with
+    the local sentinel blocks_per_shard, and each shard's leaves hold
+    blocks_per_shard + 1 blocks, the last a scratch block of random bytes
+    (no reader may see it). Each kernel against its plain version with the
+    attention bar, inactive rows exactly 0."""
+    from repro_torch.configs import registry
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serve.kv_pool import KVPool
+    pool = KVPool(registry.get("llama_200m").reduced(), 4, 256, block_size=16,
+                  n_shards=2, device="cpu")
+    for slot, n in zip(range(3), (47, 100, 131)):
+        pool.commit(slot, n)
+        pool.ensure(slot, n)
+    bps = pool.blocks_per_shard
+    errs = dict.fromkeys(("paged_gqa", "paged_gqa_q", "paged_mla",
+                          "paged_mla_q"), 0.0)
+    g = torch.Generator().manual_seed(171)
+    for s, tables in enumerate(pool.tables_device()):
+        table = tables[:, 0].contiguous().cuda()
+        lens = [pool.length(i) for i in pool._shard_slots(s)]
+        dead = tuple(j for j, n in enumerate(lens) if n == 0)
+        if int(table.max()) != bps:
+            fail("17e: a shard's table lacks its local sentinel")
+        for sq in (1, 4):
+            pos = torch.tensor([max(n - sq, 0) for n in lens],
+                               dtype=torch.int32).cuda()
+            q = torch.randn((2, sq, 10, 128), generator=g).bfloat16().cuda()
+            k, v = ((torch.randn((bps + 1, 16, 10, 128), generator=g) * 3)
+                    .bfloat16().cuda() for _ in range(2))
+            label = f"shard {s}, Sq {sq}, {bps}+1 blocks"
+            kr, vr = k[:bps], v[:bps]
+            errs["paged_gqa"] = max(errs["paged_gqa"], check_against_plain(
+                torch, "paged_gqa", ops.paged_gqa(q, kr, vr, table, pos),
+                PA.paged_gqa_plain(q, kr, vr, table, pos), dead, label))
+            kc, ks = F.nvfp4_cache_encode(k)
+            vc, vs = F.nvfp4_cache_encode(v)
+            args = (q, kc[:bps], ks[:bps], vc[:bps], vs[:bps], table, pos)
+            errs["paged_gqa_q"] = max(errs["paged_gqa_q"], check_against_plain(
+                torch, "paged_gqa_q", ops.paged_gqa_q(*args),
+                PA.paged_gqa_q_plain(*args), dead, label))
+            qa = (torch.randn((2, sq, 128, 512), generator=g) * 0.1).cuda()
+            qr = torch.randn((2, sq, 128, 64), generator=g).bfloat16().cuda()
+            cc = torch.randn((bps + 1, 16, 512), generator=g).bfloat16().cuda()
+            kcr = (torch.randn((bps + 1, 16, 64), generator=g) * 2).bfloat16().cuda()
+            args = (qa, qr, cc[:bps], kcr[:bps], table, pos)
+            errs["paged_mla"] = max(errs["paged_mla"], check_against_plain(
+                torch, "paged_mla", ops.paged_mla(*args, qk_dim=192),
+                PA.paged_mla_plain(*args, 192), dead, label))
+            (c1, c2), (k1, k2) = F.nvfp4_cache_encode(cc), F.nvfp4_cache_encode(kcr)
+            args = (qa, qr, c1[:bps], c2[:bps], k1[:bps], k2[:bps], table, pos)
+            errs["paged_mla_q"] = max(errs["paged_mla_q"], check_against_plain(
+                torch, "paged_mla_q", ops.paged_mla_q(*args, qk_dim=192),
+                PA.paged_mla_q_plain(*args, 192), dead, label))
+    torch.cuda.synchronize()
+    return errs, sharded_attn_groups(torch, errs)
+
+
+SHARDED_STEP_LENS = (40, 28, 57, 45)  # 17e's timed step: 4 slots mid-decode
+
+
+def sharded_attn_groups(torch, errs, dev="cuda"):
+    """17e's timing: one full-batch decode step's #5 and #6 calls at phase
+    17's shapes (4 layers, H = KV = 10, hd 128, blocks of 16, Sq 1, the
+    slots at SHARDED_STEP_LENS), sharded (2 calls a layer over 2 rows, each
+    shard's local tables and leaves) and unsharded (1 call a layer over 4
+    rows), on the same K/V values: events and profiler ms, the plain
+    version, SDPA over the gathered view, the bound. Held: each layer's two
+    sharded outputs, stacked, within the attention bar of the unsharded
+    output. Returns {kernel: {"sharded_step": ..., "unsharded_step": ...}}
+    (dev="cpu" runs the plain versions and the check, no timing)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serve import kv_pool as KV
+    cfg = registry.get("llama_200m").reduced()
+    g = torch.Generator().manual_seed(172)
+    maxb = SHARDED_MAX_LEN // 16
+    # K and V by (slot, logical block): each pool places them by its table
+    layers = [[(torch.randn((4, maxb, 16, 10, 128), generator=g) * 3).bfloat16()
+               for _ in range(2)] for _ in range(SHARDED_LAYERS)]
+    q_all = [torch.randn((4, 1, 10, 128), generator=g).bfloat16()
+             for _ in range(SHARDED_LAYERS)]
+    groups = {"paged_gqa": {}, "paged_gqa_q": {}}
+    outs = {}
+    for name, shards in (("sharded_step", 2), ("unsharded_step", 1)):
+        pool = KV.KVPool(cfg, 4, SHARDED_MAX_LEN, block_size=16,
+                         n_shards=shards, device="cpu")
+        for slot, n in enumerate(SHARDED_STEP_LENS):
+            pool.commit(slot, n + 1)
+            pool.ensure(slot, n + 1)
+        tables = (pool.tables_device() if shards > 1
+                  else (pool.tables_device(),))
+        bps = pool.blocks_per_shard
+        local = pool._local_table_np()
+        calls = []
+        for (k0, v0), q in zip(layers, q_all):
+            for s, t in enumerate(tables):
+                rows = list(pool._shard_slots(s))
+                kp, vp = (torch.zeros((bps, 16, 10, 128), dtype=torch.bfloat16)
+                          for _ in range(2))
+                for r in rows:
+                    for j in range(maxb):
+                        if local[r, j] < bps:
+                            kp[local[r, j]], vp[local[r, j]] = k0[r, j], v0[r, j]
+                pos = torch.tensor([SHARDED_STEP_LENS[r] for r in rows],
+                                   dtype=torch.int32)
+                calls.append([x.to(dev) for x in (q[rows], kp, vp,
+                                                  t[:, 0].contiguous(), pos)])
+        for packed, kname in ((False, "paged_gqa"), (True, "paged_gqa_q")):
+            if packed:
+                args = [(q, *F.nvfp4_cache_encode(kp), *F.nvfp4_cache_encode(vp),
+                         tb, pos) for q, kp, vp, tb, pos in calls]
+                views = [(q, KV.gather_view(KV.PackedKV(a[1], a[2]), tb),
+                          KV.gather_view(KV.PackedKV(a[3], a[4]), tb), pos)
+                         for a, (q, _, _, tb, pos) in zip(args, calls)]
+                row_bytes = 10 * 256 * 0.5625
+            else:
+                args = calls
+                views = [(q, KV.gather_view(kp, tb), KV.gather_view(vp, tb), pos)
+                         for q, kp, vp, tb, pos in calls]
+                row_bytes = None
+            kern, plain = getattr(ops, kname), getattr(PA, f"{kname}_plain")
+            fn = lambda kern=kern, args=args: [kern(*a) for a in args]
+            got = fn()
+            outs[(kname, name)] = [torch.cat(got[i:i + shards])
+                                   for i in range(0, len(got), shards)]
+            if dev != "cuda":
+                continue
+            sd = [gather_sdpa(torch, q, k, v, pos) for q, k, v, pos in views]
+            sdpa_fn = lambda sd=sd: [f() for f in sd]
+            nbytes, n_ops = map(sum, zip(*(attn_bytes_ops(
+                c[0], c[1], c[2], c[3], c[4], kv_row_bytes=row_bytes)
+                for c in calls)))
+            r = dict(fn=fn, ms=time_ms(torch, fn, 20),
+                     plain_ms=time_ms(torch, lambda plain=plain, args=args:
+                                      [plain(*a) for a in args], 3),
+                     library_ms=time_ms(torch, sdpa_fn, 20),
+                     library_profiler_ms=device_ms(torch, sdpa_fn, ""),
+                     bytes=nbytes, ops=n_ops, peak=F32_FLOPS, calls=len(args))
+            log(f"  17e {kname}, one {name.replace('_', ' ')}:")
+            finish_results({kname: r}, errs)
+            groups[kname][name] = r
+    for kname in groups:
+        for a, b in zip(outs[(kname, "sharded_step")],
+                        outs[(kname, "unsharded_step")]):
+            if ((a - b).abs() > 5e-6 + 1e-5 * b.abs()).any():
+                fail(f"17e: {kname}'s sharded calls differ from the unsharded "
+                     "call past the attention bar")
+    log("  17e the sharded step's #5 and #6 outputs, stacked, within the "
+        "attention bar of the unsharded step's")
+    return groups
+
+
+def phase_sharded_readings(torch, card, cfg, params, prompts, mesh):
+    """17f (readings, not claims): quartet2, the bf16 pool; the launches of
+    #1, #2, #5 and #6 one full-batch decode step makes, unsharded against
+    sharded (predicted: #1 and #2 twice, #5 one a layer a shard), and host
+    ms, device ms and busy share a step of each (`profile_decode`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request
+    out = {}
+    for name, kw in (("unsharded", {}), ("sharded", {"mesh": mesh})):
+        eng = sharded_engine(cfg, params, "cuda", scheme="quartet2", **kw)
+        fill_decode(eng, Request, prompts, 12)
+        ops.reset_launches()
+        eng.step()
+        step = {k: v for k, v in ops.LAUNCHES.items() if v}
+        eng.run()
+        log(f"  17f [{card}] {name}: launches a full-batch decode step {step}")
+        out[name] = {"launches_per_decode_step": step,
+                     "profile": profile_decode(torch, eng, Request, prompts,
+                                               SHARDED_PROFILE_STEPS)}
+    return out
+
+
+def phase_sharded_launch(torch, card):
+    """`launch.serve --data-shards 2 --shard-devices cuda:0,cuda:0` (full
+    llama-200m, quartet2, weights packed as drawn): 4 requests served over
+    two shards on the one card, every block back on its shard."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    ops.reset_launches()
+    out = launch_serve.main(["--arch", "llama_200m", "--data-shards", "2",
+                             "--shard-devices", "cuda:0,cuda:0", "--batch", "4",
+                             "--prompt-len", "16", "--tokens", "8"])
+    launches = dict(ops.LAUNCHES)
+    if (out["data_shards"] != 2 or out["requests"] != 4
+            or out["free_by_shard"] != [out["n_blocks"] // 2] * 2
+            or any(launches[k] <= 0 for k in SERVING_KERNELS)):
+        fail(f"17: launch.serve --data-shards 2: {out}, launches {launches}")
+    return {"decode_tok_s": out["decode_tok_s"], "launches": launches}
+
+
+def phase_sharded(torch, card, llama_params, dev="cuda"):
+    """Phase 17: mesh-sharded serving (17a-17f) of llama-200m's first
+    SHARDED_LAYERS layers over `make_serve_mesh(2, 1, devices=[dev] * 2)`,
+    both shards on the one card; then `launch.serve --data-shards 2`. Its
+    sub-phases take dev="cpu" with reduced llama for a rehearsal of their
+    logic (17e and 17f need the card). Returns its numbers ("launches": the
+    sum over its main-path runs), 17e's kernel errors and its timed groups
+    of #5 and #6."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        cfg, params = llama_cut(llama_params, SHARDED_LAYERS)
+    else:
+        cfg, params = llama_params
+    mesh = make_serve_mesh(2, 1, devices=[dev, dev])
+    log(f"phase 17: mesh-sharded serving (llama-200m at {cfg.n_layers} of "
+        f"{10 if dev == 'cuda' else cfg.n_layers} layers; 2 data shards of 2 "
+        f"slots on {', '.join(map(str, mesh.devices))})")
+    prompts = sharded_prompts(torch, cfg.vocab)
+    out, runs, base = phase_sharded_streams(torch, card, cfg, params, prompts,
+                                            mesh, dev)
+    out["quartet2"] = phase_sharded_quartet2(torch, card, cfg, params, prompts,
+                                             mesh, dev)
+    out["prefix"] = phase_sharded_prefix(torch, card, cfg, params, prompts,
+                                         mesh, dev)
+    out["spec"] = phase_sharded_spec(torch, card, cfg, params, prompts, mesh,
+                                     base, dev)
+    runs += [out[k]["launches"] for k in ("quartet2", "prefix", "spec")]
+    errs, groups = {}, {}
+    if dev == "cuda":
+        errs, groups = phase_sharded_kernels(torch, card)
+        out["readings"] = phase_sharded_readings(torch, card, cfg, params,
+                                                 prompts, mesh)
+        out["launch_serve"] = phase_sharded_launch(torch, card)
+        runs.append(out["launch_serve"]["launches"])
+    out["launches"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 17 took {out['phase_s']:.1f} s; launches on its main paths: "
+        f"{out['launches']}")
+    return out, errs, groups
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -7219,6 +7889,11 @@ def main() -> None:
     for k, err in http_errs.items():
         kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
     disagg = phase_disagg(torch, card, llama)
+    sharded, sharded_errs, sharded_groups = phase_sharded(torch, card, llama)
+    for k, err in sharded_errs.items():
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
+    for k, grps in sharded_groups.items():
+        kern[k].setdefault("groups", {}).update(grps)
     t_gen = time.perf_counter()
     generate, gen_errs = phase_generate_llama(torch, card, llama,
                                               serving["prompts"],
@@ -7257,7 +7932,7 @@ def main() -> None:
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
                  deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec,
                  http, generate["quartet2"], generate["deepseek"], generate["long"],
-                 registry_out, recurrent_out, whisper_out, disagg, dp)
+                 registry_out, recurrent_out, whisper_out, disagg, dp, sharded)
 
     kernels = []
     for k, r in kern.items():
@@ -7290,7 +7965,7 @@ def main() -> None:
          "nanochat": nanochat, "prefix": prefix, "spec": spec, "http": http,
          "generate": generate, "registry": registry_out,
          "recurrent": recurrent_out, "whisper": whisper_out, "disagg": disagg,
-         "dp": dp},
+         "dp": dp, "sharded": sharded},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

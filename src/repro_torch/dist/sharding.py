@@ -18,7 +18,8 @@ line for line; a spec is a tuple with one entry per dim, a mesh axis name
 
 An axis is assigned only where its size divides the dim. Serving splits the
 same mesh differently (`serve_*`): every cache leaf's axis 1 (the physical
-block axis, or the slot axis) over "data"; a `PackedQWeight`'s out-feature
+block axis, or the slot axis) over "data" (`serve_shard_sizes` gives the
+slot-affine pool its per-shard extents); a `PackedQWeight`'s out-feature
 axis over "model", field by field, its per-matrix `gscale` replicated; raw
 serving leaves take `param_spec` with fsdp off.
 
@@ -87,6 +88,21 @@ def cache_spec(kind: str, shape: tuple[int, ...], *, model: int, data: int
 
 # every serving-cache leaf splits its axis-1 slot or block home over "data"
 SERVE_CACHE_SPEC = (None, "data")
+
+
+def serve_shard_sizes(n_slots: int, n_blocks: int, data: int
+                      ) -> tuple[int, int]:
+    """(slots, blocks) of one data shard of a serving pool cut by
+    SERVE_CACHE_SPEC: slot leaves and block leaves split their axis 1 into
+    `data` equal contiguous ranges, so shard s homes slots [s*S/data,
+    (s+1)*S/data) and blocks [s*N/data, (s+1)*N/data). Equal extents keep
+    the slot split aligned with the block homes; anything else raises."""
+    if data < 1 or n_slots % data or n_blocks % data:
+        raise ValueError(
+            f"n_shards={data} must divide both n_slots={n_slots} and "
+            f"n_blocks={n_blocks} (equal shard extents keep the slot split "
+            "aligned with the block homes)")
+    return n_slots // data, n_blocks // data
 
 
 def packed_weight_spec(shape: tuple[int, ...], *, model: int) -> tuple:

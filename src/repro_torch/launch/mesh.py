@@ -1,15 +1,26 @@
-"""Device meshes over the ranks of the default process group.
+"""Device meshes: over the ranks of a process group, and for serving.
 
-Counterpart of `repro/launch/mesh.py`. A function, not a module constant,
-so importing touches no device or group: call it after `dist.init`, on
-every rank. `make_mesh` takes any factorization of the ranks
-(checkpoints are mesh-independent, see `checkpoint/`);
-`make_serve_mesh` is the (data, model) mesh of mesh-sharded serving, whose
-engine comes with the sharded-serving slice.
+Counterpart of `repro/launch/mesh.py`. Functions, not module constants, so
+importing touches no device or group.
+
+  - `make_mesh` is a DeviceMesh over the default group's ranks (call it
+    after `dist.init`, on every rank): any factorization of the ranks, for
+    data-parallel training (checkpoints are mesh-independent, see
+    `checkpoint/`).
+  - `make_serve_mesh` is the (data, model) mesh of mesh-sharded serving,
+    held by ONE process: the reference's serving engine is one host program
+    over every shard (`shard_map` manual over "data" inside one process),
+    and so is the port's. It names one device per data shard; the engine
+    places the slots and the slot-affine pool of shard s on
+    `mesh.devices[s]`. CUDA launches are asynchronous per device, so one
+    host thread drives every shard.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import torch
 from torch.distributed.device_mesh import init_device_mesh
 
 
@@ -23,10 +34,59 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
                             mesh_dim_names=tuple(axes))
 
 
-def make_serve_mesh(data: int, model: int = 1, device_type: str = "cuda"):
-    """(data, model) mesh for mesh-sharded serving: decode slots and the
-    slot-affine pool over "data", packed weights over "model"."""
-    return make_mesh((data, model), ("data", "model"), device_type)
+@dataclass(frozen=True)
+class ServeMesh:
+    """An in-process (data, model) serving mesh: its sizes, its dim names
+    and one device per data shard. `shape` and `mesh_dim_names` read as a
+    DeviceMesh's do (`dist.sharding.mesh_sizes`)."""
+
+    data: int
+    model: int
+    devices: tuple[torch.device, ...]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.data, self.model)
+
+    @property
+    def mesh_dim_names(self) -> tuple[str, str]:
+        return ("data", "model")
+
+
+def _resolved(d) -> torch.device:
+    """`d` as a torch.device with its card index ("cuda" is the current
+    card), so that two names of one card compare equal."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def make_serve_mesh(data: int, model: int = 1, *, devices=None) -> ServeMesh:
+    """The (data, model) mesh of mesh-sharded serving: decode slots and the
+    slot-affine KV pool split over "data", one device per data shard.
+
+    `devices=None` puts shard s on card s and needs `data` cards: fewer
+    raises. Shards share a card only when asked for by name
+    (`devices=["cuda:0"] * 2`; the CPU tests pass `["cpu"] * 2`). Nothing
+    falls back to the CPU or to fewer shards. The mesh holds any `model`;
+    the engine refuses model > 1 (ROADMAP.md, Queue 1 item 4.3)."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh sizes must be >= 1, got data={data}, "
+                         f"model={model}")
+    if devices is None:
+        cards = torch.cuda.device_count()
+        if cards < data:
+            raise ValueError(
+                f"make_serve_mesh(data={data}) needs {data} CUDA devices, one "
+                f"a shard, and {cards} are visible; name the shards' devices "
+                "to share one (devices=['cuda:0'] * data)")
+        devices = [f"cuda:{i}" for i in range(data)]
+    devices = tuple(_resolved(d) for d in devices)
+    if len(devices) != data:
+        raise ValueError(f"make_serve_mesh(data={data}) got {len(devices)} "
+                         "devices: one a data shard")
+    return ServeMesh(data, model, devices)
 
 
 def make_production_mesh(*, multi_pod: bool = False):

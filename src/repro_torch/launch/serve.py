@@ -6,6 +6,7 @@
         [--scheduler fifo|latency] [--shared-prefix N]
         [--spec-k K --draft-layers L] [--temperature T] [--top-k K]
         [--disagg] [--obs] [--http PORT]
+        [--data-shards N [--shard-devices DEV,DEV,...]]
 
 Builds seeded random weights, packed as they are drawn (quartet2: NVFP4 4/6;
 `serve.prequant.init_packed`, with one chunk of f32 matrices alive at a
@@ -32,7 +33,15 @@ request's sampling (greedy by default). `--disagg` serves through a disaggregate
 prompt's KV to a decode worker through pinned host buffers; one set of
 weights) and prints the handoffs and both pools' free blocks. `--obs`
 attaches an `obs.Instrumentation` (registry counters, request traces) and
-prints the traces' TTFT, queue-wait and per-token decode percentiles. `--http PORT`
+prints the traces' TTFT, queue-wait and per-token decode percentiles.
+`--data-shards N` serves through a mesh-sharded engine
+(`EngineConfig(mesh=launch.mesh.make_serve_mesh(N, 1, devices=...))`: the
+slots and the slot-affine pool split over N data shards, each shard's step
+on its own device; the counterpart of the reference's
+`examples/serve_decode.py --data-shards`) and prints each shard's free
+blocks. `--shard-devices` names the shards' devices (`cuda:0,cuda:0` puts
+two shards on one card); without it each shard takes a card of its own
+(fewer cards than shards refuse), or the CPU under `--device cpu`. `--http PORT`
 serves the engine the other flags build over HTTP instead
 (`serve/frontend.py`: POST /v1/completions with SSE streaming, /metrics,
 /healthz, /v1/stats, /admin/drain) on 127.0.0.1:PORT until interrupted; 0
@@ -54,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import lm
 from repro_torch.obs import Instrumentation, MetricsRegistry
 from repro_torch.serve.decode import greedy_generate
@@ -191,6 +201,11 @@ def main(argv=None) -> dict:
                     help="attach an obs.Instrumentation (metrics, traces)")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
                     help="serve over HTTP on 127.0.0.1:PORT (0: ephemeral)")
+    ap.add_argument("--data-shards", type=int, default=1, metavar="N",
+                    help="mesh-sharded serving over N data shards")
+    ap.add_argument("--shard-devices", default=None, metavar="DEV,...",
+                    help="the shards' devices, one a shard (default: a card "
+                    "a shard; the CPU under --device cpu)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's CPU smoke size (ArchConfig.reduced)")
@@ -204,6 +219,9 @@ def main(argv=None) -> dict:
         ap.error("--disagg hands paged blocks from a prefill worker to a "
                  "decode worker: drop --dense, --legacy, --shared-prefix "
                  "and --spec-k")
+    if args.data_shards > 1 and (args.legacy or args.disagg):
+        ap.error("--data-shards shards the engine's slots and pool: drop "
+                 "--legacy and --disagg")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -227,6 +245,12 @@ def main(argv=None) -> dict:
     label = device_label(device)
     if args.legacy:
         return _legacy(cfg, params, args, rng, device, label)
+    mesh = None
+    if args.data_shards > 1:
+        names = (args.shard_devices.split(",") if args.shard_devices
+                 else [str(device)] * args.data_shards
+                 if device.type == "cpu" else None)
+        mesh = make_serve_mesh(args.data_shards, 1, devices=names)
     econf = EngineConfig(
         n_slots=min(args.batch, args.shared_prefix or args.batch),
         max_len=max_len, block_size=block, scheme=args.scheme,
@@ -237,7 +261,7 @@ def main(argv=None) -> dict:
         host_budget_bytes=args.host_budget_bytes,
         scheduler=LatencyPolicy() if args.scheduler == "latency"
         else FifoPolicy(), spec_k=args.spec_k,
-        draft_layers=args.draft_layers, device=str(device),
+        draft_layers=args.draft_layers, device=str(device), mesh=mesh,
         obs=Instrumentation(registry=MetricsRegistry()) if args.obs else None)
     if args.http is not None:
         def ready(port):
@@ -268,6 +292,14 @@ def main(argv=None) -> dict:
         "free_blocks": sum(p.free_block_count for p in pools),
         "n_blocks": sum(p.n_blocks for p in pools),
     }
+    shards = ""
+    if mesh is not None:
+        out.update(data_shards=mesh.data,
+                   shard_devices=[str(d) for d in mesh.devices],
+                   free_by_shard=eng.pool.utilization()["free_by_shard"])
+        shards = (f", {mesh.data} data shards on "
+                  f"{','.join(out['shard_devices'])} (free blocks by shard "
+                  f"{out['free_by_shard']})")
     disagg = ""
     if args.disagg:
         out.update(disagg=True, handoffs=st["handoffs"],
@@ -287,7 +319,8 @@ def main(argv=None) -> dict:
                 f"{out['tokens_per_round']:.2f} tokens a slot a round")
     print(f"[{out['device']}] {cfg.name} {args.scheme}: {len(results)} "
           f"requests, prefill {out['prefill_tok_s']:.1f} tok/s, decode "
-          f"{out['decode_tok_s']:.1f} tok/s{spec}{disagg}, wall {wall:.2f} s, "
+          f"{out['decode_tok_s']:.1f} tok/s{spec}{disagg}{shards}, wall "
+          f"{wall:.2f} s, "
           f"pool blocks free {out['free_blocks']}/{out['n_blocks']}")
     if eng.obs.enabled:
         out["traces"] = agg = eng.obs.trace_sink.aggregates()

@@ -1,9 +1,11 @@
 """Serving step builders: the engine's step (paged pool or dense caches),
-and the fixed-batch seed loop over dense caches.
+its mesh-sharded form, and the fixed-batch seed loop over dense caches.
 
 Counterpart of `repro/serve/decode.py`. `make_paged_serve_step` is THE
 engine step (serve/engine.py): with a block table it runs on the paged pool,
-with `table=None` on dense per-slot caches. `make_prefill_step`,
+with `table=None` on dense per-slot caches. `make_sharded_serve_step` is its
+form over a serving mesh's "data" axis (`shard_serve_step`), the
+counterpart of the reference's manual-"data" `shard_map`. `make_prefill_step`,
 `make_serve_step` and `greedy_generate` are the legacy fixed-batch path over
 dense caches (`lm.init_cache`): the seed baseline of the reference's
 benchmarks and its simple examples. Forward quantization (RTN + 4/6) is
@@ -13,9 +15,12 @@ fixed constant (it feeds only the backward of the training slice).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import mesh_sizes
 from repro_torch.models import lm
 
 SEED = np.array([7, 7], np.uint32)
@@ -50,6 +55,74 @@ def make_paged_serve_step(cfg, scheme: str):
                           caches=cache, mode="decode", pos=pos,
                           active=active, block_table=table)
     return paged_serve_step
+
+
+def make_sharded_serve_step(cfg, scheme: str, mesh, *, out_device=None):
+    """The engine's step over a serving mesh's "data" axis: decode slots,
+    the slot-affine pool (`KVPool(n_shards=...)`, one cache tree a shard),
+    its shard-local tables and the per-slot inputs split over "data", the
+    unchanged step run on each shard's own slice on the shard's device, no
+    collective touching the pool (`shard_serve_step`).
+
+    Each shard's forward runs on its LOCAL batch, as the reference's
+    `shard_map` body does: under bf16 the decode forward is row-local, so
+    a row's arithmetic is the unsharded step's (the card's GEMMs may sum a
+    shard's fewer rows in another order); under quartet2 the activation
+    absmax spans a shard's slots alone, so the streams are deterministic
+    but not bit-comparable to the unsharded batch."""
+    data_shards(mesh)
+    return shard_serve_step(make_paged_serve_step(cfg, scheme), mesh,
+                            out_device=out_device)
+
+
+def data_shards(mesh) -> int:
+    """The "data" size of a serving mesh. A "model" axis > 1 (weights split
+    over cards) is ROADMAP.md's Queue 1 item 4.3 and raises."""
+    model, data = mesh_sizes(mesh)
+    if model > 1:
+        raise NotImplementedError(
+            f"serving over a 'model' axis of {model}: weights split over "
+            "cards come with ROADMAP.md's Queue 1 item 4.3 (training and "
+            "serving over a 'model' axis)")
+    return data
+
+
+def _on(device: torch.device):
+    """Make `device` current while a shard's step launches its kernels
+    (they launch on the current card's stream); a no-op on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else \
+        contextlib.nullcontext()
+
+
+def shard_serve_step(step, mesh, *, out_batch_axis: int = 0, out_device=None):
+    """Run a function of the engine step's signature `(params, cache,
+    table, tokens, pos, active) -> (out, cache)` once a data shard.
+
+    The wrapped function takes `params`, `caches` and `tables` as one entry
+    a shard (the shard's parameters and cache tree on its device, its
+    (slots_per_shard, 2, max_blocks) shard-local tables or None for dense
+    caches) and the per-slot `tokens`, `pos`, `active` whole: shard s gets
+    rows [s*B/data, (s+1)*B/data) of each, moved to its device. Each
+    shard's `out` is moved to `out_device` (default: the mesh's first
+    device) and the shards' outputs are concatenated on `out_batch_axis`
+    (0 for (B, S, V) logits, 1 for the draft's (K, B) proposals). Caches
+    update in place; the list of shard trees is returned as the cache."""
+    devices = mesh.devices
+    dst = torch.device(out_device) if out_device is not None else devices[0]
+
+    def sharded(params, caches, tables, tokens, pos, active):
+        n = tokens.shape[0] // len(devices)
+        outs = []
+        for s, dev in enumerate(devices):
+            rows = slice(s * n, (s + 1) * n)
+            with _on(dev):
+                out, _ = step(params[s], caches[s],
+                              None if tables is None else tables[s],
+                              tokens[rows].to(dev), pos[rows].to(dev),
+                              active[rows].to(dev))
+            outs.append(out.to(dst))
+        return torch.cat(outs, dim=out_batch_axis), caches
+    return sharded
 
 
 def greedy_generate(params, cfg, scheme, prompt_tokens, max_new: int,

@@ -43,10 +43,26 @@ With `kv_quant=True` the pool stores every token leaf as NVFP4 `PackedKV`
 bytes (0.28125x the bf16 bytes) and decode attention runs the packed-operand
 kernels. With `paged=False` the pool holds dense per-slot caches and the
 step runs without a block table (the reference's dense layout; no prefix
-cache). The sharded-serving slice brings mesh sharding and cross-shard
-replication (on `dist/`, ported for training); asking for either raises
-NotImplementedError. Enc-dec models
-(whisper) are not served, as in the reference.
+cache). Enc-dec models (whisper) are not served, as in the reference.
+
+Mesh-sharded serving (`EngineConfig.mesh`, a `launch.mesh.make_serve_mesh`
+(data, 1) mesh): one engine in one process over every shard, as the
+reference's. The decode slots and the slot-affine pool split over "data"
+(`KVPool(n_shards=...)`: slot i homes on shard i // (n_slots / data) and
+draws blocks from that shard alone); the parameters are placed once on
+each distinct shard device; each step runs once a shard on the shard's
+own slots, tree and shard-local tables, on its device
+(`serve_decode.make_sharded_serve_step`), and the shards' logits are
+gathered on the engine's device, where one sampler call serves every slot.
+Placement is occupancy-aware (`_place`); without the host tier a cached
+prefix serves only its own shard, with it a match materializes on any
+shard, and `replicate_hits` copies hot prefix blocks into peer shards at
+tick boundaries. Under bf16 each row's arithmetic is the unsharded
+engine's: on the CPU the streams are bitwise, on the card a shard's GEMMs
+run over its own rows and may sum in another order (a step within a few
+bf16 ulps). Under quartet2 each shard's activation absmax spans its own
+slots (the reference's contract). A "model" axis > 1 raises
+NotImplementedError (ROADMAP.md, Queue 1 item 4.3).
 
 Disaggregated prefill/decode (`EngineConfig.role`, driven as a pair by
 `serve/frontend.py`'s `EnginePair`): a "prefill" worker admits prompts and
@@ -78,6 +94,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import ServeMesh
 from repro_torch.models import lm
 from repro_torch.obs.instrumentation import NULL, legacy_stats_dict
 from repro_torch.serve import decode as serve_decode
@@ -242,18 +259,16 @@ class EngineConfig:
     # (whole resident blocks travel) and spec_k == 0 (the draft pool does
     # not travel)
     role: str = "both"
-    # options of the reference engine that the sharded-serving slice ports
-    mesh: Any = None
+    # mesh-sharded serving (launch.mesh.make_serve_mesh): decode slots and
+    # the slot-affine pool split over the mesh's "data" axis, one device a
+    # shard; None serves unsharded. n_slots and the pool's n_blocks must
+    # divide by the "data" size; a "model" axis > 1 raises
+    mesh: ServeMesh | None = None
+    # cross-shard replication (needs prefix_spill): prefix nodes matched
+    # this many times get copies of their blocks in peer shards' pools
+    # through the host tier, one block a tick, into free blocks only (it
+    # never evicts). None disables it; one shard has no peers
     replicate_hits: int | None = None
-
-
-# (field, set?, what, the later slice of ROADMAP.md's Queue 1 that ports it)
-_LATER = (
-    ("mesh", lambda e: e.mesh is not None, "mesh-sharded serving",
-     "sharded-serving"),
-    ("replicate_hits", lambda e: e.replicate_hits is not None,
-     "cross-shard replication of hot prefix blocks", "sharded-serving"),
-)
 
 
 @dataclass
@@ -277,12 +292,15 @@ class ServeEngine:
                                       "encoder path (examples)")
         self.cfg = cfg
         self.econf = e = econf or EngineConfig()
-        for name, bad, what, later in _LATER:
-            if bad(e):
-                raise NotImplementedError(
-                    f"EngineConfig.{name}: {what} is not ported yet; it comes "
-                    f"with the '{later}' slice of the distribution item "
-                    "(ROADMAP.md, Queue 1 item 4)")
+        self.mesh = e.mesh
+        self.data_shards = 1
+        if self.mesh is not None:
+            self.data_shards = serve_decode.data_shards(self.mesh)
+            if e.n_slots % self.data_shards:
+                raise ValueError(
+                    f"n_slots={e.n_slots} must divide over the mesh 'data' "
+                    f"axis ({self.data_shards}): each shard serves an equal "
+                    "share of the slots")
         if e.prefix_spill and not e.prefix_cache:
             raise ValueError("prefix_spill=True requires prefix_cache=True "
                              "(the host tier is a property of the cache)")
@@ -312,9 +330,21 @@ class ServeEngine:
         params = _to_device(params, self.device)
         self.params = (prequantize(params, cfg, e.scheme, probe=probe)
                        if e.prequant else params)
+        # the parameters each shard's step reads: one copy a distinct shard
+        # device (shards sharing a card share it; on the engine's own
+        # device, the engine's tree itself)
+        self.shard_params = None
+        if self.mesh is not None:
+            placed: dict[torch.device, Any] = {}
+            for d in self.mesh.devices:
+                if d not in placed:
+                    placed[d] = _to_device(self.params, d)
+            self.shard_params = [placed[d] for d in self.mesh.devices]
         self.pool = KVPool(cfg, e.n_slots, e.max_len, paged=e.paged,
                            block_size=e.block_size, n_blocks=e.n_blocks,
-                           device=self.device, quantized=e.kv_quant)
+                           device=self.device, quantized=e.kv_quant,
+                           n_shards=self.data_shards,
+                           devices=self.mesh.devices if self.mesh else None)
         if e.role not in ("both", "prefill", "decode"):
             raise ValueError(
                 f"role must be 'both', 'prefill' or 'decode', got {e.role!r}")
@@ -332,7 +362,8 @@ class ServeEngine:
         self.role = e.role
         self.handoffs: deque[Handoff] = deque()       # prefill: exported
         self.handoff_queue: deque[Handoff] = deque()  # decode: awaiting slot
-        self.draft = (spec_decode.DraftStack(cfg, self.params, e, self.device)
+        self.draft = (spec_decode.DraftStack(cfg, self.params, e, self.device,
+                                             shard_params=self.shard_params)
                       if e.spec_k > 0 else None)
         # a verify chunk writes up to spec_k positions past a sequence's
         # final token: admission reserves that margin in both pools
@@ -344,14 +375,18 @@ class ServeEngine:
         self.slots = [_Slot() for _ in range(e.n_slots)]
         self.queue: deque[Request] = deque()
         self._ids = itertools.count()
-        self._step = serve_decode.make_paged_serve_step(cfg, e.scheme)
+        self._step = (serve_decode.make_sharded_serve_step(
+            cfg, e.scheme, self.mesh, out_device=self.device)
+            if self.mesh is not None else
+            serve_decode.make_paged_serve_step(cfg, e.scheme))
         self._gen = torch.Generator(device=self.device).manual_seed(e.base_seed)
         self.cache = None
         self._matches: dict[int, tuple[int, Any]] = {}  # req_id -> (epoch, Match)
         if e.prefix_cache and PrefixCache.supported(self.pool):
             self.cache = PrefixCache(
                 self.pool, spill=e.prefix_spill,
-                host_budget_bytes=e.host_budget_bytes, clock=self.clock)
+                host_budget_bytes=e.host_budget_bytes,
+                replicate_hits=e.replicate_hits, clock=self.clock)
         self.sched = e.scheduler if e.scheduler is not None else FifoPolicy()
         # a plain dict with obs off; registry-backed counters behind the
         # same mapping with obs on
@@ -390,10 +425,14 @@ class ServeEngine:
             exc = Unservable("a request needs a prompt and max_new >= 1",
                              queue_depth=len(self.queue))
         elif not self.pool.can_ever_admit(total, self._max_growth):
+            bound = (f"{self.pool.blocks_per_shard} blocks a shard "
+                     f"(slot-affine, {self.pool.n_shards} shards)"
+                     if self.pool.n_shards > 1
+                     else f"{self.pool.n_blocks} blocks")
             exc = Unservable(
                 f"request needs {total} positions but the pool serves at "
-                f"most max_len={self.econf.max_len} / "
-                f"{self.pool.n_blocks} blocks", queue_depth=len(self.queue))
+                f"most max_len={self.econf.max_len} / {bound}",
+                queue_depth=len(self.queue))
         elif len(self.queue) >= self.econf.max_queue:
             # checked after unservability: a permanent rejection must not
             # pass for a transient one (clients would retry forever)
@@ -503,8 +542,11 @@ class ServeEngine:
         finished = (self._handoff_tick() if self.role == "prefill"
                     else self._decode_tick())
         if self.cache is not None and self.cache.spill:
-            # this tick's swap-ins become plain cached blocks: the stream
-            # orders their writes before any later read, nothing waits
+            # tick-boundary host-tier work: at most one block of hot
+            # prefixes copied into a peer shard, then this tick's swap-ins
+            # become plain cached blocks (the stream orders their writes
+            # before any later read; nothing waits)
+            self.cache.replicate_hot()
             self.cache.complete_swaps()
         if self.obs.enabled:
             self.obs.on_tick(self)  # occupancy / pool / cache gauges
@@ -565,14 +607,19 @@ class ServeEngine:
             mtoks, adopt, tail = m.plan(len(req.prompt) - 1,
                                         self.pool.block_size)
             if mtoks > 0:
-                plan = (mtoks, adopt, tail)
+                # without the host tier the plan serves only its home shard
+                # (slot affinity); with it any shard, where spilled or
+                # off-shard blocks materialize
+                plan = (mtoks, adopt, tail,
+                        None if self.cache.spill else m.shard)
                 # pin BEFORE any eviction below can see these nodes unpinned
                 pinned = adopt + ([tail] if tail is not None else [])
                 self.cache.acquire(pinned)
         i = self._place(total, plan)
         if i is None and plan is not None:
-            # the pinned plan cannot be backed: try cold, where eviction
-            # may also take the plan's (now unpinned) nodes
+            # the pinned plan cannot be backed (or its home shard has no
+            # usable slot): try cold, where eviction may also take the
+            # plan's (now unpinned) nodes
             self.cache.release(pinned)
             plan = pinned = None
             i = self._place(total, None)
@@ -586,7 +633,7 @@ class ServeEngine:
             # any copy of the block is dispatched, and the request is then
             # admitted cold; a failing device copy propagates.
             try:
-                self.cache.materialize(pinned, 0)
+                self.cache.materialize(pinned, self.pool.shard_of_slot(i))
             except OutOfBlocks:
                 self.cache.release(pinned)
                 plan = pinned = None
@@ -595,12 +642,13 @@ class ServeEngine:
         prefix_len = 0
         nodes: list = []
         if plan is not None:
-            mtoks, adopt, tail = plan
+            mtoks, adopt, tail, _ = plan
+            sh = self.pool.shard_of_slot(i)
             if adopt:
-                self.pool.adopt_prefix(i, [n.blocks[0] for n in adopt],
+                self.pool.adopt_prefix(i, [n.blocks[sh] for n in adopt],
                                        len(adopt) * self.pool.block_size)
             if tail is not None:
-                self.pool.cow_block(i, tail.blocks[0])
+                self.pool.cow_block(i, tail.blocks[sh])
                 self.cache.release([tail])  # private copy made; unpin
             self.pool.ensure(i, mtoks)
             prefix_len = mtoks
@@ -624,17 +672,52 @@ class ServeEngine:
         return True
 
     def _place(self, total: int, plan) -> int | None:
-        """The first FREE slot, if the pool can back `total` positions there
-        (evicting unpinned cached prefixes when short). One shard: a plan's
-        device-resident blocks are adopted, not allocated."""
-        i = next((j for j, s in enumerate(self.slots) if s.state == FREE),
-                 None)
-        if i is None:
-            return None
-        cached = 0
-        if plan is not None:
-            cached = sum(1 for node in plan[1] if 0 in node.blocks)
-        return i if self._admissible(i, total, cached) else None
+        """A FREE slot for a request of `total` positions, or None.
+
+        Each shard offers its lowest free slot. A plan pinned to a home
+        shard (plan[3], without the host tier) can use only that shard's
+        slots. A host-tier plan (plan[3] None) ranks every shard by the
+        planned blocks already resident there, then by effective free
+        blocks, so a shard holding a replica wins over a merely emptier one
+        and only the rest swaps in. Cold placement ranks shards by
+        effective free blocks (more first), then shard id: one shard gives
+        the first free slot. A plan's resident blocks are adopted, not
+        allocated; a short shard evicts unpinned cached prefixes before it
+        gives up."""
+        free_by_shard: dict[int, list[int]] = {}
+        for i, s in enumerate(self.slots):
+            if s.state == FREE:
+                free_by_shard.setdefault(self.pool.shard_of_slot(i),
+                                         []).append(i)
+        pool = self.pool
+        if plan is not None and plan[3] is not None:
+            cached = ({plan[3]: len(plan[1])} if plan[3] in free_by_shard
+                      else {})
+        elif plan is not None:
+            # only blocks ALREADY resident on a shard are credited: the rest
+            # swap in and draw on the free list as a cold allocation would
+            cached = {sh: sum(1 for node in plan[1] if sh in node.blocks)
+                      for sh in free_by_shard}
+        else:
+            cached = dict.fromkeys(free_by_shard, 0)
+
+        def resident(sh):
+            tail = plan[2] is not None and sh in plan[2].blocks
+            return cached[sh] + tail
+
+        def effective(sh):
+            return pool.effective_free_blocks(sh) if pool.paged else 0
+
+        if plan is not None and plan[3] is None:
+            order = sorted(cached, key=lambda sh: (-resident(sh),
+                                                   -effective(sh), sh))
+        else:
+            order = sorted(cached, key=lambda sh: (-effective(sh), sh))
+        for sh in order:
+            i = free_by_shard[sh][0]
+            if self._admissible(i, total, cached[sh]):
+                return i
+        return None
 
     def _admissible(self, slot: int, total: int, cached: int) -> bool:
         if self.draft is not None and not self.draft.pool.can_admit(
@@ -646,7 +729,8 @@ class ServeEngine:
         if self.cache is not None:
             short = self.pool.admission_shortfall(
                 total, self._max_growth, slot=slot, cached_blocks=cached)
-            if short and self.cache.evict(0, short) >= short:
+            if short and self.cache.evict(self.pool.shard_of_slot(slot),
+                                          short) >= short:
                 return self.pool.can_admit(total, self._max_growth,
                                            slot=slot, cached_blocks=cached)
         return False
@@ -908,14 +992,19 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def _forward(self, tokens, pos, active) -> torch.Tensor:
-        dev = self.device
         # stacked read/write tables: scatters go through the write view,
         # whose adopted entries hold the sentinel (kv_pool.tables_device);
         # None for a dense pool, whose step runs on the dense caches
+        inputs = [torch.from_numpy(a) for a in (tokens, pos, active)]
+        if self.mesh is not None:
+            # one shard's rows of each input go to its device; the shards'
+            # logits come back on the engine's device
+            logits, _ = self._step(self.shard_params, self.pool.shard_caches,
+                                   self.pool.tables_device(), *inputs)
+            return logits
         logits, _ = self._step(
             self.params, self.pool.caches, self.pool.tables_device(),
-            torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
-            torch.from_numpy(active).to(dev))
+            *(a.to(self.device) for a in inputs))
         return logits
 
     def _sample(self, last_logits: torch.Tensor) -> list[int]:
@@ -933,8 +1022,9 @@ class ServeEngine:
         return toks.tolist()
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in {self.device, *self.pool.devices}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
 
 def _to_device(tree, device: torch.device):

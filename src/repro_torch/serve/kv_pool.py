@@ -52,7 +52,23 @@ reference's dense mode and of the fixed-batch loop: the same masking
 conventions and the same attention arithmetic, with no blocks. It tracks
 bindings and lengths only; the block-level operations raise SlotError.
 
-Left for a later slice: mesh shards (one shard here: `shard_of_slot` is 0).
+With `n_shards > 1` the allocator is SLOT-AFFINE over a mesh "data" axis
+(mesh-sharded serving, `serve/engine.py`): slots and physical blocks split
+into `n_shards` contiguous ranges (`dist.sharding.serve_shard_sizes`), and
+a slot only ever receives blocks homed on its own shard (per-shard free
+lists). Each shard owns its own cache tree on its own device
+(`shard_caches[s]`, on `devices[s]`): token leaves of blocks_per_shard + 1
+blocks, the last its own scratch block, and state kinds / dense caches of
+slots_per_shard slots. A contiguous cut of one (n_blocks + 1)-block leaf
+would leave every shard but the last without a scratch block, and shard
+s's local sentinel would index shard s + 1's first real block. Host-side
+ids stay global; the device tables carry SHARD-LOCAL ids (the global id
+minus the shard's base, the sentinel mapped to blocks_per_shard, still out
+of bounds for the shard's readable leaves), so the gather, the scatter and
+the decode kernels run unchanged on a shard's tree, and no step ever moves
+a block between shards. Block copies, host snapshots and recurrent slot
+state route to the owning shard by `shard_of_block` / `shard_of_slot`.
+With `n_shards=1` every id, table and leaf is what the unsharded pool has.
 """
 
 from __future__ import annotations
@@ -66,6 +82,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import formats as F
+from repro_torch.dist.sharding import serve_shard_sizes
 from repro_torch.models import lm
 
 TOKEN_MIXERS = ("gqa", "lattn", "mla")
@@ -329,13 +346,20 @@ class KVPool:
     dense per-slot caches: `ensure` tracks lengths only, admission is
     bounded by max_len alone, `tables_device` is None (the step attends the
     dense caches), and adopting, COW and the host tier raise SlotError.
-    Mesh shards are not ported: the pool has one shard.
+
+    `n_shards > 1` makes allocation SLOT-AFFINE (module docstring): shard s
+    owns slots [s*n_slots/S, (s+1)*n_slots/S) and blocks [s*n_blocks/S,
+    (s+1)*n_blocks/S), each shard runs its own free list, a slot allocates
+    only from its shard, and admission is per shard (`can_admit(...,
+    slot=i)`): one shard can be full while another has room. `devices`
+    names each shard's device (default: every shard on `device`).
     """
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
                  paged: bool = True, block_size: int = 16,
                  n_blocks: int | None = None, device="cuda",
-                 quantized: bool = False, specs=None):
+                 quantized: bool = False, specs=None, n_shards: int = 1,
+                 devices=None):
         assert max_len % block_size == 0, \
             f"max_len {max_len} must be a multiple of block_size {block_size}"
         if quantized and not paged:
@@ -352,26 +376,41 @@ class KVPool:
         self.n_blocks = n_blocks if n_blocks is not None else \
             n_slots * self.max_blocks
         self.sentinel = self.n_blocks
-        self.device = torch.device(device)
+        self.n_shards = n_shards
+        self.slots_per_shard, self.blocks_per_shard = serve_shard_sizes(
+            n_slots, self.n_blocks, n_shards)
+        self.devices = tuple(torch.device(d) for d in (
+            devices if devices is not None else [device] * n_shards))
+        if len(self.devices) != n_shards:
+            raise ValueError(f"{len(self.devices)} devices for {n_shards} "
+                             "shards: name one a shard")
+        self.device = self.devices[0]
         # `specs`: the layer specs the pool backs (a draft stack passes
         # lm.prefix_specs); default the full model's
         self.specs = specs if specs is not None else lm.layer_specs(cfg)
-        # a dense pool's sliding-window layers keep full capacity (no ring):
+        # one tree a shard, on the shard's device (module docstring). A
+        # dense pool's sliding-window layers keep full capacity (no ring):
         # chunked prefill writes several positions a step
-        self.caches = (init_cache(cfg, n_blocks=self.n_blocks,
-                                  block_size=block_size, n_slots=n_slots,
-                                  device=device, specs=self.specs,
-                                  quantized=quantized)
-                       if paged else
-                       lm.init_cache(cfg, n_slots, max_len, device=device,
-                                     specs=self.specs, lattn_ring=False))
+        self.shard_caches = [
+            init_cache(cfg, n_blocks=self.blocks_per_shard,
+                       block_size=block_size, n_slots=self.slots_per_shard,
+                       device=d, specs=self.specs, quantized=quantized)
+            if paged else
+            lm.init_cache(cfg, self.slots_per_shard, max_len, device=d,
+                          specs=self.specs, lattn_ring=False)
+            for d in self.devices]
+        # the one tree of an unsharded pool (what its step is handed)
+        self.caches = self.shard_caches[0] if n_shards == 1 else None
         # recurrent state kinds (rwkv, griffin): a speculative rollback
         # snapshots and restores them; token kinds truncate for free
-        self.has_state_kinds = bool(state_leaves(self.caches))
+        self.has_state_kinds = bool(state_leaves(self.shard_caches[0]))
         self._table = np.full((n_slots, self.max_blocks), self.sentinel,
                               np.int32)
-        # pop() -> the lowest free block id first
-        self._free = list(range(self.n_blocks - 1, -1, -1))
+        # per-shard free lists; pop() -> the shard's lowest free block first
+        bps = self.blocks_per_shard
+        self._frees: list[list[int]] = [
+            list(range((s + 1) * bps - 1, s * bps - 1, -1))
+            for s in range(n_shards)]
         self._owned: list[list[int]] = [[] for _ in range(n_slots)]
         self._committed = [0] * n_slots  # reserved blocks per admitted seq
         self._bound = [False] * n_slots
@@ -393,8 +432,9 @@ class KVPool:
         self._floor = [0] * n_slots        # least length `truncate` allows
         # host tier: flat buffers of one block's bytes, reused; the bytes of
         # free buffers kept are bounded by host_keep_bytes (None: unbounded).
-        # A dense pool has no blocks, hence no host tier.
-        leaves = token_leaves(self.caches) if paged else []
+        # A dense pool has no blocks, hence no host tier. Every shard's
+        # leaves have the same per-block shapes.
+        leaves = token_leaves(self.shard_caches[0]) if paged else []
         self._host_shapes = [(t.dtype, (t.shape[0], *t.shape[2:]))
                              for t in leaves]
         self._host_offsets, off = [], 0
@@ -410,23 +450,45 @@ class KVPool:
     # ---- block accounting ----
 
     def shard_of_slot(self, slot: int) -> int:
-        return 0
+        """The data shard homing `slot` (contiguous split)."""
+        return slot // self.slots_per_shard
+
+    def shard_of_block(self, block: int) -> int:
+        return block // self.blocks_per_shard
+
+    def _local(self, block: int) -> tuple[int, int]:
+        """(shard, shard-local id) of a global block id."""
+        sh = self.shard_of_block(block)
+        return sh, block - sh * self.blocks_per_shard
+
+    def _shard_slots(self, shard: int) -> range:
+        sps = self.slots_per_shard
+        return range(shard * sps, (shard + 1) * sps)
+
+    @property
+    def _free(self) -> list[int]:
+        """Every free block, shard by shard (each shard's list in pop
+        order): the free list of an unsharded pool."""
+        return [b for free in self._frees for b in free]
 
     @property
     def free_block_count(self) -> int:
-        return len(self._free)
+        return sum(len(free) for free in self._frees)
+
+    def free_blocks_in_shard(self, shard: int) -> int:
+        return len(self._frees[shard])
 
     def utilization(self) -> dict:
         """Host-side occupancy for the per-tick gauges
-        (obs/instrumentation.py): free blocks per shard (one shard here),
-        allocated blocks, and internal fragmentation: token capacity in
-        allocated blocks that no live position occupies (partial tail
-        blocks plus window-reclaim slack). A dense pool reports zero
-        blocks."""
+        (obs/instrumentation.py): free blocks per shard, allocated blocks,
+        and internal fragmentation: token capacity in allocated blocks that
+        no live position occupies (partial tail blocks plus window-reclaim
+        slack). A dense pool reports zero blocks."""
         if not self.paged:
-            return {"free_by_shard": [0], "allocated_blocks": 0,
-                    "frag_tokens": 0, "frag_ratio": 0.0}
-        free = len(self._free)
+            return {"free_by_shard": [0] * self.n_shards,
+                    "allocated_blocks": 0, "frag_tokens": 0,
+                    "frag_ratio": 0.0}
+        free = [len(f) for f in self._frees]
         cap = live = 0
         for i in range(self.n_slots):
             if not self._bound[i]:
@@ -434,14 +496,24 @@ class KVPool:
             cap += len(self._owned[i]) * self.block_size
             live += self._lengths[i] - self._live_from[i] * self.block_size
         frag = max(cap - live, 0)
-        return {"free_by_shard": [free],
-                "allocated_blocks": self.n_blocks - free,
+        return {"free_by_shard": free,
+                "allocated_blocks": self.n_blocks - sum(free),
                 "frag_tokens": frag,
                 "frag_ratio": frag / cap if cap else 0.0}
 
-    def _outstanding(self) -> int:
-        return sum(self._committed[i] - len(self._owned[i])
-                   for i in range(self.n_slots))
+    def _outstanding(self, shard: int | None = None) -> int:
+        """Blocks reserved by `commit` and not yet allocated, over the
+        slots of `shard` (None: every slot)."""
+        slots = range(self.n_slots) if shard is None else \
+            self._shard_slots(shard)
+        return sum(self._committed[i] - len(self._owned[i]) for i in slots)
+
+    def effective_free_blocks(self, shard: int) -> int:
+        """Free blocks of `shard` less its slots' outstanding commitments:
+        what a new request could draw on there. The engine's placement
+        ranks shards by it, so a freshly committed sequence already steers
+        the next admission elsewhere."""
+        return len(self._frees[shard]) - self._outstanding(shard)
 
     def blocks_for(self, n_tokens: int) -> int:
         return math.ceil(n_tokens / self.block_size)
@@ -457,10 +529,13 @@ class KVPool:
 
     def can_ever_admit(self, total_tokens: int,
                        max_growth: int | None = None) -> bool:
+        """Can any pool state back a sequence of total_tokens? A slot never
+        borrows from another shard, so one shard's blocks bound it."""
         if total_tokens > self.max_len:
             return False
         return (not self.paged) or (
-            self.max_live_blocks(total_tokens, max_growth) <= self.n_blocks)
+            self.max_live_blocks(total_tokens, max_growth)
+            <= self.blocks_per_shard)
 
     def can_admit(self, total_tokens: int, max_growth: int | None = None,
                   slot: int | None = None, cached_blocks: int = 0) -> bool:
@@ -469,7 +544,9 @@ class KVPool:
         not yet allocated) so growing sequences never exhaust the pool;
         `cached_blocks` (prefix-cache blocks the candidate would adopt, not
         allocate) reduce its demand. A dense pool is bounded by max_len
-        alone."""
+        alone. With `n_shards > 1` only the shard of `slot` counts, and a
+        slot is required: free blocks of several shards back no single slot,
+        so there is no whole-pool answer."""
         if total_tokens > self.max_len:
             return False
         if not self.paged:
@@ -481,13 +558,18 @@ class KVPool:
                             max_growth: int | None = None,
                             slot: int | None = None,
                             cached_blocks: int = 0) -> int:
-        """Free blocks missing for `can_admit` to pass (0 when it passes):
-        what the engine asks the prefix cache to evict before admitting."""
+        """Free blocks missing on `slot`'s shard for `can_admit` to pass (0
+        when it passes): what the engine asks the prefix cache to evict
+        there before admitting. A sharded pool needs the slot."""
         if not self.paged or total_tokens > self.max_len:
             return 0
+        if self.n_shards > 1 and slot is None:
+            raise ValueError("admission on a sharded pool needs the "
+                             "candidate slot (its shard's blocks)")
+        sh = 0 if slot is None else self.shard_of_slot(slot)
         need = max(0, self.max_live_blocks(total_tokens, max_growth)
                    - cached_blocks)
-        return max(0, need - (len(self._free) - self._outstanding()))
+        return max(0, need - self.effective_free_blocks(sh))
 
     def commit(self, slot: int, total_tokens: int,
                max_growth: int | None = None) -> None:
@@ -500,13 +582,16 @@ class KVPool:
         self._bound[slot] = True
         self._committed[slot] = self.max_live_blocks(total_tokens, max_growth)
 
-    def _pop_free(self, what: str) -> int:
-        """The lowest free block, evicting cached blocks when none is free
-        (the caller checks every other precondition first)."""
-        if not self._free and not (self.evict_hook is not None
-                                   and self.evict_hook(0, 1) > 0):
-            raise OutOfBlocks(what)
-        blk = self._free.pop()
+    def _pop_free(self, shard: int, what: str) -> int:
+        """The lowest free block of `shard`, evicting cached blocks there
+        when none is free (the caller checks every other precondition
+        first)."""
+        free = self._frees[shard]
+        if not free and not (self.evict_hook is not None
+                             and self.evict_hook(shard, 1) > 0):
+            raise OutOfBlocks(what + (f" (shard {shard})"
+                                      if self.n_shards > 1 else ""))
+        blk = free.pop()
         self._ref[blk] = 1
         return blk
 
@@ -526,8 +611,9 @@ class KVPool:
         if self.window is not None:
             self._reclaim(slot)
         taken = 0
+        sh = self.shard_of_slot(slot)
         while self._alloc_upto[slot] < need:
-            blk = self._pop_free(f"slot {slot}: pool exhausted")
+            blk = self._pop_free(sh, f"slot {slot}: pool exhausted")
             self._table[slot, self._alloc_upto[slot]] = blk
             self._owned[slot].append(blk)
             self._alloc_upto[slot] += 1
@@ -596,6 +682,7 @@ class KVPool:
         if not self.paged:
             return
         # reversed so an exclusive slot's first-allocated block pops first
+        # (slot affinity: every block it owns homes on its shard)
         for blk in reversed(self._owned[slot]):
             self._decref(blk)
         self._owned[slot] = []
@@ -610,21 +697,49 @@ class KVPool:
     def _dirty(self) -> None:
         self._tables_dev = None
 
-    def tables_device(self) -> torch.Tensor:
-        """The (n_slots, 2, max_blocks) int32 device tables, cached until the
-        host table changes: [:, 0] the READ table, [:, 1] the WRITE table,
-        in which every adopted (shared) logical block holds the sentinel,
-        so a scatter through it lands in the scratch block. Stored as a
-        (2, n_slots, max_blocks) tensor and returned permuted, so each view
-        `[:, k]` is contiguous. None for a dense pool (no block table)."""
+    @property
+    def local_sentinel(self) -> int:
+        """The sentinel of the device tables: blocks_per_shard when sharded
+        (out of bounds for a shard's readable leaves), else n_blocks."""
+        return self.blocks_per_shard if self.n_shards > 1 else self.sentinel
+
+    def _local_table_np(self) -> np.ndarray:
+        """The (n_slots, max_blocks) host table as the device sees it:
+        shard-local ids when sharded (each entry less its slot's shard
+        base; the sentinel mapped to `local_sentinel`), else the table."""
+        if self.n_shards == 1:
+            return self._table.copy()
+        base = (np.arange(self.n_slots, dtype=np.int32)
+                // self.slots_per_shard)[:, None] * self.blocks_per_shard
+        return np.where(self._table == self.sentinel, self.blocks_per_shard,
+                        self._table - base).astype(np.int32)
+
+    def tables_device(self):
+        """The int32 device tables, cached until the host table changes:
+        (n_slots, 2, max_blocks) with [:, 0] the READ table and [:, 1] the
+        WRITE table, in which every adopted (shared) logical block holds the
+        sentinel, so a scatter through it lands in the scratch block. Stored
+        as a (2, n_slots, max_blocks) tensor and returned permuted, so each
+        view `[:, k]` is contiguous. A sharded pool returns one such
+        (slots_per_shard, 2, max_blocks) tensor a shard, on the shard's
+        device, over shard-local ids. None for a dense pool (no block
+        table)."""
         if not self.paged:
             return None
         if self._tables_dev is None:
-            wt = self._table.copy()
+            rt = self._local_table_np()
+            wt = rt.copy()
             for s, k in enumerate(self._shared_upto):
-                wt[s, :k] = self.sentinel
-            self._tables_dev = torch.from_numpy(
-                np.stack([self._table, wt])).to(self.device).permute(1, 0, 2)
+                wt[s, :k] = self.local_sentinel
+            both = np.stack([rt, wt])
+            if self.n_shards == 1:
+                self._tables_dev = torch.from_numpy(both).to(
+                    self.device).permute(1, 0, 2)
+            else:
+                self._tables_dev = tuple(
+                    torch.from_numpy(np.ascontiguousarray(
+                        both[:, self._shard_slots(s)])).to(d).permute(1, 0, 2)
+                    for s, d in enumerate(self.devices))
         return self._tables_dev
 
     # ---- prefix sharing (refcounted aliasing + copy-on-write) ----
@@ -635,7 +750,7 @@ class KVPool:
         if self._ref[block] < 0:
             raise SlotError(f"block {block}: decref below zero (double free)")
         if self._ref[block] == 0:
-            self._free.append(block)
+            self._frees[self.shard_of_block(block)].append(block)
             if self.obs is not None:
                 self.obs.on_pool_free(1)
 
@@ -652,8 +767,9 @@ class KVPool:
                      n_tokens: int) -> None:
         """Alias cached `blocks` READ-ONLY as `slot`'s logical prefix: each
         is incref'd and masked out of the write table. Only on a freshly
-        committed slot, and not on sliding-window pools (a reclaimed prefix
-        is not fully resident)."""
+        committed slot, with every block homed on the slot's shard (slot
+        affinity), and not on sliding-window pools (a reclaimed prefix is
+        not fully resident)."""
         if not self.paged:
             raise SlotError("adopt_prefix on a dense pool: no block table")
         if not self._bound[slot]:
@@ -666,6 +782,10 @@ class KVPool:
         if n_tokens > len(blocks) * self.block_size:
             raise SlotError(f"slot {slot}: {n_tokens} tokens exceed "
                             f"{len(blocks)} adopted blocks")
+        sh = self.shard_of_slot(slot)
+        if any(self.shard_of_block(b) != sh for b in blocks):
+            raise SlotError(f"slot {slot} (shard {sh}): adopting off-shard "
+                            "blocks violates slot affinity")
         for j, blk in enumerate(blocks):
             self.incref(blk)
             self._table[slot, j] = blk
@@ -683,6 +803,10 @@ class KVPool:
             raise SlotError("cow_block on a dense pool: no block table")
         if not self._bound[slot]:
             raise SlotError(f"slot {slot}: cow_block on an unbound slot")
+        sh = self.shard_of_slot(slot)
+        if self.shard_of_block(src) != sh:
+            raise SlotError(f"slot {slot} (shard {sh}): COW source {src} "
+                            "homes on another shard")
         if self._ref[src] <= 0:
             raise SlotError(f"block {src}: COW from a free block")
         j = self._alloc_upto[slot]
@@ -690,7 +814,7 @@ class KVPool:
             # checked BEFORE popping: a pop-then-raise would strand the
             # popped block at refcount 1 with no owner
             raise OutOfBlocks(f"slot {slot}: table full at COW")
-        dst = self._pop_free(f"slot {slot}: no free block for COW")
+        dst = self._pop_free(sh, f"slot {slot}: no free block for COW")
         self._table[slot, j] = dst
         self._owned[slot].append(dst)
         self._alloc_upto[slot] = j + 1
@@ -702,17 +826,21 @@ class KVPool:
         return dst
 
     def _copy_block_device(self, src: int, dst: int) -> None:
-        """Device copy of block `src` -> `dst` in every token leaf, one
-        indexed copy a leaf on the current stream; a PackedKV's codes and
-        scales both move before any later step can read the block."""
-        for leaf in token_leaves(self.caches):
-            leaf[:, dst] = leaf[:, src]
+        """Device copy of block `src` -> `dst` (global ids of one shard) in
+        every token leaf of that shard, one indexed copy a leaf on the
+        current stream; a PackedKV's codes and scales both move before any
+        later step can read the block."""
+        sh, s = self._local(src)
+        d = self._local(dst)[1]
+        for leaf in token_leaves(self.shard_caches[sh]):
+            leaf[:, d] = leaf[:, s]
 
     def alloc_cache_block(self, shard: int = 0) -> int:
-        """One block OWNED BY THE PREFIX CACHE (ref 1, no slot): a swap-in
-        target. Evicts like `ensure` under pressure; pin (acquire) the cache
-        path being materialized first."""
-        blk = self._pop_free(f"shard {shard}: no free block for the cache")
+        """One block of `shard` OWNED BY THE PREFIX CACHE (ref 1, no slot):
+        the target of a swap-in or a cross-shard replica. Evicts like
+        `ensure` under pressure; pin (acquire) the cache path being
+        materialized first."""
+        blk = self._pop_free(shard, "no free block for the cache")
         if self.obs is not None:
             self.obs.on_pool_alloc(1)
         return blk
@@ -725,30 +853,39 @@ class KVPool:
         silently corrupt it, so that is a SlotError."""
         if self._bound[slot]:
             raise SlotError(f"slot {slot}: reset_slot on a bound slot")
-        for leaf in state_leaves(self.caches):
-            leaf[:, slot] = 0
+        sh = self.shard_of_slot(slot)
+        for leaf in state_leaves(self.shard_caches[sh]):
+            leaf[:, slot - sh * self.slots_per_shard] = 0
 
     # Token kinds truncate for free (position-masked); the recurrent kinds
     # integrate every token irreversibly, so a speculative rollback is
     # snapshot -> verify chunk -> restore the rejected slots -> replay.
 
     def snapshot_states(self):
-        """Copies of every state-kind leaf in `state_leaves` order (None
-        when the stack has none): real copies, since the steps update the
-        leaves in place."""
+        """Copies of every state-kind leaf in `state_leaves` order, shard
+        after shard (None when the stack has none): real copies, since the
+        steps update the leaves in place."""
         if not self.has_state_kinds:
             return None
-        return [leaf.clone() for leaf in state_leaves(self.caches)]
+        return [leaf.clone() for tree in self.shard_caches
+                for leaf in state_leaves(tree)]
 
     def restore_states(self, snapshot, slots) -> None:
         """Write `slots`' rows of every state-kind leaf back from
-        `snapshot`, IN PLACE."""
+        `snapshot`, IN PLACE, each on its slot's shard."""
         if snapshot is None or not slots:
             return
-        idx = torch.as_tensor(list(slots), dtype=torch.long,
-                              device=self.device)
-        for leaf, snap in zip(state_leaves(self.caches), snapshot):
-            leaf[:, idx] = snap[:, idx]
+        per = len(snapshot) // self.n_shards
+        for sh, (tree, dev) in enumerate(zip(self.shard_caches,
+                                             self.devices)):
+            rows = [i - sh * self.slots_per_shard for i in slots
+                    if self.shard_of_slot(i) == sh]
+            if not rows:
+                continue
+            idx = torch.as_tensor(rows, dtype=torch.long, device=dev)
+            for leaf, snap in zip(state_leaves(tree),
+                                  snapshot[sh * per:(sh + 1) * per]):
+                leaf[:, idx] = snap[:, idx]
 
     # ---- host spill tier ----
     #
@@ -782,21 +919,28 @@ class KVPool:
         grows past its high-water mark."""
         if not self.paged:
             raise SlotError("read_block_host on a dense pool: no blocks")
+        sh, block = self._local(block)
         buf = self._host_buffer()
         views = []
-        for leaf, off, (dtype, shape) in zip(token_leaves(self.caches),
-                                              self._host_offsets,
-                                              self._host_shapes):
+        for leaf, off, (dtype, shape) in zip(
+                token_leaves(self.shard_caches[sh]), self._host_offsets,
+                self._host_shapes):
             n = math.prod(shape) * leaf.element_size()
             v = buf[off:off + n].view(dtype).view(shape)
             v.copy_(leaf[:, block], non_blocking=non_blocking)
             views.append(v)
         nbytes = sum(v.numel() * v.element_size() for v in views)
-        payload = HostBlock(_like_tree(self.caches, views), buf)
+        payload = HostBlock(_like_tree(self.shard_caches[sh], views), buf)
         if non_blocking and self.device.type == "cuda":
-            payload.done = torch.cuda.Event()
-            payload.done.record()
+            payload.done = self._event_behind(sh)
         return payload, nbytes
+
+    def _event_behind(self, shard: int):
+        """A CUDA event recorded on the current stream of `shard`'s card,
+        behind the copies just dispatched there."""
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.devices[shard]))
+        return done
 
     def write_block_host(self, block: int, payload: HostBlock) -> None:
         """Write a `read_block_host` payload into block `block`.
@@ -811,12 +955,12 @@ class KVPool:
         if self.device.type == "cuda" and not payload.buf.is_pinned():
             raise ValueError("write_block_host needs a pinned host buffer: "
                              "a pageable source makes the copy synchronous")
-        for leaf, src in zip(token_leaves(self.caches),
+        sh, block = self._local(block)
+        for leaf, src in zip(token_leaves(self.shard_caches[sh]),
                              token_leaves(payload.stages)):
             leaf[:, block].copy_(src, non_blocking=True)
         if self.device.type == "cuda":
-            payload.done = torch.cuda.Event()
-            payload.done.record()
+            payload.done = self._event_behind(sh)
 
     def release_host(self, payload: HostBlock) -> None:
         """The prefix cache dropped `payload`: its buffer returns to the

@@ -1,6 +1,6 @@
 """Radix-tree prefix cache over the paged KV pool, with a host spill tier.
 
-Counterpart of `repro/serve/prefix_cache.py`, on one shard. Serving fleets
+Counterpart of `repro/serve/prefix_cache.py`. Serving fleets
 see much shared-prompt overlap (system prompts, few-shot preambles,
 multi-turn histories). This module keeps a token-level radix tree whose
 nodes OWN refcounted physical blocks of the pool, and on admission the
@@ -25,6 +25,15 @@ later match swaps the block back in (`materialize`) by dispatching a
 non-blocking host-to-device copy on the current stream, which orders every
 later step after it. Under `scheme="bf16"` a spill-hot stream is therefore
 bitwise the cold one (host -> device -> host is the identity).
+
+Over a slot-affine sharded pool (`KVPool(n_shards > 1)`) nodes are
+MULTI-SHARD: `blocks` maps shard -> block, one refcounted copy a shard.
+Without the host tier a prefix serves only slots of its own shard, and an
+insertion never extends a path across shards. With it a cross-shard match
+materializes on the placed shard from the host snapshot, and
+`replicate_hot` copies the blocks of nodes matched `replicate_hits` times
+into peer shards through the host tier, into free blocks only (it never
+evicts), a bounded number a tick.
 
 Tree shape: children are keyed by the `block_size`-token tuple a child's
 block covers, so every node owns exactly one full physical block and the
@@ -51,12 +60,13 @@ from repro_torch.serve.kv_pool import KVPool
 
 
 class _Node:
-    """One cached full block: `tokens` (block_size ids) -> physical copy.
+    """One cached full block: `tokens` (block_size ids) -> physical copies.
 
-    `blocks` maps shard -> device block id (one shard here; empty while the
-    block lives only in the host tier). `host` is the immutable host
-    snapshot (a `kv_pool.HostBlock`, None until spilled); `hits` counts
-    admission matches through this node."""
+    `blocks` maps shard -> device block id (one copy a shard; empty while
+    the block lives only in the host tier). `host` is the immutable host
+    snapshot (a `kv_pool.HostBlock`, None until spilled or replicated);
+    `hits` counts admission matches through this node (the replication
+    trigger)."""
 
     __slots__ = ("parent", "children", "tokens", "blocks", "host",
                  "host_bytes", "hits", "refs", "last_used")
@@ -72,6 +82,11 @@ class _Node:
         self.hits = 0
         self.refs = 0          # live slots currently aliasing this path
         self.last_used = clock
+
+    @property
+    def shard(self) -> int:
+        """The shard of the (first) device copy; -1 when host-only."""
+        return next(iter(self.blocks), -1)
 
     @property
     def block(self) -> int:
@@ -94,6 +109,16 @@ class Match:
     @property
     def tokens(self) -> int:
         return sum(len(n.tokens) for n in self.nodes) + self.partial
+
+    @property
+    def shard(self) -> int | None:
+        """The home shard of the match (without the host tier a path lies
+        on one shard); None for an empty match."""
+        if self.nodes:
+            return self.nodes[0].shard
+        if self.partial_node is not None:
+            return self.partial_node.shard
+        return None
 
     def plan(self, cap: int, block_size: int):
         """(m, adopt_nodes, tail_node) for a match capped at `cap` tokens:
@@ -122,7 +147,8 @@ class PrefixCache:
     """
 
     def __init__(self, pool: KVPool, *, spill: bool = False,
-                 host_budget_bytes: int | None = None, clock=None):
+                 host_budget_bytes: int | None = None,
+                 replicate_hits: int | None = None, clock=None):
         if not self.supported(pool):
             raise ValueError(
                 "PrefixCache requires a pool without a sliding-window "
@@ -131,6 +157,7 @@ class PrefixCache:
         self.block_size = pool.block_size
         self.spill = spill
         self.host_budget_bytes = host_budget_bytes
+        self.replicate_hits = replicate_hits
         self.wall = clock if clock is not None else time.perf_counter
         self.host_bytes = 0
         # swap-in blocks dispatched this tick (cleared by complete_swaps)
@@ -145,8 +172,7 @@ class PrefixCache:
                       "spilled_blocks": 0, "swapped_in_blocks": 0,
                       "replicated_blocks": 0, "swapin_s": 0.0}
         # observability hook (set by the engine with EngineConfig(obs=...)):
-        # mirrors these events into registry counters. Replication comes
-        # with mesh shards, so `on_cache_replicate` is never called here.
+        # mirrors these events into registry counters
         self.obs = None
         pool.evict_hook = self.evict
         pool.host_keep_bytes = host_budget_bytes
@@ -256,10 +282,11 @@ class PrefixCache:
         node.host, node.host_bytes = None, 0
 
     def materialize(self, nodes: list[_Node], shard: int = 0) -> int:
-        """Give every node a device copy, swapping spilled blocks back in:
-        the writes are dispatched, not awaited. Pin the nodes first (the
-        allocations may evict). Returns the blocks swapped in; raises
-        OutOfBlocks when the pool cannot hold the path."""
+        """Give every node a device copy on `shard`, swapping spilled blocks
+        back in, or copying a peer shard's block through a fresh host
+        snapshot: the writes are dispatched, not awaited. Pin the nodes
+        first (the allocations may evict). Returns the blocks swapped in;
+        raises OutOfBlocks when the shard cannot hold the path."""
         missing = [n for n in nodes if shard not in n.blocks]
         if not missing:
             return 0
@@ -286,6 +313,47 @@ class PrefixCache:
         go back to the pool's free list."""
         self._inflight.clear()
         self.pool.poll_host()
+
+    def replicate_hot(self, budget: int = 1) -> int:
+        """Copy up to `budget` blocks of HOT nodes (matched at least
+        `replicate_hits` times) into shards that lack them, through the host
+        tier. Only blocks free already are taken (replication never
+        evicts), so a loaded shard is left alone; the engine calls it once
+        a tick. Returns the blocks copied."""
+        if (not self.spill or self.replicate_hits is None
+                or self.pool.n_shards == 1 or budget <= 0):
+            return 0
+        pool, done = self.pool, 0
+        targets = [s for s in range(pool.n_shards) if pool._frees[s]]
+        if not targets:
+            return 0
+
+        def walk(node):
+            nonlocal done
+            for c in node.children.values():
+                if done >= budget:
+                    return
+                if c.hits >= self.replicate_hits and c.available():
+                    for s in targets:
+                        if done >= budget:
+                            break
+                        if s in c.blocks or not pool._frees[s]:
+                            continue
+                        payload = self._snapshot(c)
+                        blk = pool.alloc_cache_block(s)
+                        pool.write_block_host(blk, payload)
+                        c.blocks[s] = blk
+                        self._inflight.append(blk)
+                        done += 1
+                walk(c)
+
+        walk(self.root)
+        if done:
+            self.stats["replicated_blocks"] += done
+            if self.obs is not None:
+                self.obs.on_cache_replicate(done)
+            self._trim_host()
+        return done
 
     def _trim_host(self) -> None:
         """Best-effort host budget: drop LRU snapshots, preferring nodes
@@ -319,10 +387,13 @@ class PrefixCache:
 
     def insert(self, tokens: list[int], slot: int) -> int:
         """Cache the FULL blocks of `tokens`, the stream whose K/V `slot`
-        holds. An existing node dedups (the slot's own block is dropped by
-        its later release); a missing node takes the slot's block with one
-        cache reference. Call BEFORE `pool.release(slot)`. Returns the
-        number of newly cached blocks."""
+        holds. An existing node with a copy on the slot's shard dedups (the
+        slot's own block is dropped by its later release); a missing node
+        takes the slot's block with one cache reference. With the host tier
+        a node lacking this shard's copy takes the slot's block as another
+        replica; without it, insertion stops at the first node homed on
+        another shard (paths never mix shards). Call BEFORE
+        `pool.release(slot)`. Returns the number of newly cached blocks."""
         pool = self.pool
         shard = pool.shard_of_slot(slot)
         clock = self._tick()
@@ -434,6 +505,11 @@ class PrefixCache:
     def cached_blocks(self) -> int:
         """Device blocks the cache holds, EXCLUDING this tick's swap-ins."""
         return sum(len(n.blocks) for n in self._nodes()) - len(self._inflight)
+
+    @property
+    def inflight_swaps(self) -> int:
+        """Swap-in and replica blocks dispatched this tick."""
+        return len(self._inflight)
 
     def host_nodes(self) -> int:
         """Nodes holding a host-tier snapshot."""

@@ -40,6 +40,11 @@ for active rows), as in the reference: under quartet2 their rows enter the
 per-tensor activation absmax, and CPU parity with the reference depends on
 it.
 
+Under a serving mesh (`EngineConfig.mesh`) the draft pool is slot-affine
+like the main pool, and the draft's steps and its K-step propose loop run
+once a shard on the shard's own slots (`serve_decode.shard_serve_step`),
+as the reference's `shard_map`-wrapped draft does.
+
 Numerics: a spec stream equals the non-speculative one bit for bit only
 where the per-row forward does not depend on the step shape. Under bf16 on
 the CPU rows are independent; on the card cuBLAS may pick another
@@ -51,11 +56,13 @@ the S = 1 engine at near-tie argmaxes.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.models import lm
-from repro_torch.serve.decode import SEED
+from repro_torch.serve.decode import SEED, shard_serve_step
 from repro_torch.serve.kv_pool import KVPool
 from repro_torch.serve.sampling import (accept_greedy, greedy_targets,
                                         speculative_resample)
@@ -70,38 +77,65 @@ def _blank(n_slots: int, size: int = 1):
 class DraftStack:
     """The truncated-stack draft: `lm.forward_prefix` over the engine's own
     parameters (views of its stacked, possibly packed, leaves) and a KV pool
-    of its own over `lm.prefix_specs`, with the main pool's slot count and
-    layout (paged block geometry, or dense) so slot indices line up. The draft pool never aliases
-    the prefix cache."""
+    of its own over `lm.prefix_specs`, with the main pool's slot count,
+    layout (paged block geometry, or dense) and shards, so slot indices
+    line up. Under a mesh it reads the engine's `shard_params`. The draft
+    pool never aliases the prefix cache."""
 
-    def __init__(self, cfg, params, econf, device: torch.device):
+    def __init__(self, cfg, params, econf, device: torch.device,
+                 shard_params=None):
         self.cfg = cfg
         self.scheme = econf.scheme
         self.n_prefix = econf.draft_layers
         self.specs = lm.prefix_specs(cfg, econf.draft_layers)  # validates
         self.params = params
         self.device = device
+        self.mesh = econf.mesh
+        self.shard_params = shard_params
         self.pool = KVPool(cfg, econf.n_slots, econf.max_len,
                            paged=econf.paged, block_size=econf.block_size,
                            n_blocks=econf.n_blocks, device=device,
-                           specs=self.specs)
+                           specs=self.specs,
+                           n_shards=len(self.mesh.devices) if self.mesh else 1,
+                           devices=self.mesh.devices if self.mesh else None)
 
-    def _step(self, tokens: torch.Tensor, pos: torch.Tensor,
-              active: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    def _step(self, params, caches, table, tokens, pos, active):
         logits, _ = lm.forward_prefix(
-            self.params, self.cfg, {"tokens": tokens}, self.scheme, SEED,
-            n_prefix=self.n_prefix, caches=self.pool.caches, mode="decode",
+            params, self.cfg, {"tokens": tokens}, self.scheme, SEED,
+            n_prefix=self.n_prefix, caches=caches, mode="decode",
             pos=pos, active=active, block_table=table)
-        return logits
+        return logits, caches
+
+    def _propose_loop(self, k, params, caches, table, tok0, pos, active):
+        """The K-step greedy loop over one batch of slots: each argmax is
+        fed to the next step on the device. Returns ((k, B) proposals,
+        caches)."""
+        cur = tok0[:, None]
+        out = []
+        for t in range(k):
+            logits, _ = self._step(params, caches, table, cur, pos + t,
+                                   active)
+            cur = logits[:, -1].argmax(dim=-1)[:, None]
+            out.append(cur[:, 0])
+        return torch.stack(out), caches
+
+    def _run(self, fn, host, out_batch_axis=0) -> torch.Tensor:
+        """`fn` (the step's signature) over the whole slot batch, or once a
+        shard under a mesh, on host arrays."""
+        inputs = [torch.from_numpy(a) for a in host]
+        if self.mesh is None:
+            return fn(self.params, self.pool.caches, self.pool.tables_device(),
+                      *(a.to(self.device) for a in inputs))[0]
+        sharded = shard_serve_step(fn, self.mesh,
+                                   out_batch_axis=out_batch_axis,
+                                   out_device=self.device)
+        return sharded(self.shard_params, self.pool.shard_caches,
+                       self.pool.tables_device(), *inputs)[0]
 
     def forward(self, tokens, pos, active) -> torch.Tensor:
         """One (n_slots, S) draft step from host arrays; the draft pool
         updates in place. Returns the logits (n_slots, S, V)."""
-        dev = self.device
-        return self._step(torch.from_numpy(tokens).to(dev),
-                          torch.from_numpy(pos).to(dev),
-                          torch.from_numpy(active).to(dev),
-                          self.pool.tables_device())
+        return self._run(self._step, (tokens, pos, active))
 
     def propose(self, k: int, tok0, pos, active) -> np.ndarray:
         """K greedy proposals: K (n_slots, 1) draft steps, each argmax fed
@@ -109,17 +143,8 @@ class DraftStack:
         arrays, each active row starting from its last emitted token at its
         own position. Returns the (k, n_slots) proposals, read on the host
         once; the draft pool advances k positions for active rows."""
-        dev = self.device
-        cur = torch.from_numpy(tok0).to(dev)[:, None]
-        pos_t = torch.from_numpy(pos).to(dev)
-        act = torch.from_numpy(active).to(dev)
-        table = self.pool.tables_device()
-        out = []
-        for t in range(k):
-            logits = self._step(cur, pos_t + t, act, table)
-            cur = logits[:, -1].argmax(dim=-1)[:, None]
-            out.append(cur[:, 0])
-        return torch.stack(out).cpu().numpy()
+        return self._run(functools.partial(self._propose_loop, k),
+                         (tok0, pos, active), out_batch_axis=1).cpu().numpy()
 
 
 def spec_round(eng, dec: list[int]) -> int:

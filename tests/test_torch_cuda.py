@@ -81,7 +81,16 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     (plain PyTorch) bitwise the CPU's for the same hashed uniforms; at
     world size 1 over NCCL, `gpipe` bitwise its stage (quartet2 qlinear:
     #1 twice and #2 once a tick), `compressed_psum_mean` bitwise
-    `_sr_roundtrip`, and the DP train step bitwise the plain step.
+    `_sr_roundtrip`, and the DP train step bitwise the plain step;
+  - mesh-sharded serving (both shards on the one card): #5-#8 on a
+    two-shard pool's shard-local tables (the local sentinel
+    blocks_per_shard, an all-sentinel row) and shard leaves of
+    blocks_per_shard + 1 blocks within the attention bar of their plain
+    versions, inactive rows exactly 0; one reduced llama step under bf16
+    through `make_sharded_serve_step` against the unsharded step over the
+    same slots: each shard's rows within the bf16 bar of the paged step
+    above (2e-2; the card's f32 GEMMs may sum 2 rows in another order than
+    4) and argmax equal, and its K/V writes landing in the shard's blocks.
 """
 
 import asyncio
@@ -1573,3 +1582,96 @@ def test_dp_step_at_world_size_1_over_nccl_is_the_plain_step(dev, nccl_world1):
         runs.append((float(m["loss"]), adamw.leaves(state.params)))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+# ---- mesh-sharded serving: shard-local tables, the sharded step ----------
+
+def _two_shard_pool(cfg, d="cpu"):
+    """A two-shard pool of 4 slots over 256 positions: slots 0-2 hold 47,
+    100 and 131 tokens, slot 3 is unbound (its row all sentinel)."""
+    pool = KVPool(cfg, 4, 256, block_size=16, n_shards=2, device=d)
+    for slot, n in zip(range(3), (47, 100, 131)):
+        pool.commit(slot, n)
+        pool.ensure(slot, n)
+    return pool
+
+
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("kernel", ["paged_gqa", "paged_gqa_q", "paged_mla",
+                                    "paged_mla_q"])
+def test_attention_kernels_on_shard_local_tables(dev, kernel, sq):
+    pool = _two_shard_pool(registry.get("llama_200m").reduced())
+    bps = pool.blocks_per_shard
+    g = torch.Generator().manual_seed(17)
+    for s, tables in enumerate(pool.tables_device()):
+        table = tables[:, 0].contiguous().to(dev)
+        assert int(table.max()) == bps          # the local sentinel
+        lens = [pool.length(i) for i in pool._shard_slots(s)]
+        pos = torch.tensor([max(n - sq, 0) for n in lens],
+                           dtype=torch.int32).to(dev)
+        if kernel.startswith("paged_gqa"):
+            q = torch.randn((2, sq, 10, 128), generator=g).bfloat16().to(dev)
+            k, v = ((torch.randn((bps + 1, 16, 10, 128), generator=g) * 3)
+                    .bfloat16().to(dev) for _ in range(2))
+            if kernel == "paged_gqa":
+                args = (q, k[:bps], v[:bps], table, pos)
+            else:
+                (kc, ks), (vc, vs) = (F.nvfp4_cache_encode(t) for t in (k, v))
+                args = (q, kc[:bps], ks[:bps], vc[:bps], vs[:bps], table, pos)
+            kw = {}
+            plain = getattr(PA, f"{kernel}_plain")(*args)
+        else:
+            qa = (torch.randn((2, sq, 128, 512), generator=g) * 0.1).to(dev)
+            qr = torch.randn((2, sq, 128, 64), generator=g).bfloat16().to(dev)
+            cc = torch.randn((bps + 1, 16, 512), generator=g).bfloat16().to(dev)
+            kc = (torch.randn((bps + 1, 16, 64), generator=g) * 2).bfloat16().to(dev)
+            if kernel == "paged_mla":
+                args = (qa, qr, cc[:bps], kc[:bps], table, pos)
+            else:
+                (c1, c2), (k1, k2) = (F.nvfp4_cache_encode(t) for t in (cc, kc))
+                args = (qa, qr, c1[:bps], c2[:bps], k1[:bps], k2[:bps], table,
+                        pos)
+            kw = {"qk_dim": 192}
+            plain = getattr(PA, f"{kernel}_plain")(*args, 192)
+        out = getattr(ops, kernel)(*args, **kw)
+        torch.testing.assert_close(out, plain, atol=ATOL, rtol=RTOL)
+        for j, n in enumerate(lens):
+            if n == 0:
+                assert int((out[j] != 0).sum()) == 0    # inactive row
+        assert torch.equal(out, getattr(ops, kernel)(*args, **kw))
+
+
+def test_sharded_llama_step_on_card_against_unsharded(dev):
+    from repro_torch.launch.mesh import make_serve_mesh
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = prequantize(_to(params, dev), cfg, "bf16")
+    mesh = make_serve_mesh(2, 1, devices=[dev, dev])
+    sharded = serve_decode.make_sharded_serve_step(cfg, "bf16", mesh)
+    plain = serve_decode.make_paged_serve_step(cfg, "bf16")
+    spool = _two_shard_pool(cfg, dev)
+    upool = KVPool(cfg, 4, 256, block_size=16, device=dev)
+    for slot, n in zip(range(3), (47, 100, 131)):
+        upool.commit(slot, n)
+        upool.ensure(slot, n)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab, (4, 20))
+    active = torch.tensor([True, True, True, False])
+    for start, size in ((0, 16), (16, 1), (17, 1)):
+        t = torch.as_tensor(toks[:, start:start + size], dtype=torch.int32)
+        pos = torch.full((4,), start, dtype=torch.int32)
+        got, _ = sharded([params, params], spool.shard_caches,
+                         spool.tables_device(), t, pos, active)
+        want, _ = plain(params, upool.caches, upool.tables_device(),
+                        t.to(dev), pos.to(dev), active.to(dev))
+        assert got.device == want.device and got.shape == want.shape
+        g, w = got[:3].float(), want[:3].float()
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 2e-2
+        assert torch.equal(g[:, -1].argmax(-1), w[:, -1].argmax(-1))
+    # slot 2 (shard 1, local row 0) wrote its K into shard 1's blocks
+    k1 = spool.shard_caches[1][0]["l0"]["kv"][0]
+    ku = upool.caches[0]["l0"]["kv"][0]
+    local = int(spool._local_table_np()[2, 0])
+    torch.testing.assert_close(k1[:, local].float(),
+                               ku[:, int(upool._table[2, 0])].float(),
+                               atol=1e-6, rtol=2.0 ** -7)

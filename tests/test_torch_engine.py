@@ -28,6 +28,7 @@ from repro.configs import registry as jregistry
 from repro.models import lm as jlm
 from repro_torch.configs import registry
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import lm
 from repro_torch.serve.engine import (EngineConfig, QueueFull, Request,
                                       ServeEngine, Unservable)
@@ -82,10 +83,13 @@ def test_quartet2_streams_equal_jax_up_to_a_narrow_margin():
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(replicate_hits=2)])
+    dict(mesh=make_serve_mesh(1, 2, devices=["cpu"])),
+    dict(mesh=make_serve_mesh(2, 2, devices=["cpu", "cpu"]))])
 def test_unported_options_raise(option):
+    """Serving over a "model" axis > 1 is ROADMAP.md's Queue 1 item 4.3
+    (mesh-sharded serving over "data" is ported)."""
     cfg = registry.get("llama_200m").reduced()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="4.3"):
         ServeEngine(cfg, {}, EngineConfig(device="cpu", **option))
 
 

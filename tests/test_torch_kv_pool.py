@@ -164,23 +164,31 @@ def _both(ref, port, name, *args):
     return outs[1]
 
 
-def test_pool_random_walk_matches_reference():
-    """One seeded sequence of commit, grow, adopt, COW, a cache
-    insert + release, release, a cache eviction and a truncate (one past
-    the length too) drives the reference
-    pool and the port's; tables (read and write views), refcounts, free
-    lists, owners and lengths agree after every operation."""
-    ref, port = _pair(n_slots=3, max_len=32, n_blocks=14)
-    rng = np.random.RandomState(0)
+def _walk(ref, port, n_slots, steps, check, seed=0, alloc=0):
+    """A seeded walk of commit, grow, adopt, COW, a cache insert + release,
+    release, a cache eviction, a truncate (one past the length too) and,
+    with `alloc` > 0, a cache-owned allocation on a shard, applied to both
+    pools; `check(step, op)` after every operation. On a sharded pool most
+    adopt and COW sources come from the slot's own shard (the rest must be
+    refused alike). Returns the count of each operation done."""
+    rng = np.random.RandomState(seed)
     cached: list[int] = []          # blocks the walk holds as "the cache"
     weights = {"commit": 3, "grow": 2, "adopt": 4, "cow": 2,
-               "insert_release": 3, "release": 1, "evict": 1, "truncate": 1}
-    kinds = list(weights)
-    p = np.array(list(weights.values()), float) / sum(weights.values())
+               "insert_release": 3, "release": 1, "evict": 1, "truncate": 1,
+               "alloc": alloc}
+    kinds = [k for k, w in weights.items() if w]
+    p = np.array([weights[k] for k in kinds], float)
+    p /= p.sum()
     counts = dict.fromkeys(kinds, 0)
-    for step in range(1000):
+
+    def sources(s):
+        own = [b for b in cached
+               if port.shard_of_block(b) == port.shard_of_slot(s)]
+        return own if own and rng.rand() < 0.8 else cached
+
+    for step in range(steps):
         op = kinds[rng.choice(len(kinds), p=p)]
-        s = int(rng.randint(3))
+        s = int(rng.randint(n_slots))
         bound = port._bound[s]
         if op == "commit" and not bound:
             _both(ref, port, "commit", s, int(rng.randint(1, 33)))
@@ -188,13 +196,20 @@ def test_pool_random_walk_matches_reference():
             _both(ref, port, "ensure", s,
                   min(32, port.length(s) + int(rng.randint(1, 9))))
         elif op == "adopt" and bound and not port._owned[s] and cached:
-            k = int(rng.randint(1, min(len(cached), 4) + 1))
-            blocks = [cached[int(i)] for i in rng.choice(len(cached), k,
-                                                         replace=False)]
+            src = sources(s)
+            k = int(rng.randint(1, min(len(src), 4) + 1))
+            blocks = [src[int(i)] for i in rng.choice(len(src), k,
+                                                      replace=False)]
             _both(ref, port, "adopt_prefix", s, blocks,
                   int(rng.randint(1, 4 * k + 1)))
         elif op == "cow" and bound and cached:
-            _both(ref, port, "cow_block", s, cached[rng.randint(len(cached))])
+            src = sources(s)
+            _both(ref, port, "cow_block", s, src[rng.randint(len(src))])
+        elif op == "alloc":
+            blk = _both(ref, port, "alloc_cache_block",
+                        int(rng.randint(port.n_shards)))
+            if isinstance(blk, int):
+                cached.append(blk)
         elif op == "insert_release" and bound:
             for b in port._owned[s][:int(rng.randint(0, 4))]:
                 if b not in cached:
@@ -211,8 +226,130 @@ def test_pool_random_walk_matches_reference():
         else:
             continue
         counts[op] += 1
-        _assert_same(ref, port, (step, op))
+        check(step, op)
+    return counts
+
+
+def test_pool_random_walk_matches_reference():
+    """One seeded sequence of commit, grow, adopt, COW, a cache
+    insert + release, release, a cache eviction and a truncate (one past
+    the length too) drives the reference
+    pool and the port's; tables (read and write views), refcounts, free
+    lists, owners and lengths agree after every operation."""
+    ref, port = _pair(n_slots=3, max_len=32, n_blocks=14)
+    counts = _walk(ref, port, 3, 1000,
+                   lambda step, op: _assert_same(ref, port, (step, op)))
     assert all(n >= 10 for n in counts.values()), counts
+
+
+def _assert_same_sharded(ref, port, what):
+    """The two-shard pools agree: host table, refcounts, owners, lengths,
+    each shard's free list, free and effective free blocks, per-slot
+    admission and shortfall, the shard-local tables (host, the
+    reference's stacked device tables against the port's per-shard ones),
+    and slot affinity."""
+    assert np.array_equal(ref._table, port._table), what
+    assert np.array_equal(ref._ref, port._ref), what
+    assert ref._frees == port._frees and ref._free == port._free, what
+    assert ref._owned == port._owned, what
+    assert ref._lengths == port._lengths, what
+    assert ref._shared_upto == port._shared_upto, what
+    for sh in range(2):
+        assert (ref.free_blocks_in_shard(sh), ref.effective_free_blocks(sh)) \
+            == (port.free_blocks_in_shard(sh),
+                port.effective_free_blocks(sh)), what
+    assert np.array_equal(ref._local_table_np(), port._local_table_np()), what
+    assert np.array_equal(np.asarray(ref.table_device()),
+                          port._local_table_np()), what
+    assert np.array_equal(np.asarray(ref.tables_device()), np.concatenate(
+        [t.numpy() for t in port.tables_device()])), what
+    assert all(t.device == d for t, d in zip(port.tables_device(),
+                                             port.devices)), what
+    for total in (4, 13, 24):
+        for cached in (0, 2):
+            for slot in range(port.n_slots):
+                assert (ref.can_admit(total, slot=slot, cached_blocks=cached),
+                        ref.admission_shortfall(total, slot=slot,
+                                                cached_blocks=cached)) == (
+                    port.can_admit(total, slot=slot, cached_blocks=cached),
+                    port.admission_shortfall(total, slot=slot,
+                                             cached_blocks=cached)), what
+    bps = port.blocks_per_shard
+    for slot in range(port.n_slots):
+        assert all(b // bps == port.shard_of_slot(slot)
+                   for b in port._owned[slot]), what
+
+
+def test_sharded_pool_random_walk_matches_reference():
+    """The walk above, plus cache-owned allocations on either shard, over
+    the reference's slot-affine KVPool(n_shards=2) and the port's (4 slots,
+    12 blocks of which 6 a shard): the same block ids, per-shard free
+    lists, effective free blocks, admissions and tables after every
+    operation; off-shard adopts and COWs refused alike."""
+    from repro.configs import registry as jregistry
+    from repro.serve.kv_pool import KVPool as JPool
+    ref = JPool(jregistry.get("llama_200m").reduced(), 4, 32, block_size=4,
+                n_blocks=12, n_shards=2)
+    port = _pool(n_slots=4, max_len=32, n_blocks=12, n_shards=2)
+    counts = _walk(ref, port, 4, 600,
+                   lambda step, op: _assert_same_sharded(ref, port,
+                                                         (step, op)),
+                   seed=1, alloc=1)
+    assert all(n >= 10 for n in counts.values()), counts
+
+
+def test_sharded_pool_layout_guards_and_routing():
+    """Each shard owns a tree of blocks_per_shard + 1 blocks (its own
+    scratch block at the local sentinel) and slots_per_shard slots; the
+    divisibility error names n_shards, as the reference's; a write through
+    the local sentinel lands in that shard's scratch block alone; COW and
+    host round trips route to the block's shard; admission needs the slot
+    when sharded."""
+    from repro_torch.serve import kv_pool as KV
+    with pytest.raises(ValueError, match="n_shards"):
+        _pool(n_slots=3, n_shards=2)
+    with pytest.raises(ValueError, match="n_shards"):
+        _pool(n_slots=4, n_blocks=9, n_shards=2)
+    pool = _pool(n_slots=4, max_len=32, n_blocks=12, n_shards=2)
+    assert pool.caches is None and len(pool.shard_caches) == 2
+    for tree in pool.shard_caches:
+        k, _ = tree[0]["l0"]["kv"]
+        assert k.shape[1] == pool.blocks_per_shard + 1 == 7
+    g = torch.Generator().manual_seed(5)
+    for tree in pool.shard_caches:
+        for leaf in KV.token_leaves(tree):
+            leaf.copy_(torch.randn(leaf.shape, generator=g).to(leaf.dtype))
+    before = [[t.clone() for t in KV.token_leaves(tree)]
+              for tree in pool.shard_caches]
+    pool.commit(2, 8)
+    pool.ensure(2, 8)                       # shard 1: global 6, 7
+    assert list(pool._table[2, :2]) == [6, 7]
+    table = KV.split_tables(pool.tables_device()[1])[1]   # shard 1's rows
+    k1 = KV.index_leaf(pool.shard_caches[1][0]["l0"]["kv"][0], 0)
+    pos = torch.arange(12, dtype=torch.int32)[None].expand(2, 12).contiguous()
+    vals = torch.full((2, 12, CFG.n_kv_heads, CFG.hd), 7.0,
+                      dtype=torch.bfloat16)
+    KV.scatter_tokens(k1, table, pos, vals, torch.ones(2, 12, dtype=torch.bool))
+    # slot 2 wrote local blocks 0, 1; slot 3 (all sentinel) and slot 2's
+    # positions past its 2 blocks landed in local block 6, the scratch
+    changed = {b for b in range(7)
+               if not torch.equal(k1[b], before[1][0][0, b])}
+    assert changed == {0, 1, 6}
+    assert all(torch.equal(a, b) for a, b in zip(
+        KV.token_leaves(pool.shard_caches[0]), before[0]))
+    pool.incref(6)
+    pool.release(2)
+    pool.commit(3, 8)
+    dst = pool.cow_block(3, 6)               # shard 1 to shard 1
+    assert dst == 7 and torch.equal(k1[1], k1[0])
+    payload, _ = pool.read_block_host(6)
+    pool.write_block_host(2, payload)        # into shard 0's local block 2
+    k0 = pool.shard_caches[0][0]["l0"]["kv"][0]
+    assert torch.equal(k0[:, 2], pool.shard_caches[1][0]["l0"]["kv"][0][:, 0])
+    for ask in (pool.admission_shortfall, pool.can_admit):
+        with pytest.raises(ValueError, match="slot"):
+            ask(4)                           # no whole-pool answer
+    assert pool.utilization()["free_by_shard"] == [6, 4]
 
 
 def test_sharing_guards():

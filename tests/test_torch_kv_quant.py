@@ -15,7 +15,10 @@ Tolerances:
     (kv_quant=True, paged_kernel=True) up to a row's first reference
     near-tie of 2 bf16 ulps (here request 4's second token has a one-ulp
     top-2 margin); quartet2 streams equal up to a narrow reference margin
-    (tests/_torch_streams.py).
+    (tests/_torch_streams.py);
+  - the NVFP4 pool over a two-shard mesh: each shard's PackedKV leaves of
+    blocks_per_shard + 1 blocks, and the bf16 streams bitwise the unsharded
+    NVFP4 engine's (the reference's tests/test_kv_quant.py claim).
 """
 
 import functools
@@ -235,3 +238,29 @@ def test_kv_quant_quartet2_streams_equal_jax_up_to_a_narrow_margin(jax_streams):
     want, margins = jax_streams["quartet2"]
     assert_equal_up_to_narrow_margin(_port("quartet2"), want, margins,
                                      Q2_LOGIT_TOL, MAX_NEW)
+
+
+def test_sharded_nvfp4_pool_streams_bitwise_unsharded():
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    cfg = registry.get("llama_200m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = _prompts(cfg.vocab)[:4]
+
+    def streams(**kw):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            device="cpu", scheme="bf16", kv_quant=True, n_slots=4,
+            max_len=48, prefill_chunk=8, **kw))
+        ids = [eng.submit(Request(p, 5)) for p in prompts]
+        res = {r.req_id: r.tokens for r in eng.run()}
+        return [res[i] for i in ids], eng
+
+    single, _ = streams()
+    sharded, eng = streams(mesh=make_serve_mesh(2, 1, devices=["cpu"] * 2))
+    assert sharded == single
+    for tree in eng.pool.shard_caches:
+        k, _ = tree[0]["l0"]["kv"]
+        assert isinstance(k, kv.PackedKV)
+        assert k.codes.shape[1] == eng.pool.blocks_per_shard + 1
+    assert eng.pool.free_block_count == eng.pool.n_blocks

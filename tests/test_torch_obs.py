@@ -380,6 +380,21 @@ def test_streams_bitwise_equal_with_obs_on_and_off(scheme):
     assert all(r.queue_wait_s is not None for r in res.values())
 
 
+def test_sharded_streams_bitwise_with_obs_and_per_shard_gauges():
+    """Over a two-shard mesh obs on leaves the bf16 streams bitwise the obs
+    off ones, and the pool gauge carries one series a shard."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    mesh = make_serve_mesh(2, 1, devices=["cpu", "cpu"])
+    _, plain, _ = _streams("bf16", mesh=mesh)
+    reg = pobs.MetricsRegistry()
+    eng, traced, _ = _streams("bf16", mesh=mesh,
+                              obs=pobs.Instrumentation(registry=reg))
+    assert plain == traced
+    per_shard = eng.pool.blocks_per_shard
+    assert [eng.obs.pool_free_blocks.labels(shard=str(s)).get()
+            for s in range(2)] == [per_shard, per_shard]
+
+
 def test_disabled_hook_sites_allocate_nothing():
     """tracemalloc over a whole engine run (prefix cache, LatencyPolicy,
     spec decoding: every hook site): nothing is allocated from a line of

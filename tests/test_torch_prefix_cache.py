@@ -82,13 +82,16 @@ def _same_state(jc, pc, what):
     assert (jc.cached_blocks(), jc.host_nodes(), jc.host_bytes, jc.epoch,
             jc.inflight_swaps) == (pc.cached_blocks(), pc.host_nodes(),
                                    pc.host_bytes, pc.epoch,
-                                   len(pc._inflight)), what
+                                   pc.inflight_swaps), what
     jp, pp = jc.pool, pc.pool
     assert np.array_equal(jp._table, pp._table), what
     assert np.array_equal(jp._ref, pp._ref), what
     assert jp._free == pp._free, what
+    tables = pp.tables_device()
+    if pp.n_shards > 1:
+        tables = torch.cat(tables)
     assert np.array_equal(np.asarray(jp.tables_device()),
-                          pp.tables_device().numpy()), what
+                          tables.numpy()), what
 
 
 def _call(obj, name, *args):
@@ -103,13 +106,16 @@ def _admit(cache, pool, slot, prompt, total):
     Returns (what happened, the adopted nodes to unpin at retirement)."""
     m = cache.match(prompt)
     mtoks, adopt, tail = m.plan(len(prompt) - 1, pool.block_size)
+    sh = pool.shard_of_slot(slot)
     what = [m.tokens, len(m.nodes), m.partial, mtoks, len(adopt),
-            tail is not None]
+            tail is not None, m.shard]
+    if mtoks and not cache.spill and m.shard != sh:
+        mtoks, adopt, tail = 0, [], None   # another shard's prefix: cold
     pinned = adopt + ([tail] if tail is not None else [])
     if mtoks:
         cache.acquire(pinned)
         if cache.spill:
-            r = _call(cache, "materialize", pinned, 0)
+            r = _call(cache, "materialize", pinned, sh)
             what.append(r)
             if isinstance(r, str):
                 cache.release(pinned)
@@ -117,32 +123,44 @@ def _admit(cache, pool, slot, prompt, total):
     pool.commit(slot, total)
     if mtoks:
         if adopt:
-            pool.adopt_prefix(slot, [n.blocks[0] for n in adopt],
+            pool.adopt_prefix(slot, [n.blocks[sh] for n in adopt],
                               len(adopt) * pool.block_size)
         if tail is not None:
-            what.append(_call(pool, "cow_block", slot, tail.blocks[0]))
+            what.append(_call(pool, "cow_block", slot, tail.blocks[sh]))
             cache.release([tail])
         what.append(_call(pool, "ensure", slot, mtoks))
     cache.record(m if mtoks else None)
     return what, adopt
 
 
-@pytest.mark.parametrize("mode", ["drop", "spill", "spill_budget"])
+@pytest.mark.parametrize("mode", ["drop", "spill", "spill_budget",
+                                  "sharded_drop", "sharded_replicate"])
 def test_tree_random_walk_matches_reference(mode):
     """Admissions over a family of prompts sharing prefixes, growth,
     retirements and evictions drive both caches the same way; after every
-    operation the trees, stats, host tier and pools agree."""
-    spill = mode != "drop"
+    operation the trees, stats, host tier and pools agree. The sharded
+    modes run a two-shard pool of 4 slots: without the host tier a prefix
+    homed on another shard admits cold; with it (and `replicate_hits=2`,
+    `replicate_hot` at every step) it materializes on the slot's shard and
+    hot nodes are copied into the other shard, free blocks only."""
+    spill = mode not in ("drop", "sharded_drop")
+    sharded = mode.startswith("sharded")
+    n_slots = 4 if sharded else 3
     jcfg = jregistry.get("llama_200m").reduced()
     cfg = registry.get("llama_200m").reduced()
-    geo = dict(block_size=4, n_blocks=18)
-    jpool = JPool(jcfg, 3, 32, **geo)
-    pool = KVPool(cfg, 3, 32, device="cpu", **geo)
+    geo = dict(block_size=4, n_blocks=20 if sharded else 18)
+    if sharded:
+        geo["n_shards"] = 2
+    jpool = JPool(jcfg, n_slots, 32, **geo)
+    pool = KVPool(cfg, n_slots, 32, device="cpu", **geo)
     block_bytes = sum(t[:, 0].numel() * t.element_size()
-                      for t in token_leaves(pool.caches))
+                      for t in token_leaves(pool.shard_caches[0]))
     budget = 3 * block_bytes if mode == "spill_budget" else None
-    jc = JCache(jpool, spill=spill, host_budget_bytes=budget)
-    pc = PrefixCache(pool, spill=spill, host_budget_bytes=budget)
+    hits = 2 if mode == "sharded_replicate" else None
+    jc = JCache(jpool, spill=spill, host_budget_bytes=budget,
+                replicate_hits=hits)
+    pc = PrefixCache(pool, spill=spill, host_budget_bytes=budget,
+                     replicate_hits=hits)
     rng = np.random.RandomState(1)
     bases = [rng.randint(0, 50, 24).tolist() for _ in range(3)]
     live: dict[int, tuple] = {}    # slot -> (stream, total, adopted nodes)
@@ -150,7 +168,7 @@ def test_tree_random_walk_matches_reference(mode):
     for step in range(400):
         op = ("admit", "grow", "retire", "evict")[
             rng.choice(4, p=[0.3, 0.3, 0.3, 0.1])]
-        slot = int(rng.randint(3))
+        slot = int(rng.randint(n_slots))
         if op == "admit" and slot not in live:
             base = bases[rng.randint(3)]
             cut = int(rng.randint(4, 25))
@@ -174,11 +192,13 @@ def test_tree_random_walk_matches_reference(mode):
             jpool.release(slot)
             pool.release(slot)
         elif op == "evict":
-            k, sh = int(rng.randint(1, 3)), (None, 0)[rng.randint(2)]
+            k = int(rng.randint(1, 3))
+            sh = (None, int(rng.randint(pool.n_shards)))[rng.randint(2)]
             assert jc.evict(sh, k) == pc.evict(sh, k)
         else:
             continue
         done[op] += 1
+        assert jc.replicate_hot() == pc.replicate_hot()
         jc.complete_swaps()
         pc.complete_swaps()
         _same_state(jc, pc, (step, op))
@@ -186,6 +206,46 @@ def test_tree_random_walk_matches_reference(mode):
     assert pc.stats["hits"] >= 10
     if spill:
         assert pc.stats["swapped_in_blocks"] >= 3 and pc.stats["spilled_blocks"]
+    if hits:
+        assert pc.stats["replicated_blocks"] >= 3
+    if sharded:
+        bps = pool.blocks_per_shard
+        assert all(b // bps == pool.shard_of_slot(s)
+                   for s in range(n_slots) for b in pool._owned[s])
+
+
+def test_replication_never_evicts_and_reports_to_obs():
+    """`replicate_hot` into a shard whose free list is empty copies nothing
+    and evicts nothing (the reference's tests/test_prefix_tiers.py case);
+    once the shard has room it copies the hot node's blocks, counted in
+    the stats and by `obs.on_cache_replicate`, as the reference's cache
+    does over the same pool."""
+    from repro_torch.obs import Instrumentation, MetricsRegistry
+    jcfg = jregistry.get("llama_200m").reduced()
+    cfg = registry.get("llama_200m").reduced()
+    jpool = JPool(jcfg, 4, 32, block_size=4, n_blocks=8, n_shards=2)
+    pool = KVPool(cfg, 4, 32, block_size=4, n_blocks=8, n_shards=2,
+                  device="cpu")
+    jc = JCache(jpool, spill=True, replicate_hits=1)
+    pc = PrefixCache(pool, spill=True, replicate_hits=1)
+    pc.obs = Instrumentation(registry=MetricsRegistry())
+    prompt = [1] * 8
+    for c, p in ((jc, jpool), (pc, pool)):
+        p.commit(0, 8)
+        p.ensure(0, 8)
+        c.insert(prompt, 0)
+        p.release(0)
+        c.record(c.match(prompt))
+        p.commit(2, 16)                        # drains shard 1
+        p.ensure(2, 16)
+    assert pool.free_blocks_in_shard(1) == 0
+    assert jc.replicate_hot(budget=8) == pc.replicate_hot(budget=8) == 0
+    assert pc.stats["evicted_blocks"] == 0
+    for c, p in ((jc, jpool), (pc, pool)):
+        p.release(2)
+    assert jc.replicate_hot(budget=8) == pc.replicate_hot(budget=8) == 2
+    _same_state(jc, pc, "replicated")
+    assert pc.obs.cache_replicated.get() == 2
 
 
 def test_cache_excluded_on_a_windowed_pool():
@@ -330,9 +390,10 @@ def test_engine_config_validation():
         scheduler=LatencyPolicy()))
     assert eng.cache is not None and eng.cache.spill
     assert isinstance(eng.sched, LatencyPolicy)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        ServeEngine(cfg, params, EngineConfig(
-            device="cpu", prefix_cache=True, replicate_hits=2))
+    # replication is ported; with one shard it has no peer to copy into
+    eng = ServeEngine(cfg, params, EngineConfig(
+        device="cpu", prefix_cache=True, prefix_spill=True, replicate_hits=2))
+    assert eng.cache.replicate_hits == 2 and eng.cache.replicate_hot() == 0
 
 
 # --------------------------------------------------------------------------
