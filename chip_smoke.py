@@ -117,9 +117,9 @@ Phases (any failure exits non-zero, before the result line):
                (primed with the system prompt): exact prefill and skip
                counts, every block free or cache-owned, the pool's attention
                kernel launched; TTFT, decode tok/s, peak memory.
-     8b. the reference's Zipf tenant mix (6 tenants, exponent 1.1, 24
-               requests of a 128-token tenant prefix + 16 tokens, 8 new) in a
-               24-block pool (2 slots, max_len 192), cache drop against host
+     8b. the reference's Zipf tenant mix (6 tenants, exponent 1.1, 12
+               requests of a 128-token tenant prefix + 16 tokens, 4 new, in
+               a 24-block pool (2 slots, max_len 192), cache drop against host
                spill, and spill with the host tier bounded at half the
                unbounded run's snapshots: cache and engine counts equal a
                reduced CPU run's, the bounded run reuses pinned buffers;
@@ -207,7 +207,8 @@ Phases (any failure exits non-zero, before the result line):
                deepseek-v3 weights (nothing drawn twice):
      11a. llama-200m quartet2, phase 4's first 4 prompts right-padded, 32
                new tokens: finite logits, #1 and #2 launched exactly 140 and
-               70 times a forward (32 forwards) and no other kernel, a second
+               70 times a forward (32 forwards), bf16_matmul once a forward
+               (the bf16 head) and no other kernel, a second
                run bitwise; host and device ms a decode step, tok/s; #1 and
                #2 at the prefill's M (4 x the longest prompt) against their
                plain versions and one prefill's calls of each timed; the
@@ -245,7 +246,7 @@ Phases (any failure exits non-zero, before the result line):
                Each run: tokens in the vocabulary, every block free, #1, #2
                and #5 (#6 over the NVFP4 pool) launched and no other
                attention kernel; decode tok/s, host and device ms of a
-               decode step and the busy share (2 profiled steps), host
+               decode step and the busy share (1 profiled step), host
                syncs of one decode step by source,
                peak memory, resident and packed weight bytes.
      12b. #5 and #6 at the registry's group sizes, H/KV 4 (granite, llava),
@@ -303,7 +304,8 @@ Phases (any failure exits non-zero, before the result line):
                reclaim mid-sequence), every block free after it.
      13b. scheme bf16 over the raw weights: rwkv6 at spec_k 3 over 2 draft
                layers, its stream bitwise the non-speculative engine's (the
-               verify chunk of 4 stays on the per-token WKV path);
+               verify chunk of 4 stays on the per-token WKV path, and its
+               f32 LoRAs run in calls of one shape);
                recurrentgemma at spec_k 3 over 3 draft layers, equal before
                the first 2-ulp near-tie; every state restore after a
                rejecting round bitwise its snapshot; acceptance, tokens a
@@ -321,7 +323,7 @@ Phases (any failure exits non-zero, before the result line):
                with the bound (the keys inside the windows) and SDPA.
      13e. training at published widths, rwkv6-7b at 2 layers and
                recurrentgemma-9b at 3 (one pattern), quartet2, AdamW, batch 4
-               x 256, 3 steps through `launch.train`'s code path: finite,
+               x 256, 2 steps through `launch.train`'s code path: finite,
                #1-#4 launched and counted a step, no SR uniform tensor; ms
                and device ms a step, busy share, peak memory; a reduced
                quartet2 step x3 of each, card against CPU.
@@ -410,13 +412,13 @@ Phases (any failure exits non-zero, before the result line):
                a shard, both shards on the one card; 4 requests of 17-49
                tokens, 12 new.
      17a. bf16: every step of each shard bitwise the unsharded step over
-               the shard's slice; the teacher-forced sharded step within 4
-               bf16 ulps of the whole-batch unsharded step over the bf16
-               pool (held, 9b's bar; the NVFP4 pool's distance reported);
-               the served
-               streams against the unsharded engine's over both pools,
-               greedy, and sampled (temperature 0.8, top-k 8) over the bf16
-               pool: bitwise, or by the tie rule, reported.
+               the shard's slice (the bf16 pool's greedy run); the teacher-forced sharded step at 0 bf16
+               ulps of the whole-batch unsharded step over the bf16 pool
+               (held; the NVFP4 pool's distance reported: the serving bf16
+               GEMMs run bf16_matmul, whose sums do not depend on the row
+               count); the served streams over both pools, greedy, and
+               sampled (temperature 0.8, top-k 8) over the bf16 pool:
+               bitwise the unsharded engine's, held.
      17b. quartet2 with prequant: two sharded runs bitwise; every step of
                each shard bitwise the unsharded step over that shard's
                slice (a copy of its tree, its rows, its tables).
@@ -433,8 +435,37 @@ Phases (any failure exits non-zero, before the result line):
      17f. readings: #1/#2/#5/#6 launches a decode step, host and device ms
                and busy share, unsharded against sharded; then `launch.serve
                --data-shards 2 --shard-devices cuda:0,cuda:0` once.
-Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 15, 17, 11,
-12, 13, 14, 16 (15 and 17 while phase 4's weights are resident);
+  18. serving over a "model" axis: llama-200m's first 4 layers through
+               `make_serve_mesh(1, 2, devices=["cuda:0"] * 2)` (each linear
+               weight's out-features, the embedding's and the head's vocab
+               rows split over the two model devices, the rest of each step
+               on the first, both on the one card), 4 requests of
+               17-49 tokens, 12 new.
+     18a. bf16 and quartet2 with prequant over both pools, quartet2 with
+               raw weights (each slice quantized per step with the whole
+               weight's absmax: #1's given-absmax entry), and (2, 2) on
+               ["cuda:0"] * 4 under bf16: every stream bitwise the
+               unsharded engine's.
+     18b. each model device's split fields byte for byte the slices of
+               the whole packed tree's, its resident packed bytes half the
+               whole's (the per-matrix gscales each part holds aside).
+     18c. #1, #2, #5 and bf16_matmul launches of a full-batch decode step
+               at (1, 2) against the counts predicted (MODEL_STEP_LAUNCHES).
+     18d. readings: host ms, device ms and busy share of a quartet2 decode
+               step at (1, 2), against 17f's unsharded reading. No scaling is claimed: one
+               card gains nothing from two model devices.
+     18e. bf16_matmul (the port's own kernel) within BF16_MM_BAR of its
+               plain version over one llama-200m bf16 decode step's 71 GEMMs
+               (M = 4) and a prefill chunk's (M = 64), the chunk's first 4
+               rows and its N / 2 halves bitwise the whole call's on 8 calls,
+               timed against torch.matmul; #2 over a quartet2
+               decode step's 70 GEMMs whole and at N / 2 (bitwise the
+               whole's halves), #1 given the whole weight's absmax over the
+               140 weight halves (bitwise the whole's quantization), timed;
+               then `launch.serve --model-shards 2 --shard-devices
+               cuda:0,cuda:0` once, the packed bytes by device printed.
+Phases run in the order 1, 2, 3, 4, 4b, 6, 5, 7a, 7b, 8, 9, 10, 15, 17, 18,
+11, 12, 13, 14, 16 (15, 17 and 18 while phase 4's weights are resident);
 the reduced CPU runs that 8b, 8d, 9e and 12e hold the card against run in a
 process of their own from the start (`cpu_references`). Then, on their own lines:
 the card (nvidia-smi), the kernels JSON, and last
@@ -482,6 +513,9 @@ REPLACES = {
     "paged_gqa_q": "src/repro/kernels/paged_attention.py:345",
     "paged_mla": "src/repro/kernels/paged_attention.py:382",
     "paged_mla_q": "src/repro/kernels/paged_attention.py:421",
+    # the port's own: no pallas_call behind it (the reference leaves the
+    # bf16 scheme's GEMMs to XLA)
+    "bf16_matmul": "none: port-only (src/repro/core/linear.py:_mm, dense)",
 }
 SERVING_KERNELS = ("nvfp4_fos_quant", "fp4_matmul", "paged_gqa")
 # launches of one full-width training step (10 layers x 7 quantized linears;
@@ -516,6 +550,7 @@ SOURCES = {
     "paged_gqa_q": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_mla": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_mla_q": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "bf16_matmul": "src/repro_torch/kernels/csrc/bf16_matmul.cu",
 }
 # the CUDA functions each kernel's profiler time is summed over, by a part of
 # their names (nvfp4_fos_quant: nvfp4_fos_quant_cluster_kernel, _absmax_kernel,
@@ -530,6 +565,7 @@ KERNEL_SYMBOLS = {
     "ms_eden_phase2": ("ms_eden_phase2_kernel",), "paged_gqa_q": ("paged_gqa_",),
     "paged_mla": ("paged_mla_tc_kernel", "paged_mla_merge_kernel"),
     "paged_mla_q": ("paged_mla_split_kernel", "paged_mla_merge_kernel"),
+    "bf16_matmul": ("bf16_matmul_",),
 }
 
 
@@ -2387,8 +2423,8 @@ SYSTEM_TOKENS = 384      # 8a/8c: a system prompt of 24 blocks of 16
 UNIQUE_TOKENS = 32       # 8a/8c: each request's own tokens after it
 # 8b: the reference's Zipf multi-tenant mix (benchmarks/serve_throughput.py
 # _zipf_tenant_workload), at this phase's block geometry
-ZIPF = {"tenants": 6, "exponent": 1.1, "requests": 24, "prefix": 128,
-        "unique": 16, "new": 8}
+ZIPF = {"tenants": 6, "exponent": 1.1, "requests": 12, "prefix": 128,
+        "unique": 16, "new": 4}
 # 8b/8d: token ids below the reduced vocabulary, so one prompt set serves
 # the full-width card run and the reduced CPU run it is held against
 SHARED_VOCAB = 512
@@ -4437,6 +4473,14 @@ FULL_FORWARD_FRACTION = 0.05
 SEED_LAUNCHES_PER_FORWARD = {"nvfp4_fos_quant": 140, "fp4_matmul": 70}
 
 
+def seed_launches(forwards: int) -> dict:
+    """#1, #2 and bf16_matmul launches of a greedy_generate run of
+    `forwards` forwards (a prefill, then single-token steps): the bf16 head
+    runs bf16_matmul once a forward, at any row count."""
+    return {**{k: n * forwards for k, n in SEED_LAUNCHES_PER_FORWARD.items()},
+            "bf16_matmul": forwards}
+
+
 def padded_prompts(torch, prompts, dev):
     """(B, S) right-padded int64 tokens and (B,) int32 lengths on dev."""
     lens = [len(p) for p in prompts]
@@ -4541,8 +4585,7 @@ def phase_generate_llama(torch, card, params, prompts, streams, cfg=None,
     first, _, finite = recorded_generate(torch, params, cfg, "quartet2", toks,
                                          lens, SEED_NEW, dev)
     launches = dict(ops.LAUNCHES)
-    want = ({k: n * SEED_NEW for k, n in SEED_LAUNCHES_PER_FORWARD.items()}
-            if dev == "cuda" else {})
+    want = seed_launches(SEED_NEW) if dev == "cuda" else {}
     log(f"  11a launches: {launches} (predicted {want} and no other kernel)")
     if not finite:
         fail("11a: non-finite logits")
@@ -4778,8 +4821,7 @@ def phase_generate_long(torch, card, params, cfg=None, dev="cuda",
         A.chunked_sdpa = chunked
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
-    want = ({k: n * LONG_NEW for k, n in SEED_LAUNCHES_PER_FORWARD.items()}
-            if dev == "cuda" else {})
+    want = seed_launches(LONG_NEW) if dev == "cuda" else {}
     if calls[0] != cfg.n_layers or any(
             launches[k] != want.get(k, 0) for k in launches):
         fail(f"11d: chunked_sdpa ran {calls[0]} times (want {cfg.n_layers}), "
@@ -4846,7 +4888,7 @@ REGISTRY_LAYERS = dict.fromkeys(("granite_8b", "chatglm3_6b", "nemotron_4_15b",
                                  "llava_next_mistral_7b", "deepseek_moe_16b"), 4)
 REGISTRY_NEW = 8            # new tokens a request (4 requests of 16-64 tokens)
 REGISTRY_PROFILE_STEPS = 4  # full-batch decode steps timed, then profiled (13a)
-REGISTRY_12A_PROFILE_STEPS = 2  # 12a's (4 until phase 17 came)
+REGISTRY_12A_PROFILE_STEPS = 1  # 12a's
 PACK_CHUNK = 4              # matrices `init_packed` holds in f32 at once
 # 12b: (H, KV, layers of one decode step) of the registry's GQA group sizes
 GROUP_SIZES = {
@@ -5553,7 +5595,7 @@ HD256_WINDOWS = {"5g/6f recurrentgemma decode hd256 window 2048": 2048,
                  "5h/6g 4 x 4,096 tokens hd256 window 64": 64}
 # 13e: full widths, depth cut to one pattern (3 layers) and 2 layers
 RECURRENT_TRAIN_LAYERS = {"rwkv6_7b": 2, "recurrentgemma_9b": 3}
-RECURRENT_TRAIN_ARGS = ["--scheme", "quartet2", "--steps", "3", "--seq", "256",
+RECURRENT_TRAIN_ARGS = ["--scheme", "quartet2", "--steps", "2", "--seq", "256",
                         "--batch", "4", "--lr", "2e-3", "--log-every", "1"]
 
 
@@ -5902,7 +5944,7 @@ def f64_attention(torch, q, k, v, pos, window=None):
 def phase_recurrent_train(torch, card, shapes, arch, dev="cuda"):
     """13e: `arch` at its published widths, RECURRENT_TRAIN_LAYERS layers,
     through `repro_torch.launch.train`'s code path (quartet2, AdamW, batch 4
-    x 256, 3 steps), its kernel shapes recorded into `shapes`: losses and
+    x 256, 2 steps), its kernel shapes recorded into `shapes`: losses and
     weights finite, #1-#4 launched, no SR uniform tensor drawn; ms and
     device ms a step, busy share, #1-#4 a step, peak memory; then a reduced
     quartet2 step x3, card against CPU (`phase_train_reference`). dev="cpu"
@@ -7283,18 +7325,15 @@ def phase_sharded_streams(torch, card, cfg, params, prompts, mesh, dev="cuda"):
     unsharded one over the bf16 and the NVFP4 pool. Held: every step of
     each shard bitwise the unsharded step over that shard's slice (a copy of
     its tree, its rows, its tables: what the reference runs on a shard),
-    in every served run; the teacher-forced
-    sharded step within VERIFY_STEP_ULPS of the unsharded step over the bf16
-    pool (a shard's step runs its f32 GEMMs and reductions over 2 rows
-    where the unsharded step has 4, and the card may sum them in another
-    order: 9b's bar for two step shapes); over the NVFP4 pool the distance
-    is reported (the cache codec rounds each token's K/V to NVFP4, so an
-    ulp of its input can move a code). Reported, as 9b reports its
-    streams: the served streams, greedy over both pools and sampled
-    (temperature 0.8, top-k 8, the same base seed) over the bf16 pool,
-    bitwise or not, and the tie rule on the unsharded engine's decision
-    margins (`decision_margins`); on the CPU they are bitwise
-    (tests/test_torch_serve_sharded.py). The sampler draws its noise per
+    in the bf16 pool's greedy run; the teacher-forced sharded step at 0 bf16 ulps of
+    the unsharded step over the bf16 pool (its GEMMs run
+    `ops.bf16_matmul`, whose sums do not depend on the row count:
+    tools/shard_step_diff.py found cuBLAS's at a prefill chunk's 64 rows
+    against 32; over the NVFP4 pool the distance is reported); the served
+    streams, greedy over both pools and sampled (temperature 0.8, top-k 8,
+    the same base seed) over the bf16 pool, bitwise the unsharded engine's
+    (the tie rule on the unsharded engine's decision margins,
+    `decision_margins`, reported beside a failure). The sampler draws its noise per
     slot row and the sharded engine places requests by shard occupancy, so
     the unsharded engine gets the requests in the order of the sharded
     engine's slots: both then run one schedule in the same rows. Returns its
@@ -7307,8 +7346,8 @@ def phase_sharded_streams(torch, card, cfg, params, prompts, mesh, dev="cuda"):
         pool = "NVFP4" if kv_quant else "bf16"
         log(f"  17a [{card}] bf16 teacher-forced, {pool} pool: the sharded "
             f"step's logits within {ulps:.3g} bf16 ulps of the unsharded "
-            f"step's ({'reported' if kv_quant else f'bar {VERIFY_STEP_ULPS}'})")
-        if not kv_quant and not ulps <= VERIFY_STEP_ULPS:
+            f"step's ({'reported' if kv_quant else 'held at 0'})")
+        if not kv_quant and ulps != 0:
             fail(f"17a: the sharded step is {ulps} ulps from the unsharded step "
                  f"({pool} pool)")
         out[f"step_ulps_{pool}_pool"] = ulps
@@ -7318,8 +7357,11 @@ def phase_sharded_streams(torch, card, cfg, params, prompts, mesh, dev="cuda"):
                  f"{'sampled' if sampling else 'greedy'})")
         eng = sharded_engine(cfg, params, dev, kv_quant=kv_quant, mesh=mesh)
         margins = decision_margins(torch, eng)
-        counts = {}
-        checked_shard_steps(torch, eng, counts, label)
+        counts = {"steps": 0}
+        if not kv_quant and sampling is None:
+            # once: the streams of all three runs are held bitwise against
+            # the unsharded engine below
+            checked_shard_steps(torch, eng, counts, label)
         ops.reset_launches()
         placed = []
         got = sharded_run(torch, eng, prompts, SHARDED_NEW, dev, label,
@@ -7342,13 +7384,17 @@ def phase_sharded_streams(torch, card, cfg, params, prompts, mesh, dev="cuda"):
                  f"launched: {launches}")
         bitwise, met, agree, first = same_or_tie_rule(
             got, single, ref_margins, SHARDED_NEW, len(prompts))
-        log(f"  {label} [{card}] (reported): sharded streams "
+        log(f"  {label} [{card}]: sharded streams "
             + ("bitwise the unsharded engine's" if bitwise else
                f"not bitwise, the tie rule {'met' if met else 'not met'} "
                f"({agree:.1%} of tokens before each row's first difference, "
                f"first by request {first})"))
-        log(f"  {label} [{card}]: {counts['steps']} steps, each shard's logits "
-            "bitwise the unsharded step over its slice")
+        if dev == "cuda" and not bitwise:
+            fail(f"{label}: the sharded bf16 streams are not the unsharded "
+                 "engine's bit for bit")
+        if counts["steps"]:
+            log(f"  {label} [{card}]: {counts['steps']} steps, each shard's "
+                "logits bitwise the unsharded step over its slice")
         out[label] = {"bitwise": bitwise, "tie_rule_met": met,
                       "agreement": agree, "first_diff": first,
                       "shard_steps_bitwise": counts["steps"],
@@ -7362,8 +7408,8 @@ def sharded_step_ulps(torch, cfg, params, prompts, mesh, dev, kv_quant):
     """17a's teacher-forced check: the bf16 sharded step against the
     unsharded step on the same slots, inputs and pool contents (a 16-token
     chunk, then one token; the 4 prompts' first 17 tokens), in bf16 ulps
-    of each row's largest logit: held within VERIFY_STEP_ULPS (9b's bar for
-    one token's logits computed at two step shapes)."""
+    of each row's largest logit: held at 0 over the bf16 pool by the
+    caller."""
     from repro_torch.serve import decode as serve_decode
     from repro_torch.serve.kv_pool import KVPool
     from repro_torch.serve.prequant import prequantize
@@ -7787,6 +7833,342 @@ def phase_sharded(torch, card, llama_params, dev="cuda"):
     return out, errs, groups
 
 
+# --------------------------------------------------------------------------
+# phase 18: serving over a "model" axis
+# --------------------------------------------------------------------------
+
+# 18a: (scheme, kv_quant, prequant) of the (1, 2) runs, each against the
+# unsharded engine's streams over its pool (the raw-weight run against the
+# prequant run's: per-step quantization is prequant's, bitwise)
+MODEL_RUNS = (("bf16", False, True), ("bf16", True, True),
+              ("quartet2", False, True), ("quartet2", True, True),
+              ("quartet2", False, False))
+# 18c, predicted before the chip call: launches of one full-batch decode
+# step over llama-200m's first 4 layers at (1, 2), both model ranks on the
+# card. Each part of the 7 quantized linears of each layer quantizes the
+# activation on its device (#1) and multiplies it by its N / 2 slice (#2);
+# the step attends once a layer (#5) and each part computes its half of the
+# bf16 head (bf16_matmul, 4 rows); raw weights add each part's 28 slice
+# quantizations with the whole weight's absmax (#1, given absmax); under
+# bf16 every linear is a bf16_matmul a part.
+MODEL_STEP_LAUNCHES = {
+    ("quartet2", True): {"nvfp4_fos_quant": 56, "fp4_matmul": 56,
+                         "paged_gqa": 4, "bf16_matmul": 2},
+    ("quartet2", False): {"nvfp4_fos_quant": 112, "fp4_matmul": 56,
+                          "paged_gqa": 4, "bf16_matmul": 2},
+    ("bf16", True): {"paged_gqa": 4, "bf16_matmul": 58},
+}
+MODEL_PROFILE_STEPS = 4   # 18d: full-batch decode steps timed, then profiled
+BF16_MM_BAR = 1e-5        # bf16_matmul: * max|C_plain| (f32 summation order)
+
+
+def model_fields_checked(torch, cfg, params, eng):
+    """18b: every part of each split field byte for byte its model rank's
+    slice of the whole prequantized tree's field (the whole matrix's
+    gscale); each rank's resident packed bytes against the whole tree's.
+    Returns (bytes by rank, whole bytes, split parts)."""
+    from repro_torch.core.linear import ModelShard, PackedQWeight
+    from repro_torch.dist.sharding import map_with_path, packed_bytes
+    from repro_torch.serve.prequant import prequantize
+    whole = prequantize(params, cfg, "quartet2")
+    want = {}
+    map_with_path(lambda p, x: want.__setitem__(p, x), whole,
+                  is_leaf=lambda x: isinstance(x, PackedQWeight))
+    split = 0
+    tree = eng.shard_params[0]
+
+    def one(path, leaf):
+        nonlocal split
+        if not isinstance(leaf, ModelShard):
+            return
+        ref = want[path]
+        for rank, w in enumerate(leaf.parts):
+            pairs = ([(w.packed, ref.packed), (w.scale_bits, ref.scale_bits)]
+                     if isinstance(ref, PackedQWeight) else [(w, ref)])
+            if isinstance(ref, PackedQWeight) and not torch.equal(
+                    w.gscale, ref.gscale):
+                fail(f"18b: {path}: rank {rank}'s gscale is not the whole's")
+            for got, full in pairs:
+                n = full.shape[-2] // 2
+                if not torch.equal(got, full.narrow(full.dim() - 2, rank * n, n)):
+                    fail(f"18b: {path}: rank {rank}'s field is not its slice")
+            split += 1
+    map_with_path(one, tree, is_leaf=lambda x: isinstance(
+        x, (PackedQWeight, ModelShard)))
+    by_rank = [packed_bytes(tree, j) for j in range(eng.mesh.model)]
+    return by_rank, packed_bytes(whole), split
+
+
+def phase_model_streams(torch, card, cfg, params, prompts, dev="cuda"):
+    """18a-18c: the (1, 2) runs of MODEL_RUNS and one (2, 2) bf16 run, each
+    held bitwise against the unsharded engine's streams; the split fields
+    and resident bytes (18b); a full-batch decode step's launches against
+    MODEL_STEP_LAUNCHES (18c). Returns its numbers, the runs' launches and
+    the quartet2 prequant (1, 2) engine."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.engine import Request
+    m12 = make_serve_mesh(1, 2, devices=[dev] * 2)
+    out, runs, base, keep = {}, [], {}, None
+    for scheme, kvq, pq in MODEL_RUNS + (("bf16", False, "2x2"),):
+        if (scheme, kvq) not in base:
+            base[(scheme, kvq)] = sharded_run(
+                torch, sharded_engine(cfg, params, dev, scheme=scheme,
+                                      kv_quant=kvq), prompts, SHARDED_NEW, dev,
+                f"18a unsharded {scheme}")
+        mesh = (make_serve_mesh(2, 2, devices=[dev] * 4) if pq == "2x2" else m12)
+        label = (f"18a ({mesh.data}, {mesh.model}) {scheme}, "
+                 f"{'NVFP4' if kvq else 'bf16'} pool, "
+                 f"{'raw weights' if pq is False else 'prequant'}")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        eng = sharded_engine(cfg, params, dev, scheme=scheme, kv_quant=kvq,
+                             prequant=pq is not False, mesh=mesh)
+        got = sharded_run(torch, eng, prompts, SHARDED_NEW, dev, label)
+        wall = time.perf_counter() - t0
+        runs.append(dict(ops.LAUNCHES))
+        want = base[(scheme, kvq)]
+        if got != want:
+            fail(f"{label}: the streams are not the unsharded engine's bit for "
+                 f"bit: {agreement(dict(enumerate(got)), dict(enumerate(want)))}")
+        log(f"  {label} [{card}]: streams bitwise the unsharded engine's "
+            f"({len(prompts)} requests x {SHARDED_NEW} tokens, {wall:.2f} s)")
+        out[label] = {"bitwise": True, "wall_s": wall, "launches": runs[-1]}
+        if (scheme, kvq, pq) == ("quartet2", False, True):
+            keep = eng
+        if pq in (True, False) and (scheme, pq) in MODEL_STEP_LAUNCHES \
+                and not kvq and dev == "cuda":
+            fill_decode(eng, Request, prompts, 12)   # the same engine, idle
+            ops.reset_launches()
+            eng.step()
+            step = {k: v for k, v in ops.LAUNCHES.items() if v}
+            eng.run()
+            want = MODEL_STEP_LAUNCHES[(scheme, pq)]
+            if step != want:
+                fail(f"18c {scheme} {'prequant' if pq else 'raw'}: launches a "
+                     f"decode step {step}, predicted {want}")
+            log(f"  18c [{card}] {scheme} {'prequant' if pq else 'raw weights'}"
+                f": launches a full-batch decode step {step}, as predicted")
+            out[f"18c {scheme} {'prequant' if pq else 'raw'}"] = step
+    by_rank, whole, split = model_fields_checked(torch, cfg, params, keep)
+    log(f"  18b [{card}] {split} split fields (2 ranks) byte for byte the "
+        f"slices of the whole packed tree's; resident packed bytes by model "
+        f"device {by_rank} of {whole} unsplit ({by_rank[0] / whole:.4f})")
+    if not all(abs(b - whole / 2) <= 0.001 * whole for b in by_rank):
+        fail(f"18b: a model device holds {by_rank} of {whole} packed bytes, "
+             "not half")
+    out["packed_bytes_by_rank"], out["packed_bytes_whole"] = by_rank, whole
+    return out, runs, keep
+
+
+def bf16_mm_calls(torch, g, m, layers=10):
+    """The bf16 scheme's GEMMs of one llama-200m step at M rows: 7 linears a
+    layer (f32 weights, as the bf16 engine serves them) and the head."""
+    shapes = [nk for _ in range(layers) for nk in ARCH_SHAPES.values()]
+    shapes.append((32000, 1280))
+    return [(torch.randn((m, k), generator=g, device="cuda").bfloat16(),
+             torch.randn((n, k), generator=g, device="cuda") * k ** -0.5)
+            for n, k in shapes]
+
+
+def bf16_mm_group(torch, BM, ops, calls, reps):
+    """bf16_matmul over `calls` [(a, w)]: events, profiler, plain and
+    library (torch.matmul on the operands' bf16-exact f32 images, cast
+    beforehand) times; the bound: a, w read once, C written once (f32),
+    2 M N K operations at the card's bf16 rate (bf16 operands, f32
+    accumulation, as the kernel runs them on the tensor cores)."""
+    fn = lambda: [ops.bf16_matmul(a, w) for a, w in calls]
+    r = {"calls": len(calls), "ms": time_ms(torch, fn, reps),
+         "profiler_ms": device_ms(torch, fn, KERNEL_SYMBOLS["bf16_matmul"]),
+         "plain_ms": time_ms(torch, lambda: [BM.bf16_matmul_plain(a, w)
+                                             for a, w in calls], 3)}
+    imgs = [(a.float(), w.bfloat16().float().T) for a, w in calls]
+    lib_fn = lambda: [torch.matmul(a, w) for a, w in imgs]
+    r["library_ms"] = time_ms(torch, lib_fn, reps)
+    r["library_profiler_ms"] = device_ms(torch, lib_fn, "")
+    del imgs, lib_fn
+    nbytes = sum(a.numel() * a.element_size() + w.numel() * w.element_size()
+                 + a.shape[0] * w.shape[0] * 4 for a, w in calls)
+    n_ops = sum(2 * a.shape[0] * w.shape[0] * a.shape[1] for a, w in calls)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, n_ops / BF16_FLOPS * 1e3
+    r.update(bytes=nbytes, ops=n_ops, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"  bf16_matmul {len(calls)} calls at M = {calls[0][0].shape[0]}: kernel "
+        f"{r['ms']:.4f} ms (profiler {r['profiler_ms']}), plain "
+        f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms "
+        f"(profiler {r['library_profiler_ms']}), bound {r['bound_ms']:.5f} ms "
+        f"({r['bound_by']}: {nbytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP)")
+    return r
+
+
+def phase_model_kernels(torch):
+    """18e: the kernels of the model-axis path at its shapes. bf16_matmul
+    (the port's own kernel) against its plain version over one llama-200m
+    bf16 decode step's 71 GEMMs (M = 4) and a 16-token prefill chunk's (M =
+    64), within BF16_MM_BAR of max|C|; on the chunk's first 8 calls its
+    first 4 rows (a call of its own) and each N / 2 half bitwise the whole
+    call's (the card tests hold every shape); timed over each set; #2 over one llama-200m
+    quartet2 decode step's 70 GEMMs whole and as the 2 x 70 N / 2 calls of
+    its two model ranks (bitwise the whole's halves), timed; #1's
+    given-absmax entry over the 2 x 70 weight halves a raw-weight step
+    quantizes (bitwise the whole weight's quantization), timed. Returns
+    (the bf16_matmul entry, its max error, groups by kernel)."""
+    from repro_torch.kernels import bf16_matmul as BM
+    from repro_torch.kernels import fp4_matmul as FM
+    from repro_torch.kernels import nvfp4_quant as NQ
+    from repro_torch.kernels import ops
+    log("phase 18e: the model-axis path's kernels at llama-200m's shapes")
+    g = torch.Generator(device="cuda").manual_seed(18)
+    err, groups = 0.0, {"bf16_matmul": {}, "fp4_matmul": {},
+                        "nvfp4_fos_quant": {}}
+    for m in (4, 64):
+        calls = bf16_mm_calls(torch, g, m)
+        for i, (a, w) in enumerate(calls):
+            got, want = ops.bf16_matmul(a, w), BM.bf16_matmul_plain(a, w)
+            e = (got - want).abs().max().item()
+            if not e <= BF16_MM_BAR * want.abs().max().item():
+                fail(f"18e bf16_matmul at {tuple(a.shape)} x {tuple(w.shape)}: "
+                     f"{e} past {BF16_MM_BAR} * max|C|")
+            if m > 4 and i < 8:
+                n = w.shape[0] // 2
+                if not (torch.equal(ops.bf16_matmul(a[:4], w), got[:4])
+                        and torch.equal(ops.bf16_matmul(a, w[:n]), got[:, :n])
+                        and torch.equal(ops.bf16_matmul(a, w[n:]), got[:, n:])):
+                    fail(f"18e bf16_matmul at {tuple(a.shape)} x "
+                         f"{tuple(w.shape)}: 4 of its rows or an N / 2 half "
+                         "is not the whole call's, bit for bit")
+            err = max(err, e)
+        groups["bf16_matmul"][f"llama_step_M{m}"] = bf16_mm_group(
+            torch, BM, ops, calls, 20)
+        del calls
+    main = dict(groups["bf16_matmul"]["llama_step_M4"])
+    torch.cuda.synchronize()
+    # #2 whole and at N / 2, #1 given the whole weight's absmax
+    acts = {k: ops.nvfp4_fos_quant(torch.randn((4, k), generator=g,
+                                               device="cuda").bfloat16())
+            for k in (1280, 3456)}
+    weights = [torch.randn((n, k), generator=g, device="cuda") * k ** -0.5
+               for _ in range(10) for n, k in ARCH_SHAPES.values()]
+    whole = [ops.nvfp4_fos_quant(w) for w in weights]
+    halves, quant_calls = [], []
+    for w, q in zip(weights, whole):
+        n = w.shape[0] // 2
+        absmax = w.abs().amax().reshape(1)
+        for j in range(2):
+            part = w[j * n:(j + 1) * n].contiguous()
+            hq = ops.nvfp4_fos_quant(part, absmax)
+            if not (torch.equal(hq[0], q[0][j * n:(j + 1) * n])
+                    and torch.equal(hq[1], q[1][j * n:(j + 1) * n])
+                    and torch.equal(hq[2], q[2])):
+                fail("18e: #1 given the whole weight's absmax is not the "
+                     "whole weight's quantization of its half")
+            halves.append(hq)
+            quant_calls.append((part, absmax))
+    mm_whole = [(acts[w[0].shape[1] * 2], w, torch.bfloat16) for w in whole]
+    mm_half = [(acts[h[0].shape[1] * 2], h, torch.bfloat16) for h in halves]
+    for i, (a, w, dt) in enumerate(mm_whole):
+        full = ops.fp4_matmul(a[0], a[1], w[0], w[1], a[2], w[2], dt)
+        parts = [ops.fp4_matmul(a[0], a[1], h[0], h[1], a[2], h[2], dt)
+                 for _, h, _ in mm_half[2 * i:2 * i + 2]]
+        if not torch.equal(torch.cat(parts, dim=1), full):
+            fail("18e: #2 over the N / 2 halves is not the whole call's halves")
+    log("  #2 over one llama-200m quartet2 decode step's 70 GEMMs (M = 4), whole:")
+    groups["fp4_matmul"]["llama_decode_whole"] = matmul_group(
+        torch, FM, ops, mm_whole, 20)
+    log("  #2 over the same step at (1, 2): 2 x 70 calls on the N / 2 halves:")
+    groups["fp4_matmul"]["llama_decode_half_N"] = matmul_group(
+        torch, FM, ops, mm_half, 20)
+    fn = lambda: [ops.nvfp4_fos_quant(x, am) for x, am in quant_calls]
+    r = {"calls": len(quant_calls), "ms": time_ms(torch, fn, 10),
+         "profiler_ms": device_ms(torch, fn, KERNEL_SYMBOLS["nvfp4_fos_quant"]),
+         "plain_ms": time_ms(torch, lambda: [NQ.nvfp4_fos_quant_plain(x, am)
+                                             for x, am in quant_calls], 1,
+                             warmup=1),
+         "library_ms": None, "library_profiler_ms": None}
+    nbytes = sum(x.numel() * (x.element_size() + 0.5 + 1 / 16) + 8
+                 for x, _ in quant_calls)
+    n_ops = sum(x.numel() for x, _ in quant_calls) * QUANT_FLOPS_PER_ELEMENT
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, n_ops / F32_FLOPS * 1e3
+    r.update(bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"  #1 given absmax, {len(quant_calls)} weight halves of a raw-weight "
+        f"step: kernel {r['ms']:.4f} ms (profiler {r['profiler_ms']}), plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+        f"({r['bound_by']}: {nbytes / 1e6:.1f} MB)")
+    groups["nvfp4_fos_quant"]["given_absmax_half_N"] = r
+    del weights, whole, halves, quant_calls, mm_whole, mm_half
+    torch.cuda.empty_cache()
+    return main, err, groups
+
+
+def phase_model_launch(torch, card):
+    """`launch.serve --model-shards 2 --shard-devices cuda:0,cuda:0` (full
+    llama-200m, quartet2, weights packed as drawn): 4 requests served,
+    every block free, each model device holding half the packed bytes."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    ops.reset_launches()
+    out = launch_serve.main(["--arch", "llama_200m", "--model-shards", "2",
+                             "--shard-devices", "cuda:0,cuda:0", "--batch", "4",
+                             "--prompt-len", "16", "--tokens", "8"])
+    launches = dict(ops.LAUNCHES)
+    (a, b), = out["packed_bytes"]
+    if (out["model_shards"] != 2 or out["requests"] != 4
+            or out["free_blocks"] != out["n_blocks"]
+            or abs(a - out["packed_bytes_whole"] / 2) > 1e-3 * a or a != b
+            or any(launches[k] <= 0 for k in SERVING_KERNELS)):
+        fail(f"18: launch.serve --model-shards 2: {out}, launches {launches}")
+    log(f"  18 [{card}] launch.serve --model-shards 2: decode "
+        f"{out['decode_tok_s']:.1f} tok/s, packed bytes by model device "
+        f"{[a, b]} of {out['packed_bytes_whole']}")
+    return {"decode_tok_s": out["decode_tok_s"], "launches": launches,
+            "packed_bytes": [a, b], "packed_bytes_whole": out["packed_bytes_whole"]}
+
+
+def phase_model(torch, card, llama_params, dev="cuda", unsharded=None):
+    """Phase 18: serving over a "model" axis (18a-18e) of llama-200m's first
+    SHARDED_LAYERS layers, both model devices (and at (2, 2) all four) on
+    the one card; then `launch.serve --model-shards 2`. dev="cpu" with
+    reduced llama rehearses 18a-18c (18d and 18e need the card). Returns
+    its numbers ("launches": the sum over its main-path runs), bf16_matmul's
+    entry and error, and the kernels' groups. `unsharded`: phase 17f's
+    reading of the same unsharded quartet2 engine (18d profiles it only
+    when it is not given)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.engine import Request
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        cfg, params = llama_cut(llama_params, SHARDED_LAYERS)
+    else:
+        cfg, params = llama_params
+    log(f"phase 18: serving over a 'model' axis (llama-200m at {cfg.n_layers} "
+        f"layers; make_serve_mesh(1, 2) and (2, 2), the devices on {dev})")
+    prompts = sharded_prompts(torch, cfg.vocab)
+    out, runs, eng = phase_model_streams(torch, card, cfg, params, prompts, dev)
+    bf16_mm, err, groups = None, 0.0, {}
+    if dev == "cuda":
+        del eng
+        readings = {"unsharded": unsharded} if unsharded else {}
+        for name, kw in (("unsharded", {}), ("model_2", {
+                "mesh": make_serve_mesh(1, 2, devices=[dev] * 2)})):
+            if name in readings:
+                continue
+            e = sharded_engine(cfg, params, dev, scheme="quartet2", **kw)
+            log(f"  18d [{card}] {name}, quartet2:")
+            readings[name] = profile_decode(torch, e, Request, prompts,
+                                            MODEL_PROFILE_STEPS)
+            del e
+        out["readings"] = readings
+        bf16_mm, err, groups = phase_model_kernels(torch)
+        out["launch_serve"] = phase_model_launch(torch, card)
+        runs.append(out["launch_serve"]["launches"])
+    out["launches"] = {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 18 took {out['phase_s']:.1f} s; launches on its main paths: "
+        f"{out['launches']}")
+    return out, bf16_mm, err, groups
+
+
 def ns_gemm_flops(shape) -> float:
     """The f32 GEMM operations of one `newton_schulz` call on a (..., r, c)
     stack: per iteration X X^T, S S and (.) X at n = min(r, c), m = max."""
@@ -7894,6 +8276,11 @@ def main() -> None:
         kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], err)
     for k, grps in sharded_groups.items():
         kern[k].setdefault("groups", {}).update(grps)
+    model, bf16_mm, bf16_err, model_groups = phase_model(
+        torch, card, llama, unsharded=sharded["readings"]["unsharded"]["profile"])
+    kern["bf16_matmul"] = {**bf16_mm, "max_abs_err": bf16_err}
+    for k, grps in model_groups.items():
+        kern[k].setdefault("groups", {}).update(grps)
     t_gen = time.perf_counter()
     generate, gen_errs = phase_generate_llama(torch, card, llama,
                                               serving["prompts"],
@@ -7932,13 +8319,14 @@ def main() -> None:
     path_runs = (serving, serving_kvq, deepseek["bf16_pool"],
                  deepseek["nvfp4_pool"], training, resume, nanochat, prefix, spec,
                  http, generate["quartet2"], generate["deepseek"], generate["long"],
-                 registry_out, recurrent_out, whisper_out, disagg, dp, sharded)
+                 registry_out, recurrent_out, whisper_out, disagg, dp, sharded,
+                 model)
 
     kernels = []
     for k, r in kern.items():
         # launches: the sum over the main-path runs (each path is driven with
         # the counts set to 0 just before it and read just after)
-        launches = sum(run["launches"][k] for run in path_runs)
+        launches = sum(run["launches"].get(k, 0) for run in path_runs)
         if launches <= 0:
             fail(f"kernel {k} was not launched on a main path")
         kernels.append({
@@ -7965,7 +8353,7 @@ def main() -> None:
          "nanochat": nanochat, "prefix": prefix, "spec": spec, "http": http,
          "generate": generate, "registry": registry_out,
          "recurrent": recurrent_out, "whisper": whisper_out, "disagg": disagg,
-         "dp": dp, "sharded": sharded},
+         "dp": dp, "sharded": sharded, "model": model},
         indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

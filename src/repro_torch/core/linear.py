@@ -27,7 +27,11 @@ unbiased, MSE within 10%; `core/ms_eden.py`). Randomness comes from
 is held bitwise against the reference only with injected draws.
 
 Left out, and so absent here: the GSPMD sharding hints of the reference
-(`_hint` and friends, a no-op off-mesh).
+(`_hint` and friends, a no-op off-mesh). In their place, serving over a
+mesh's "model" axis splits a weight into a `ModelShard`, one part a model
+device (`dist.sharding.split_serve_params`): `qlinear` and `dense` run each
+part's slice of the out-features on its device and concatenate the outputs
+in model order, as GSPMD does for the reference's `serve_param_shardings`.
 
 fp32 matmuls here are IEEE fp32, as XLA's are on the CPU: the package turns
 TF32 off when it is imported (`repro_torch/__init__.py`).
@@ -71,6 +75,67 @@ class PackedQWeight(NamedTuple):
         return PackedQWeight(self.packed[i], self.scale_bits[i], self.gscale[i])
 
 
+class ModelShard(NamedTuple):
+    """A weight split over a serving mesh's "model" axis
+    (`dist.sharding.split_serve_params`): `parts[j]` is model rank j's part,
+    on rank j's device, a PackedQWeight (its packed codes and scale bits cut
+    on N, the whole matrix's gscale) or a raw tensor, cut on axis `dim` in
+    equal parts: -2, the out-features (a column-parallel linear; a
+    vocab-split embedding table), or -1, the in-features (`param_spec`'s
+    second choice: the weight is gathered whole before use, which keeps the
+    linear bitwise). A stacked leaf keeps its leading layer axis, and
+    `layer(i)` its layer i."""
+
+    parts: tuple
+    dim: int
+
+    def layer(self, i: int) -> "ModelShard":
+        return ModelShard(tuple(p.layer(i) if isinstance(p, PackedQWeight)
+                                else p[i] for p in self.parts), self.dim)
+
+
+def part_device(p) -> torch.device:
+    """The device of one ModelShard part."""
+    return (p.packed if isinstance(p, PackedQWeight) else p).device
+
+
+def gather_whole(w: ModelShard, device):
+    """The whole weight of `w` on `device`: its parts concatenated in model
+    order (exact)."""
+    def cat(ts):
+        return torch.cat([t.to(device) for t in ts], dim=w.dim)
+    if isinstance(w.parts[0], PackedQWeight):
+        return PackedQWeight(cat([p.packed for p in w.parts]),
+                             cat([p.scale_bits for p in w.parts]),
+                             w.parts[0].gscale.to(device))
+    return cat(w.parts)
+
+
+def _qlinear_split(x: torch.Tensor, w: ModelShard, seed, scheme: str):
+    """`qlinear` of a weight split over "model": each part's slice of the
+    out-features on the part's device (the activation moved there and
+    quantized there, as every model device of the reference quantizes its
+    replicated copy), the outputs concatenated in model order on x's device.
+    A raw part quantized per step (4/6) takes the whole weight's absmax (the
+    max of the parts' absmaxes, exact in any order), so its codes, scales
+    and gscale are the slice of the whole weight's; a raw weight under
+    another forward quantizer, and an in-features split, are gathered whole
+    first."""
+    if w.dim != -2:
+        return qlinear(x, gather_whole(w, x.device), seed, scheme)
+    parts = w.parts
+    fwd_w = S.get(scheme).fwd_w
+    if not isinstance(parts[0], PackedQWeight) and fwd_w != "none":
+        if fwd_w != "fos":
+            return qlinear(x, gather_whole(w, x.device), seed, scheme)
+        absmax = torch.stack([p.abs().amax().float().to(x.device)
+                              for p in parts]).amax().reshape(1)
+        parts = [PackedQWeight(*ops.nvfp4_fos_quant(
+            p.contiguous(), absmax.to(p.device))) for p in parts]
+    return torch.cat([qlinear(x.to(part_device(p)), p, seed, scheme)
+                      .to(x.device) for p in parts], dim=-1)
+
+
 def _quant_packed(x: torch.Tensor, kind: str):
     """Forward quantizer `kind` of a 2-D tensor, in the packed operand form
     (codes, scale bits, gscale) that `fp4_matmul` consumes."""
@@ -97,9 +162,28 @@ def _qmm(qa, qb, out_dtype=torch.float32) -> torch.Tensor:
     return ops.fp4_matmul(qa[0], qa[1], qb[0], qb[1], qa[2], qb[2], out_dtype)
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x with unit inner stride (rows at any pitch), as `ops.bf16_matmul`
+    reads its operands: a copy only for a transposed view."""
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _serving(x: torch.Tensor, w) -> bool:
+    """Whether a linear's call is outside any autograd graph (every serving
+    step): then its bf16 GEMMs sum in an order fixed by K (`_mm`)."""
+    return not (torch.is_grad_enabled() and (x.requires_grad or
+                                             w.requires_grad))
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, serving: bool = False):
     """bf16 GEMM (Ma, D) x (Mb, D) -> (Ma, Mb), fp32 accumulation: an fp32
-    matmul of bf16-exact values (never a bf16-output matmul)."""
+    matmul of bf16-exact values (never a bf16-output matmul). `serving` (a
+    call outside any autograd graph, `_serving`) goes through
+    `ops.bf16_matmul`, whose kernel sums each output in one order fixed by
+    D, so a row's result does not depend on Ma nor a column's on Mb;
+    training keeps the matmul below, the kernel's plain version."""
+    if serving and a.shape[0] and b.shape[0]:
+        return ops.bf16_matmul(_rows(a), _rows(b))
     return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float().T
 
 
@@ -120,7 +204,7 @@ def _qlinear_packed(x: torch.Tensor, w: PackedQWeight, scheme: str):
     if sch.fwd_x != "none":
         y = _qmm(_quant_packed(xf, sch.fwd_x), qw, x.dtype)
     else:
-        y = _mm(xf, _dequant_packed(*qw))
+        y = _mm(xf, _dequant_packed(*qw), serving=True)
     return y.to(x.dtype).reshape(*lead, -1)
 
 
@@ -196,13 +280,16 @@ def qlinear(x: torch.Tensor, w, seed=None, scheme: str = "quartet2"):
     """y = x @ w^T under the given quantization scheme.
 
     x: (..., K) activations; w: (N, K) weight — raw tensor (training, with
-    the scheme's backward) or PackedQWeight (quantize-once serving); seed: a
+    the scheme's backward), PackedQWeight (quantize-once serving), or a
+    ModelShard of either (serving over a mesh's "model" axis); seed: a
     uint32[2] site seed for the stochastic backward, or an object with the
     draw methods of `core.rng.HashDraws` (tests pass the reference's draws).
     """
+    if isinstance(w, ModelShard):
+        return _qlinear_split(x, w, seed, scheme)
     if isinstance(w, PackedQWeight):
         return _qlinear_packed(x, w, scheme)
-    return _QLinear.apply(x, w, seed, scheme)
+    return _QLinear.apply(x, w, seed, scheme, _serving(x, w))
 
 
 class _QLinear(torch.autograd.Function):
@@ -210,24 +297,24 @@ class _QLinear(torch.autograd.Function):
     `_qlinear_bwd`."""
 
     @staticmethod
-    def forward(ctx, x, w, seed, scheme):
+    def forward(ctx, x, w, seed, scheme, serving):
         sch = S.get(scheme)
         lead = x.shape[:-1]
         xf = x.reshape(-1, x.shape[-1])
         ctx.scheme, ctx.seed, ctx.x_shape = scheme, seed, x.shape
         if not sch.is_quantized:
             ctx.save_for_backward(xf, w)
-            return _mm(xf, w).to(x.dtype).reshape(*lead, -1)
+            return _mm(xf, w, serving).to(x.dtype).reshape(*lead, -1)
         qx = _quant_packed(xf, sch.fwd_x) if sch.fwd_x != "none" else None
         qw = _quant_packed(w, sch.fwd_w) if sch.fwd_w != "none" else None
         if qx is not None and qw is not None:
             y = _qmm(qx, qw, x.dtype)
         elif qx is not None:
-            y = _mm(_dequant_packed(*qx), w)
+            y = _mm(_dequant_packed(*qx), w, serving)
         elif qw is not None:
-            y = _mm(xf, _dequant_packed(*qw))
+            y = _mm(xf, _dequant_packed(*qw), serving)
         else:
-            y = _mm(xf, w)
+            y = _mm(xf, w, serving)
         # the backward re-quantizes the SAVED quantized activations (paper
         # Sec. 5); W's packed image is saved too, bit-identical to the
         # reference's re-run of the deterministic forward quantizer
@@ -280,11 +367,22 @@ class _QLinear(torch.autograd.Function):
             else:
                 dw = _mm(ef.T, xf.T)
         dx = dx.reshape(ctx.x_shape).to(e.dtype)
-        return dx, dw.to(w.dtype), None, None
+        return dx, dw.to(w.dtype), None, None, None
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dense(x: torch.Tensor, w) -> torch.Tensor:
     """Plain bf16 linear (LM head): bf16 operands, fp32 accumulation, output
-    in x.dtype."""
+    in x.dtype. A call outside any autograd graph (every serving step) goes
+    through `ops.bf16_matmul`, as `_mm` does. A ModelShard (the head split
+    over "model" on its vocab rows): each part's logits on its device,
+    concatenated in model order on x's device."""
+    if isinstance(w, ModelShard):
+        if w.dim != -2:
+            return dense(x, gather_whole(w, x.device))
+        return torch.cat([dense(x.to(part_device(p)), p).to(x.device)
+                          for p in w.parts], dim=-1)
+    if _serving(x, w) and x.numel() and w.shape[0]:
+        out = ops.bf16_matmul(_rows(x.reshape(-1, x.shape[-1])), _rows(w))
+        return out.reshape(*x.shape[:-1], -1).to(x.dtype)
     out = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().T
     return out.to(x.dtype)

@@ -95,13 +95,16 @@ def _sum_in_order(e: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def four_over_six_branch(xf: torch.Tensor, s: float = S_EDEN):
+def four_over_six_branch(xf: torch.Tensor, s: float = S_EDEN, absmax=None):
     """The 4/6 branch choice of f32 x: per 16-group, the absmax->s and
     absmax->s*4/6 grid placements, keeping the one with the lower squared
     RTN error (ties go to the 6 branch). Returns (gscale, scales of the kept
-    branch, x / (scale * gscale)) — the input of the final FP4 rounding."""
+    branch, x / (scale * gscale)) — the input of the final FP4 rounding.
+    `absmax` (f32, one element) replaces x's own: a slice of a weight split
+    over devices takes the whole weight's, and so its codes and scales."""
     # Global scale sized for the /4 branch (scales 1.5x larger than /6).
-    gscale = _gscale(xf.abs().amax(), (s * 4.0 / 6.0) * F.FP8_MAX)
+    amax = xf.abs().amax() if absmax is None else absmax.reshape(())
+    gscale = _gscale(amax, (s * 4.0 / 6.0) * F.FP8_MAX)
     gmax = _group_absmax(xf)
 
     def branch(div: float):
@@ -119,11 +122,12 @@ def four_over_six_branch(xf: torch.Tensor, s: float = S_EDEN):
     return gscale, torch.where(use4, s4, s6), xs
 
 
-def quant_four_over_six(x: torch.Tensor, s: float = S_EDEN) -> QTensor:
+def quant_four_over_six(x: torch.Tensor, s: float = S_EDEN,
+                        absmax=None) -> QTensor:
     """Four-over-Six (Cook et al. 2025): RTN onto the lower-MSE of the
     absmax->6 and absmax->4 grid placements per 16-group. Deterministic; a
-    FORWARD-pass quantizer only."""
-    gscale, scales, xs = four_over_six_branch(x.float(), s)
+    FORWARD-pass quantizer only. `absmax`: as for `four_over_six_branch`."""
+    gscale, scales, xs = four_over_six_branch(x.float(), s, absmax)
     return QTensor(F.fp4_rtn(xs), scales, gscale)
 
 

@@ -21,7 +21,9 @@ same mesh differently (`serve_*`): every cache leaf's axis 1 (the physical
 block axis, or the slot axis) over "data" (`serve_shard_sizes` gives the
 slot-affine pool its per-shard extents); a `PackedQWeight`'s out-feature
 axis over "model", field by field, its per-matrix `gscale` replicated; raw
-serving leaves take `param_spec` with fsdp off.
+serving leaves take `param_spec` with fsdp off. `split_serve_params` cuts a
+serving tree by those specs into one tree per (data, model) device, as the
+in-process engine serves it.
 
 The tree builders walk a tree of dicts, lists and NamedTuples; a leaf's path
 is the reference's `_path_str` (keys and field names joined by "/", list
@@ -37,7 +39,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
-from repro_torch.core.linear import PackedQWeight
+from repro_torch.core.linear import ModelShard, PackedQWeight
 
 _REPLICATED_TOKENS = ("router", "norm", "/n1", "/n2", "/nx", "gn", "mu",
                       "lam", "bias", "/ba", "/bx", "conv_b")
@@ -215,21 +217,126 @@ def input_shardings(batch, mesh):
     return map_with_path(_leaf_placements(spec, mesh), batch)
 
 
-def serve_param_shardings(params, mesh):
-    """Placements for a serving params tree (prequantized or raw):
-    PackedQWeight fields by `packed_weight_spec`, raw leaves by `param_spec`
-    with fsdp off, so weights never split over "data"."""
+def serve_param_specs(params, mesh):
+    """The specs of a serving params tree (prequantized or raw), leaf for
+    leaf: PackedQWeight fields by `packed_weight_spec`, raw leaves by
+    `param_spec` with fsdp off, so weights never split over "data"."""
     model, _ = mesh_sizes(mesh)
 
     def one(path, leaf):
         if isinstance(leaf, PackedQWeight):
-            return PackedQWeight(*(placements(packed_weight_spec(
-                tuple(f.shape), model=model), mesh) for f in leaf))
-        return placements(param_spec(path, tuple(leaf.shape), model=model,
-                                     data=1, fsdp=False), mesh)
+            return PackedQWeight(*(packed_weight_spec(tuple(f.shape),
+                                                      model=model)
+                                   for f in leaf))
+        return param_spec(path, tuple(leaf.shape), model=model, data=1,
+                          fsdp=False)
 
     return map_with_path(one, params,
                          is_leaf=lambda x: isinstance(x, PackedQWeight))
+
+
+def serve_param_shardings(params, mesh):
+    """Placements for a serving params tree by `serve_param_specs`."""
+    def one(_, spec):
+        if isinstance(spec, PackedQWeight):
+            return PackedQWeight(*(placements(s, mesh) for s in spec))
+        return placements(spec, mesh)
+
+    return map_with_path(one, serve_param_specs(params, mesh),
+                         is_leaf=lambda x: isinstance(x, (PackedQWeight, tuple)))
+
+
+# leaves the dense decode path reads as linear weights (`qlinear`, `dense`)
+# or as the embedding table: the ones a split over "model" reaches
+SPLIT_LINEAR_KEYS = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "embed",
+                               "head"})
+
+
+def _part(t: torch.Tensor, axis: int, rank: int, parts: int, device):
+    """Part `rank` of `parts` equal parts of t along `axis`, copied into
+    storage of its own on `device`."""
+    n = t.shape[axis] // parts
+    src = t.narrow(axis, rank * n, n)
+    out = torch.empty(src.shape, dtype=t.dtype, device=device)
+    out.copy_(src)
+    return out
+
+
+def split_serve_params(params, mesh) -> list:
+    """A serving params tree (prequantized or raw) cut by
+    `serve_param_specs` into one tree per data shard: `out[s]` is data
+    shard s's tree, its model rank j's parts on `mesh.grid[s][j]`.
+
+    A PackedQWeight whose spec splits N becomes a `ModelShard` of its ranks'
+    rows of `packed` and `scale_bits` (each byte for byte that slice of the
+    whole field), each with the whole matrix's `gscale`. A raw linear weight
+    or the embedding table (SPLIT_LINEAR_KEYS) whose `param_spec` (fsdp
+    off) names "model" becomes a ModelShard of its ranks' parts along that
+    axis. Every other leaf is held whole on the shard's first device, where
+    the rest of the step runs: replicated by its spec, or (a stacked QK-norm
+    gain the spec would cut on its layer axis) read whole where GSPMD would
+    gather it. Each part has storage of its own, so a device holds its share
+    of the split bytes only; data shards on the same devices share a tree."""
+    model, _ = mesh_sizes(mesh)
+    specs = []
+    map_with_path(lambda _, s: specs.append(s), serve_param_specs(params, mesh),
+                  is_leaf=lambda x: isinstance(x, (PackedQWeight, tuple)))
+
+    def one_tree(row):
+        it = iter(specs)
+
+        def one(path, leaf):
+            spec = next(it)
+            if isinstance(leaf, PackedQWeight):
+                if "model" not in spec[0]:
+                    return PackedQWeight(*(f.to(row[0]) for f in leaf))
+                axis = spec[0].index("model")
+                return ModelShard(tuple(PackedQWeight(
+                    _part(leaf.packed, axis, j, model, dev),
+                    _part(leaf.scale_bits, axis, j, model, dev),
+                    leaf.gscale.to(dev)) for j, dev in enumerate(row)),
+                    axis - leaf.packed.dim())
+            if "model" not in spec or path.rsplit("/", 1)[-1] \
+                    not in SPLIT_LINEAR_KEYS:
+                return leaf.to(row[0])
+            axis = spec.index("model")
+            return ModelShard(tuple(_part(leaf, axis, j, model, dev)
+                                    for j, dev in enumerate(row)),
+                              axis - leaf.dim())
+        return map_with_path(one, params,
+                             is_leaf=lambda x: isinstance(x, PackedQWeight))
+
+    made: dict = {}
+    for row in mesh.grid:
+        if row not in made:
+            made[row] = one_tree(row)
+    return [made[row] for row in mesh.grid]
+
+
+def packed_bytes(tree, rank: int | None = None) -> int:
+    """The bytes of the PackedQWeight fields of `tree`, each storage counted
+    once: all of them, or those model rank `rank`'s device holds (part
+    `rank` of each ModelShard, and with rank 0, the shard's first device,
+    every unsplit PackedQWeight)."""
+    seen, total = set(), 0
+
+    def one(_, leaf):
+        nonlocal total
+        if isinstance(leaf, ModelShard):
+            ws = leaf.parts if rank is None else (leaf.parts[rank],)
+        else:
+            ws = (leaf,) if rank in (None, 0) else ()
+        for w in ws:
+            if not isinstance(w, PackedQWeight):
+                continue
+            for f in w:
+                key = (f.device, f.untyped_storage().data_ptr())
+                if key not in seen:
+                    seen.add(key)
+                    total += f.untyped_storage().nbytes()
+    map_with_path(one, tree, is_leaf=lambda x: isinstance(
+        x, (PackedQWeight, ModelShard)))
+    return total
 
 
 def serve_cache_shardings(cache, mesh):

@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("nvfp4_quant.cu", "fp4_matmul.cu", "paged_attention.cu",
-           "ms_eden_requant.cu")
+           "ms_eden_requant.cu", "bf16_matmul.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,6 +54,7 @@ SIGNATURES = {
                               _I, _F, _F, _P),
     "ms_eden_phase2_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L) * 2
                              + (_F, _P),
+    "bf16_matmul_launch": (_P, _L, _I, _P, _L, _I, _P, _L, _L, _L, _P),
 }
 
 _LIB = None

@@ -32,6 +32,10 @@
 //    prequant): an absmax kernel writes one partial per CTA, then the encode
 //    kernel, whose every CTA reduces those partials itself (no third launch,
 //    no atomics); its read of x comes mostly from the 50 MB L2.
+//  - "given_absmax" (a slice of a raw weight split over a serving mesh's
+//    "model" axis, whose absmax is the max of every slice's): the encode
+//    kernel alone, its one partial the given absmax, so the slice's gscale,
+//    scales and codes are the whole weight's.
 //  - No divides on the common path. The plain version rounds fl(x / d) onto
 //    the E2M1 grid in each branch; here m = |x * RN(1/d)| (one multiply)
 //    lies within 3 ulps of |x / d|, so it rounds the same way unless it lies
@@ -423,6 +427,13 @@ cudaError_t launch(const void* x, void* packed, void* scale_bits,
                              threads, gdiv, s6, s4, st);
   }
   if (partial_ctas < 1 || ctas < 1) return cudaErrorInvalidValue;
+  if (regime == 2) {  // the absmax given: partials holds it
+    nvfp4_fos_quant_encode_kernel<T><<<(unsigned)ctas, kThreads, 0, st>>>(
+        (const T*)x, (const float*)partials, partial_ctas, (uint8_t*)packed,
+        (uint8_t*)scale_bits, (float*)gscale_out, n_chunks, gdiv, s6, s4);
+    return cudaGetLastError();
+  }
+  if (regime != 1) return cudaErrorInvalidValue;
   nvfp4_fos_quant_absmax_kernel<T><<<(unsigned)partial_ctas, kThreads, 0, st>>>(
       (const T*)x, (float*)partials, n_chunks);
   const cudaError_t err = cudaGetLastError();
@@ -437,7 +448,9 @@ cudaError_t launch(const void* x, void* packed, void* scale_bits,
 
 // regime 0: one cluster of `ctas` CTAs (up to 16) of `threads` threads, one
 // chunk a thread; regime 1: the absmax kernel over `partial_ctas` CTAs into
-// `partials`, then the encode kernel over `ctas` CTAs.
+// `partials`, then the encode kernel over `ctas` CTAs; regime 2: the encode
+// kernel alone over `ctas` CTAs, its absmax the `partial_ctas` values in
+// `partials` (one, given by the caller).
 extern "C" int nvfp4_fos_quant_launch(const void* x, int x_is_bf16,
                                       void* packed, void* scale_bits,
                                       void* gscale_out, void* partials,

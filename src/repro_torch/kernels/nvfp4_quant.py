@@ -10,7 +10,11 @@ On the card `csrc/nvfp4_quant.cu` computes the absmax as well, in one of two
 regimes that `plan` picks from the shape alone: up to SMALL_MAX_CHUNKS
 chunks of 8 elements (every decode call) one launch of one thread-block
 cluster of up to 16 CTAs that holds x in registers from the absmax to the
-encode; above it an absmax-partials kernel and an encode kernel.
+encode; above it an absmax-partials kernel and an encode kernel. A call
+given the absmax from outside (a slice of a raw weight split over a serving
+mesh's "model" axis takes the max of every slice's absmax, so its gscale,
+codes and scales are the whole weight's) launches the encode kernel alone,
+reading that one value as its only partial.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ SMS = 132              # H100 SXM: the two-pass grids are sized to it
 ABSMAX_LOADS = 4       # chunks a thread of the absmax kernel keeps in flight
 
 # launches of each regime (ops.LAUNCHES counts both as "nvfp4_fos_quant")
-REGIME_LAUNCHES = {"cluster": 0, "two_pass": 0}
+REGIME_LAUNCHES = {"cluster": 0, "two_pass": 0, "given_absmax": 0}
 
 
 class Plan(NamedTuple):
@@ -75,32 +79,46 @@ def two_pass_plan(chunks: int) -> Plan:
                 min(_cdiv(chunks, THREADS * ABSMAX_LOADS), 2 * SMS))
 
 
-def plan(m: int, k: int) -> Plan:
+def plan(m: int, k: int, given_absmax: bool = False) -> Plan:
     """The geometry of an (M, K) call, from its M * K / 8 chunks alone: one
-    cluster up to SMALL_MAX_CHUNKS (every decode call), two passes above."""
+    cluster up to SMALL_MAX_CHUNKS (every decode call), two passes above;
+    with the absmax given, the two-pass encode kernel alone (one partial,
+    the given value)."""
     chunks = m * k // CHUNK
+    if given_absmax:
+        return Plan("given_absmax", two_pass_plan(chunks).ctas, THREADS, 1)
     return cluster_plan(chunks) if chunks <= SMALL_MAX_CHUNKS else two_pass_plan(chunks)
 
 
-def nvfp4_fos_quant_plain(x: torch.Tensor):
-    """x (M, K) -> (packed u8 (M, K/2), scale bits u8 (M, K/16), gscale f32)."""
-    qt = Q.quant_four_over_six(x)
+def nvfp4_fos_quant_plain(x: torch.Tensor, absmax=None):
+    """x (M, K) -> (packed u8 (M, K/2), scale bits u8 (M, K/16), gscale f32);
+    `absmax` (f32, one element) in place of x's own when given."""
+    qt = Q.quant_four_over_six(x, absmax=absmax)
     return F.pack_fp4(qt.codes), F.e4m3_to_bits(qt.scales), qt.gscale
 
 
-def launch(x, packed, scale_bits, gscale, p: Plan | None = None) -> None:
+REGIMES = {"cluster": 0, "two_pass": 1, "given_absmax": 2}
+
+
+def launch(x, packed, scale_bits, gscale, p: Plan | None = None,
+           absmax=None) -> None:
     """Enqueue the regime `plan` picks (or `p`) on the current stream
-    (outputs preallocated; the two-pass partials allocated here)."""
+    (outputs preallocated; the two-pass partials allocated here). With
+    `absmax` (f32, one element, on x's device) the encode kernel alone, the
+    absmax read from it."""
     m, k = x.shape
-    p = p or plan(m, k)
-    partials = (torch.empty((p.partial_ctas,), dtype=torch.float32,
-                            device=x.device) if p.partial_ctas else None)
+    p = p or plan(m, k, absmax is not None)
+    if absmax is not None:
+        partials = absmax
+    else:
+        partials = (torch.empty((p.partial_ctas,), dtype=torch.float32,
+                                device=x.device) if p.partial_ctas else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = build.library().nvfp4_fos_quant_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), packed.data_ptr(),
         scale_bits.data_ptr(), gscale.data_ptr(),
         None if partials is None else partials.data_ptr(), m, k,
-        0 if p.regime == "cluster" else 1, p.ctas, p.threads, p.partial_ctas,
+        REGIMES[p.regime], p.ctas, p.threads, p.partial_ctas,
         GDIV, S6, S4, stream)
     build.check(status, f"nvfp4_fos_quant ({p.regime})")
     REGIME_LAUNCHES[p.regime] += 1

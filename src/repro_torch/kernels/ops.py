@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core import formats as F
 from repro_torch.core import rht as R
+from repro_torch.kernels import bf16_matmul as BM
 from repro_torch.kernels import fp4_matmul as FM
 from repro_torch.kernels import ms_eden_requant as MR
 from repro_torch.kernels import nvfp4_quant as NQ
@@ -23,7 +24,7 @@ from repro_torch.kernels import paged_attention as PA
 
 LAUNCHES = {"nvfp4_fos_quant": 0, "fp4_matmul": 0, "paged_gqa": 0,
             "ms_eden_phase1": 0, "ms_eden_phase2": 0, "paged_gqa_q": 0,
-            "paged_mla": 0, "paged_mla_q": 0}
+            "paged_mla": 0, "paged_mla_q": 0, "bf16_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -47,20 +48,26 @@ def _need(cond: bool, name: str, what: str) -> None:
         raise ValueError(f"{name}: {what}")
 
 
-def nvfp4_fos_quant(x: torch.Tensor):
+def nvfp4_fos_quant(x: torch.Tensor, absmax: torch.Tensor | None = None):
     """Four-over-Six NVFP4 quantization of x (M, K) f32/bf16.
 
     Returns (packed codes u8 (M, K/2), e4m3 scale bits u8 (M, K/16), gscale
     f32 0-dim), the operand form of `fp4_matmul`. On the card the kernel
     takes the tensor's absmax itself: a call launches nothing else, and at
-    decode sizes exactly one kernel (`nvfp4_quant.plan`)."""
+    decode sizes exactly one kernel (`nvfp4_quant.plan`). `absmax` (f32,
+    one element, on x's device) replaces x's own absmax: a slice of a
+    weight split over devices passes the whole weight's, and the call is
+    the two-pass encode kernel alone."""
     name = "nvfp4_fos_quant"
     _need(x.dim() == 2 and x.shape[1] % F.GROUP == 0 and x.shape[0] > 0,
           name, f"x must be (M>0, K % 16 == 0), got {tuple(x.shape)}")
     _need(x.dtype in (torch.float32, torch.bfloat16), name,
           f"x must be float32 or bfloat16, got {x.dtype}")
-    if _device(name, x) == "cpu":
-        return NQ.nvfp4_fos_quant_plain(x)
+    if absmax is not None:
+        _need(absmax.dtype == torch.float32 and absmax.numel() == 1, name,
+              "absmax must be a one-element float32 tensor")
+    if _device(name, x, *(() if absmax is None else (absmax,))) == "cpu":
+        return NQ.nvfp4_fos_quant_plain(x, absmax)
     _need(x.is_contiguous(), name, "x must be contiguous")
     _need(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
     m, k = x.shape
@@ -68,7 +75,8 @@ def nvfp4_fos_quant(x: torch.Tensor):
     scale_bits = torch.empty((m, k // F.GROUP), dtype=torch.uint8,
                              device=x.device)
     gscale = torch.empty((), dtype=torch.float32, device=x.device)
-    NQ.launch(x, packed, scale_bits, gscale)
+    NQ.launch(x, packed, scale_bits, gscale,
+              absmax=None if absmax is None else absmax.reshape(1).contiguous())
     LAUNCHES[name] += 1
     return packed, scale_bits, gscale
 
@@ -105,6 +113,32 @@ def fp4_matmul(a_packed, a_scale_bits, b_packed, b_scale_bits, ga, gb,
     _need(m > 0 and n > 0 and k > 0, name, f"empty GEMM ({m}, {n}, {k})")
     out = torch.empty((m, n), dtype=out_dtype, device=a_packed.device)
     FM.launch(*ops, ga, gb, out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) x b (N, K) -> (M, N) f32: both operands rounded to bf16 (f32
+    or bf16 each), products summed in f32. On the card each output is one
+    chain of tensor-core instructions fixed by K alone (`csrc/bf16_matmul.cu`),
+    so a row's result does not depend on M nor a column's on N; the operands
+    are read where they lie (unit inner stride, any row pitch), f32 weights
+    with no bf16 copy. One launch a call."""
+    name = "bf16_matmul"
+    _need(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[1], name,
+          f"a (M, K) and b (N, K) expected, got {tuple(a.shape)}, "
+          f"{tuple(b.shape)}")
+    _need(a.dtype in BM.DTYPES and b.dtype in BM.DTYPES, name,
+          f"operands must be float32 or bfloat16, got {a.dtype}, {b.dtype}")
+    if _device(name, a, b) == "cpu":
+        return BM.bf16_matmul_plain(a, b)
+    m, k = a.shape
+    n = b.shape[0]
+    _need(m > 0 and n > 0 and k > 0, name, f"empty GEMM ({m}, {n}, {k})")
+    _need(a.stride(1) == 1 and b.stride(1) == 1, name,
+          "operands must have unit inner stride")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    BM.launch(a, b, out)
     LAUNCHES[name] += 1
     return out
 

@@ -9,11 +9,13 @@ importing touches no device or group.
     `checkpoint/`).
   - `make_serve_mesh` is the (data, model) mesh of mesh-sharded serving,
     held by ONE process: the reference's serving engine is one host program
-    over every shard (`shard_map` manual over "data" inside one process),
-    and so is the port's. It names one device per data shard; the engine
-    places the slots and the slot-affine pool of shard s on
-    `mesh.devices[s]`. CUDA launches are asynchronous per device, so one
-    host thread drives every shard.
+    over every shard (`shard_map` manual over "data" inside one process,
+    GSPMD over "model"), and so is the port's. It names data x model
+    devices in (data, model) order: `mesh.grid[s]` are data shard s's model
+    devices, and `mesh.devices[s]` (its first) homes the shard's slots and
+    slot-affine pool and runs the shard's step; the shard's split linears
+    run each part on its model device. CUDA launches are asynchronous per
+    device, so one host thread drives every device.
 """
 
 from __future__ import annotations
@@ -37,12 +39,18 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
 @dataclass(frozen=True)
 class ServeMesh:
     """An in-process (data, model) serving mesh: its sizes, its dim names
-    and one device per data shard. `shape` and `mesh_dim_names` read as a
+    and its devices, `grid[s][j]` the device of data shard s and model rank
+    j. `devices` holds each data shard's first model device, where its
+    slots, pool and outputs live. `shape` and `mesh_dim_names` read as a
     DeviceMesh's do (`dist.sharding.mesh_sizes`)."""
 
     data: int
     model: int
-    devices: tuple[torch.device, ...]
+    grid: tuple[tuple[torch.device, ...], ...]
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return tuple(row[0] for row in self.grid)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -64,29 +72,35 @@ def _resolved(d) -> torch.device:
 
 def make_serve_mesh(data: int, model: int = 1, *, devices=None) -> ServeMesh:
     """The (data, model) mesh of mesh-sharded serving: decode slots and the
-    slot-affine KV pool split over "data", one device per data shard.
+    slot-affine KV pool split over "data"; each linear weight's out-features
+    split over "model" (`dist.sharding.split_serve_params`), the rest of a
+    data shard's step on its first model device.
 
-    `devices=None` puts shard s on card s and needs `data` cards: fewer
-    raises. Shards share a card only when asked for by name
-    (`devices=["cuda:0"] * 2`; the CPU tests pass `["cpu"] * 2`). Nothing
-    falls back to the CPU or to fewer shards. The mesh holds any `model`;
-    the engine refuses model > 1 (ROADMAP.md, Queue 1 item 4.3)."""
+    `devices` lists data x model devices in (data, model) order: data shard
+    s takes devices[s * model:(s + 1) * model]. `devices=None` puts them on
+    cards 0 .. data x model - 1 and needs that many cards: fewer raises.
+    Devices share a card only when asked for by name (`devices=["cuda:0"] *
+    4`; the CPU tests pass `["cpu"] * 4`). Nothing falls back to the CPU or
+    to fewer shards."""
     if data < 1 or model < 1:
         raise ValueError(f"mesh sizes must be >= 1, got data={data}, "
                          f"model={model}")
     if devices is None:
         cards = torch.cuda.device_count()
-        if cards < data:
+        if cards < data * model:
             raise ValueError(
-                f"make_serve_mesh(data={data}) needs {data} CUDA devices, one "
-                f"a shard, and {cards} are visible; name the shards' devices "
-                "to share one (devices=['cuda:0'] * data)")
-        devices = [f"cuda:{i}" for i in range(data)]
+                f"make_serve_mesh(data={data}, model={model}) needs "
+                f"{data * model} CUDA devices, one a (data, model) shard, and "
+                f"{cards} are visible; name the devices to share one "
+                f"(devices=['cuda:0'] * {data * model})")
+        devices = [f"cuda:{i}" for i in range(data * model)]
     devices = tuple(_resolved(d) for d in devices)
-    if len(devices) != data:
-        raise ValueError(f"make_serve_mesh(data={data}) got {len(devices)} "
-                         "devices: one a data shard")
-    return ServeMesh(data, model, devices)
+    if len(devices) != data * model:
+        raise ValueError(f"make_serve_mesh(data={data}, model={model}) got "
+                         f"{len(devices)} devices: one a data shard and model "
+                         "rank, in (data, model) order")
+    return ServeMesh(data, model, tuple(devices[s * model:(s + 1) * model]
+                                        for s in range(data)))
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -39,9 +39,14 @@ prints the traces' TTFT, queue-wait and per-token decode percentiles.
 slots and the slot-affine pool split over N data shards, each shard's step
 on its own device; the counterpart of the reference's
 `examples/serve_decode.py --data-shards`) and prints each shard's free
-blocks. `--shard-devices` names the shards' devices (`cuda:0,cuda:0` puts
-two shards on one card); without it each shard takes a card of its own
-(fewer cards than shards refuse), or the CPU under `--device cpu`. `--http PORT`
+blocks. `--model-shards M` splits every linear weight's out-features (and
+the embedding's and the head's vocab rows) over M model devices a data
+shard, the rest of each step on its first device
+(`make_serve_mesh(N, M, ...)`; the dense GQA families), and prints each
+device's resident packed weight bytes. `--shard-devices` names the
+devices, N x M in (data, model) order (`cuda:0,cuda:0` puts two shards on
+one card); without it each takes a card of its own (fewer cards than
+shards refuse), or the CPU under `--device cpu`. `--http PORT`
 serves the engine the other flags build over HTTP instead
 (`serve/frontend.py`: POST /v1/completions with SSE streaming, /metrics,
 /healthz, /v1/stats, /admin/drain) on 127.0.0.1:PORT until interrupted; 0
@@ -63,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.dist.sharding import packed_bytes
 from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import lm
 from repro_torch.obs import Instrumentation, MetricsRegistry
@@ -203,9 +209,13 @@ def main(argv=None) -> dict:
                     help="serve over HTTP on 127.0.0.1:PORT (0: ephemeral)")
     ap.add_argument("--data-shards", type=int, default=1, metavar="N",
                     help="mesh-sharded serving over N data shards")
+    ap.add_argument("--model-shards", type=int, default=1, metavar="M",
+                    help="split linear weights over M model devices a data "
+                    "shard")
     ap.add_argument("--shard-devices", default=None, metavar="DEV,...",
-                    help="the shards' devices, one a shard (default: a card "
-                    "a shard; the CPU under --device cpu)")
+                    help="the shards' devices, data x model in (data, model) "
+                    "order (default: a card a shard; the CPU under --device "
+                    "cpu)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's CPU smoke size (ArchConfig.reduced)")
@@ -219,9 +229,12 @@ def main(argv=None) -> dict:
         ap.error("--disagg hands paged blocks from a prefill worker to a "
                  "decode worker: drop --dense, --legacy, --shared-prefix "
                  "and --spec-k")
-    if args.data_shards > 1 and (args.legacy or args.disagg):
-        ap.error("--data-shards shards the engine's slots and pool: drop "
+    sharded = args.data_shards > 1 or args.model_shards > 1
+    if sharded and (args.legacy or args.disagg):
+        ap.error("--data-shards and --model-shards shard the engine: drop "
                  "--legacy and --disagg")
+    if args.model_shards > 1 and args.dense:
+        ap.error("--model-shards serves the paged pool: drop --dense")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -246,11 +259,12 @@ def main(argv=None) -> dict:
     if args.legacy:
         return _legacy(cfg, params, args, rng, device, label)
     mesh = None
-    if args.data_shards > 1:
+    if sharded:
+        n = args.data_shards * args.model_shards
         names = (args.shard_devices.split(",") if args.shard_devices
-                 else [str(device)] * args.data_shards
-                 if device.type == "cpu" else None)
-        mesh = make_serve_mesh(args.data_shards, 1, devices=names)
+                 else [str(device)] * n if device.type == "cpu" else None)
+        mesh = make_serve_mesh(args.data_shards, args.model_shards,
+                               devices=names)
     econf = EngineConfig(
         n_slots=min(args.batch, args.shared_prefix or args.batch),
         max_len=max_len, block_size=block, scheme=args.scheme,
@@ -294,12 +308,20 @@ def main(argv=None) -> dict:
     }
     shards = ""
     if mesh is not None:
-        out.update(data_shards=mesh.data,
+        out.update(data_shards=mesh.data, model_shards=mesh.model,
                    shard_devices=[str(d) for d in mesh.devices],
                    free_by_shard=eng.pool.utilization()["free_by_shard"])
         shards = (f", {mesh.data} data shards on "
                   f"{','.join(out['shard_devices'])} (free blocks by shard "
                   f"{out['free_by_shard']})")
+        if mesh.model > 1:
+            out["packed_bytes"] = [[packed_bytes(t, j)
+                                    for j in range(mesh.model)]
+                                   for t in eng.shard_params]
+            out["packed_bytes_whole"] = packed_bytes(params)
+            shards += (f", {mesh.model} model shards a data shard: resident "
+                       f"packed bytes by (data, model) device "
+                       f"{out['packed_bytes']} of {out['packed_bytes_whole']}")
     disagg = ""
     if args.disagg:
         out.update(disagg=True, handoffs=st["handoffs"],

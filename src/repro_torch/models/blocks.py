@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.linear import dense, qlinear
+from repro_torch.core.linear import ModelShard, dense, gather_whole, qlinear
 
 
 def site_seed(seed, layer: int, site: int) -> np.ndarray:
@@ -121,8 +121,29 @@ def embed_init(draw, vocab: int, d_model: int) -> torch.Tensor:
     return draw("embed", (vocab, d_model), d_model, 0.02)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+def embed_lookup(table, tokens: torch.Tensor,
                  dtype=torch.bfloat16) -> torch.Tensor:
+    """table[tokens] in `dtype`. A ModelShard table (split over a serving
+    mesh's "model" axis on its vocab rows): each part looks up its own rows
+    on its device, -0.0 for a token it does not hold, and the parts' rows
+    are summed in model order on the tokens' device. Exact, signed zeros
+    included: the one part holding a token contributes its row v, every
+    other -0.0, and v + -0.0 = -0.0 + v = v."""
+    if isinstance(table, ModelShard):
+        if table.dim != -2:
+            return embed_lookup(gather_whole(table, tokens.device), tokens,
+                                dtype)
+        out = None
+        for j, part in enumerate(table.parts):
+            rows = part.shape[0]
+            t = tokens.long().to(part.device) - j * rows
+            mine = (t >= 0) & (t < rows)
+            vals = torch.where(mine[..., None],
+                               part[t.clamp(0, rows - 1)].to(dtype),
+                               torch.full((), -0.0, dtype=dtype,
+                                          device=part.device)).to(tokens.device)
+            out = vals if out is None else out + vals
+        return out
     return table[tokens.long()].to(dtype)
 
 

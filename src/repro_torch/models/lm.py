@@ -57,7 +57,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.linear import PackedQWeight, qlinear
+from repro_torch.core.linear import ModelShard, PackedQWeight, qlinear
 from repro_torch.models import attention as A
 from repro_torch.models import griffin as G
 from repro_torch.models import mla as M
@@ -159,7 +159,7 @@ def layer_params(tree, i: int):
     """Layer i of a stacked parameter tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
-    if isinstance(tree, PackedQWeight):
+    if isinstance(tree, (PackedQWeight, ModelShard)):
         return tree.layer(i)
     return tree[i]
 
@@ -400,6 +400,9 @@ def _slice_layers(tree, sl: slice):
         return {k: _slice_layers(v, sl) for k, v in tree.items()}
     if isinstance(tree, PackedQWeight):
         return PackedQWeight(*(t[sl] for t in tree))
+    if isinstance(tree, ModelShard):
+        return ModelShard(tuple(_slice_layers(p, sl) for p in tree.parts),
+                          tree.dim)
     return tree[sl]
 
 

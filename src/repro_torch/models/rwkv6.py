@@ -24,6 +24,8 @@ integrates its tokens exactly as single-token steps do.
 The projections (r/k/v/gate/output, channel-mix) are quantized linears; the
 token-shift and decay LoRA products (`mix_w1`, `mix_w2`, `ww1`, `ww2`) are
 f32 matmuls, and the recurrence is elementwise f32, as in the reference.
+On the card, outside autograd, the LoRA products run in calls of one shape
+(`_lora`), so that a verify chunk's rows are the decode steps' bit for bit.
 """
 
 from __future__ import annotations
@@ -78,21 +80,49 @@ def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
     return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
 
 
+LORA_ROWS = 16  # rows of each LoRA call on the card outside autograd
+
+
+def _lora(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn, a row-wise chain of f32 GEMMs (n, K) -> (n, ...), over x (..., K)
+    f32, as (..., prod of fn's output dims). On the card outside an autograd
+    graph (serving) it runs on chunks of exactly LORA_ROWS rows, the last
+    zero-padded: cuBLAS picks its algorithm, hence each output's summation
+    order, from the shape, so with every call of one shape a row's result
+    does not depend on how many rows run beside it (a speculative verify
+    chunk of 4 tokens a slot against the 4 decode steps it stands for).
+    Elsewhere one call over all rows."""
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])
+    n = xf.shape[0]
+    if not x.is_cuda or torch.is_grad_enabled():
+        return fn(xf).reshape(*lead, -1)
+    pad = -n % LORA_ROWS
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, xf.shape[1]))])
+    out = torch.cat([fn(c) for c in xf.split(LORA_ROWS)])[:n]
+    return out.reshape(*lead, -1)
+
+
 def _mix_inputs(p, x, shifted):
     """Data-dependent token-shift interpolation (5 mixed variants of x)."""
     xx = shifted - x
-    dyn = torch.tanh(xx.float() @ p["mix_w1"].float().T)
     b, s, _ = x.shape
     r = p["mix_w2"].shape[1]
-    dyn = dyn.reshape(b, s, 5, r)
-    off = torch.einsum("bsfr,frd->bsfd", dyn, p["mix_w2"].float())
+    w1, w2 = p["mix_w1"].float(), p["mix_w2"].float()
+
+    def lora(t):
+        dyn = torch.tanh(t @ w1.T).reshape(t.shape[0], 5, r)
+        return torch.einsum("nfr,frd->nfd", dyn, w2)
+    off = _lora(lora, xx.float()).reshape(b, s, 5, -1)
     mix = p["mu"][None, None] + off                    # (B, S, 5, D)
     return x[:, :, None, :] + xx[:, :, None, :] * mix.to(x.dtype)
 
 
 def _decay(p, xw):
     """Per-token per-channel log-decay, clamped (see the module docstring)."""
-    lo = torch.tanh(xw.float() @ p["ww1"].float().T) @ p["ww2"].float().T
+    w1, w2 = p["ww1"].float(), p["ww2"].float()
+    lo = _lora(lambda t: torch.tanh(t @ w1.T) @ w2.T, xw.float())
     logw = -torch.exp(torch.clamp(p["w0"][None, None] + lo, -8.0, 1.6))
     return torch.clamp(logw, LOG_W_MIN, -1e-4)
 

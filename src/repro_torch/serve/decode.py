@@ -4,8 +4,10 @@ its mesh-sharded form, and the fixed-batch seed loop over dense caches.
 Counterpart of `repro/serve/decode.py`. `make_paged_serve_step` is THE
 engine step (serve/engine.py): with a block table it runs on the paged pool,
 with `table=None` on dense per-slot caches. `make_sharded_serve_step` is its
-form over a serving mesh's "data" axis (`shard_serve_step`), the
-counterpart of the reference's manual-"data" `shard_map`. `make_prefill_step`,
+form over a serving mesh (`shard_serve_step`), the counterpart of the
+reference's manual-"data" `shard_map` with GSPMD over "model": once a data
+shard, its split linears running each weight part on its model device.
+`make_prefill_step`,
 `make_serve_step` and `greedy_generate` are the legacy fixed-batch path over
 dense caches (`lm.init_cache`): the seed baseline of the reference's
 benchmarks and its simple examples. Forward quantization (RTN + 4/6) is
@@ -49,42 +51,64 @@ def make_serve_step(cfg, scheme: str):
 def make_paged_serve_step(cfg, scheme: str):
     """The engine's step: per-slot position vector, active mask, block table
     (None for dense caches) and caches updated in place. Returns (logits,
-    caches)."""
+    caches). It builds no autograd graph, whatever the parameters need, so
+    its bf16 GEMMs take the order-fixed kernel (`core.linear._serving`)."""
     def paged_serve_step(params, cache, table, tokens, pos, active):
-        return lm.forward(params, cfg, {"tokens": tokens}, scheme, SEED,
-                          caches=cache, mode="decode", pos=pos,
-                          active=active, block_table=table)
+        with torch.no_grad():
+            return lm.forward(params, cfg, {"tokens": tokens}, scheme, SEED,
+                              caches=cache, mode="decode", pos=pos,
+                              active=active, block_table=table)
     return paged_serve_step
 
 
 def make_sharded_serve_step(cfg, scheme: str, mesh, *, out_device=None):
-    """The engine's step over a serving mesh's "data" axis: decode slots,
-    the slot-affine pool (`KVPool(n_shards=...)`, one cache tree a shard),
-    its shard-local tables and the per-slot inputs split over "data", the
-    unchanged step run on each shard's own slice on the shard's device, no
-    collective touching the pool (`shard_serve_step`).
+    """The engine's step over a serving mesh: decode slots, the slot-affine
+    pool (`KVPool(n_shards=...)`, one cache tree a shard), its shard-local
+    tables and the per-slot inputs split over "data", the unchanged step
+    run on each shard's own slice on the shard's device, no collective
+    touching the pool (`shard_serve_step`). Over "model" (model > 1, the
+    dense GQA families: `check_model_axis`) the shard's weights are split
+    over its model devices (`dist.sharding.split_serve_params`): each split
+    linear runs each part on its device and concatenates the outputs in
+    model order, so the shard computes the unsharded step over its rows.
 
     Each shard's forward runs on its LOCAL batch, as the reference's
     `shard_map` body does: under bf16 the decode forward is row-local, so
-    a row's arithmetic is the unsharded step's (the card's GEMMs may sum a
-    shard's fewer rows in another order); under quartet2 the activation
-    absmax spans a shard's slots alone, so the streams are deterministic
-    but not bit-comparable to the unsharded batch."""
-    data_shards(mesh)
+    a row's arithmetic is the unsharded step's (on the card its GEMMs sum in
+    an order fixed by K alone, not by the row count); under quartet2 the
+    activation absmax spans a shard's slots alone, so the streams are
+    deterministic but not bit-comparable to the unsharded batch. A model
+    split changes no bit: each part quantizes the whole activation."""
+    check_model_axis(cfg, mesh)
     return shard_serve_step(make_paged_serve_step(cfg, scheme), mesh,
                             out_device=out_device)
 
 
 def data_shards(mesh) -> int:
-    """The "data" size of a serving mesh. A "model" axis > 1 (weights split
-    over cards) is ROADMAP.md's Queue 1 item 4.3 and raises."""
-    model, data = mesh_sizes(mesh)
-    if model > 1:
+    """The "data" size of a serving mesh."""
+    return mesh_sizes(mesh)[1]
+
+
+MODEL_AXIS_ITEM = "ROADMAP.md's Queue 1 item 4.6"
+
+
+def check_model_axis(cfg, mesh) -> None:
+    """Raise for what serving over a "model" axis > 1 does not cover: MLA,
+    MoE (whose experts `param_spec` puts on "model": expert parallelism)
+    and the recurrent families, each named with the ROADMAP item that will
+    port it. The dense GQA families (dense, vlm) pass."""
+    model, _ = mesh_sizes(mesh)
+    if model <= 1:
+        return
+    what = ("MLA" if cfg.attn == "mla" else
+            "MoE (experts on 'model': expert parallelism)" if cfg.moe else
+            f"the recurrent family '{cfg.family}'"
+            if cfg.family in ("ssm", "hybrid") else None)
+    if what is not None:
         raise NotImplementedError(
-            f"serving over a 'model' axis of {model}: weights split over "
-            "cards come with ROADMAP.md's Queue 1 item 4.3 (training and "
-            "serving over a 'model' axis)")
-    return data
+            f"{cfg.name}: serving {what} over a 'model' axis of {model} comes "
+            f"with {MODEL_AXIS_ITEM}; the dense GQA families serve over "
+            "'model' now")
 
 
 def _on(device: torch.device):
@@ -106,11 +130,16 @@ def shard_serve_step(step, mesh, *, out_batch_axis: int = 0, out_device=None):
     shard's `out` is moved to `out_device` (default: the mesh's first
     device) and the shards' outputs are concatenated on `out_batch_axis`
     (0 for (B, S, V) logits, 1 for the draft's (K, B) proposals). Caches
-    update in place; the list of shard trees is returned as the cache."""
+    update in place; the list of shard trees is returned as the cache.
+    Over "model" `params[s]` holds shard s's split weights
+    (`split_serve_params`), whose linears launch on the shard's model
+    devices."""
     devices = mesh.devices
     dst = torch.device(out_device) if out_device is not None else devices[0]
 
     def sharded(params, caches, tables, tokens, pos, active):
+        if isinstance(tables, torch.Tensor):  # one data shard's pool
+            tables = (tables,)
         n = tokens.shape[0] // len(devices)
         outs = []
         for s, dev in enumerate(devices):

@@ -58,11 +58,19 @@ Placement is occupancy-aware (`_place`); without the host tier a cached
 prefix serves only its own shard, with it a match materializes on any
 shard, and `replicate_hits` copies hot prefix blocks into peer shards at
 tick boundaries. Under bf16 each row's arithmetic is the unsharded
-engine's: on the CPU the streams are bitwise, on the card a shard's GEMMs
-run over its own rows and may sum in another order (a step within a few
-bf16 ulps). Under quartet2 each shard's activation absmax spans its own
-slots (the reference's contract). A "model" axis > 1 raises
-NotImplementedError (ROADMAP.md, Queue 1 item 4.3).
+engine's, so the streams are bitwise, on the card too (a step's bf16 GEMMs
+sum each output in an order fixed by K alone, at any row count:
+`kernels.bf16_matmul`). Under quartet2 each shard's activation absmax
+spans its own slots (the reference's contract).
+
+Over a "model" axis > 1 (the dense GQA families, a paged pool, role
+"both": anything else raises, naming its ROADMAP item) the parameters are
+cut once into a tree per data shard (`dist.sharding.split_serve_params`:
+each linear weight's out-features, the embedding's and the head's vocab
+rows, one part a model device) and the engine keeps no whole tree. Each
+data shard's step and pool stay on its first device; its split linears run
+each part on its model device and concatenate the outputs in model order,
+so the streams are the unsharded engine's bit for bit.
 
 Disaggregated prefill/decode (`EngineConfig.role`, driven as a pair by
 `serve/frontend.py`'s `EnginePair`): a "prefill" worker admits prompts and
@@ -94,6 +102,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import split_serve_params
 from repro_torch.launch.mesh import ServeMesh
 from repro_torch.models import lm
 from repro_torch.obs.instrumentation import NULL, legacy_stats_dict
@@ -260,9 +269,9 @@ class EngineConfig:
     # not travel)
     role: str = "both"
     # mesh-sharded serving (launch.mesh.make_serve_mesh): decode slots and
-    # the slot-affine pool split over the mesh's "data" axis, one device a
-    # shard; None serves unsharded. n_slots and the pool's n_blocks must
-    # divide by the "data" size; a "model" axis > 1 raises
+    # the slot-affine pool split over the mesh's "data" axis, linear weights
+    # over its "model" axis; None serves unsharded. n_slots and the pool's
+    # n_blocks must divide by the "data" size
     mesh: ServeMesh | None = None
     # cross-shard replication (needs prefix_spill): prefix nodes matched
     # this many times get copies of their blocks in peer shards' pools
@@ -294,8 +303,17 @@ class ServeEngine:
         self.econf = e = econf or EngineConfig()
         self.mesh = e.mesh
         self.data_shards = 1
+        self.model_shards = 1
         if self.mesh is not None:
             self.data_shards = serve_decode.data_shards(self.mesh)
+            self.model_shards = self.mesh.model
+            serve_decode.check_model_axis(cfg, self.mesh)
+            if self.model_shards > 1 and (not e.paged or e.role != "both"):
+                raise NotImplementedError(
+                    f"serving over a 'model' axis of {self.model_shards} runs "
+                    "the paged pool with role 'both'; dense caches and the "
+                    "disaggregated roles over 'model' come with "
+                    f"{serve_decode.MODEL_AXIS_ITEM}")
             if e.n_slots % self.data_shards:
                 raise ValueError(
                     f"n_slots={e.n_slots} must divide over the mesh 'data' "
@@ -332,9 +350,13 @@ class ServeEngine:
                        if e.prequant else params)
         # the parameters each shard's step reads: one copy a distinct shard
         # device (shards sharing a card share it; on the engine's own
-        # device, the engine's tree itself)
+        # device, the engine's tree itself); over "model" one tree a data
+        # shard, cut by the serving specs, and no whole tree kept
         self.shard_params = None
-        if self.mesh is not None:
+        if self.model_shards > 1:
+            self.shard_params = split_serve_params(self.params, self.mesh)
+            self.params = None
+        elif self.mesh is not None:
             placed: dict[torch.device, Any] = {}
             for d in self.mesh.devices:
                 if d not in placed:

@@ -351,8 +351,10 @@ class KVPool:
     owns slots [s*n_slots/S, (s+1)*n_slots/S) and blocks [s*n_blocks/S,
     (s+1)*n_blocks/S), each shard runs its own free list, a slot allocates
     only from its shard, and admission is per shard (`can_admit(...,
-    slot=i)`): one shard can be full while another has room. `devices`
-    names each shard's device (default: every shard on `device`).
+    slot=i)`): one shard can be full while another has room; without a
+    slot they answer for the shard that could take it, as the reference's
+    "can any shard take it". `devices` names each shard's device (default:
+    every shard on `device`).
     """
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int, *,
@@ -544,13 +546,19 @@ class KVPool:
         not yet allocated) so growing sequences never exhaust the pool;
         `cached_blocks` (prefix-cache blocks the candidate would adopt, not
         allocate) reduce its demand. A dense pool is bounded by max_len
-        alone. With `n_shards > 1` only the shard of `slot` counts, and a
-        slot is required: free blocks of several shards back no single slot,
-        so there is no whole-pool answer."""
+        alone. With `n_shards > 1` only the shard of `slot` counts; without
+        a slot the answer is the reference's "can ANY shard take it", each
+        shard asked with its first slot and no cached blocks (as the
+        reference asks; free blocks of several shards back no single slot,
+        so there is no whole-pool answer)."""
         if total_tokens > self.max_len:
             return False
         if not self.paged:
             return True
+        if self.n_shards > 1 and slot is None:
+            return any(self.can_admit(total_tokens, max_growth,
+                                      slot=sh * self.slots_per_shard)
+                       for sh in range(self.n_shards))
         return self.admission_shortfall(total_tokens, max_growth, slot,
                                         cached_blocks) == 0
 
@@ -560,12 +568,16 @@ class KVPool:
                             cached_blocks: int = 0) -> int:
         """Free blocks missing on `slot`'s shard for `can_admit` to pass (0
         when it passes): what the engine asks the prefix cache to evict
-        there before admitting. A sharded pool needs the slot."""
+        there before admitting. Without a slot on a sharded pool, the least
+        over the shards, each asked with no cached blocks: 0 exactly when
+        `can_admit(slot=None)` passes (the reference's slot-less call
+        raises a TypeError here)."""
         if not self.paged or total_tokens > self.max_len:
             return 0
         if self.n_shards > 1 and slot is None:
-            raise ValueError("admission on a sharded pool needs the "
-                             "candidate slot (its shard's blocks)")
+            return min(self.admission_shortfall(
+                total_tokens, max_growth, slot=sh * self.slots_per_shard)
+                for sh in range(self.n_shards))
         sh = 0 if slot is None else self.shard_of_slot(slot)
         need = max(0, self.max_live_blocks(total_tokens, max_growth)
                    - cached_blocks)

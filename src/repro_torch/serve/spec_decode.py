@@ -100,10 +100,11 @@ class DraftStack:
                            devices=self.mesh.devices if self.mesh else None)
 
     def _step(self, params, caches, table, tokens, pos, active):
-        logits, _ = lm.forward_prefix(
-            params, self.cfg, {"tokens": tokens}, self.scheme, SEED,
-            n_prefix=self.n_prefix, caches=caches, mode="decode",
-            pos=pos, active=active, block_table=table)
+        with torch.no_grad():   # as the engine's step (serve.decode)
+            logits, _ = lm.forward_prefix(
+                params, self.cfg, {"tokens": tokens}, self.scheme, SEED,
+                n_prefix=self.n_prefix, caches=caches, mode="decode",
+                pos=pos, active=active, block_table=table)
         return logits, caches
 
     def _propose_loop(self, k, params, caches, table, tok0, pos, active):

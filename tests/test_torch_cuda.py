@@ -90,7 +90,29 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     through `make_sharded_serve_step` against the unsharded step over the
     same slots: each shard's rows within the bf16 bar of the paged step
     above (2e-2; the card's f32 GEMMs may sum 2 rows in another order than
-    4) and argmax equal, and its K/V writes landing in the shard's blocks.
+    4) and argmax equal, and its K/V writes landing in the shard's blocks;
+  - bf16_matmul (the port's own kernel, no TPU counterpart): |C_kernel -
+    C_plain| <= 1e-5 * max|C_plain| (only the f32 summation order differs)
+    at M from 1 to 200; two calls bitwise; an f32 operand bitwise its bf16
+    rounding; a row-pitched view and a K off the vector loads (the scalar
+    loader) bitwise the contiguous, zero-padded call;
+  - row-count and column-slice independence, bitwise: the rows of an M
+    call equal those of calls over parts of its rows (4 against 2 + 2, 5
+    against 3 + 2, 17 against 16 + 1, 32 against 16 + 16, 64 against 32 +
+    32, 128 against 64 + 64, 200 against 100 + 100: every tile shape of the
+    kernel against every other), and an N / 2 call the matching half of the
+    full call, for `_mm` and `dense` (through bf16_matmul) at llama-200m's
+    shapes; #2 at 4 against 2 + 2 and 64 against 32 + 32, and at N / 2; #1
+    given the whole weight's absmax bitwise the whole weight's quantization
+    on each half of its rows;
+  - rwkv6-7b's 4-token verify chunk (2 layers at full width, bf16) bitwise
+    the 4 decode steps it stands for;
+  - streams on the card: the data-sharded bf16 engine (2 shards of 2
+    slots, and of 4 slots at 128-row prefill chunks, llama-200m's first 4
+    layers at full width) bitwise the unsharded engine's over both pools,
+    and the model-sharded engine
+    (`make_serve_mesh(1, 2)`, both model devices on the one card) bitwise
+    too, under bf16 and under quartet2 with prequantized and raw weights.
 """
 
 import asyncio
@@ -272,7 +294,8 @@ def test_nvfp4_fos_quant_launches_only_its_kernels(dev, m, k):
     assert ops.LAUNCHES["nvfp4_fos_quant"] == calls
     regime = NQ.plan(m, k).regime
     assert NQ.REGIME_LAUNCHES == {"cluster": calls * (regime == "cluster"),
-                                  "two_pass": calls * (regime == "two_pass")}
+                                  "two_pass": calls * (regime == "two_pass"),
+                                  "given_absmax": 0}
 
 
 FP4_MATMUL_NK = [(1280, 1280), (3456, 1280), (1280, 3456), (576, 16), (576, 48),
@@ -903,7 +926,8 @@ def test_qlinear_autograd_card_vs_cpu(dev, scheme):
         # phase 2 once per backward GEMM (dX, dW)
         assert n == {"nvfp4_fos_quant": 2, "fp4_matmul": 3, "paged_gqa": 0,
                      "ms_eden_phase1": 4, "ms_eden_phase2": 2,
-                     "paged_gqa_q": 0, "paged_mla": 0, "paged_mla_q": 0}
+                     "paged_gqa_q": 0, "paged_mla": 0, "paged_mla_q": 0,
+                     "bf16_matmul": 0}
 
 
 def test_checkpoint_of_card_state_is_a_snapshot(dev, tmp_path):
@@ -1675,3 +1699,221 @@ def test_sharded_llama_step_on_card_against_unsharded(dev):
     torch.testing.assert_close(k1[:, local].float(),
                                ku[:, int(upool._table[2, 0])].float(),
                                atol=1e-6, rtol=2.0 ** -7)
+
+
+# --------------------------------------------------------------------------
+# bf16_matmul, row-count and column-slice independence, model-axis serving
+# --------------------------------------------------------------------------
+
+BF16_MM_BAR = 1e-5   # * max|C_plain|: the f32 summation order alone differs
+BF16_MM_NK = [(1280, 1280), (3456, 1280), (1280, 3456), (32000, 1280), (40, 72)]
+
+
+@pytest.mark.parametrize("n,k", BF16_MM_NK)
+@pytest.mark.parametrize("m", [1, 2, 4, 16, 64, 200])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_bf16_matmul_matches_plain(dev, m, n, k, wdtype):
+    from repro_torch.kernels import bf16_matmul as BM
+    g = torch.Generator(device=dev).manual_seed(m * n + k)
+    a = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    b = (torch.randn((n, k), generator=g, device=dev) * k ** -0.5).to(wdtype)
+    before = ops.LAUNCHES["bf16_matmul"]
+    got = ops.bf16_matmul(a, b)
+    assert ops.LAUNCHES["bf16_matmul"] == before + 1
+    want = BM.bf16_matmul_plain(a, b)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert (got - want).abs().max().item() <= BF16_MM_BAR * want.abs().max().item()
+    assert torch.equal(got, ops.bf16_matmul(a, b))
+    assert torch.equal(got, ops.bf16_matmul(a.float(), b.bfloat16()))
+
+
+def test_bf16_matmul_views_ragged_k_and_refusals(dev):
+    """A row-pitched view and a K off the vector loads (K = 52: the scalar
+    loader) give, bitwise, the call on contiguous operands zero-padded to K
+    = 56 (the vector loader: the same values in every k16 step); a
+    transposed operand raises."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    big = torch.randn((6, 100), generator=g, device=dev)
+    a, b = big[:, :52], torch.randn((30, 52), generator=g, device=dev)
+    assert not a.is_contiguous()
+    pad = torch.nn.functional.pad
+    assert torch.equal(ops.bf16_matmul(a, b),
+                       ops.bf16_matmul(pad(a, (0, 4)), pad(b, (0, 4))))
+    with pytest.raises(ValueError, match="inner stride"):
+        ops.bf16_matmul(a, b.T.contiguous().T)
+
+
+def _mm_ops(dev, n, k):
+    """The three GEMMs of a bf16 or quartet2 decode step, each as
+    f(rows (M, K) bf16) -> (M, N), with its weight (N, K)."""
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+    qw = ops.nvfp4_fos_quant(w)
+
+    def fp4(x, w_rows=slice(None)):
+        qx = ops.nvfp4_fos_quant(x)
+        return ops.fp4_matmul(qx[0], qx[1], qw[0][w_rows].contiguous(),
+                              qw[1][w_rows].contiguous(), qx[2], qw[2])
+    return {"_mm": lambda x, r=slice(None): L._mm(x, w[r], serving=True),
+            "dense": lambda x, r=slice(None): L.dense(x, w[r]),
+            "fp4_matmul": fp4}
+
+
+# (M, first part's rows): every tile shape of bf16_matmul (one m16 tile, two,
+# four, four with grid rows) against every other
+BF16_SPLITS = [(4, 2), (5, 3), (17, 16), (32, 16), (64, 32), (128, 64),
+               (200, 100)]
+
+
+@pytest.mark.parametrize("n,k", [(1280, 1280), (3456, 1280), (1280, 3456)])
+@pytest.mark.parametrize("op", ["_mm", "dense", "fp4_matmul"])
+def test_rows_independent_of_row_count(dev, op, n, k):
+    """The rows of one call over M rows equal those of calls over parts of
+    them, bitwise: for `_mm` and `dense` at every split of BF16_SPLITS (a
+    decode step's 4 rows against a data shard's 2; a 16-token prefill chunk
+    of 8 slots, 128 rows, against a shard's 64); for #2 at 4 against 2 + 2
+    and 64 against 32 + 32. #2 quantizes its activation per call (a
+    per-tensor absmax), so its rows are fed the whole batch's codes: the
+    GEMM alone is held."""
+    f = _mm_ops(dev, n, k)[op]
+    g = torch.Generator(device=dev).manual_seed(3)
+    splits = [(4, 2), (64, 32)] if op == "fp4_matmul" else BF16_SPLITS
+    for m, h in splits:
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        if op == "fp4_matmul":
+            qx = ops.nvfp4_fos_quant(x)
+            qw = ops.nvfp4_fos_quant(torch.randn((n, k), generator=g, device=dev))
+            whole = ops.fp4_matmul(qx[0], qx[1], qw[0], qw[1], qx[2], qw[2])
+            parts = [ops.fp4_matmul(qx[0][r].contiguous(), qx[1][r].contiguous(),
+                                    qw[0], qw[1], qx[2], qw[2])
+                     for r in (slice(0, h), slice(h, m))]
+        else:
+            whole = f(x)
+            parts = [f(x[:h]), f(x[h:])]
+        assert torch.equal(whole, torch.cat(parts)), (m, h)
+
+
+@pytest.mark.parametrize("n,k", [(1280, 1280), (3456, 1280), (32000, 1280)])
+@pytest.mark.parametrize("op", ["_mm", "dense", "fp4_matmul"])
+def test_columns_independent_of_the_slice(dev, op, n, k):
+    """An N / 2 call (a model shard's half of the weight) equals the
+    matching half of the full call, bitwise, at M = 4, 64 and 128."""
+    f = _mm_ops(dev, n, k)[op]
+    g = torch.Generator(device=dev).manual_seed(4)
+    for m in (4, 64, 128):
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        whole = f(x)
+        for half in (slice(0, n // 2), slice(n // 2, n)):
+            assert torch.equal(f(x, half), whole[:, half]), (m, half)
+
+
+@pytest.mark.parametrize("m,k", [(1280, 1280), (3456, 1280), (32000, 1280)])
+def test_given_absmax_quant_is_the_whole_quantization_on_card(dev, m, k):
+    """#1's given-absmax entry (the encode kernel alone): each half of a
+    weight's rows quantized with the max of the halves' absmaxes is, bitwise,
+    that half of the kernel's whole-weight quantization, and within #1's
+    bar of the plain version with the same absmax; one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    w = torch.randn((m, k), generator=g, device=dev) * k ** -0.5
+    whole = ops.nvfp4_fos_quant(w)
+    halves = [w[:m // 2].contiguous(), w[m // 2:].contiguous()]
+    absmax = torch.maximum(halves[0].abs().amax(), halves[1].abs().amax()).reshape(1)
+    NQ.REGIME_LAUNCHES.update(given_absmax=0)
+    for j, h in enumerate(halves):
+        got = ops.nvfp4_fos_quant(h, absmax)
+        rows = slice(j * m // 2, (j + 1) * m // 2)
+        assert torch.equal(got[0], whole[0][rows])
+        assert torch.equal(got[1], whole[1][rows])
+        assert torch.equal(got[2], whole[2])
+        assert_quant_close(got, NQ.nvfp4_fos_quant_plain(h, absmax))
+    assert NQ.REGIME_LAUNCHES["given_absmax"] == 2
+
+
+def _llama4(dev):
+    import dataclasses
+    full = registry.get("llama_200m")
+    cfg = dataclasses.replace(full, n_layers=4)
+    return cfg, lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def _engine_streams(cfg, params, dev, prompts, max_new, **kw):
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    eng = ServeEngine(cfg, params, EngineConfig(**{**dict(
+        n_slots=4, max_len=80, block_size=16, prefill_chunk=16,
+        scheme="bf16", prequant=True, device=str(dev)), **kw}))
+    ids = [eng.submit(Request(list(p), max_new)) for p in prompts]
+    res = {r.req_id: r.tokens for r in eng.run()}
+    torch.cuda.synchronize()
+    assert eng.pool.free_block_count == eng.pool.n_blocks
+    return [res[i] for i in ids]
+
+
+def _prompts17(vocab, n=4):
+    g = torch.Generator().manual_seed(17)
+    return [torch.randint(0, vocab, (n,), generator=g).tolist()
+            for n in (33, 17, 49, 33, 41, 25, 17, 49)[:n]]
+
+
+@pytest.mark.parametrize("slots", [4, 8])
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_pool", "nvfp4_pool"])
+def test_data_sharded_bf16_streams_bitwise_on_card(dev, kv_quant, slots):
+    """Phase 17a's guard: two data shards on the one card serve llama-200m's
+    first 4 layers at full width under bf16 bitwise the unsharded engine,
+    12 new tokens a request: 4 slots (a 64-row prefill chunk against a
+    shard's 32) and 8 (128 rows against 64)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    cfg, params = _llama4(dev)
+    prompts = _prompts17(cfg.vocab, slots)
+    kw = dict(kv_quant=kv_quant, n_slots=slots)
+    want = _engine_streams(cfg, params, dev, prompts, 12, **kw)
+    got = _engine_streams(cfg, params, dev, prompts, 12, **kw,
+                          mesh=make_serve_mesh(2, 1, devices=[dev] * 2))
+    assert got == want
+
+
+@pytest.mark.parametrize("scheme,prequant", [("bf16", True), ("quartet2", True),
+                                             ("quartet2", False)])
+def test_model_sharded_streams_bitwise_on_card(dev, scheme, prequant):
+    """make_serve_mesh(1, 2) with both model devices on the one card: the
+    streams bitwise the unsharded engine's (llama-200m's first 4 layers at
+    full width, 6 new tokens a request), #2 launched on N / 2 slices."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    cfg, params = _llama4(dev)
+    prompts = _prompts17(cfg.vocab)
+    kw = dict(scheme=scheme, prequant=prequant)
+    want = _engine_streams(cfg, params, dev, prompts, 6, **kw)
+    got = _engine_streams(cfg, params, dev, prompts, 6,
+                          mesh=make_serve_mesh(1, 2, devices=[dev] * 2), **kw)
+    assert got == want
+
+
+
+def test_rwkv6_verify_chunk_is_the_decode_steps_on_card(dev):
+    """rwkv6-7b at full width (2 layers), bf16: one 4-token verify chunk
+    over 4 slots gives, bitwise, the logits of the 4 single-token steps it
+    stands for (every GEMM of the chunk, 16 rows, against 4: the bf16
+    linears through bf16_matmul, the f32 LoRAs in calls of one shape)."""
+    import dataclasses
+    cfg = dataclasses.replace(registry.get("rwkv6_7b"), n_layers=2)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    b, p, s = 4, 20, 4
+    toks = torch.randint(0, cfg.vocab, (b, p + s),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def clone(t):
+        if isinstance(t, dict):
+            return {k: clone(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(clone(v) for v in t)
+        return t.clone()
+    with torch.no_grad():
+        cache = lm.init_cache(cfg, b, 64, device=dev)
+        serve_decode.make_prefill_step(cfg, "bf16")(params, cache, {"tokens": toks[:, :p]})
+        step = serve_decode.make_serve_step(cfg, "bf16")
+        steps, c1 = [], clone(cache)
+        for j in range(s):
+            pos = torch.full((b,), p + j, dtype=torch.int32, device=dev)
+            steps.append(step(params, c1, toks[:, p + j:p + j + 1], pos)[0][:, -1])
+        pos = torch.full((b,), p, dtype=torch.int32, device=dev)
+        chunk = step(params, clone(cache), toks[:, p:], pos)[0]
+    assert torch.equal(chunk, torch.stack(steps, 1))

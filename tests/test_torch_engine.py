@@ -83,14 +83,15 @@ def test_quartet2_streams_equal_jax_up_to_a_narrow_margin():
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=make_serve_mesh(1, 2, devices=["cpu"])),
-    dict(mesh=make_serve_mesh(2, 2, devices=["cpu", "cpu"]))])
+    dict(arch="deepseek_v3_671b", data=1), dict(arch="deepseek_moe_16b", data=2)])
 def test_unported_options_raise(option):
-    """Serving over a "model" axis > 1 is ROADMAP.md's Queue 1 item 4.3
-    (mesh-sharded serving over "data" is ported)."""
-    cfg = registry.get("llama_200m").reduced()
-    with pytest.raises(NotImplementedError, match="4.3"):
-        ServeEngine(cfg, {}, EngineConfig(device="cpu", **option))
+    """Serving MLA or MoE over a "model" axis > 1 is ROADMAP.md's Queue 1
+    item 4.6 (the dense GQA families serve over it, and every family over
+    "data": test_torch_serve_model.py, test_torch_serve_sharded.py)."""
+    cfg = registry.get(option["arch"]).reduced()
+    mesh = make_serve_mesh(option["data"], 2, devices=["cpu"] * 2 * option["data"])
+    with pytest.raises(NotImplementedError, match="4.6"):
+        ServeEngine(cfg, {}, EngineConfig(device="cpu", n_slots=4, mesh=mesh))
 
 
 def test_kv_quant_builds_a_quantized_pool():

@@ -298,13 +298,50 @@ def test_sharded_pool_random_walk_matches_reference():
     assert all(n >= 10 for n in counts.values()), counts
 
 
+def _assert_slotless_admission(ref, port, what):
+    """Slot-less admission on the two-shard pools: the port's `can_admit`
+    is the reference's "can any shard take it" (which asks each shard
+    without cached blocks); the port's `admission_shortfall` is the least
+    per-shard shortfall (the reference's raises a TypeError there), 0
+    exactly when `can_admit` passes (up to max_len)."""
+    for total in (4, 13, 24, 28, 40):
+        for cached in (0, 2):
+            want = ref.can_admit(total, cached_blocks=cached)
+            assert port.can_admit(total, cached_blocks=cached) == want, what
+            short = port.admission_shortfall(total, cached_blocks=cached)
+            assert short == min(ref.admission_shortfall(
+                total, slot=sh * port.slots_per_shard) for sh in range(2)), what
+            if total <= port.max_len:   # beyond it: refused, shortfall 0
+                assert (short == 0) == want, what
+
+
+def test_sharded_pool_slotless_admission_matches_reference():
+    """`can_admit(slot=None)` / `admission_shortfall(slot=None)` on a
+    two-shard pool held against the reference's KVPool after every
+    operation of one seeded block history (the sharded walk's)."""
+    from repro.configs import registry as jregistry
+    from repro.serve.kv_pool import KVPool as JPool
+    ref = JPool(jregistry.get("llama_200m").reduced(), 4, 32, block_size=4,
+                n_blocks=12, n_shards=2)
+    port = _pool(n_slots=4, max_len=32, n_blocks=12, n_shards=2)
+    seen = set()
+
+    def check(step, op):
+        _assert_slotless_admission(ref, port, (step, op))
+        seen.add(tuple(port.can_admit(t) for t in (13, 24)))
+
+    counts = _walk(ref, port, 4, 300, check, seed=2, alloc=1)
+    assert all(n >= 5 for n in counts.values()), counts
+    assert len(seen) >= 2, seen   # the answers moved with the history
+
+
 def test_sharded_pool_layout_guards_and_routing():
     """Each shard owns a tree of blocks_per_shard + 1 blocks (its own
     scratch block at the local sentinel) and slots_per_shard slots; the
     divisibility error names n_shards, as the reference's; a write through
     the local sentinel lands in that shard's scratch block alone; COW and
-    host round trips route to the block's shard; admission needs the slot
-    when sharded."""
+    host round trips route to the block's shard; admission without a slot
+    answers for any shard (the reference's "can ANY shard take it")."""
     from repro_torch.serve import kv_pool as KV
     with pytest.raises(ValueError, match="n_shards"):
         _pool(n_slots=3, n_shards=2)
@@ -346,9 +383,10 @@ def test_sharded_pool_layout_guards_and_routing():
     pool.write_block_host(2, payload)        # into shard 0's local block 2
     k0 = pool.shard_caches[0][0]["l0"]["kv"][0]
     assert torch.equal(k0[:, 2], pool.shard_caches[1][0]["l0"]["kv"][0][:, 0])
-    for ask in (pool.admission_shortfall, pool.can_admit):
-        with pytest.raises(ValueError, match="slot"):
-            ask(4)                           # no whole-pool answer
+    # no whole-pool answer: a slot-less ask answers for the best shard
+    assert pool.can_admit(24) and pool.admission_shortfall(24) == 0
+    assert not pool.can_admit(28) and pool.admission_shortfall(28) == 1
+    assert pool.admission_shortfall(28, slot=2) == 4   # 7 of 3 effective
     assert pool.utilization()["free_by_shard"] == [6, 4]
 
 

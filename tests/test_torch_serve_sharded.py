@@ -327,8 +327,8 @@ def test_sharded_configuration_errors():
         _engine(n_slots=3, mesh=MESH)
     with pytest.raises(ValueError, match="n_shards"):
         _engine(n_slots=2, n_blocks=7, mesh=MESH)
-    with pytest.raises(NotImplementedError, match="4.3"):
-        _engine(mesh=make_serve_mesh(2, 2, devices=["cpu", "cpu"]))
+    with pytest.raises(ValueError, match="one a data shard"):
+        make_serve_mesh(2, 2, devices=["cpu", "cpu"])   # 4 devices: 2 x 2
     with pytest.raises(ValueError, match="one a data shard"):
         make_serve_mesh(2, 1, devices=["cpu"])
     if torch.cuda.device_count() < 2:
