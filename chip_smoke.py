@@ -455,10 +455,12 @@ Phases (any failure exits non-zero, before the result line):
                step at (1, 2), against 17f's unsharded reading. No scaling is claimed: one
                card gains nothing from two model devices.
      18e. bf16_matmul (the port's own kernel) within BF16_MM_BAR of its
-               plain version over one llama-200m bf16 decode step's 71 GEMMs
-               (M = 4) and a prefill chunk's (M = 64), the chunk's first 4
-               rows and its N / 2 halves bitwise the whole call's on 8 calls,
-               timed against torch.matmul; #2 over a quartet2
+               plain version over each row of BF16_MM_ROWS (PERF.md rows
+               9-9e: llama-200m's 71 bf16 GEMMs at M = 4, 64, 128 and 352,
+               its head at 16,384 rows, nemotron-4-15b's head at 4), a part
+               of the rows and the N / 2 halves bitwise the whole call's on
+               each row's first 8 calls, timed against torch.matmul (about
+               25 s); #2 over a quartet2
                decode step's 70 GEMMs whole and at N / 2 (bitwise the
                whole's halves), #1 given the whole weight's absmax over the
                140 weight halves (bitwise the whole's quantization), timed;
@@ -7961,14 +7963,62 @@ def phase_model_streams(torch, card, cfg, params, prompts, dev="cuda"):
     return out, runs, keep
 
 
-def bf16_mm_calls(torch, g, m, layers=10):
-    """The bf16 scheme's GEMMs of one llama-200m step at M rows: 7 linears a
-    layer (f32 weights, as the bf16 engine serves them) and the head."""
-    shapes = [nk for _ in range(layers) for nk in ARCH_SHAPES.values()]
-    shapes.append((32000, 1280))
+# bf16_matmul's rows of PERF.md's kernel table (18e; tools/bf16_mm_probe.py):
+# (what, M, the (N, K) of its GEMMs). The bf16 scheme's GEMMs of one
+# llama-200m step are 7 linears a layer over 10 layers and the head, on f32
+# weights as the bf16 engine serves them.
+LLAMA_STEP_NK = ([nk for _ in range(10) for nk in ARCH_SHAPES.values()]
+                 + [(32000, 1280)])
+BF16_MM_ROWS = {
+    "9": ("a llama-200m bf16 decode step's 71 GEMMs", 4, LLAMA_STEP_NK),
+    "9a": ("the same at a 16-token chunk of 4 slots", 64, LLAMA_STEP_NK),
+    "9b": ("the same at a 16-token chunk of 8 slots", 128, LLAMA_STEP_NK),
+    "9c": ("the same at a seed-loop prefill", 352, LLAMA_STEP_NK),
+    "9d": ("llama-200m's head over a 16,384-token prompt (11d)", 16384,
+           [(32000, 1280)]),
+    "9e": ("nemotron-4-15b's head at a decode step", 4, [(256000, 6144)]),
+}
+
+
+def bf16_mm_calls(torch, g, m, shapes):
+    """(a, w) pairs at M rows over `shapes` [(N, K)]: a bf16 activation,
+    an f32 weight scaled to unit-variance outputs."""
     return [(torch.randn((m, k), generator=g, device="cuda").bfloat16(),
              torch.randn((n, k), generator=g, device="cuda") * k ** -0.5)
             for n, k in shapes]
+
+
+def bf16_mm_row(torch, BM, ops, g, row, reps):
+    """Row `row` of BF16_MM_ROWS: every call within BF16_MM_BAR of the plain
+    version; on its first 8 calls, 4 of its rows (1 at M = 4: another
+    activation width at M > 4) and each N / 2 half bitwise the whole
+    call's; then timed (bf16_mm_group). Returns its group, with the max
+    |dC| and the max of |dC| / max|C| over its calls."""
+    what, m, shapes = BF16_MM_ROWS[row]
+    calls = bf16_mm_calls(torch, g, m, shapes)
+    err = rel = 0.0
+    for i, (a, w) in enumerate(calls):
+        got, want = ops.bf16_matmul(a, w), BM.bf16_matmul_plain(a, w)
+        e, top = (got - want).abs().max().item(), want.abs().max().item()
+        if not e <= BF16_MM_BAR * top:
+            fail(f"18e bf16_matmul row {row} at {tuple(a.shape)} x "
+                 f"{tuple(w.shape)}: {e} past {BF16_MM_BAR} * max|C|")
+        err, rel = max(err, e), max(rel, e / top)
+        del want
+        if i < 8:
+            h, n = (4 if m > 4 else 1), w.shape[0] // 2
+            if not (torch.equal(ops.bf16_matmul(a[:h], w), got[:h])
+                    and torch.equal(ops.bf16_matmul(a, w[:n]), got[:, :n])
+                    and torch.equal(ops.bf16_matmul(a, w[n:]), got[:, n:])):
+                fail(f"18e bf16_matmul row {row} at {tuple(a.shape)} x "
+                     f"{tuple(w.shape)}: {h} of its rows or an N / 2 half is "
+                     "not the whole call's, bit for bit")
+        del got
+    log(f"  row {row}, {what} (M = {m}; max |dC| {rel:.2e} of max|C|):")
+    r = bf16_mm_group(torch, BM, ops, calls, reps)
+    del calls
+    torch.cuda.empty_cache()
+    return {**r, "max_abs_err": err, "max_rel_err": rel}
 
 
 def bf16_mm_group(torch, BM, ops, calls, reps):
@@ -8003,11 +8053,12 @@ def bf16_mm_group(torch, BM, ops, calls, reps):
 
 def phase_model_kernels(torch):
     """18e: the kernels of the model-axis path at its shapes. bf16_matmul
-    (the port's own kernel) against its plain version over one llama-200m
-    bf16 decode step's 71 GEMMs (M = 4) and a 16-token prefill chunk's (M =
-    64), within BF16_MM_BAR of max|C|; on the chunk's first 8 calls its
-    first 4 rows (a call of its own) and each N / 2 half bitwise the whole
-    call's (the card tests hold every shape); timed over each set; #2 over one llama-200m
+    (the port's own kernel) against its plain version over each row of
+    BF16_MM_ROWS (llama-200m's 71 bf16 GEMMs at M = 4, 64, 128, 352, its
+    head at 16,384 rows, nemotron-4-15b's head at 4), within BF16_MM_BAR of
+    max|C|; on each row's first 8 calls a part of the rows and each N / 2
+    half bitwise the whole call's (the card tests hold every plan); timed
+    over each row; #2 over one llama-200m
     quartet2 decode step's 70 GEMMs whole and as the 2 x 70 N / 2 calls of
     its two model ranks (bitwise the whole's halves), timed; #1's
     given-absmax entry over the 2 x 70 weight halves a raw-weight step
@@ -8017,31 +8068,17 @@ def phase_model_kernels(torch):
     from repro_torch.kernels import fp4_matmul as FM
     from repro_torch.kernels import nvfp4_quant as NQ
     from repro_torch.kernels import ops
-    log("phase 18e: the model-axis path's kernels at llama-200m's shapes")
+    log("phase 18e: the model-axis path's kernels at llama-200m's shapes; "
+        "bf16_matmul's rows 9-9e")
     g = torch.Generator(device="cuda").manual_seed(18)
     err, groups = 0.0, {"bf16_matmul": {}, "fp4_matmul": {},
                         "nvfp4_fos_quant": {}}
-    for m in (4, 64):
-        calls = bf16_mm_calls(torch, g, m)
-        for i, (a, w) in enumerate(calls):
-            got, want = ops.bf16_matmul(a, w), BM.bf16_matmul_plain(a, w)
-            e = (got - want).abs().max().item()
-            if not e <= BF16_MM_BAR * want.abs().max().item():
-                fail(f"18e bf16_matmul at {tuple(a.shape)} x {tuple(w.shape)}: "
-                     f"{e} past {BF16_MM_BAR} * max|C|")
-            if m > 4 and i < 8:
-                n = w.shape[0] // 2
-                if not (torch.equal(ops.bf16_matmul(a[:4], w), got[:4])
-                        and torch.equal(ops.bf16_matmul(a, w[:n]), got[:, :n])
-                        and torch.equal(ops.bf16_matmul(a, w[n:]), got[:, n:])):
-                    fail(f"18e bf16_matmul at {tuple(a.shape)} x "
-                         f"{tuple(w.shape)}: 4 of its rows or an N / 2 half "
-                         "is not the whole call's, bit for bit")
-            err = max(err, e)
-        groups["bf16_matmul"][f"llama_step_M{m}"] = bf16_mm_group(
-            torch, BM, ops, calls, 20)
-        del calls
-    main = dict(groups["bf16_matmul"]["llama_step_M4"])
+    for row in BF16_MM_ROWS:
+        r = bf16_mm_row(torch, BM, ops, g, row,
+                        20 if len(BF16_MM_ROWS[row][2]) > 1 else 10)
+        groups["bf16_matmul"][f"row_{row}"] = r
+        err = max(err, r["max_abs_err"])
+    main = dict(groups["bf16_matmul"]["row_9"])
     torch.cuda.synchronize()
     # #2 whole and at N / 2, #1 given the whole weight's absmax
     acts = {k: ops.nvfp4_fos_quant(torch.randn((4, k), generator=g,
@@ -8231,7 +8268,7 @@ def main() -> None:
     if spills:
         log("  ptxas reports spills: " + "; ".join(spills))
     for prefix in ("nvfp4_fos_quant_", "ms_eden_phase1_", "ms_eden_phase2_", "fp4_matmul_",
-                   "paged_gqa_", "paged_mla_"):
+                   "paged_gqa_", "paged_mla_", "bf16_matmul_"):
         for line in ptxas_summary(build.BUILD_INFO.get("log", ""), prefix):
             log("  ptxas " + line)
 

@@ -54,7 +54,8 @@ SIGNATURES = {
                               _I, _F, _F, _P),
     "ms_eden_phase2_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L) * 2
                              + (_F, _P),
-    "bf16_matmul_launch": (_P, _L, _I, _P, _L, _I, _P, _L, _L, _L, _P),
+    "bf16_matmul_launch": (_P, _L, _I, _P, _L, _I, _P, _L, _L, _L, _I, _I, _I,
+                           _I, _I, _P),
 }
 
 _LIB = None

@@ -33,9 +33,37 @@ def site_seed(seed, layer: int, site: int) -> np.ndarray:
     return np.array([a, b], np.uint32)
 
 
+def sum_last_fixed(s: torch.Tensor) -> torch.Tensor:
+    """s summed over its last dim (keepdim) by a tree of elementwise adds
+    that the width alone fixes: the first half of the columns plus the
+    second, again until one column is left, an odd width's last column
+    carried aside and added at the end. Each add is one IEEE add an
+    element, so a row's sum does not depend on how many rows the call
+    holds (a reduction kernel picks its launch shape, hence a row's
+    summation order, from the row count)."""
+    carry = None
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        if s.shape[-1] % 2:
+            tail = s[..., 2 * h:]
+            carry = tail if carry is None else tail + carry
+        s = s[..., :h] + s[..., h:2 * h]
+    return s if carry is None else s + carry
+
+
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x / rms(x) * g in f32, returned in x's dtype. On the card outside an
+    autograd graph (every serving step) the mean square is
+    `sum_last_fixed`'s over the width, so a data shard's rows are bitwise
+    the whole batch's; training and the CPU keep `mean`."""
     xf = x.float()
-    n = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    sq = xf * xf
+    if xf.is_cuda and not (torch.is_grad_enabled()
+                           and (x.requires_grad or g.requires_grad)):
+        ms = sum_last_fixed(sq) / xf.shape[-1]
+    else:
+        ms = sq.mean(dim=-1, keepdim=True)
+    n = xf * torch.rsqrt(ms + eps)
     return (n * g.float()).to(x.dtype)
 
 

@@ -60,7 +60,8 @@ shard, and `replicate_hits` copies hot prefix blocks into peer shards at
 tick boundaries. Under bf16 each row's arithmetic is the unsharded
 engine's, so the streams are bitwise, on the card too (a step's bf16 GEMMs
 sum each output in an order fixed by K alone, at any row count:
-`kernels.bf16_matmul`). Under quartet2 each shard's activation absmax
+`kernels.bf16_matmul`; rmsnorm its squares in one fixed by the width:
+`models.blocks.sum_last_fixed`). Under quartet2 each shard's activation absmax
 spans its own slots (the reference's contract).
 
 Over a "model" axis > 1 (the dense GQA families, a paged pool, role

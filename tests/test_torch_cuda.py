@@ -93,18 +93,24 @@ fixture, never at import. Tolerances are the kernel bars of the port:
     4) and argmax equal, and its K/V writes landing in the shard's blocks;
   - bf16_matmul (the port's own kernel, no TPU counterpart): |C_kernel -
     C_plain| <= 1e-5 * max|C_plain| (only the f32 summation order differs)
-    at M from 1 to 200; two calls bitwise; an f32 operand bitwise its bf16
-    rounding; a row-pitched view and a K off the vector loads (the scalar
-    loader) bitwise the contiguous, zero-padded call;
+    at M from 1 to 200, and at nemotron-4-15b's head (256,000 x 6,144, M =
+    4); two calls bitwise; an f32 operand bitwise its bf16 rounding; a
+    row-pitched view and a K off the vector loads (the scalar loader)
+    bitwise the contiguous, zero-padded call;
   - row-count and column-slice independence, bitwise: the rows of an M
-    call equal those of calls over parts of its rows (4 against 2 + 2, 5
-    against 3 + 2, 17 against 16 + 1, 32 against 16 + 16, 64 against 32 +
-    32, 128 against 64 + 64, 200 against 100 + 100: every tile shape of the
-    kernel against every other), and an N / 2 call the matching half of the
-    full call, for `_mm` and `dense` (through bf16_matmul) at llama-200m's
-    shapes; #2 at 4 against 2 + 2 and 64 against 32 + 32, and at N / 2; #1
-    given the whole weight's absmax bitwise the whole weight's quantization
-    on each half of its rows;
+    call equal those of calls over parts of its rows (BF16_SPLITS: a whole
+    call and its parts on either side of every activation width, warpgroup
+    count, chain split and grid-row count `kernels/bf16_matmul.py:plan`
+    picks), and an N / 2 call the matching half of the full call, for
+    `_mm` and `dense` (through bf16_matmul) at llama-200m's shapes and at
+    ragged and split-straddling N (1,728, 40, 8,192, 10,240); a 128-row
+    call (m64n128k16) bitwise its 64-row halves (m64n8k16), and 129 rows
+    bitwise 128 + 1, on operands of wide range and cancellation; #2 at 4
+    against 2 + 2 and 64 against 32 + 32, and at N / 2; #1 given the whole
+    weight's absmax bitwise the whole weight's quantization on each half
+    of its rows;
+  - rmsnorm outside autograd (`sum_last_fixed`): a call's rows bitwise
+    those of calls over parts of them, within one bf16 ulp of the CPU;
   - rwkv6-7b's 4-token verify chunk (2 layers at full width, bf16) bitwise
     the 4 decode steps it stands for;
   - streams on the card: the data-sharded bf16 engine (2 shards of 2
@@ -1727,6 +1733,22 @@ def test_bf16_matmul_matches_plain(dev, m, n, k, wdtype):
     assert torch.equal(got, ops.bf16_matmul(a.float(), b.bfloat16()))
 
 
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_bf16_matmul_matches_plain_at_nemotron_head(dev, wdtype):
+    """nemotron-4-15b's head at a decode step: 256,000 x 6,144 (6.29 GB in
+    f32), M = 4, within BF16_MM_BAR of the plain version; one launch."""
+    from repro_torch.kernels import bf16_matmul as BM
+    g = torch.Generator(device=dev).manual_seed(15)
+    a = torch.randn((4, 6144), generator=g, device=dev).bfloat16()
+    b = (torch.randn((256000, 6144), generator=g, device=dev)
+         * 6144 ** -0.5).to(wdtype)
+    before = ops.LAUNCHES["bf16_matmul"]
+    got = ops.bf16_matmul(a, b)
+    assert ops.LAUNCHES["bf16_matmul"] == before + 1
+    want = BM.bf16_matmul_plain(a, b)
+    assert (got - want).abs().max().item() <= BF16_MM_BAR * want.abs().max().item()
+
+
 def test_bf16_matmul_views_ragged_k_and_refusals(dev):
     """A row-pitched view and a K off the vector loads (K = 52: the scalar
     loader) give, bitwise, the call on contiguous operands zero-padded to K
@@ -1759,10 +1781,13 @@ def _mm_ops(dev, n, k):
             "fp4_matmul": fp4}
 
 
-# (M, first part's rows): every tile shape of bf16_matmul (one m16 tile, two,
-# four, four with grid rows) against every other
-BF16_SPLITS = [(4, 2), (5, 3), (17, 16), (32, 16), (64, 32), (128, 64),
-               (200, 100)]
+# (M, first part's rows): a whole call and its parts on either side of every
+# activation width of bf16_matmul's plan (8, 16, 32, 64, 128), of one
+# warpgroup against two (64 / 65 rows), of one grid row against several
+# (128 / 129, 200, 300), and, at N = 8,192, of one block a weight tile
+# against a cluster of 8 over its chains (300 rows against 44)
+BF16_SPLITS = [(4, 2), (5, 3), (9, 8), (17, 16), (32, 16), (64, 32), (65, 64),
+               (128, 64), (129, 128), (200, 100), (300, 44)]
 
 
 @pytest.mark.parametrize("n,k", [(1280, 1280), (3456, 1280), (1280, 3456)])
@@ -1797,14 +1822,112 @@ def test_rows_independent_of_row_count(dev, op, n, k):
 @pytest.mark.parametrize("op", ["_mm", "dense", "fp4_matmul"])
 def test_columns_independent_of_the_slice(dev, op, n, k):
     """An N / 2 call (a model shard's half of the weight) equals the
-    matching half of the full call, bitwise, at M = 4, 64 and 128."""
+    matching half of the full call, bitwise, at M = 4, 9, 64, 65, 128 and
+    300 (every activation width and warpgroup count of bf16_matmul's plan,
+    grid rows at 300; the halves 1,728 rows of a 3,456 weight, ragged at
+    two warpgroups' 128)."""
     f = _mm_ops(dev, n, k)[op]
     g = torch.Generator(device=dev).manual_seed(4)
-    for m in (4, 64, 128):
+    for m in (4, 9, 64, 65, 128, 300):
         x = torch.randn((m, k), generator=g, device=dev).bfloat16()
         whole = f(x)
         for half in (slice(0, n // 2), slice(n // 2, n)):
             assert torch.equal(f(x, half), whole[:, half]), (m, half)
+
+
+# (N, K) off llama's shapes: N ragged against the 64- and 128-row weight
+# tiles (1,728 and 40, K 72 past its last whole chunk), N whose halves
+# change the chain split (8,192 and 10,240: one block a tile at the whole
+# N, a cluster of 8 at N / 2 for small M), K off a whole chain (1,000)
+BF16_MM_PLANS_NK = [(1728, 1280), (40, 72), (8192, 1280), (10240, 1280),
+                    (1280, 1000)]
+
+
+@pytest.mark.parametrize("n,k", BF16_MM_PLANS_NK)
+def test_bf16_matmul_rows_and_columns_across_plans(dev, n, k):
+    """bf16_matmul on f32 weights: every split of BF16_SPLITS bitwise the
+    whole call's rows, and at M = 4, 9, 64, 65, 128 and 300 each N / 2 half
+    bitwise the whole call's columns; the plans these calls take cover
+    every activation width, both warpgroup counts and both chain splits."""
+    from repro_torch.kernels import bf16_matmul as BM
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+    seen = set()
+    for m, h in BF16_SPLITS:
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        whole = ops.bf16_matmul(x, w)
+        assert torch.equal(whole, torch.cat([ops.bf16_matmul(x[:h], w),
+                                             ops.bf16_matmul(x[h:], w)])), (m, h)
+        seen |= {BM.plan(r, n, k) for r in (m, h, m - h)}
+    half = n // 2
+    for m in (4, 9, 64, 65, 128, 300):
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        whole = ops.bf16_matmul(x, w)
+        assert torch.equal(ops.bf16_matmul(x, w[:half]), whole[:, :half]), m
+        assert torch.equal(ops.bf16_matmul(x, w[half:]), whole[:, half:]), m
+        seen |= {BM.plan(m, c, k) for c in (n, half, n - half)}
+    assert {p.width for p in seen} == set(BM.WIDTHS)
+    assert {p.groups for p in seen} == {1, 2}
+    if n >= 8192:
+        assert {p.splits for p in seen} == {1, BM.CHAINS}
+
+
+@pytest.mark.parametrize("n,k", [(1280, 1280), (3456, 1280), (1280, 3456),
+                                 (40, 72), (1728, 1000)])
+def test_bf16_matmul_wide_range_rows_across_instructions(dev, n, k):
+    """At the 128-row activation tile the kernel issues one m64n128k16 a k16
+    step, at every narrower tile m64n8k16 side by side: a 128-row call
+    bitwise its two 64-row halves, and a 129-row call (two grid rows of
+    128) bitwise its first 128 rows and its last one (an 8-row tile), on
+    operands of wide dynamic range (exponents over +-24) and with
+    cancellation (the second half of K the first half's products
+    negated), f32 and bf16 weights."""
+    from repro_torch.kernels import bf16_matmul as BM
+    g = torch.Generator(device=dev).manual_seed(n + k)
+
+    def wide(shape):
+        e = torch.randint(-24, 25, shape, generator=g, device=dev).float()
+        return torch.randn(shape, generator=g, device=dev) * torch.exp2(e)
+
+    for m, h in ((128, 64), (129, 128)):
+        assert BM.plan(m, n, k).width == 128
+        assert BM.plan(m - h, n, k).width < 128
+        for cancel in (False, True):
+            a, w = wide((m, k)).bfloat16(), wide((n, k))
+            if cancel:
+                half = k // 2
+                w[:, half:2 * half] = -w[:, :half]
+                a[:, half:2 * half] = a[:, :half]
+            for b in (w, w.bfloat16()):
+                whole = ops.bf16_matmul(a, b)
+                parts = [ops.bf16_matmul(a[:h], b), ops.bf16_matmul(a[h:], b)]
+                assert torch.equal(whole, torch.cat(parts)), (m, h, cancel)
+
+
+@pytest.mark.parametrize("shape,h", [((8, 1, 1280), 4), ((128, 1280), 64),
+                                     ((4, 16, 1280), 2), ((8, 1, 32, 128), 4),
+                                     ((300, 3456), 44), ((7, 6144), 1)])
+def test_rmsnorm_rows_independent_of_row_count_on_card(dev, shape, h):
+    """rmsnorm outside autograd on the card (a serving step's): the rows of
+    one call bitwise those of calls over parts of them (8 decode rows
+    against a data shard's 4, a 128-row chunk against 64, qk-norm heads of
+    width 128), each within one bf16 ulp of the CPU's `mean` form; under
+    autograd it keeps `mean` and its gradient."""
+    from repro_torch.models import blocks as B
+    g = torch.Generator(device=dev).manual_seed(shape[-1] + h)
+    x = (torch.randn(shape, generator=g, device=dev) * 3).bfloat16()
+    gain = torch.rand(shape[-1], generator=g, device=dev) + 0.5
+    with torch.no_grad():
+        whole = B.rmsnorm(x, gain)
+        parts = torch.cat([B.rmsnorm(x[:h], gain), B.rmsnorm(x[h:], gain)])
+    assert torch.equal(whole, parts)
+    want = B.rmsnorm(x.cpu(), gain.cpu()).float()
+    err = (whole.float().cpu() - want).abs()
+    assert (err <= want.abs() * 2.0 ** -7).all()
+    xg = x.float().requires_grad_()
+    y = B.rmsnorm(xg, gain)
+    y.sum().backward()
+    assert torch.isfinite(xg.grad).all()
 
 
 @pytest.mark.parametrize("m,k", [(1280, 1280), (3456, 1280), (32000, 1280)])

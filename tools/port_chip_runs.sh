@@ -2,6 +2,14 @@
 # Measurements of the PyTorch port on one NVIDIA GPU, as PERF.md quotes them.
 #
 #   tools/port_chip_runs.sh PARENT_DIR CHANGE_DIR OUT_DIR
+#   tools/port_chip_runs.sh --bf16-matmul PARENT_DIR CHANGE_DIR OUT_DIR
+#
+# --bf16-matmul measures the bf16 GEMM (kernel #9) alone: tools/bf16_mm_probe.py
+# over the trees parent, change, change, parent (PERF.md rows 9-9e, each tree
+# in a fresh process), then each shape of rows 9 and 9a alone (parent, change;
+# the change's kernel with parts removed), tools/bf16_step_time.py in turns
+# (the unsharded bf16 serving step of llama-200m), then the card's test suite
+# from CHANGE_DIR; about 14 minutes on the card. Without it:
 #
 # PARENT_DIR and CHANGE_DIR are checkouts of two commits (for example each
 # unpacked with `git archive` into a directory that .gitignore lists). Runs
@@ -14,6 +22,11 @@
 # OUT_DIR/<run>.log, each chip_smoke.json to OUT_DIR/<run>.json. Exits 1 if
 # any run failed.
 set -u
+mode=all
+if [ "${1:-}" = "--bf16-matmul" ]; then
+    mode=bf16_matmul
+    shift
+fi
 parent=$(cd "$1" && pwd)
 change=$(cd "$2" && pwd)
 mkdir -p "$3"
@@ -29,6 +42,35 @@ smoke() {  # smoke NAME DIR
     cp "$2/chiprun_out/chip_smoke.json" "$out/$1.json" 2>/dev/null
     [ "$rc" -eq 0 ] || status=1
 }
+
+cuda_tests() {
+    (cd "$change" && python -m pytest --noconftest -p no:cacheprovider -q -m cuda \
+        tests/test_torch_cuda.py) > "$out/cuda_tests.log" 2>&1 || status=1
+    tail -n 2 "$out/cuda_tests.log"
+}
+
+if [ "$mode" = bf16_matmul ]; then
+    (cd "$change" && python3 tools/bf16_mm_probe.py --trees "$parent" "$change" \
+        "$change" "$parent" --out "$out/bf16_mm_probe.json") \
+        > "$out/bf16_mm_probe.log" 2>&1 || status=1
+    grep -e "^run " -e "failed" "$out/bf16_mm_probe.log" | cut -c 1-400
+    # each shape of rows 9, 9a alone (warm), parent and change in turns, and
+    # the change's kernel with one part removed at a time
+    (cd "$change" && python3 tools/bf16_mm_probe.py --trees "$parent" "$change" \
+        --rows 9 9a --shapes && python3 tools/bf16_mm_probe.py --trees "$change" \
+        --rows 9 9a --shapes --variants) > "$out/bf16_mm_shapes.log" 2>&1 || status=1
+    grep -e "^run " -e "failed" "$out/bf16_mm_shapes.log" | cut -c 1-300
+    i=0
+    for tree in "$parent" "$change" "$change" "$parent"; do
+        i=$((i + 1))
+        (cd "$tree" && PYTHONPATH=src python3 "$change/tools/bf16_step_time.py" \
+            --label "run$i:$tree" --json "$out/bf16_step_time.jsonl") \
+            > "$out/bf16_step_time_$i.log" 2>&1 || status=1
+        grep -v -e "^{" -e Warn -e _warn_once "$out/bf16_step_time_$i.log" | tail -n 2
+    done
+    cuda_tests
+    exit "$status"
+fi
 
 smoke parent1 "$parent"
 smoke change1 "$change"
@@ -50,9 +92,7 @@ grep -v -e Warning -e _warn_once -e "ptxas (coop" "$out/quant_probe.log" | tail 
     "$parent" --out "$out/mla_probe.json") > "$out/mla_probe.log" 2>&1 || status=1
 tail -n 20 "$out/mla_probe.log" | cut -c 1-400
 
-(cd "$change" && python -m pytest --noconftest -p no:cacheprovider -q -m cuda \
-    tests/test_torch_cuda.py) > "$out/cuda_tests.log" 2>&1 || status=1
-tail -n 2 "$out/cuda_tests.log"
+cuda_tests
 
 (cd "$change" && PYTHONPATH=src python -m repro_torch.launch.train --arch llama_200m \
     --scheme bf16 --steps 6 --seq 256 --batch 8 --lr 2e-3 --log-every 1) \

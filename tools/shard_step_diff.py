@@ -2,7 +2,7 @@
 """Which op makes a bf16 serving step's rows depend on how many rows run beside them.
 
     python3 tools/shard_step_diff.py [--device cuda] [--layers 4] [--slots 4]
-        [--kv-quant] [--reduced] [--hold] [--json PATH]
+        [--kv-quant] [--reduced] [--hold] [--json PATH] [--engine]
 
 Runs one teacher-forced bf16 decode step of llama-200m (its first
 `--layers` layers at full width, seeded weights; `--reduced` for the CPU
@@ -35,6 +35,13 @@ engine samples (the gathered logits of all rows at once, in both layouts).
 The output's last line is one JSON object: the row-dependent leaf ops, the
 first differing call, the #5 plans. With `--hold` the exit code is 1 when
 any op differs. `--json PATH` also writes it to a file.
+
+`--engine` runs whole engines instead of one step, as the card test
+`test_data_sharded_bf16_streams_bitwise_on_card` does (prompts of
+ENGINE_LENS tokens, 12 new each, a 16-token prefill chunk): the unsharded
+engine with every leaf op of every step replayed on each half of its rows
+(the two shards' rows), then the two-shard engine; it prints the replays
+and whether the streams are the same.
 """
 
 from __future__ import annotations
@@ -64,6 +71,8 @@ LENS = (33, 17, 49, 33)   # phase 17's prompts; the step reads their first 17
 # (beyond 4 slots the lengths repeat)
 MAX_LEN = 80
 STEPS = ((0, 16), (16, 1))  # (first position, tokens): a chunk, then one token
+ENGINE_LENS = (33, 17, 49, 33, 41, 25, 17, 49)   # --engine: the card test's
+ENGINE_NEW = 12
 
 # leaf ops, replayed on each half of their row inputs: (module, name, the
 # positional arguments that carry the rows)
@@ -233,6 +242,49 @@ def attention_plans(cfg, pools):
     return out, same
 
 
+def engine_run(cfg, params, dev, n, kv_quant):
+    """--engine: the unsharded engine's streams with every leaf op replayed
+    on each half of its rows, and the two-shard engine's streams."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    g = torch.Generator().manual_seed(17)
+    prompts = [torch.randint(0, cfg.vocab, (ENGINE_LENS[i % len(ENGINE_LENS)],),
+                             generator=g).tolist() for i in range(n)]
+
+    def streams(mesh, rec=None):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            n_slots=n, max_len=MAX_LEN, block_size=16, prefill_chunk=16,
+            scheme="bf16", prequant=True, device=str(dev), kv_quant=kv_quant,
+            mesh=mesh))
+        ids = [eng.submit(Request(list(q), ENGINE_NEW)) for q in prompts]
+        if rec is not None:
+            rec.install()
+            rec.tag, rec.replay = "engine", True
+        try:
+            res = {r.req_id: r.tokens for r in eng.run()}
+        finally:
+            if rec is not None:
+                rec.tag, rec.replay = None, False
+                rec.remove()
+        return [res[i] for i in ids]
+    rec = Recorder()
+    want = streams(None, rec)
+    got = streams(make_serve_mesh(2, 1, devices=[dev, dev]))
+    same = [g == w for g, w in zip(got, want)]
+    print(f"engine, {n} slots, {'NVFP4' if kv_quant else 'bf16'} pool: streams "
+          f"of the two-shard engine the same as the unsharded engine's: {same}")
+    for name, e in rec.replays.items():
+        print(f"  replay {name}: {e['calls']} calls, {e['row_dependent']} "
+              f"row-dependent, max {e['max_ulps']:.3g} ulps"
+              + (f" ({'; '.join(sorted(e['shapes']))})" if e["shapes"] else ""))
+    row_dep = sorted(n for n, e in rec.replays.items() if e["row_dependent"])
+    return {"device": str(dev), "layers": cfg.n_layers, "slots": n,
+            "pool": "NVFP4" if kv_quant else "bf16", "streams_same": same,
+            "replays": {n: {**e, "shapes": sorted(e["shapes"])}
+                        for n, e in rec.replays.items()},
+            "row_dependent_ops": row_dep,
+            "bitwise": all(same) and not row_dep}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -243,6 +295,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--hold", action="store_true")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--engine", action="store_true")
     a = ap.parse_args(argv)
     dev = torch.device(a.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -256,6 +309,9 @@ def main(argv=None) -> dict:
     n = a.slots
     if n < 2 or n % 2:
         ap.error("--slots must be even and at least 2")
+    if a.engine:
+        result = engine_run(cfg, params, dev, n, a.kv_quant)
+        return finish(a, result)
     prompts = [torch.randint(0, cfg.vocab, (LENS[i % len(LENS)],),
                              generator=g).tolist() for i in range(n)]
     mesh = make_serve_mesh(2, 1, devices=[dev, dev])
@@ -334,6 +390,12 @@ def main(argv=None) -> dict:
     result["row_dependent_ops"] = ops_at_fault
     result["bitwise"] = (not ops_at_fault and all(
         s["first_difference"] is None for s in result["steps"]) and same)
+    return finish(a, result)
+
+
+def finish(a, result: dict) -> dict:
+    """Print (and with --json write) the JSON line; --hold exits 1 unless
+    the result is bitwise."""
     line = json.dumps(result, default=str)
     if a.json:
         Path(a.json).parent.mkdir(parents=True, exist_ok=True)
